@@ -11,8 +11,9 @@ Phases:
 
 1. device: the card's name, the device count, and ``nvidia-smi``'s name and
    power limit (every time below stands beside them);
-2. build: both paged-attention kernels from ``paddle_tpu_torch/csrc/`` with
-   ``nvcc`` for ``sm_90a`` (seconds and ``-Xptxas -v`` lines printed);
+2. build: every source under ``paddle_tpu_torch/csrc/`` (the paged-attention
+   and the flash-attention kernels), one ``nvcc`` each for ``sm_90a``, all
+   started together (seconds and ``-Xptxas -v`` lines printed);
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence), each launch synchronised and compared; then
@@ -21,6 +22,17 @@ Phases:
    never called by the port), CUDA-event times of the same calls back to
    back, and the least time the card could take (bytes over 3.35 TB/s or
    f32 operations over 67 TFLOP/s, whichever is larger);
+3b. the flash-attention kernels (forward K3, backward K3b-dkv and K3b-dq)
+   against their plain versions: at BERT-base's training shapes (B 128,
+   H 12, S 128, D 64) in bf16 (the path's type) and f32 with no bias, in
+   bf16 with a (B, 1, 1, S) mask bias that takes a gradient (so dS is
+   written), and at TransformerLM's causal shape (B 8, H 8, S 512, D 64,
+   f32); each chain of launches synchronised and compared, max |diff|
+   printed beside its tolerance; then device times of each kernel, the
+   plain version and the library yardstick
+   (``scaled_dot_product_attention`` forward, and its autograd backward
+   for K3b; timed only, never called by the port) beside the bound (bytes
+   over 3.35 TB/s, or operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
 4. served path: ``TransformerLM(CausalLMConfig())`` at full width from a
    seed, behind the replica stack's ``ServingServer`` on port 0 (8 slots,
    prompts up to 256, up to 128 new tokens); 16 concurrent ``/generate``
@@ -31,8 +43,19 @@ Phases:
    peak device memory; then a profiled window of decode steps with every
    slot active: host ms per step, device busy ms and idle share, and the
    kernels that take the time;
-5. a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-   {...}}``.
+5. training: ``BertForPretraining`` at BERT-base width and full depth (110 M
+   parameters, ``use_fused_attention=True``, dropouts 0, 128 positions)
+   from ``bert_init_params(cfg, seed)``, the batch ``bench.py`` makes (128
+   sequences of 128, 15% MLM labels); the f32 loss through the fused model
+   against a second instance with ``use_fused_attention=False`` (relative
+   1e-4); then ``TrainStep(amp_dtype=torch.bfloat16)`` with ``Adam(1e-4)``:
+   2 warm-up and 20 timed steps, each synchronised; every loss finite and
+   the last below the first; seq/s, step p50, peak device memory and the
+   model-FLOP share (``bench.py``'s count over 989 TFLOP/s); each flash
+   kernel launched exactly 12 x the steps run; one profiled step: device
+   busy ms, idle share, the top kernels and the flash kernels' share;
+6. a ``{"kernels": [...]}`` line (all five kernels) and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -49,13 +72,26 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 dense on the tensor cores
 ATOL, RTOL = 2e-5, 1e-5         # f32, sums in another order
+# flash kernels against their plain versions, (atol, rtol): f32 as above
+# for O and the log-sum-exp, 1e-4 for gradients (sums of up to S * D f32
+# products in another order); bf16 output of both is one rounding of an
+# f32 sum (the kernels carry P and dS as two bf16 terms, about 16 bits),
+# so they differ by about one bf16 ulp (at most 2**-7 relative)
+FLASH_TOL = {'f32': {'o': (ATOL, RTOL), 'grad': (1e-4, 1e-4)},
+             'bf16': {'o': (1e-3, 8e-3), 'grad': (1e-3, 8e-3)}}
 NEAR_TIE = 1e-3                 # served token's logit vs its row's max
 TIMED_LAUNCHES = 200
 
 # kernel shapes of the decode-serving path (replica ENGINE_DEFAULTS)
 S, H, D, BS, NB, MAX_BPS = 8, 8, 64, 16, 256, 24
 PREFILL_RUNGS = (1, 16, 64, 256)
+# flash kernel shapes: BERT-base training (bench.py bench_bert) and the
+# causal TransformerLM (CausalLMConfig(): 8 heads of 64, 512 positions)
+BERT_SHAPE = (128, 12, 128, 64)
+LM_SHAPE = (8, 8, 512, 64)
+TRAIN_STEPS, WARMUP_STEPS = 20, 2
 
 
 def log(*parts):
@@ -115,8 +151,12 @@ def timed(fn, iters=TIMED_LAUNCHES, warmup=10):
 def times(kernel, plain, library):
     """The three timings of one comparison, device time where the
     profiler saw it, else CUDA events (``timing`` says which)."""
-    (k, ke), (p, pe), (lib, libe) = timed(kernel), timed(plain), \
-        timed(library)
+    return times_of(timed(kernel), timed(plain), timed(library))
+
+
+def times_of(kernel, plain, library):
+    """:func:`times` from three :func:`timed` results."""
+    (k, ke), (p, pe), (lib, libe) = kernel, plain, library
     if None in (k, p, lib):
         return {'ms': ke, 'plain_ms': pe, 'library_ms': libe,
                 'timing': 'cuda events, back to back'}
@@ -125,9 +165,9 @@ def times(kernel, plain, library):
             'plain_event_ms': pe, 'library_event_ms': libe}
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -143,16 +183,17 @@ def fmt_times(t):
     return line
 
 
-def compare(name, got, want):
+def compare(name, got, want, atol=ATOL, rtol=RTOL):
     import torch
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f'{name}: non-finite kernel output')
+    got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = ATOL + RTOL * want.abs()
+    tol = atol + rtol * want.abs()
     if not bool((err <= tol).all()):
         raise AssertionError(f'{name}: max |diff| {err.max().item():.3e} '
-                             f'beyond atol {ATOL} + rtol {RTOL}')
+                             f'beyond atol {atol} + rtol {rtol}')
     return err.max().item()
 
 
@@ -260,6 +301,295 @@ def check_prefill_kernel(rng, dev):
             'shape': f'B=1 H={H} Lb={PREFILL_RUNGS[-1]} D={D} BS={BS} '
                      f'NB={NB} max_bps={MAX_BPS}',
             'max_abs_err': max(errs), **top}
+
+
+def flash_inputs(rng, dev, shape, dtype, mask=False):
+    """q, k, v, dO of ``shape`` in ``dtype`` and, with ``mask``, BertModel's
+    (B, 1, 1, S) f32 bias: 0 where attended, -1e4 where padded."""
+    import torch
+    b, h, s, d = shape
+
+    def n():
+        return torch.from_numpy(
+            rng.standard_normal((b, h, s, d), np.float32)).to(dev, dtype)
+
+    q, k, v, do = n(), n(), n(), n()
+    bias = None
+    if mask:
+        keep = rng.random((b, 1, 1, s)) < 0.85
+        keep[..., 0] = True
+        bias = torch.from_numpy(
+            np.where(keep, 0.0, -1e4).astype(np.float32)).to(dev)
+    return q, k, v, do, bias
+
+
+def check_flash_chain(label, q, k, v, do, bias, causal, tol):
+    """The kernels as the training path runs them (the autograd Function:
+    forward, then dK/dV and dQ, and dS where the bias takes a gradient)
+    against the plain versions; returns {quantity: max |diff|}.
+
+    The forward's O and log-sum-exp are held against the plain forward;
+    the gradients against the plain backward run on the forward kernel's
+    own saved O and log-sum-exp (the kernel is deterministic, so a second
+    launch gives the Function's). Fed the plain forward's bf16 O instead,
+    ``di = rowsum(O . dO)`` would carry O's one-ulp rounding differences
+    into every gradient and measure the forward twice. In f32 the whole
+    chain is also held against the whole plain chain."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    sm = q.shape[-1] ** -0.5
+    kw = {'sm_scale': sm, 'causal': causal}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = None if bias is None else bias.clone().requires_grad_()
+    o = nn_ops.fused_attention(*leaves, b, **kw)
+    o.backward(do)
+    o_k, lse_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+    errs = {'o': compare(f'{label} O', o.detach(), o_ref, *tol['o']),
+            'lse': compare(f'{label} lse', lse_k, lse_ref,
+                           *FLASH_TOL['f32']['o'])}
+    refs = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, lse_k, do,
+                                           **kw)]
+    if q.dtype == torch.float32:
+        refs.append(nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_ref,
+                                                   lse_ref, do, **kw))
+    for i, want in enumerate(refs):
+        tag = '' if i == 0 else ' (whole chain)'
+        for name, leaf, ref in zip(('dq', 'dk', 'dv'), leaves, want):
+            e = compare(f'{label} {name}{tag}', leaf.grad, ref, *tol['grad'])
+            errs[name] = max(errs.get(name, 0.0), e)
+        if b is not None:
+            e = compare(f'{label} dbias{tag}', b.grad,
+                        nn_ops._sum_to(want[3], bias.shape), *tol['grad'])
+            errs['dbias'] = max(errs.get('dbias', 0.0), e)
+    return errs
+
+
+def time_flash(q, k, v, do, causal):
+    """Device times of the three kernels at these inputs (no bias), beside
+    their plain versions, the library yardstick and their bounds. The
+    plain and library backward compute dQ, dK and dV together, so both
+    backward kernels stand beside the same two times."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import nn_ops
+    b, h, s, d = q.shape
+    sm = d ** -0.5
+    kw = {'sm_scale': sm, 'causal': causal}
+    o, lse = nn_ops.flash_attention_fwd(q, k, v, **kw)
+    di = nn_ops._row_dot(o, do)
+    fwd = times(lambda: nn_ops.flash_attention_fwd(q, k, v, **kw),
+                lambda: nn_ops.fused_attention_fwd_ref(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=sm))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                         scale=sm)
+    plain_bwd = timed(lambda: nn_ops.fused_attention_bwd_ref(
+        q, k, v, None, o, lse, do, **kw))
+    lib_bwd = timed(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                retain_graph=True))
+    dkv = times_of(timed(lambda: nn_ops.flash_attention_bwd_dkv(
+        q, k, v, None, lse, di, do, **kw)), plain_bwd, lib_bwd)
+    dq = times_of(timed(lambda: nn_ops.flash_attention_bwd_dq(
+        q, k, v, None, lse, di, do, **kw)), plain_bwd, lib_bwd)
+    # bytes: each (B, H, S, D) operand read or written once, the f32
+    # log-sum-exp and di rows; operations: 2 * D per attended pair and
+    # product (QK^T and PV forward; S, dP, dV, dK for dK/dV; S, dP, dQ for
+    # dQ)
+    row = b * h * s * d * q.element_size()
+    vec = b * h * s * 4
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 \
+        else F32_FLOPS_PER_S
+    out = []
+    for name, t, nbytes, products in (
+            ('flash_attention_fwd', fwd, 4 * row + vec, 2),
+            ('flash_attention_bwd_dkv', dkv, 6 * row + 2 * vec, 4),
+            ('flash_attention_bwd_dq', dq, 5 * row + 2 * vec, 3)):
+        bms, by = bound_ms(nbytes, products * 2 * pairs * d, peak)
+        out.append({'name': name, 'bound_ms': bms, 'bound_by': by, **t})
+    return out
+
+
+# the stock Pallas kernels that paddle_tpu/ops/nn_ops.py:714 reaches
+FLASH_STOCK = {
+    'flash_attention_fwd': 'jax/experimental/pallas/ops/tpu/'
+                           'flash_attention.py:758',
+    'flash_attention_bwd_dkv': 'jax/experimental/pallas/ops/tpu/'
+                               'flash_attention.py:1121',
+    'flash_attention_bwd_dq': 'jax/experimental/pallas/ops/tpu/'
+                              'flash_attention.py:1456'}
+
+
+def check_flash_kernels(rng, dev, card):
+    """Phase 3b: every case's kernel chain against the plain chain, then
+    the times at the unbiased shapes. Returns the kernels' entries at the
+    training path's case (BERT-base, bf16, no bias)."""
+    import torch
+    cases = (('BERT bf16', BERT_SHAPE, torch.bfloat16, False, False),
+             ('BERT f32', BERT_SHAPE, torch.float32, False, False),
+             ('BERT bf16 mask', BERT_SHAPE, torch.bfloat16, True, False),
+             ('LM causal f32', LM_SHAPE, torch.float32, False, True))
+    entries = None
+    for label, shape, dtype, mask, causal in cases:
+        q, k, v, do, bias = flash_inputs(rng, dev, shape, dtype, mask)
+        tol = FLASH_TOL['bf16' if dtype == torch.bfloat16 else 'f32']
+        errs = check_flash_chain(label, q, k, v, do, bias, causal, tol)
+        log(f'K3/K3b {label} (B, H, S, D)={shape} causal={causal}: max|diff| '
+            + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
+            + f' (O atol {tol["o"][0]} rtol {tol["o"][1]}, gradients atol '
+              f'{tol["grad"][0]} rtol {tol["grad"][1]}, lse atol {ATOL} '
+              f'rtol {RTOL})')
+        if not mask:
+            timings = time_flash(q, k, v, do, causal)
+            for t in timings:
+                log(f'{t["name"]} {label} [{card}]: {fmt_times(t)}')
+            if entries is None:
+                errs_of = {'flash_attention_fwd': errs['o'],
+                           'flash_attention_bwd_dkv': max(errs['dk'],
+                                                          errs['dv']),
+                           'flash_attention_bwd_dq': errs['dq']}
+                entries = [{
+                    'route': 'cuda',
+                    'source': 'paddle_tpu_torch/csrc/flash_attention.cu',
+                    'replaces': 'paddle_tpu/ops/nn_ops.py:714',
+                    'stock': FLASH_STOCK[t['name']],
+                    'shape': f'B={shape[0]} H={shape[1]} S={shape[2]} '
+                             f'D={shape[3]} bf16, no bias',
+                    'max_abs_err': errs_of[t['name']], **t}
+                    for t in timings]
+        del q, k, v, do, bias
+        torch.cuda.empty_cache()
+    return entries
+
+
+def train(seed, dev, card):
+    """Phase 5: BERT-base pretraining steps through the flash kernels;
+    returns the kernels' launch counts over the warm-up and timed steps."""
+    import torch
+    from paddle_tpu_torch.convert import (bert_init_params,
+                                          bert_state_dict_from_paddle)
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              pretrain_loss)
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.optimizer import Adam
+    t0 = time.perf_counter()
+
+    def config(fused):
+        # bench.py bench_bert's configuration, plus the fused-attention flag
+        return BertConfig(attention_probs_dropout_prob=0.0,
+                          hidden_dropout_prob=0.0,
+                          max_position_embeddings=128,
+                          use_fused_attention=fused)
+
+    cfg = config(True)
+    sd = bert_state_dict_from_paddle(bert_init_params(cfg, seed))
+    model = BertForPretraining(cfg, device=dev, seed=seed)
+    model.load_state_dict(sd)
+    n_params = sum(p.numel() for p in model.parameters())
+    # the batch bench.py makes: 15% MLM labels, the rest -1
+    batch, seq = 128, 128
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    tt = np.zeros((batch, seq), np.int64)
+    mlm = np.where(rng.rand(batch, seq) < 0.15,
+                   rng.randint(0, cfg.vocab_size, (batch, seq)),
+                   -1).astype(np.int64)
+    nsp = rng.randint(0, 2, (batch, 1)).astype(np.int64)
+    feeds = [torch.from_numpy(a).to(dev) for a in (ids, tt, mlm, nsp)]
+    log(f'training model: BertConfig(vocab {cfg.vocab_size}, hidden '
+        f'{cfg.hidden_size}, {cfg.num_hidden_layers} layers, '
+        f'{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, '
+        f'fused attention) {n_params} parameters; batch {batch} x {seq}, '
+        f'{int((mlm >= 0).sum())} MLM labels; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    # 1. the fused model against the reference's own unfused route, f32
+    unfused = BertForPretraining(config(False), device=dev, seed=seed)
+    unfused.load_state_dict(sd)
+    with torch.no_grad():
+        lf = pretrain_loss(model, *feeds).item()
+        lu = pretrain_loss(unfused, *feeds).item()
+    del unfused
+    torch.cuda.empty_cache()
+    rel = abs(lf - lu) / abs(lu)
+    log(f'f32 loss: fused {lf!r} unfused {lu!r}, relative difference '
+        f'{rel:.3e} (limit 1e-4)')
+    if not rel <= 1e-4:
+        raise AssertionError(f'fused and unfused f32 losses differ by {rel}')
+
+    # 2. bf16-AMP training steps on the same batch, as bench.py runs them
+    step = TrainStep(model, pretrain_loss,
+                     Adam(1e-4, parameter_list=list(model.parameters())),
+                     amp_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nn_ops.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = step(*feeds)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    launches = nn_ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TRAIN_STEPS
+    log('bf16 AMP losses: ' + ' '.join(repr(x) for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'losses not finite or not falling: {losses}')
+    want = cfg.num_hidden_layers * steps
+    for name in FLASH_STOCK:
+        if launches[name] != want:
+            raise AssertionError(f'{name}: {launches[name]} launches for '
+                                 f'{steps} steps x {cfg.num_hidden_layers} '
+                                 f'layers')
+    timed_s = secs[WARMUP_STEPS:]
+    seq_s = batch * TRAIN_STEPS / sum(timed_s)
+    p50 = statistics.median(timed_s) * 1e3
+    h, layers, vocab = cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size
+    # bench.py's analytic train FLOPs per sequence (forward + backward)
+    flops_per_seq = seq * (72.0 * layers * h * h + 12.0 * layers * h * seq
+                           + 6.0 * h * vocab)
+    log(f'trained [{card}]: {steps} steps ({WARMUP_STEPS} warm-up), '
+        f'{seq_s:.1f} seq/s over the {TRAIN_STEPS} timed steps, step p50 '
+        f'{p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}); peak device memory {peak} bytes; '
+        f'model FLOPs {flops_per_seq / 1e9:.1f} G per sequence, '
+        f'{flops_per_seq * seq_s / 1e12:.1f} TFLOP/s = '
+        f'{flops_per_seq * seq_s / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s '
+        f'bf16')
+    log(f'launches on the training path: {launches} ({steps} steps x '
+        f'{layers} layers = {want} each)')
+    profile_train_step(step, feeds, p50, card)
+    return launches
+
+
+def profile_train_step(step, feeds, step_ms, card):
+    """Where a training step's time goes: the device's busy ms in one
+    profiled step against the step's p50 on the host clock, the kernels
+    that take it, and the flash kernels' share."""
+    prof = profiled(lambda: step(*feeds))
+    busy_ms = device_us(prof) / 1e3
+    if busy_ms <= 0:
+        log(f'train step [{card}]: device busy share not measured (the '
+            f'profiler recorded no device time)')
+        return
+
+    def dev_ms(e):
+        return getattr(e, 'self_device_time_total', 0.0) / 1e3
+
+    events = sorted(prof.key_averages(), key=lambda e: -dev_ms(e))
+    flash_ms = sum(dev_ms(e) for e in events if 'flash_' in e.key)
+    log(f'train step [{card}]: p50 {step_ms:.3f} ms on the host clock, '
+        f'device busy {busy_ms:.3f} ms, idle share '
+        f'{1 - busy_ms / step_ms:.3f}; flash kernels {flash_ms:.3f} ms = '
+        f'{flash_ms / busy_ms:.3f} of busy')
+    for e in events[:12]:
+        log(f'  {dev_ms(e):.4f} ms  {dev_ms(e) / busy_ms:.3f}  '
+            f'{e.count} calls  {e.key[:90]}')
 
 
 def post(port, body, timeout=600):
@@ -462,17 +792,26 @@ def main(argv=None):
     log(f'K1 [{smi}]: max|diff| {k1["max_abs_err"]:.3e} {fmt_times(k1)}')
     k2 = check_prefill_kernel(rng, dev)
 
+    # 3b. flash-attention kernels against their plain versions
+    flash = check_flash_kernels(rng, dev, smi)
+
     # 4. served path
     launches = serve(args.seed, smi)
     k1['launches'] = launches['paged_attention']
     k2['launches'] = launches['paged_prefill_attention']
 
-    # 5. result lines
+    # 5. training path
+    launches = train(args.seed, dev, smi)
+    for kern in flash:
+        kern['launches'] = launches[kern['name']]
+
+    # 6. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')
-    log(json.dumps({'kernels': [{k: kern[k] for k in keys}
-                                for kern in (k1, k2)]}))
+    log(json.dumps({'kernels': [
+        {k: kern[k] for k in keys + (('stock',) if 'stock' in kern else ())}
+        for kern in (k1, k2, *flash)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))
     return 0

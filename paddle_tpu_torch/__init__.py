@@ -8,8 +8,10 @@ by hand for Hopper (``csrc/``, built with ``nvcc`` at first use); on CPU
 tensors the same ops run their plain PyTorch versions.
 
 Entry points run on the CUDA card unless the caller passes ``device='cpu'``
-(device.py). The first slice is the decode-serving path:
-``python -m paddle_tpu_torch.serving.tier.replica``.
+(device.py). The first slice is the decode-serving path
+(``python -m paddle_tpu_torch.serving.tier.replica``); the second is BERT
+pretraining (``models/bert.py``, ``optimizer.py``, ``dygraph/jit.py``
+``TrainStep``).
 """
 from .device import resolve_device
 

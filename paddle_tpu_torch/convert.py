@@ -1,19 +1,44 @@
 """Weights between the JAX package's layout and the port's.
 
 The JAX model's ``named_parameters()`` names and torch's ``state_dict()``
-names are the same (``blocks.0.attn.q.weight``, ...); only the layout of the
-Linear weights differs: Paddle's ``Linear`` stores (in, out), torch's
-``nn.Linear`` (out, in). Embeddings (V, H) and LayerNorm scale and bias keep
-their layout.
+names are the same (``blocks.0.attn.q.weight``,
+``bert.encoder.0.attn.q.weight``, ...); only the layout of the Linear weights
+differs: Paddle's ``Linear`` stores (in, out), torch's ``nn.Linear``
+(out, in). Embeddings (V, H), LayerNorm scale and bias and BERT's
+``heads.decoder_bias`` keep their layout.
+
+- ``TransformerLM``: :func:`expected_shapes`, :func:`state_dict_from_paddle`,
+  :func:`init_params`.
+- ``BertForPretraining``: :func:`bert_expected_shapes`,
+  :func:`bert_state_dict_from_paddle`, :func:`bert_init_params`. The MLM
+  decoder is tied to ``bert.word_emb.weight``, so one tensor is loaded for
+  both.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params']
+__all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params',
+           'bert_expected_shapes', 'bert_state_dict_from_paddle',
+           'bert_init_params']
 
 _LINEARS = ('attn.q', 'attn.k', 'attn.v', 'attn.out', 'ffn1', 'ffn2')
+_BERT_LINEARS = _LINEARS + ('bert.pooler', 'heads.transform', 'heads.nsp')
+
+
+def _block_shapes(h, f, prefix):
+    """{name: shape} of one TransformerLayer under ``prefix``, Paddle
+    layout, in the JAX model's order."""
+    # (sublayer, Linear (in, out) or None for a LayerNorm), in layer order
+    subs = (('attn.q', (h, h)), ('attn.k', (h, h)), ('attn.v', (h, h)),
+            ('attn.out', (h, h)), ('attn_ln', None), ('ffn1', (h, f)),
+            ('ffn2', (f, h)), ('ffn_ln', None))
+    shapes = {}
+    for sub, io in subs:
+        shapes[f'{prefix}{sub}.weight'] = io if io else (h,)
+        shapes[f'{prefix}{sub}.bias'] = (io[1],) if io else (h,)
+    return shapes
 
 
 def expected_shapes(cfg):
@@ -23,20 +48,9 @@ def expected_shapes(cfg):
     shapes = {'word_emb.weight': (cfg.vocab_size, h),
               'pos_emb.weight': (cfg.max_position_embeddings, h),
               'emb_ln.weight': (h,), 'emb_ln.bias': (h,)}
-    # (sublayer, Linear (in, out) or None for a LayerNorm), in layer order
-    subs = (('attn.q', (h, h)), ('attn.k', (h, h)), ('attn.v', (h, h)),
-            ('attn.out', (h, h)), ('attn_ln', None), ('ffn1', (h, f)),
-            ('ffn2', (f, h)), ('ffn_ln', None))
     for i in range(cfg.num_hidden_layers):
-        for sub, io in subs:
-            p = f'blocks.{i}.{sub}.'
-            shapes[p + 'weight'] = io if io else (h,)
-            shapes[p + 'bias'] = (io[1],) if io else (h,)
+        shapes.update(_block_shapes(h, f, f'blocks.{i}.'))
     return shapes
-
-
-def _is_linear_weight(name):
-    return any(name.endswith(f'.{lin}.weight') for lin in _LINEARS)
 
 
 def _infer_shapes(named_numpy):
@@ -44,18 +58,28 @@ def _infer_shapes(named_numpy):
     width and positions from the embeddings, depth from the highest block
     index, FFN width from block 0."""
     from .models.causal_lm import CausalLMConfig
-    for name in ('word_emb.weight', 'pos_emb.weight', 'blocks.0.ffn1.weight'):
+    return expected_shapes(CausalLMConfig(**_infer_dims(named_numpy, '')))
+
+
+def _infer_dims(named_numpy, prefix):
+    """Vocab, width, positions, depth and FFN width of the model whose
+    Paddle-layout arrays these are; ``prefix`` is ``'bert.'`` for BERT,
+    whose blocks are ``encoder.N``, else the LM's ``blocks.N``."""
+    blocks = prefix + ('encoder.' if prefix else 'blocks.')
+    ffn1 = blocks + '0.ffn1.weight'
+    for name in (prefix + 'word_emb.weight', prefix + 'pos_emb.weight', ffn1):
         if name not in named_numpy:
             raise KeyError(f'missing parameter(s): {name}')
-    vocab, hidden = np.shape(named_numpy['word_emb.weight'])
-    layers = 1 + max(int(n.split('.')[1]) for n in named_numpy
-                     if n.startswith('blocks.') and n.split('.')[1].isdigit())
-    cfg = CausalLMConfig(
-        vocab_size=vocab, hidden_size=hidden, num_hidden_layers=layers,
-        num_attention_heads=1,
-        intermediate_size=np.shape(named_numpy['blocks.0.ffn1.weight'])[1],
-        max_position_embeddings=np.shape(named_numpy['pos_emb.weight'])[0])
-    return expected_shapes(cfg)
+    vocab, hidden = np.shape(named_numpy[prefix + 'word_emb.weight'])
+    depth = len(blocks.split('.')) - 1
+    layers = 1 + max(int(n.split('.')[depth]) for n in named_numpy
+                     if n.startswith(blocks)
+                     and n.split('.')[depth].isdigit())
+    return {'vocab_size': vocab, 'hidden_size': hidden,
+            'num_hidden_layers': layers, 'num_attention_heads': 1,
+            'intermediate_size': np.shape(named_numpy[ffn1])[1],
+            'max_position_embeddings':
+                np.shape(named_numpy[prefix + 'pos_emb.weight'])[0]}
 
 
 def state_dict_from_paddle(named_numpy):
@@ -65,7 +89,10 @@ def state_dict_from_paddle(named_numpy):
     everything else as it is, all f32. Raises on an unknown or missing name
     and on a shape that does not match the model the embeddings and block
     0 describe."""
-    shapes = _infer_shapes(named_numpy)
+    return _to_state_dict(named_numpy, _infer_shapes(named_numpy), _LINEARS)
+
+
+def _to_state_dict(named_numpy, shapes, linears):
     unknown = sorted(set(named_numpy) - set(shapes))
     missing = sorted(set(shapes) - set(named_numpy))
     if unknown:
@@ -78,7 +105,8 @@ def state_dict_from_paddle(named_numpy):
         if arr.shape != shapes[name]:
             raise ValueError(f'{name}: shape {arr.shape} != expected '
                              f'{shapes[name]}')
-        if _is_linear_weight(name):
+        if any(name == f'{lin}.weight' or name.endswith(f'.{lin}.weight')
+               for lin in linears):
             arr = arr.T
         out[name] = torch.tensor(arr)
     return out
@@ -90,11 +118,15 @@ def init_params(cfg, seed):
     standard deviations with std ``cfg.initializer_range`` (the
     distribution of the JAX model's TruncatedNormalInitializer, not its
     bits), Linear biases 0, LayerNorm scale 1 and bias 0."""
+    return _init(expected_shapes(cfg), cfg.initializer_range, seed)
+
+
+def _init(shapes, std, seed):
     rng = np.random.default_rng(int(seed))
-    std = float(cfg.initializer_range)
+    std = float(std)
     out = {}
-    for name, shape in expected_shapes(cfg).items():
-        if name.endswith('.bias'):
+    for name, shape in shapes.items():
+        if name.endswith('bias'):
             out[name] = np.zeros(shape, np.float32)
         elif name.endswith('_ln.weight'):
             out[name] = np.ones(shape, np.float32)
@@ -106,3 +138,50 @@ def init_params(cfg, seed):
                 bad = np.abs(x) > 2.0
             out[name] = (x * std).astype(np.float32)
     return out
+
+
+def bert_expected_shapes(cfg):
+    """{name: shape} of a ``BertForPretraining(cfg)``'s parameters in Paddle
+    layout, in the JAX model's ``named_parameters()`` order."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {'bert.word_emb.weight': (v, h),
+              'bert.pos_emb.weight': (cfg.max_position_embeddings, h),
+              'bert.type_emb.weight': (cfg.type_vocab_size, h),
+              'bert.emb_ln.weight': (h,), 'bert.emb_ln.bias': (h,)}
+    for i in range(cfg.num_hidden_layers):
+        shapes.update(_block_shapes(h, f, f'bert.encoder.{i}.'))
+    shapes.update({'bert.pooler.weight': (h, h), 'bert.pooler.bias': (h,),
+                   'heads.decoder_bias': (v,),
+                   'heads.transform.weight': (h, h),
+                   'heads.transform.bias': (h,),
+                   'heads.transform_ln.weight': (h,),
+                   'heads.transform_ln.bias': (h,),
+                   'heads.nsp.weight': (h, 2), 'heads.nsp.bias': (2,)})
+    return shapes
+
+
+def bert_state_dict_from_paddle(named_numpy):
+    """Paddle-layout ``{name: ndarray}`` (the JAX ``BertForPretraining``'s
+    ``named_parameters()`` as numpy) -> a torch state dict for the port's
+    ``BertForPretraining``: the Linear weights (``attn.q/k/v/out``,
+    ``ffn1``, ``ffn2``, ``bert.pooler``, ``heads.transform``,
+    ``heads.nsp``) transposed from (in, out) to (out, in); embeddings,
+    LayerNorm parameters and ``heads.decoder_bias`` as they are; all f32.
+    Raises on an unknown or missing name and on a shape that does not match
+    the model the embeddings and block 0 describe."""
+    from .models.bert import BertConfig
+    if 'bert.type_emb.weight' not in named_numpy:
+        raise KeyError('missing parameter(s): bert.type_emb.weight')
+    cfg = BertConfig(
+        **_infer_dims(named_numpy, 'bert.'),
+        type_vocab_size=np.shape(named_numpy['bert.type_emb.weight'])[0])
+    return _to_state_dict(named_numpy, bert_expected_shapes(cfg),
+                          _BERT_LINEARS)
+
+
+def bert_init_params(cfg, seed):
+    """Seeded Paddle-layout parameters for ``BertForPretraining(cfg)``, as
+    :func:`init_params` makes them: embeddings and Linear weights truncated
+    normal with std ``cfg.initializer_range``, Linear biases and
+    ``heads.decoder_bias`` 0, LayerNorm scale 1 and bias 0."""
+    return _init(bert_expected_shapes(cfg), cfg.initializer_range, seed)

@@ -1,1 +1,2 @@
-"""Models of the port: the causal LM the decode engine serves."""
+"""Models of the port: the causal LM the decode engine serves and BERT
+pretraining."""

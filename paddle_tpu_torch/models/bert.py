@@ -1,49 +1,173 @@
-"""The BERT attention and transformer blocks that the causal LM is built from
-(counterpart of paddle_tpu/models/bert.py, lines 66-152).
+"""BERT (base/large) pretraining, and the attention and transformer blocks
+the causal LM is built from (counterpart of paddle_tpu/models/bert.py).
 
-Only two attention paths are ported: the paged-KV-cache path the decode
-engine drives (``cache=``) and the unfused whole-sequence path (matmul ->
-additive mask -> softmax -> matmul) that training and the uncached reference
-use. The fused flash-attention path (``use_fused_attention=True``) is kernel
-B2 of a later slice and raises.
+Attention has three paths, as in the JAX model:
 
-Linear layers are ``torch.nn.Linear`` with torch's (out, in) weight layout;
-paddle_tpu_torch/convert.py transposes Paddle's (in, out) weights into it.
+- ``cache=``: the paged-KV-cache path the decode engine drives;
+- ``use_fused_attention=True``: one ``fused_attention`` op, the hand-written
+  flash-attention kernels on the card (ops/nn_ops.py), forward and backward.
+  It bypasses attention-probability dropout, and warns when that dropout is
+  set;
+- otherwise the unfused matmul -> additive mask -> softmax -> matmul path.
+
+Linear layers keep torch's (out, in) weight layout; paddle_tpu_torch/
+convert.py transposes Paddle's (in, out) weights into it. Submodule names
+give exactly the JAX model's ``named_parameters()`` names. Types promote as
+in JAX where an f32 tensor meets bf16 weights under AMP (a (B, 1, 1, S)
+attention bias is f32), so such a mix computes in f32 rather than failing.
+
+Dropout draws its masks from a ``torch.Generator`` that
+``BertForPretraining`` owns and seeds (``seed=``), never from torch's global
+generator; the JAX model's bits are not reproduced.
 """
 from __future__ import annotations
 
+import functools
 import math
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ['MultiHeadAttention', 'TransformerLayer']
+from ..device import resolve_device
+from ..ops.loss_ops import softmax_with_cross_entropy
+from ..ops.nn_ops import fused_attention
+
+__all__ = ['BertConfig', 'MultiHeadAttention', 'TransformerLayer',
+           'BertModel', 'BertPretrainHeads', 'BertForPretraining',
+           'pretrain_loss']
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, hidden_act='gelu',
+                 hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 initializer_range=0.02, use_fused_attention=False):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size
+        self.hidden_act = hidden_act
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.attention_probs_dropout_prob = attention_probs_dropout_prob
+        self.max_position_embeddings = max_position_embeddings
+        self.type_vocab_size = type_vocab_size
+        self.initializer_range = initializer_range
+        # attention through the fused op (the flash kernels on the card);
+        # bypasses attention-prob dropout, so use for p_drop=0 or eval
+        self.use_fused_attention = use_fused_attention
+
+    @staticmethod
+    def base():
+        return BertConfig()
+
+    @staticmethod
+    def large():
+        return BertConfig(hidden_size=1024, num_hidden_layers=24,
+                          num_attention_heads=16, intermediate_size=4096)
+
+    @staticmethod
+    def tiny():
+        """For tests."""
+        return BertConfig(vocab_size=1024, hidden_size=64,
+                          num_hidden_layers=2, num_attention_heads=4,
+                          intermediate_size=128, max_position_embeddings=128)
+
+
+def _promote(*ts):
+    """The tensors in their common type (JAX's promotion: bf16 with f32
+    gives f32); the tensors themselves when they already share one, the
+    case of every call but an f32 bias meeting bf16 weights under AMP."""
+    dt = ts[0].dtype
+    if all(t.dtype == dt for t in ts):
+        return ts
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t if t.dtype == dt else t.to(dt) for t in ts]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with Paddle's fused activation (``'gelu'``, the exact
+    erf form, or ``'tanh'``) and JAX's type promotion."""
+
+    def __init__(self, in_features, out_features, act=None, device=None):
+        super().__init__(in_features, out_features, device=device)
+        if act not in (None, 'gelu', 'tanh'):
+            raise NotImplementedError(f'act={act!r}: only gelu and tanh are '
+                                      f'ported')
+        self.act = act
+
+    def forward(self, x):
+        y = F.linear(*_promote(x, self.weight, self.bias))
+        if self.act == 'gelu':
+            return F.gelu(y)
+        return torch.tanh(y) if self.act == 'tanh' else y
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (epsilon 1e-5, as Paddle's) with JAX's type
+    promotion."""
+
+    def __init__(self, size, device=None):
+        super().__init__(size, eps=1e-5, device=device)
+
+    def forward(self, x):
+        x, w, b = _promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+class Dropout(nn.Module):
+    """Paddle's ``upscale_in_train`` dropout: in training, zero each entry
+    with probability ``p`` and scale the rest by 1/(1-p); identity in eval
+    and at p = 0. Masks come from ``generator`` when one is given."""
+
+    def __init__(self, p, generator=None):
+        super().__init__()
+        self.p = float(p)
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            return F.dropout(x, self.p, training=True)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep / (1.0 - self.p)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        if cfg.use_fused_attention:
-            raise NotImplementedError(
-                'use_fused_attention=True needs the flash-attention kernel '
-                '(queue B2), which comes with the training slice')
         h = cfg.hidden_size
-        self.q = nn.Linear(h, h, device=device)
-        self.k = nn.Linear(h, h, device=device)
-        self.v = nn.Linear(h, h, device=device)
-        self.out = nn.Linear(h, h, device=device)
-        self.drop = nn.Dropout(cfg.attention_probs_dropout_prob)
+        self.q = Linear(h, h, device=device)
+        self.k = Linear(h, h, device=device)
+        self.v = Linear(h, h, device=device)
+        self.out = Linear(h, h, device=device)
+        self.drop = Dropout(cfg.attention_probs_dropout_prob, generator)
         self.n_heads = cfg.num_attention_heads
         self.d_head = h // cfg.num_attention_heads
+        self._fused = cfg.use_fused_attention
+        if self._fused and cfg.attention_probs_dropout_prob > 0:
+            warnings.warn(
+                'use_fused_attention bypasses attention-probability '
+                'dropout (attention_probs_dropout_prob='
+                f'{cfg.attention_probs_dropout_prob} is ignored); set it '
+                'to 0 to silence this warning', stacklevel=2)
 
     def forward(self, x, attn_bias=None, causal=False, cache=None):
-        """``x`` (B, S, H). ``causal`` adds the upper-triangular -1e9 mask.
-        ``cache`` is a serving/decode/kv_cache.py ``CacheContext`` whose
+        """``x`` (B, S, H). ``attn_bias`` broadcasts to (B, heads, S, S).
+        ``causal``: the fused path masks with the top-left ``tril``, the
+        unfused one adds the upper-triangular -1e9 mask. ``cache`` is a
+        serving/decode/kv_cache.py ``CacheContext`` whose
         ``attend(q, k, v, sm_scale=)`` writes this layer's K/V into the
         paged pool and attends through the block tables."""
         b, s, h = x.shape
+        sm_scale = 1.0 / math.sqrt(self.d_head)
 
         def heads(t):
             return t.reshape(b, s, self.n_heads, self.d_head).transpose(1, 2)
@@ -52,37 +176,136 @@ class MultiHeadAttention(nn.Module):
         k = heads(self.k(x))
         v = heads(self.v(x))
         if cache is not None:
-            ctx = cache.attend(q, k, v, sm_scale=1.0 / math.sqrt(self.d_head))
+            ctx = cache.attend(q, k, v, sm_scale=sm_scale)
+        elif self._fused:
+            ctx = fused_attention(q, k, v, attn_bias, sm_scale=sm_scale,
+                                  causal=causal)
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) \
-                * (1.0 / math.sqrt(self.d_head))
+            scores = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
             if attn_bias is not None:
                 scores = scores + attn_bias
             if causal:
                 mask = np.triu(np.full((s, s), -1e9, 'float32'), 1)
                 scores = scores + torch.from_numpy(mask).to(x.device)
             probs = self.drop(torch.softmax(scores, dim=-1))
-            ctx = torch.matmul(probs, v)
+            ctx = torch.matmul(*_promote(probs, v))
         ctx = ctx.transpose(1, 2).reshape(b, s, h)
         return self.out(ctx)
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, generator=None):
         super().__init__()
         if cfg.hidden_act != 'gelu':
             raise NotImplementedError(f'hidden_act={cfg.hidden_act!r}: only '
                                       f'the exact-erf gelu is ported')
         h = cfg.hidden_size
-        self.attn = MultiHeadAttention(cfg, device=device)
-        self.attn_ln = nn.LayerNorm(h, eps=1e-5, device=device)
-        self.ffn1 = nn.Linear(h, cfg.intermediate_size, device=device)
-        self.ffn2 = nn.Linear(cfg.intermediate_size, h, device=device)
-        self.ffn_ln = nn.LayerNorm(h, eps=1e-5, device=device)
-        self.drop = nn.Dropout(cfg.hidden_dropout_prob)
+        self.attn = MultiHeadAttention(cfg, device=device,
+                                       generator=generator)
+        self.attn_ln = LayerNorm(h, device=device)
+        self.ffn1 = Linear(h, cfg.intermediate_size, act='gelu',
+                           device=device)
+        self.ffn2 = Linear(cfg.intermediate_size, h, device=device)
+        self.ffn_ln = LayerNorm(h, device=device)
+        self.drop = Dropout(cfg.hidden_dropout_prob, generator)
 
     def forward(self, x, attn_bias=None, causal=False, cache=None):
         a = self.attn(x, attn_bias, causal=causal, cache=cache)
         x = self.attn_ln(x + self.drop(a))
-        f = self.ffn2(F.gelu(self.ffn1(x)))
+        f = self.ffn2(self.ffn1(x))
         return self.ffn_ln(x + self.drop(f))
+
+
+class BertModel(nn.Module):
+    def __init__(self, cfg, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_emb = nn.Embedding(cfg.vocab_size, h, device=device)
+        self.pos_emb = nn.Embedding(cfg.max_position_embeddings, h,
+                                    device=device)
+        self.type_emb = nn.Embedding(cfg.type_vocab_size, h, device=device)
+        self.emb_ln = LayerNorm(h, device=device)
+        self.emb_drop = Dropout(cfg.hidden_dropout_prob, generator)
+        self.encoder = nn.ModuleList(
+            [TransformerLayer(cfg, device=device, generator=generator)
+             for _ in range(cfg.num_hidden_layers)])
+        self.pooler = Linear(h, h, act='tanh', device=device)
+
+    def forward(self, input_ids, token_type_ids, attention_mask=None):
+        """``input_ids``, ``token_type_ids`` (B, S) int; ``attention_mask``
+        (B, S) 1/0 becomes the additive (B, 1, 1, S) f32 bias
+        ``m * 1e4 - 1e4``. Returns (sequence output, pooled first token)."""
+        b, s = input_ids.shape
+        pos_ids = torch.arange(s, device=input_ids.device)[None, :] \
+            .expand(b, s)
+        emb = self.word_emb(input_ids) + self.pos_emb(pos_ids) \
+            + self.type_emb(token_type_ids)
+        x = self.emb_drop(self.emb_ln(emb))
+        attn_bias = None
+        if attention_mask is not None:
+            m = attention_mask.to(torch.float32).reshape(b, 1, 1, s)
+            attn_bias = m * 10000.0 + -10000.0
+        for layer in self.encoder:
+            x = layer(x, attn_bias)
+        pooled = self.pooler(x[:, 0])
+        return x, pooled
+
+
+class BertPretrainHeads(nn.Module):
+    """MLM and NSP heads. The MLM decoder is tied to the word-embedding
+    matrix: it owns only ``decoder_bias``; the embedding weight is passed in
+    at forward time, so its gradient is the sum of the lookup's and the
+    decoder product's."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.decoder_bias = nn.Parameter(
+            torch.zeros(cfg.vocab_size, device=device))
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size,
+                                act=cfg.hidden_act, device=device)
+        self.transform_ln = LayerNorm(cfg.hidden_size, device=device)
+        self.nsp = Linear(cfg.hidden_size, 2, device=device)
+
+    def forward(self, seq_out, pooled, word_emb_weight):
+        h = self.transform_ln(self.transform(seq_out))
+        mlm_logits = F.linear(*_promote(h, word_emb_weight,
+                                        self.decoder_bias))
+        return mlm_logits, self.nsp(pooled)
+
+
+class BertForPretraining(nn.Module):
+    """``BertForPretraining(cfg, device=None, seed=0)``: parameters live on
+    ``device`` (the card unless ``'cpu'`` is asked for; see device.py) and
+    start from torch's default initialisation; load real ones with
+    ``load_state_dict(convert.bert_state_dict_from_paddle(...))``.
+    ``seed`` seeds the model's own dropout generator."""
+
+    def __init__(self, cfg=None, device=None, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg or BertConfig.base()
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(int(seed))
+        self.bert = BertModel(self.cfg, device=device,
+                              generator=self.generator)
+        self.heads = BertPretrainHeads(self.cfg, device=device)
+
+    def forward(self, input_ids, token_type_ids, attention_mask=None):
+        seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.heads(seq, pooled, self.bert.word_emb.weight)
+
+
+def pretrain_loss(model, input_ids, token_type_ids, mlm_labels, nsp_labels):
+    """MLM + NSP loss; ``mlm_labels`` (B, S) uses -1 for unmasked positions,
+    ``nsp_labels`` is (B, 1). The MLM term is the mean over labelled
+    positions, the NSP term the mean over the batch."""
+    mlm_logits, nsp_logits = model(input_ids, token_type_ids)
+    b, s, v = mlm_logits.shape
+    flat_labels = mlm_labels.reshape(b * s, 1)
+    mlm_raw, _ = softmax_with_cross_entropy(
+        mlm_logits.reshape(b * s, v), flat_labels, ignore_index=-1)
+    mask = (flat_labels >= 0).to(torch.float32)
+    mlm_loss = (mlm_raw * mask).sum() / (mask.sum() + 1e-6)
+    nsp_raw, _ = softmax_with_cross_entropy(nsp_logits, nsp_labels)
+    return mlm_loss + nsp_raw.mean()

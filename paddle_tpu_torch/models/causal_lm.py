@@ -6,7 +6,10 @@ weight-tied LM head that reads ``word_emb.weight``. Two execution modes share
 every parameter:
 
 - **whole-sequence** (``cache=None``): the full (B, L) padded sequence in one
-  forward, the uncached reference :func:`greedy_generate` runs;
+  forward, the uncached reference :func:`greedy_generate` runs; with
+  ``use_fused_attention=True`` its attention is one
+  ``fused_attention(causal=True)`` call per layer (the flash kernels on the
+  card), as in the JAX model;
 - **incremental** (``cache=`` a serving/decode ``CacheContext``): prefill
   writes the prompt's K/V into paged cache blocks, decode steps run at fixed
   (S, 1) shape and read K/V through per-slot block tables.

@@ -46,6 +46,15 @@ SOURCES = {
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
         'paged_attention_error_string': (ctypes.c_char_p, [_I]),
     },
+    # each launcher takes a pointer to a FlashParams block (ops/nn_ops.py
+    # mirrors it as a ctypes Structure) and the stream
+    'flash_attention': {
+        'flash_attention_fwd': (_I, [_P, _P]),
+        'flash_attention_bwd_dkv': (_I, [_P, _P]),
+        'flash_attention_bwd_dq': (_I, [_P, _P]),
+        'flash_attention_params_size': (_I, []),
+        'flash_attention_error_string': (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,26 +1,37 @@
-"""Paged attention for the decode engine: the kernel wrappers and their plain
-PyTorch versions (counterpart of paddle_tpu/ops/nn_ops.py).
+"""Attention ops with hand-written CUDA kernels, their wrappers and their
+plain PyTorch versions (counterpart of paddle_tpu/ops/nn_ops.py).
 
-``paged_attention`` and ``paged_prefill_attention`` are the two ops the
-decode-serving path runs in every attention layer. On a CUDA tensor each
-launches its hand-written kernel (csrc/paged_attention.cu) or raises; on a
-CPU tensor each runs its plain version, ``*_ref``, a line-for-line port of
-the JAX package's XLA formulation. There is no fallback from the kernel to
-the plain version.
+- ``paged_attention`` and ``paged_prefill_attention``: the two ops the
+  decode-serving path runs in every attention layer
+  (csrc/paged_attention.cu).
+- ``fused_attention``: the training path's attention, a
+  ``torch.autograd.Function`` whose forward and backward are the three
+  flash-attention kernels of csrc/flash_attention.cu
+  (``flash_attention_fwd``, ``flash_attention_bwd_dkv``,
+  ``flash_attention_bwd_dq``).
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches`` (see
+On a CUDA tensor each op launches its kernels or raises; on a CPU tensor it
+runs its plain version (``*_ref``). There is no fallback from a kernel to a
+plain version.
+
+Each kernel wrapper counts its launches in ``<wrapper>.launches`` (see
 :func:`launch_counts` / :func:`reset_launch_counts`), so a run can show that
 the path really went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
-           'paged_prefill_attention_ref', 'launch_counts',
-           'reset_launch_counts', 'HEAD_DIMS']
+           'paged_prefill_attention_ref', 'fused_attention',
+           'fused_attention_ref', 'fused_attention_fwd_ref',
+           'fused_attention_bwd_ref', 'flash_attention_fwd',
+           'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
+           'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
-# head dims the kernels are compiled for (csrc/paged_attention.cu)
+# head dims the kernels are compiled for (csrc/*.cu)
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -196,9 +207,323 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# fused (flash) attention: the training path
+# ---------------------------------------------------------------------------
+
+def fused_attention_ref(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
+    """Plain version of :func:`fused_attention`: a line-for-line port of the
+    JAX op's XLA formulation, ``softmax(Q.K^T * sm_scale + bias).V`` over
+    (B, H, S, D), with ``causal`` the top-left ``tril`` filled with
+    ``finfo.min``. Types promote as in JAX (a bf16 ``q`` with an f32 bias
+    gives f32)."""
+    scores = torch.einsum('bhqd,bhkd->bhqk', q, k) * sm_scale
+    if bias is not None:
+        scores = scores + bias
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        mask = torch.tril(torch.ones((s_q, s_k), dtype=torch.bool,
+                                     device=scores.device))
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum('bhqk,bhkd->bhqd', probs, v.to(probs.dtype))
+
+
+def _scores_f32(q, k, bias, sm_scale, causal):
+    """The kernels' scores in f32: ``Q.K^T * sm_scale + bias``, -inf where
+    the causal mask drops a key."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float('-inf'))
+    return s
+
+
+def fused_attention_fwd_ref(q, k, v, bias=None, *, sm_scale=1.0,
+                            causal=False):
+    """Plain version of the forward kernel: ``(O, lse)``, O in ``q``'s type
+    and the per-row log-sum-exp (B, H, Sq) in f32, every sum in f32."""
+    s = _scores_f32(q, k, bias, sm_scale, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.matmul(p, v.float()).to(q.dtype), lse
+
+
+def _row_dot(o, do):
+    """``di = rowsum(O . dO)`` in f32, (B, H, Sq): computed in torch between
+    the forward and the backward kernels, as the stock TPU code computes it
+    outside its Pallas calls."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def _bwd_from_di(q, k, v, bias, lse, di, do, sm_scale, causal):
+    s = _scores_f32(q, k, bias, sm_scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, v.float().transpose(-1, -2)) - di[..., None])
+    dq = torch.matmul(ds, k.float()) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
+
+
+def fused_attention_bwd_ref(q, k, v, bias, o, lse, do, *, sm_scale=1.0,
+                            causal=False):
+    """Plain version of the backward kernels, from the forward's saved
+    log-sum-exp: recompute ``P = exp(S - lse)``, then ``dV = P^T.dO``,
+    ``dS = P o (dO.V^T - rowsum(O . dO))``, ``dQ = dS.K * sm_scale``,
+    ``dK = dS^T.Q * sm_scale``. Returns ``(dq, dk, dv, ds)``; ``ds`` is the
+    full (B, H, Sq, Sk) f32 score gradient, the bias's gradient before it is
+    summed to the bias's shape."""
+    return _bwd_from_di(q, k, v, bias, lse, _row_dot(o, do), do, sm_scale,
+                        causal)
+
+
+class _FlashParams(ctypes.Structure):
+    """Mirror of ``struct FlashParams`` in csrc/flash_attention.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ('q', 'k', 'v', 'd_o', 'bias', 'lse', 'di', 'o', 'dq', 'dk',
+                  'dv', 'ds')]
+                + [(n, ctypes.c_longlong * 3) for n in
+                   ('q_str', 'k_str', 'v_str', 'do_str')]
+                + [('bias_str', ctypes.c_longlong * 4)]
+                + [(n, ctypes.c_int) for n in
+                   ('B', 'H', 'Sq', 'Sk', 'D', 'causal', 'bf16')]
+                + [('sm_scale', ctypes.c_float)])
+
+
+def _rows_readable(t):
+    """``t`` itself when the kernels can read its rows in 16-byte chunks
+    (unit stride on D, 16-byte aligned, strides a multiple of 8 elements),
+    else a contiguous copy. The head-split views of the projections
+    qualify, so the main path copies nothing."""
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(st % 8 for st in t.stride()[:-1])):
+        return t.contiguous()
+    return t
+
+
+def _flash_inputs(q, k, v, bias, do=None):
+    """Validate a launch and put its operands in the kernels' layout;
+    returns (q, k, v, bias as f32 expanded to (B, H, Sq, Sk) or None, do)."""
+    if q.device.type != 'cuda':
+        raise ValueError(f'the flash-attention kernels run on CUDA tensors, '
+                         f'got {q.device}; fused_attention runs the plain '
+                         f'version on the CPU')
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'q must be f32 or bf16, got {q.dtype}')
+    named = (('k', k), ('v', v)) + ((('do', do),) if do is not None else ())
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f'{name} is on {t.device}, expected {dev}')
+        if t.dtype != q.dtype:
+            raise TypeError(f'{name} is {t.dtype}, q is {q.dtype}')
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f'q, k, v must be (B, H, S, D) with k and v alike, '
+                         f'got {tuple(q.shape)}, {tuple(k.shape)}, '
+                         f'{tuple(v.shape)}')
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if tuple(k.shape) != (b, h, sk, d):
+        raise ValueError(f'k {tuple(k.shape)} does not match q '
+                         f'{tuple(q.shape)}')
+    if d not in HEAD_DIMS:
+        raise ValueError(f'head_dim {d} unsupported: the kernels are built '
+                         f'for {HEAD_DIMS}')
+    if min(b, h, sq, sk) < 1 or max(b, h) > 65535:
+        raise ValueError(f'B={b}, H={h}, Sq={sq}, Sk={sk} out of the '
+                         f'kernels\' range')
+    if do is not None and tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f'do {tuple(do.shape)} != q {tuple(q.shape)}')
+    if bias is not None:
+        if bias.device != dev:
+            raise ValueError(f'bias is on {bias.device}, expected {dev}')
+        if bias.dim() > 4:
+            raise ValueError(f'bias must broadcast to (B, H, Sq, Sk), got '
+                             f'{tuple(bias.shape)}')
+        try:
+            bias = bias.to(torch.float32).expand(b, h, sq, sk)
+        except RuntimeError as e:
+            raise ValueError(f'bias {tuple(bias.shape)} does not broadcast '
+                             f'to {(b, h, sq, sk)}') from e
+    q, k, v = _rows_readable(q), _rows_readable(k), _rows_readable(v)
+    if do is not None:
+        do = _rows_readable(do)
+    return q, k, v, bias, do
+
+
+def _flash_params(q, k, v, bias, sm_scale, causal, do=None):
+    b, h, sq, d = q.shape
+    p = _FlashParams()
+    p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    p.q_str = (ctypes.c_longlong * 3)(*q.stride()[:3])
+    p.k_str = (ctypes.c_longlong * 3)(*k.stride()[:3])
+    p.v_str = (ctypes.c_longlong * 3)(*v.stride()[:3])
+    if do is not None:
+        p.d_o = do.data_ptr()
+        p.do_str = (ctypes.c_longlong * 3)(*do.stride()[:3])
+    if bias is not None:
+        p.bias = bias.data_ptr()
+        p.bias_str = (ctypes.c_longlong * 4)(*bias.stride())
+    p.B, p.H, p.Sq, p.Sk, p.D = b, h, sq, k.shape[2], d
+    p.causal = int(bool(causal))
+    p.bf16 = int(q.dtype == torch.bfloat16)
+    p.sm_scale = float(sm_scale)
+    return p
+
+
+def _flash_launch(fn, params, dev):
+    from ._build import library
+    lib = library('flash_attention')
+    if lib.flash_attention_params_size() != ctypes.sizeof(_FlashParams):
+        raise RuntimeError('FlashParams layout differs between '
+                           'csrc/flash_attention.cu and ops/nn_ops.py')
+    err = getattr(lib, fn)(ctypes.addressof(params),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f'{fn} kernel launch failed: CUDA error {err} '
+                           f'({msg})')
+
+
+def _bwd_state(lse, di, q):
+    b, h, sq, _ = q.shape
+    for name, t in (('lse', lse), ('di', di)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()):
+            raise ValueError(f'{name} must be a contiguous {(b, h, sq)} f32 '
+                             f'tensor on {q.device}')
+
+
+def flash_attention_fwd(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
+    """Launch the forward kernel (K3) on CUDA tensors: ``(O, lse)``, O
+    contiguous in ``q``'s type, lse (B, H, Sq) f32. Raises on what the
+    kernel does not take; the plain version is
+    :func:`fused_attention_fwd_ref`."""
+    q, k, v, bias, _ = _flash_inputs(q, k, v, bias)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    p = _flash_params(q, k, v, bias, sm_scale, causal)
+    p.o, p.lse = o.data_ptr(), lse.data_ptr()
+    _flash_launch('flash_attention_fwd', p, q.device)
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, *, sm_scale=1.0,
+                            causal=False):
+    """Launch the dK/dV backward kernel (K3b) on CUDA tensors: ``(dk, dv)``
+    contiguous in ``k``'s type. ``lse`` is the forward's, ``di`` is
+    ``rowsum(O . dO)`` in f32."""
+    q, k, v, bias, do = _flash_inputs(q, k, v, bias, do)
+    _bwd_state(lse, di, q)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    p = _flash_params(q, k, v, bias, sm_scale, causal, do)
+    p.lse, p.di = lse.data_ptr(), di.data_ptr()
+    p.dk, p.dv = dk.data_ptr(), dv.data_ptr()
+    _flash_launch('flash_attention_bwd_dkv', p, q.device)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, bias, lse, di, do, *, sm_scale=1.0,
+                           causal=False, need_ds=False):
+    """Launch the dQ backward kernel (K3b) on CUDA tensors: ``(dq, ds)``, dq
+    contiguous in ``q``'s type; ``ds`` is the (B, H, Sq, Sk) f32 score
+    gradient when ``need_ds`` (the bias's gradient), else None."""
+    q, k, v, bias, do = _flash_inputs(q, k, v, bias, do)
+    _bwd_state(lse, di, q)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ds = None
+    if need_ds:
+        ds = torch.zeros(q.shape[:3] + (k.shape[2],), dtype=torch.float32,
+                         device=q.device)
+    p = _flash_params(q, k, v, bias, sm_scale, causal, do)
+    p.lse, p.di, p.dq = lse.data_ptr(), di.data_ptr(), dq.data_ptr()
+    if ds is not None:
+        p.ds = ds.data_ptr()
+    _flash_launch('flash_attention_bwd_dq', p, q.device)
+    flash_attention_bwd_dq.launches += 1
+    return dq, ds
+
+
+def _sum_to(g, shape):
+    """Sum a broadcast gradient back to ``shape``."""
+    lead = g.dim() - len(shape)
+    if lead > 0:
+        g = g.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    if dims:
+        g = g.sum(dim=dims, keepdim=True)
+    return g.reshape(shape)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward K3, backward K3b-dkv then K3b-dq on CUDA tensors; the plain
+    versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, sm_scale, causal):
+        if q.device.type == 'cpu':
+            o, lse = fused_attention_fwd_ref(q, k, v, bias, sm_scale=sm_scale,
+                                             causal=causal)
+        else:
+            o, lse = flash_attention_fwd(q, k, v, bias, sm_scale=sm_scale,
+                                         causal=causal)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        kw = {'sm_scale': ctx.sm_scale, 'causal': ctx.causal}
+        need_ds = bias is not None and ctx.needs_input_grad[3]
+        if do.device.type == 'cpu':
+            dq, dk, dv, ds = fused_attention_bwd_ref(q, k, v, bias, o, lse,
+                                                     do, **kw)
+        else:
+            di = _row_dot(o, do)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, **kw)
+            dq, ds = flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+                                            need_ds=need_ds, **kw)
+        dbias = _sum_to(ds, bias.shape).to(bias.dtype) if need_ds else None
+        return dq, dk, dv, dbias, None, None
+
+
+def fused_attention(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
+    """Fused multi-head attention, (B, H, S, D) layout:
+    ``softmax(Q.K^T * sm_scale + bias).V``, optionally causal (top-left
+    ``tril``: row i attends keys j <= i), differentiable in q, k, v and
+    bias.
+
+    - ``q`` (B, H, Sq, D), ``k``/``v`` (B, H, Sk, D): f32 or bf16, one type;
+      the output has that type. Sums are f32.
+    - ``bias``: anything that broadcasts to (B, H, Sq, Sk), read as f32 in
+      place through broadcast strides.
+
+    CUDA tensors run the hand-written flash kernels (forward, then dK/dV and
+    dQ in the backward) or raise; CPU tensors run
+    :func:`fused_attention_fwd_ref` and :func:`fused_attention_bwd_ref`."""
+    if q.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {q.device}')
+    return _FusedAttention.apply(q, k, v, bias, float(sm_scale),
+                                 bool(causal))
+
+
 paged_attention.launches = 0
 paged_prefill_attention.launches = 0
-_KERNEL_WRAPPERS = (paged_attention, paged_prefill_attention)
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.launches = 0
+_KERNEL_WRAPPERS = (paged_attention, paged_prefill_attention,
+                    flash_attention_fwd, flash_attention_bwd_dkv,
+                    flash_attention_bwd_dq)
 
 
 def launch_counts():

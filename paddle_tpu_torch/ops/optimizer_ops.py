@@ -1,0 +1,67 @@
+"""Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py).
+
+The JAX ops return new arrays, which the fused training step donates so XLA
+writes them in place. Here the update writes the parameter and its slots in
+place under ``no_grad``; that takes the place of the donation.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ['adam', 'multi_tensor_adam']
+
+
+@torch.no_grad()
+def adam(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
+         beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """Paddle's Adam step, in place on ``param``, ``moment1``, ``moment2``,
+    ``beta1_pow`` and ``beta2_pow``:
+
+        m1 = beta1 * m1 + (1 - beta1) * g
+        m2 = beta2 * m2 + (1 - beta2) * g * g
+        p -= lr * sqrt(1 - beta2_pow) / (1 - beta1_pow) * m1 / (sqrt(m2) + eps)
+        beta1_pow *= beta1; beta2_pow *= beta2
+
+    ``beta1_pow`` and ``beta2_pow`` are (1,) slots that start at ``beta1``
+    and ``beta2``. This is not ``torch.optim.Adam``: there epsilon is added
+    to the bias-corrected second moment, which gives another step wherever
+    sqrt(m2) is near epsilon. ``lr`` is a float or a (1,) tensor. Returns
+    ``param``."""
+    m1n = beta1 * moment1 + (1 - beta1) * grad
+    m2n = beta2 * moment2 + (1 - beta2) * torch.square(grad)
+    lr_t = lr * torch.sqrt(1 - beta2_pow) / (1 - beta1_pow)
+    param.copy_(param - lr_t * m1n / (torch.sqrt(m2n) + epsilon))
+    moment1.copy_(m1n)
+    moment2.copy_(m2n)
+    beta1_pow.mul_(beta1)
+    beta2_pow.mul_(beta2)
+    return param
+
+
+@torch.no_grad()
+def multi_tensor_adam(params, grads, moment1s, moment2s, beta1_pows,
+                      beta2_pows, lr, *, beta1=0.9, beta2=0.999,
+                      epsilon=1e-8):
+    """:func:`adam` over lists of tensors, in place, with torch's
+    multi-tensor (``_foreach``) ops: a few launches for the whole list
+    instead of some twenty per tensor, the counterpart of the reference's
+    one fused update over all parameters. The arithmetic is :func:`adam`'s,
+    operation for operation, so each tensor gets the same bits.
+
+    Every ``beta1_pows[i]`` (and ``beta2_pows[i]``) must hold the same value,
+    as it does for parameters updated together since their first step: the
+    step size is computed once, from the first pair."""
+    torch._foreach_mul_(moment1s, beta1)
+    torch._foreach_add_(moment1s, torch._foreach_mul(grads, 1 - beta1))
+    torch._foreach_mul_(moment2s, beta2)
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, 1 - beta2)
+    torch._foreach_add_(moment2s, sq)
+    lr_t = lr * torch.sqrt(1 - beta2_pows[0]) / (1 - beta1_pows[0])
+    step = torch._foreach_mul(moment1s, lr_t.reshape(()))
+    den = torch._foreach_sqrt(moment2s)
+    torch._foreach_add_(den, epsilon)
+    torch._foreach_div_(step, den)
+    torch._foreach_sub_(params, step)
+    torch._foreach_mul_(beta1_pows, beta1)
+    torch._foreach_mul_(beta2_pows, beta2)

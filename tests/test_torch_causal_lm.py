@@ -133,8 +133,24 @@ def test_constructor_without_device_raises_when_no_card(monkeypatch):
         port_lm.TransformerLM(port_lm.CausalLMConfig.tiny(), device='cuda')
 
 
-def test_fused_attention_is_a_later_slice():
-    cfg = port_lm.CausalLMConfig.tiny()
+def test_fused_attention_whole_sequence_logits(jax_model):
+    """``use_fused_attention=True`` sends the uncached whole-sequence
+    forward through ``fused_attention(causal=True)`` in both packages; the
+    logits agree at the same bar as the unfused path."""
+    named = jax_params(jax_model)
+    cfg = jax_lm.CausalLMConfig.tiny()
     cfg.use_fused_attention = True
-    with pytest.raises(NotImplementedError, match='B2'):
-        port_lm.TransformerLM(cfg, device='cpu')
+    pcfg = port_lm.CausalLMConfig.tiny()
+    pcfg.use_fused_attention = True
+    model = port_lm.TransformerLM(pcfg, device='cpu')
+    model.load_state_dict(state_dict_from_paddle(named))
+    model.eval()
+    with guard():
+        jm = jax_lm.TransformerLM(cfg)
+        for n, p in jm.named_parameters():
+            p.set_value(named[n])
+        jm.eval()
+        ids = np.random.RandomState(4).randint(0, 128, (2, 12)).astype(
+            np.int64)
+        want = jax_logits(jm, ids)
+    np.testing.assert_allclose(port_logits(model, ids), want, atol=ATOL)

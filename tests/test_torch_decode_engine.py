@@ -115,7 +115,10 @@ def test_greedy_streams_match_jax_scheduler(models):
     assert engine.pool.allocator.available == engine.pool.allocator.capacity
     assert engine.stats['prefills'] == len(prompts)
     assert nn_ops.launch_counts() == {'paged_attention': 0,
-                                      'paged_prefill_attention': 0}
+                                      'paged_prefill_attention': 0,
+                                      'flash_attention_fwd': 0,
+                                      'flash_attention_bwd_dkv': 0,
+                                      'flash_attention_bwd_dq': 0}
 
 
 def test_eos_and_sampled_replay(models):

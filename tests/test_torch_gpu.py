@@ -6,8 +6,14 @@ machine with a card and the CUDA toolkit:
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 
-Tolerance atol 2e-5, rtol 1e-5: f32 throughout, sums taken in another order
-than the plain version's matmuls.
+Paged kernels: atol 2e-5, rtol 1e-5: f32 throughout, sums taken in another
+order than the plain version's matmuls. Flash kernels: f32 as the paged ones
+for O and the log-sum-exp, atol 1e-4 and rtol 1e-4 for the gradients (sums
+of up to Sq * D f32 products of O(1) terms in another order); bf16 atol 1e-3
+and rtol 8e-3: kernel and plain version both sum in f32 (the kernel's
+tensor-core products carry P and dS as two bf16 terms, about 16 bits) and
+round once to bf16, so they differ by about one bf16 ulp (at most 2**-7
+relative) where the two sums straddle a rounding boundary.
 """
 import numpy as np
 import pytest
@@ -131,7 +137,219 @@ def test_served_engine_goes_through_the_kernels(cuda):
     layers = model.cfg.num_hidden_layers
     assert nn_ops.launch_counts() == {
         'paged_attention': engine.stats['decode_steps'] * layers,
-        'paged_prefill_attention': engine.stats['prefills'] * layers}
+        'paged_prefill_attention': engine.stats['prefills'] * layers,
+        'flash_attention_fwd': 0, 'flash_attention_bwd_dkv': 0,
+        'flash_attention_bwd_dq': 0}
     for p, out in zip(prompts, outs):
         gaps = max_logit_gaps(model, p, out, pad_len=engine.padded_context)
         assert gaps.max() <= 1e-3
+
+
+# --- flash attention (csrc/flash_attention.cu) ------------------------------
+
+FLASH_TOL = {torch.float32: {'o': (2e-5, 1e-5), 'grad': (1e-4, 1e-4)},
+             torch.bfloat16: {'o': (1e-3, 8e-3), 'grad': (1e-3, 8e-3)}}
+# (B, H, Sq, Sk): two tiles and a ragged edge; Sq != Sk both ways
+FLASH_SHAPES = {'none': (2, 3, 80, 80), 'mask': (2, 3, 80, 80),
+                'full': (2, 3, 80, 80), 'causal': (2, 3, 130, 130),
+                'sq_ne_sk': (2, 3, 40, 100), 'causal_sq_gt_sk': (1, 2, 100, 70)}
+
+
+def flash_inputs(kind, d, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    b, h, sq, sk = FLASH_SHAPES[kind]
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+
+    q, k, v, do = t(b, h, sq, d), t(b, h, sk, d), t(b, h, sk, d), \
+        t(b, h, sq, d)
+    bias = None
+    if kind == 'mask':
+        keep = rng.random((b, 1, 1, sk)) < 0.7
+        bias = torch.from_numpy(np.where(keep, 0.0, -1e4).astype(
+            np.float32)).to(dev)
+    elif kind == 'full':
+        bias = torch.from_numpy(
+            rng.standard_normal((b, h, sq, sk), np.float32)).to(dev)
+    return q, k, v, do, bias, kind.startswith('causal')
+
+
+def close(got, want, tol):
+    atol, rtol = tol
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize('kind', list(FLASH_SHAPES))
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_forward_matches_plain(cuda, kind, d, dtype):
+    q, k, v, _, bias, causal = flash_inputs(kind, d, dtype, cuda)
+    before = nn_ops.flash_attention_fwd.launches
+    o, lse = nn_ops.flash_attention_fwd(q, k, v, bias, sm_scale=d ** -0.5,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert nn_ops.flash_attention_fwd.launches == before + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(
+        q, k, v, bias, sm_scale=d ** -0.5, causal=causal)
+    close(o, o_ref, FLASH_TOL[dtype]['o'])
+    close(lse, lse_ref, FLASH_TOL[torch.float32]['o'])
+    if dtype == torch.float32:      # and the op's own XLA formulation
+        close(o, nn_ops.fused_attention_ref(q, k, v, bias, sm_scale=d ** -0.5,
+                                            causal=causal), (2e-5, 1e-5))
+
+
+@pytest.mark.parametrize('kind', list(FLASH_SHAPES))
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_gradients_match_plain(cuda, kind, d, dtype):
+    """The backward kernels, through the autograd Function, against the
+    plain backward run on the forward kernel's own saved O and log-sum-exp
+    (fed the plain forward's bf16 O, di = rowsum(O . dO) would carry O's
+    one-ulp rounding differences into every gradient); dbias where the
+    bias takes a gradient. In f32 the whole kernel chain is also held
+    against the whole plain chain."""
+    q, k, v, do, bias, causal = flash_inputs(kind, d, dtype, cuda, seed=1)
+    kw = {'sm_scale': d ** -0.5, 'causal': causal}
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if bias is not None:
+        leaves.append(bias.clone().requires_grad_())
+    args = leaves + [None] * (4 - len(leaves))
+    before = dict(nn_ops.launch_counts())
+    o = nn_ops.fused_attention(*args, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    after = nn_ops.launch_counts()
+    for name in ('flash_attention_fwd', 'flash_attention_bwd_dkv',
+                 'flash_attention_bwd_dq'):
+        assert after[name] == before[name] + 1
+    o_k, lse_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    assert torch.equal(o_k, o.detach())          # deterministic
+    wants = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, lse_k, do,
+                                            **kw)]
+    if dtype == torch.float32:
+        o_ref, lse = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+        wants.append(nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_ref,
+                                                    lse, do, **kw))
+    tol = FLASH_TOL[dtype]['grad']
+    for dq, dk, dv, ds in wants:
+        for got, want in zip(leaves[:3], (dq, dk, dv)):
+            assert got.grad.dtype == dtype
+            close(got.grad, want, tol)
+        if bias is not None:
+            close(leaves[3].grad, nn_ops._sum_to(ds, bias.shape), tol)
+
+
+def test_flash_dq_writes_the_score_gradient(cuda):
+    q, k, v, do, bias, _ = flash_inputs('full', 32, torch.float32, cuda, 2)
+    o, lse = nn_ops.fused_attention_fwd_ref(q, k, v, bias, sm_scale=0.2)
+    di = nn_ops._row_dot(o, do)
+    dq, ds = nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+                                           sm_scale=0.2, need_ds=True)
+    _, _, _, ds_ref = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, lse,
+                                                     do, sm_scale=0.2)
+    close(ds, ds_ref, FLASH_TOL[torch.float32]['grad'])
+    assert nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+                                         sm_scale=0.2)[1] is None
+
+
+def test_flash_reads_strided_head_views(cuda):
+    """The projections' (B, S, H*D) outputs viewed as (B, H, S, D) are read
+    in place, and give what their contiguous copies give."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 48, 4 * 64), np.float32)
+                         ).to(cuda)
+    q = x.reshape(2, 48, 4, 64).transpose(1, 2)
+    assert not q.is_contiguous()
+    o, lse = nn_ops.flash_attention_fwd(q, q, q, sm_scale=0.125)
+    oc, lsec = nn_ops.flash_attention_fwd(q.contiguous(), q.contiguous(),
+                                          q.contiguous(), sm_scale=0.125)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(TypeError, match='f32 or bf16'):
+        nn_ops.fused_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match='k is'):
+        nn_ops.fused_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match='head_dim'):
+        q48 = torch.zeros(1, 2, 8, 48, device=cuda)
+        nn_ops.fused_attention(q48, q48, q48)
+    with pytest.raises(ValueError, match='broadcast'):
+        nn_ops.fused_attention(q, q, q, torch.zeros(1, 3, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match='expected cuda'):
+        nn_ops.fused_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        nn_ops.flash_attention_fwd(q.cpu(), q.cpu(), q.cpu())
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match='lse'):
+        nn_ops.flash_attention_bwd_dq(q, q, q, None, lse.double(), lse, q)
+
+
+def test_tiny_train_step_goes_through_the_flash_kernels(cuda):
+    """Every attention layer of every bf16-AMP training step launches the
+    forward kernel once and each backward kernel once, and the loss falls
+    on a repeated batch."""
+    from paddle_tpu_torch.convert import (bert_init_params,
+                                          bert_state_dict_from_paddle)
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              pretrain_loss)
+    from paddle_tpu_torch.optimizer import Adam
+    cfg = BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.use_fused_attention = True
+    model = BertForPretraining(cfg, device=cuda)
+    model.load_state_dict(bert_state_dict_from_paddle(
+        bert_init_params(cfg, 0)))
+    step = TrainStep(model, pretrain_loss,
+                     Adam(1e-3, parameter_list=list(model.parameters())),
+                     amp_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (4, 32))
+    mlm = np.where(rng.rand(4, 32) < 0.15,
+                   rng.randint(0, cfg.vocab_size, (4, 32)), -1)
+    batch = (ids, np.zeros((4, 32), np.int64), mlm,
+             rng.randint(0, 2, (4, 1)))
+    nn_ops.reset_launch_counts()
+    losses = [float(step(*batch)) for _ in range(3)]
+    n = cfg.num_hidden_layers * 3
+    counts = nn_ops.launch_counts()
+    assert (counts['flash_attention_fwd'], counts['flash_attention_bwd_dkv'],
+            counts['flash_attention_bwd_dq']) == (n, n, n)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_multi_tensor_adam_gives_adams_bits_on_the_card(cuda):
+    """The _foreach kernels compute the one-tensor op's arithmetic: the
+    same bits for every parameter and slot."""
+    from paddle_tpu_torch.ops.optimizer_ops import adam, multi_tensor_adam
+    rng = np.random.default_rng(5)
+    shapes = [(768, 768), (3072,), (2, 30522)]
+    init = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+
+    def state():
+        ps = [torch.from_numpy(a).to(cuda) for a in init]
+        return ps, [[torch.zeros_like(p), torch.zeros_like(p),
+                     torch.full((1,), 0.9, device=cuda),
+                     torch.full((1,), 0.999, device=cuda)] for p in ps]
+
+    one, one_s = state()
+    many, many_s = state()
+    for step in range(3):
+        gs = [torch.from_numpy((rng.standard_normal(sh) * 10.0 ** rng.integers(
+            -9, 0, sh)).astype(np.float32)).to(cuda) for sh in shapes]
+        for p, s, g in zip(one, one_s, gs):
+            adam(p, g, *s, 1e-4)
+        multi_tensor_adam(many, gs, *(list(c) for c in zip(*many_s)), 1e-4)
+    for a, b in zip(one + [t for s in one_s for t in s],
+                    many + [t for s in many_s for t in s]):
+        assert torch.equal(a, b)

@@ -124,7 +124,10 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
     qp = torch.from_numpy(rng.randn(1, H, 3, 16).astype(np.float32))
     nn_ops.paged_prefill_attention(qp, *args[1:3], args[3][:1])
     assert nn_ops.launch_counts() == {'paged_attention': 0,
-                                      'paged_prefill_attention': 0}
+                                      'paged_prefill_attention': 0,
+                                      'flash_attention_fwd': 0,
+                                      'flash_attention_bwd_dkv': 0,
+                                      'flash_attention_bwd_dq': 0}
 
 
 def test_multi_query_read_is_a_later_slice():
