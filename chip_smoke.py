@@ -11,9 +11,10 @@ Phases:
 
 1. device: the card's name, the device count, and ``nvidia-smi``'s name and
    power limit (every time below stands beside them);
-2. build: every source under ``paddle_tpu_torch/csrc/`` (the paged-attention
-   and the flash-attention kernels), one ``nvcc`` each for ``sm_90a``, all
-   started together (seconds and ``-Xptxas -v`` lines printed);
+2. build: every source under ``paddle_tpu_torch/csrc/`` (the paged-attention,
+   flash-attention and fused 1x1 conv kernels), one ``nvcc`` each for
+   ``sm_90a``, all started together (seconds and ``-Xptxas -v`` lines
+   printed);
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence), each launch synchronised and compared; then
@@ -54,7 +55,36 @@ Phases:
    model-FLOP share (``bench.py``'s count over 989 TFLOP/s); each flash
    kernel launched exactly 12 x the steps run; one profiled step: device
    busy ms, idle share, the top kernels and the flash kernels' share;
-6. a ``{"kernels": [...]}`` line (all five kernels) and, last,
+6. ResNet-50 training: ``ResNet50(class_dim=1000, data_format='NHWC')`` at
+   full depth from ``resnet_init_params(50, 1000, 'NHWC', seed)``, the
+   batch ``bench.py`` makes (128 images of N(0, 1) at 224x224, uniform
+   labels in [0, 1000)); f32 checks first: its training-mode logits
+   against an NCHW instance loaded with the same weights (relative 1e-4)
+   and the s2d stem ConvBNLayer against the plain one (atol and rtol 1e-4,
+   as the reference's test); then ``TrainStep(amp_dtype=torch.bfloat16)``
+   with ``Momentum(0.1, momentum=0.9)``: 2 warm-up and 20 timed steps,
+   each synchronised, every loss finite and the last below the first,
+   every master parameter f32; images/s, step p50, min and max, peak
+   device memory and the model-FLOP share (``bench.py``'s 12.3 GFLOP per
+   image over 989 TFLOP/s); ``bench.py``'s s2d A/B (10 timed steps with
+   ``stem_space_to_depth=True``); one profiled step: device busy ms, idle
+   share, the top kernels and any NCHW/NHWC transpose kernels;
+7. K4 (the fused 1x1 conv + BN + act kernel) against its plain version at
+   every distinct (M, K, N) of the model's 33 stride-1 1x1 ConvBNLayers
+   at batch 128 (which include ``tools/bench_fused_conv.py``'s four
+   shapes), bf16 and f32, act None and relu: bf16 within one bf16 ulp,
+   f32 within 1e-4 absolute and relative; device times of the kernel, the
+   plain version and the library yardstick (``F.conv2d`` on the
+   channels_last input with the weight pre-multiplied by scale and
+   ``bias=shift``, then ``relu_``; timed only, never called by the port)
+   beside the bound. Then K4's path: the trained model in eval mode, the
+   input and output of each of the 33 layers captured in one eval forward
+   in f32 and one with the weights cast to bf16; each layer's BN folded
+   into scale and shift and run through ``fused_conv1x1_bn_act``, held
+   against the layer's own output (f32 atol and rtol 1e-4; bf16 within
+   2**-5 of the sum of the magnitudes the layer rounds, see
+   ``check_k4_on_model``); K4 launched exactly 33 times per pass;
+8. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -92,6 +122,12 @@ PREFILL_RUNGS = (1, 16, 64, 256)
 BERT_SHAPE = (128, 12, 128, 64)
 LM_SHAPE = (8, 8, 512, 64)
 TRAIN_STEPS, WARMUP_STEPS = 20, 2
+# ResNet-50 training: bench.py bench_resnet's on-chip shape and its
+# analytic train FLOPs per image (bench.py:62)
+RESNET_BATCH, RESNET_IMG, RESNET_CLASSES = 128, 224, 1000
+RESNET_GFLOP_PER_IMAGE = 12.3
+RESNET_S2D_STEPS = 10
+K4_PER_PASS = 33                # stride-1 1x1 ConvBNLayers of ResNet-50
 
 
 def log(*parts):
@@ -172,13 +208,13 @@ def bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
                                        else 'operations')
 
 
-def fmt_times(t):
-    line = (f'kernel {t["ms"]:.5f} ms plain {t["plain_ms"]:.5f} ms sdpa '
-            f'{t["library_ms"]:.5f} ms bound {t["bound_ms"]:.5f} ms '
-            f'({t["bound_by"]}); {t["timing"]}')
+def fmt_times(t, library='sdpa'):
+    line = (f'kernel {t["ms"]:.5f} ms plain {t["plain_ms"]:.5f} ms '
+            f'{library} {t["library_ms"]:.5f} ms bound {t["bound_ms"]:.5f} '
+            f'ms ({t["bound_by"]}); {t["timing"]}')
     if 'event_ms' in t:
         line += (f'; back-to-back events: kernel {t["event_ms"]:.5f} plain '
-                 f'{t["plain_event_ms"]:.5f} sdpa '
+                 f'{t["plain_event_ms"]:.5f} {library} '
                  f'{t["library_event_ms"]:.5f} ms')
     return line
 
@@ -563,14 +599,16 @@ def train(seed, dev, card):
         f'bf16')
     log(f'launches on the training path: {launches} ({steps} steps x '
         f'{layers} layers = {want} each)')
-    profile_train_step(step, feeds, p50, card)
+    profile_train_step(step, feeds, p50, card,
+                       {'flash kernels': lambda key: 'flash_' in key})
     return launches
 
 
-def profile_train_step(step, feeds, step_ms, card):
+def profile_train_step(step, feeds, step_ms, card, groups):
     """Where a training step's time goes: the device's busy ms in one
     profiled step against the step's p50 on the host clock, the kernels
-    that take it, and the flash kernels' share."""
+    that take it, and for each ``label: match`` of ``groups`` the share of
+    the kernels whose name ``match``es."""
     prof = profiled(lambda: step(*feeds))
     busy_ms = device_us(prof) / 1e3
     if busy_ms <= 0:
@@ -582,14 +620,363 @@ def profile_train_step(step, feeds, step_ms, card):
         return getattr(e, 'self_device_time_total', 0.0) / 1e3
 
     events = sorted(prof.key_averages(), key=lambda e: -dev_ms(e))
-    flash_ms = sum(dev_ms(e) for e in events if 'flash_' in e.key)
+    shares = []
+    for label, match in groups.items():
+        matched = [e for e in events if match(e.key)]
+        ms = sum(dev_ms(e) for e in matched)
+        shares.append(f'{label} {ms:.3f} ms = {ms / busy_ms:.3f} of busy, '
+                      f'{sum(e.count for e in matched)} launches')
     log(f'train step [{card}]: p50 {step_ms:.3f} ms on the host clock, '
         f'device busy {busy_ms:.3f} ms, idle share '
-        f'{1 - busy_ms / step_ms:.3f}; flash kernels {flash_ms:.3f} ms = '
-        f'{flash_ms / busy_ms:.3f} of busy')
+        f'{1 - busy_ms / step_ms:.3f}; ' + '; '.join(shares))
     for e in events[:12]:
         log(f'  {dev_ms(e):.4f} ms  {dev_ms(e) / busy_ms:.3f}  '
             f'{e.count} calls  {e.key[:90]}')
+
+
+def resnet_loss(model, x, y):
+    """bench.py's loss: the logits cast to f32, softmax cross entropy, the
+    batch mean."""
+    from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
+    loss, _ = softmax_with_cross_entropy(model(x).float(), y)
+    return loss.mean()
+
+
+def resnet_model(named, fmt, dev, seed, s2d=False):
+    from paddle_tpu_torch.convert import resnet_state_dict_from_paddle
+    from paddle_tpu_torch.models import ResNet50
+    model = ResNet50(RESNET_CLASSES, fmt, stem_space_to_depth=s2d,
+                     device=dev, seed=seed)
+    model.load_state_dict(resnet_state_dict_from_paddle(named, fmt))
+    return model
+
+
+def check_resnet_f32(named, model, x, dev, seed):
+    """The NHWC model's f32 training-mode logits against an NCHW instance
+    loaded with the same weights (OIHW copies), and the s2d stem against
+    the plain one; ``model`` is reloaded afterwards (the training-mode
+    forward moved its running statistics)."""
+    import torch
+    from paddle_tpu_torch.convert import resnet_state_dict_from_paddle
+    from paddle_tpu_torch.models.resnet import ConvBNLayer
+    oihw = {n: (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a)
+            for n, a in named.items()}
+    nchw = resnet_model(oihw, 'NCHW', dev, seed)
+    with torch.no_grad():
+        a = model.train()(x)
+        b = nchw.train()(x.permute(0, 3, 1, 2).contiguous())
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    log(f'ResNet-50 f32 training-mode logits, NHWC against NCHW: max|diff| '
+        f'{(a - b).abs().max().item():.3e} at max|logit| '
+        f'{b.abs().max().item():.3e}, relative {rel:.3e} (limit 1e-4)')
+    if not rel <= 1e-4:
+        raise AssertionError(f'NHWC and NCHW logits differ by {rel}')
+    del nchw, a, b
+    model.load_state_dict(resnet_state_dict_from_paddle(named, 'NHWC'))
+    s2d = ConvBNLayer(3, 64, 7, stride=2, act='relu', data_format='NHWC',
+                      space_to_depth=True, device=dev)
+    s2d.load_state_dict(model.conv.state_dict())
+    with torch.no_grad():
+        want = model.conv.eval()(x)
+        got = s2d.eval()(x)
+    err = compare('s2d stem', got, want, 1e-4, 1e-4)
+    log(f's2d stem ConvBNLayer against the plain stem, f32 eval: max|diff| '
+        f'{err:.3e} (atol 1e-4, rtol 1e-4)')
+    model.train()
+    torch.cuda.empty_cache()
+
+
+def resnet_steps(model, x, y, steps):
+    """``steps`` bf16-AMP Momentum(0.1, 0.9) steps on one batch, each
+    synchronised: (losses, seconds per step, the TrainStep)."""
+    import torch
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    step = TrainStep(model, resnet_loss,
+                     Momentum(0.1, momentum=0.9,
+                              parameter_list=list(model.parameters())),
+                     amp_dtype=torch.bfloat16)
+    losses, secs = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'losses not finite or not falling: {losses}')
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError('a master parameter left f32')
+    return losses, secs, step
+
+
+def train_resnet(seed, dev, card):
+    """Phase 6: ResNet-50 bf16-AMP training at bench.py's on-chip shape;
+    returns the trained model and the batch's images."""
+    import torch
+    from paddle_tpu_torch.convert import resnet_init_params
+    t0 = time.perf_counter()
+    named = resnet_init_params(50, RESNET_CLASSES, 'NHWC', seed)
+    model = resnet_model(named, 'NHWC', dev, seed)
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(RESNET_BATCH, RESNET_IMG, RESNET_IMG, 3)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, RESNET_CLASSES, (RESNET_BATCH, 1))
+                         .astype(np.int64)).to(dev)
+    log(f'ResNet-50 NHWC, class_dim {RESNET_CLASSES}: '
+        f'{sum(p.numel() for p in model.parameters())} parameters, '
+        f'{sum(b.numel() for b in model.buffers())} running statistics; '
+        f'batch {RESNET_BATCH} x {RESNET_IMG}^2; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+    check_resnet_f32(named, model, x, dev, seed)
+
+    xb = x.to(torch.bfloat16)       # bench.py feeds bf16 images on the chip
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, step = resnet_steps(model, xb, y, WARMUP_STEPS + TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    timed_s = secs[WARMUP_STEPS:]
+    img_s = RESNET_BATCH * TRAIN_STEPS / sum(timed_s)
+    p50 = statistics.median(timed_s) * 1e3
+    flops = RESNET_GFLOP_PER_IMAGE * 1e9 * img_s
+    log('ResNet-50 bf16 AMP losses: ' + ' '.join(repr(v) for v in losses))
+    log(f'ResNet-50 trained [{card}]: {WARMUP_STEPS + TRAIN_STEPS} steps '
+        f'({WARMUP_STEPS} warm-up), {img_s:.1f} images/s over the '
+        f'{TRAIN_STEPS} timed steps, step p50 {p50:.3f} ms (min '
+        f'{min(timed_s) * 1e3:.3f}, max {max(timed_s) * 1e3:.3f}); peak '
+        f'device memory {peak} bytes; model FLOPs {RESNET_GFLOP_PER_IMAGE} '
+        f'G per image, {flops / 1e12:.1f} TFLOP/s = '
+        f'{flops / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s bf16')
+    # a transpose kernel would mean a layer dropped channels_last
+    profile_train_step(step, (xb, y), p50, card, {
+        'NCHW/NHWC transpose kernels':
+            lambda key: 'nchwToNhwc' in key or 'nhwcToNchw' in key,
+        'convolutions': lambda key: any(
+            t in key.lower() for t in ('conv', 'xmma', 'cudnn', 'dgrad',
+                                       'wgrad', 'implicit_gemm', 'nvjet')),
+        'reductions': lambda key: 'reduce_kernel' in key,
+        'elementwise': lambda key: 'elementwise' in key,
+        'optimizer (_foreach)': lambda key: 'multi_tensor' in key,
+        'pooling': lambda key: 'pool' in key.lower()})
+
+    # bench.py's A/B of the space-to-depth stem: a fresh model from the
+    # same weights, 2 warm-up and 10 timed steps
+    s2d = resnet_model(named, 'NHWC', dev, seed, s2d=True)
+    _, s2d_secs, _ = resnet_steps(s2d, xb, y, WARMUP_STEPS + RESNET_S2D_STEPS)
+    s2d_rate = (RESNET_BATCH * RESNET_S2D_STEPS
+                / sum(s2d_secs[WARMUP_STEPS:]))
+    log(f'ResNet-50 stem A/B [{card}]: plain {img_s:.1f} images/s, s2d '
+        f'{s2d_rate:.1f} images/s ({RESNET_S2D_STEPS} timed steps), step p50 '
+        f'{statistics.median(s2d_secs[WARMUP_STEPS:]) * 1e3:.3f} ms')
+    del s2d, step
+    torch.cuda.empty_cache()
+    return model, x
+
+
+def k4_layers(model):
+    """(name, ConvBNLayer) of the model's stride-1 1x1 ConvBNLayers, the
+    layers K4 takes: every bottleneck's conv0 (relu) and conv2 (no act),
+    and the first stage's stride-1 shortcut."""
+    from paddle_tpu_torch.models.resnet import ConvBNLayer
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, ConvBNLayer)
+            and tuple(m._conv.weight.shape[2:]) == (1, 1)
+            and m._conv._attrs['stride'] == 1]
+
+
+def check_k4_on_model(model, x, card):
+    """Phase 7, K4's path: the trained model in eval mode; each of its 33
+    stride-1 1x1 ConvBNLayers' input and output captured in one eval
+    forward, in f32 and with the weights cast to bf16; the layer's BN
+    folded (scale = gamma / sqrt(var + eps), shift = beta - mean * scale,
+    from the f32 masters) and run through ``fused_conv1x1_bn_act``.
+
+    f32 is held to atol and rtol 1e-4. In bf16 the layer rounds seven times
+    (its conv output, the mean, the rsqrt, the difference, two products
+    and the sum) besides the AMP cast of gamma and beta, K4 three times
+    (scale, shift, its output); each rounding moves the output by at most
+    2**-8 of one of |c s|, |mean s|, |beta|, |y| (c the f32 conv sum, s
+    the folded scale), and together they come to at most 7 * 2**-8 of
+    their sum B: the bound is 2**-5 B, elementwise.
+
+    Returns (launches in the two passes, the 33 layers' (B, H, W, K, N))."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.ops.pallas_conv import (conv1x1_bn_act,
+                                                  fused_conv1x1_bn_act)
+    layers = k4_layers(model)
+    if len(layers) != K4_PER_PASS:
+        raise AssertionError(f'{len(layers)} stride-1 1x1 ConvBNLayers, '
+                             f'expected {K4_PER_PASS}')
+    model.eval()
+    shapes = []
+    nn_ops.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        captured = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out, n=n: captured.__setitem__(n, (args[0],
+                                                                 out)))
+            for n, m in layers]
+        params = {n: p.detach().to(dtype)
+                  for n, p in model.named_parameters()}
+        with torch.no_grad():
+            torch.func.functional_call(model, params, (x.to(dtype),))
+        for h in hooks:
+            h.remove()
+        before = conv1x1_bn_act.launches
+        worst, worst_b = 0.0, 0.0
+        for n, m in layers:
+            xin, want = captured.pop(n)
+            bn = m._bn
+            scale = bn.weight.detach() / torch.sqrt(
+                bn._variance_buf + bn._attrs['epsilon'])
+            shift = bn.bias.detach() - bn._mean_buf * scale
+            w = params[f'{n}._conv.weight']
+            with torch.no_grad():
+                got = fused_conv1x1_bn_act(xin, w, scale, shift, act=m._act)
+            if dtype == torch.float32:
+                b, h, ww, k = xin.shape
+                shapes.append((b, h, ww, k, w.shape[0]))
+                worst = max(worst, compare(f'K4 on {n} f32', got, want,
+                                           1e-4, 1e-4))
+                worst_b = max(worst_b, ((got - want).abs()
+                                        / (1e-4 + 1e-4 * want.abs()))
+                              .max().item())
+                continue
+            torch.cuda.synchronize()
+            k = xin.shape[-1]
+            c = (xin.reshape(-1, k).float()
+                 @ w.reshape(-1, k).float().t()).reshape(got.shape)
+            bound = (c * scale).abs() + (bn._mean_buf * scale).abs() \
+                + bn.bias.detach().abs() + want.float().abs()
+            err = (got.float() - want.float()).abs()
+            if not bool((err <= 2 ** -5 * bound).all()):
+                raise AssertionError(f'K4 on {n} bf16: max|diff| '
+                                     f'{err.max().item():.3e} beyond 2**-5 '
+                                     f'of B')
+            worst = max(worst, err.max().item())
+            worst_b = max(worst_b, (err / bound).max().item())
+            del c, bound, err
+        torch.cuda.synchronize()
+        ran = conv1x1_bn_act.launches - before
+        if ran != K4_PER_PASS:
+            raise AssertionError(f'K4 launched {ran} times in one '
+                                 f'{dtype} pass, expected {K4_PER_PASS}')
+        log(f'K4 on the trained model, eval {dtype} [{card}]: 33 layers, '
+            f'{ran} launches, max|diff| against the layers {worst:.3e}'
+            + (f', max |diff| / (1e-4 + 1e-4 |y|) {worst_b:.3e} (limit 1)'
+               if dtype == torch.float32 else
+               f', max |diff| / B {worst_b:.3e} (limit 2**-5 = 0.03125)'))
+        del captured, params
+        torch.cuda.empty_cache()
+    launches = nn_ops.launch_counts()
+    return launches, shapes
+
+
+def k4_inputs(shape, dtype, dev, gen):
+    """``tools/bench_fused_conv.py``'s inputs at (B, H, W, K, N)."""
+    import torch
+    b, h, w, k, n = shape
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+
+    return ((randn(b, h, w, k)).to(dtype),
+            (randn(n, k, 1, 1) * 0.05).to(dtype),
+            (torch.rand(n, generator=gen, device=dev) + 0.5).to(dtype),
+            (randn(n) * 0.1).to(dtype))
+
+
+def bf16_ulp_err(got, want, atol=1e-5):
+    """max |got - want| after one bf16 ulp of the larger magnitude (plus
+    ``atol`` for values ReLU cuts at zero) is taken off; <= 0 passes."""
+    import torch
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    return ((got - want).abs() - ulp - atol).max().item()
+
+
+def check_k4_kernel(layer_shapes, dev, card):
+    """Phase 7, K4 against its plain version at every distinct shape of its
+    path (``layer_shapes``, one per layer), bf16 and f32, act None and
+    relu, then its device time (relu) beside the plain version, the
+    library yardstick and the bound, and those times summed over the
+    path's layers. Returns the kernels-line entry at
+    tools/bench_fused_conv.py's first shape (256 -> 64 at 56x56), bf16."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas_conv import (conv1x1_bn_act,
+                                                  fused_conv1x1_bn_act_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    entry = None
+    per_pass = {}             # dtype label -> summed ms over the layers
+    for shape in dict.fromkeys(layer_shapes):
+        b, h, w, k, n = shape
+        m = b * h * w
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wt, sc, sh = k4_inputs(shape, dtype, dev, gen)
+            errs = []
+            for act in (None, 'relu'):
+                got = conv1x1_bn_act(x, wt, sc, sh, act=act)
+                want = fused_conv1x1_bn_act_ref(x, wt, sc, sh, act=act)
+                if dtype == torch.bfloat16:
+                    torch.cuda.synchronize()
+                    over = bf16_ulp_err(got, want)
+                    if over > 0:
+                        raise AssertionError(f'K4 {shape} bf16 act={act}: '
+                                             f'beyond one bf16 ulp by '
+                                             f'{over:.3e}')
+                    errs.append((got.float() - want.float()).abs().max()
+                                .item())
+                else:
+                    errs.append(compare(f'K4 {shape} f32 act={act}', got,
+                                        want, 1e-4, 1e-4))
+            wl = (wt * sc.view(-1, 1, 1, 1)).contiguous(
+                memory_format=torch.channels_last)
+            xl = x.permute(0, 3, 1, 2)            # channels_last view
+
+            def library():
+                return F.conv2d(xl, wl, sh).relu_()
+
+            tm = times_of(
+                timed(lambda: conv1x1_bn_act(x, wt, sc, sh, act='relu'),
+                      iters=50),
+                timed(lambda: fused_conv1x1_bn_act_ref(x, wt, sc, sh,
+                                                       act='relu'),
+                      iters=50),
+                timed(library, iters=50))
+            es = x.element_size()
+            nbytes = (m * k + n * k + m * n + 2 * n) * es
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+                else F32_FLOPS_PER_S
+            bms, by = bound_ms(nbytes, 2 * m * n * k, peak)
+            tm.update(bound_ms=bms, bound_by=by)
+            label = 'bf16' if dtype == torch.bfloat16 else 'f32'
+            log(f'K4 {k}->{n}@{h}x{w} (M {m}) {label} [{card}]: max|diff| '
+                f'{max(errs):.3e}; {fmt_times(tm, "conv2d")}')
+            total = per_pass.setdefault(label, dict.fromkeys(
+                ('ms', 'plain_ms', 'library_ms', 'bound_ms'), 0.0))
+            for key in total:
+                total[key] += layer_shapes.count(shape) * tm[key]
+            if (k, n, h, label) == (256, 64, 56, 'bf16'):
+                entry = {'name': 'conv1x1_bn_act', 'route': 'cuda',
+                         'source': 'paddle_tpu_torch/csrc/conv1x1_bn_act.cu',
+                         'replaces': 'paddle_tpu/ops/pallas_conv.py:93',
+                         'shape': f'M={m} K={k} N={n} ({k}->{n}@{h}x{w}, '
+                                  f'batch {b}) {label}, relu',
+                         'max_abs_err': max(errs), **tm}
+            del x, wt, sc, sh, wl, xl
+        torch.cuda.empty_cache()
+    for label, t in per_pass.items():
+        log(f'K4 over the {len(layer_shapes)} layers of one {label} pass '
+            f'[{card}]: kernel {t["ms"]:.5f} ms, plain {t["plain_ms"]:.5f} '
+            f'ms, conv2d {t["library_ms"]:.5f} ms, bound {t["bound_ms"]:.5f} '
+            f'ms')
+    if entry is None:
+        raise AssertionError('the path has no 256 -> 64 layer at 56x56')
+    return entry
 
 
 def post(port, body, timeout=600):
@@ -805,13 +1192,24 @@ def main(argv=None):
     for kern in flash:
         kern['launches'] = launches[kern['name']]
 
-    # 6. result lines
+    # 6. ResNet-50 training
+    model, x = train_resnet(args.seed, dev, smi)
+
+    # 7. K4: its path (the trained model's 1x1 ConvBNLayers in eval), then
+    # the kernel against its plain version at the path's shapes
+    launches, shapes = check_k4_on_model(model, x, smi)
+    del model, x
+    torch.cuda.empty_cache()
+    k4 = check_k4_kernel(shapes, dev, smi)
+    k4['launches'] = launches['conv1x1_bn_act']
+
+    # 8. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + (('stock',) if 'stock' in kern else ())}
-        for kern in (k1, k2, *flash)]}))
+        for kern in (k1, k2, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))
     return 0

@@ -11,7 +11,9 @@ Entry points run on the CUDA card unless the caller passes ``device='cpu'``
 (device.py). The first slice is the decode-serving path
 (``python -m paddle_tpu_torch.serving.tier.replica``); the second is BERT
 pretraining (``models/bert.py``, ``optimizer.py``, ``dygraph/jit.py``
-``TrainStep``).
+``TrainStep``); the third is ResNet training (``models/resnet.py``,
+``dygraph/nn.py``, Momentum) with the fused 1x1 conv + BN + act op
+(``ops/pallas_conv.py``).
 """
 from .device import resolve_device
 

@@ -13,6 +13,13 @@ differs: Paddle's ``Linear`` stores (in, out), torch's ``nn.Linear``
   :func:`bert_state_dict_from_paddle`, :func:`bert_init_params`. The MLM
   decoder is tied to ``bert.word_emb.weight``, so one tensor is loaded for
   both.
+- ``ResNet``: :func:`resnet_expected_shapes`,
+  :func:`resnet_state_dict_from_paddle`, :func:`resnet_init_params`. The
+  names cover the parameters and BatchNorm's running-statistics buffers.
+  The port's conv weights are OIHW whatever the data format: an NHWC
+  checkpoint's HWIO weights are transposed, an NCHW one's are OIHW
+  already; ``out.weight`` goes from (in, out) to (out, in); BatchNorm's
+  parameters and buffers keep their layout.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch
 
 __all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params',
            'bert_expected_shapes', 'bert_state_dict_from_paddle',
-           'bert_init_params']
+           'bert_init_params', 'resnet_expected_shapes',
+           'resnet_state_dict_from_paddle', 'resnet_init_params']
 
 _LINEARS = ('attn.q', 'attn.k', 'attn.v', 'attn.out', 'ffn1', 'ffn2')
 _BERT_LINEARS = _LINEARS + ('bert.pooler', 'heads.transform', 'heads.nsp')
@@ -92,7 +100,10 @@ def state_dict_from_paddle(named_numpy):
     return _to_state_dict(named_numpy, _infer_shapes(named_numpy), _LINEARS)
 
 
-def _to_state_dict(named_numpy, shapes, linears):
+def _to_state_dict(named_numpy, shapes, linears, relayout=None):
+    """Check names and Paddle-layout shapes, then transpose the Linear
+    weights named by ``linears`` and apply ``relayout(name, arr)`` (if
+    given) to every array."""
     unknown = sorted(set(named_numpy) - set(shapes))
     missing = sorted(set(shapes) - set(named_numpy))
     if unknown:
@@ -108,7 +119,9 @@ def _to_state_dict(named_numpy, shapes, linears):
         if any(name == f'{lin}.weight' or name.endswith(f'.{lin}.weight')
                for lin in linears):
             arr = arr.T
-        out[name] = torch.tensor(arr)
+        if relayout is not None:
+            arr = relayout(name, arr)
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out
 
 
@@ -185,3 +198,117 @@ def bert_init_params(cfg, seed):
     normal with std ``cfg.initializer_range``, Linear biases and
     ``heads.decoder_bias`` 0, LayerNorm scale 1 and bias 0."""
     return _init(bert_expected_shapes(cfg), cfg.initializer_range, seed)
+
+
+# depth -> blocks per stage, bottleneck (expansion 4) or basic blocks
+_RESNET_DEPTHS = {18: ((2, 2, 2, 2), False), 34: ((3, 4, 6, 3), False),
+                  50: ((3, 4, 6, 3), True), 101: ((3, 4, 23, 3), True),
+                  152: ((3, 8, 36, 3), True)}
+
+
+def _conv_bn_shapes(prefix, cin, cout, k, data_format):
+    w = (k, k, cin, cout) if data_format == 'NHWC' else (cout, cin, k, k)
+    return {f'{prefix}._conv.weight': w, f'{prefix}._bn.weight': (cout,),
+            f'{prefix}._bn.bias': (cout,), f'{prefix}._bn._mean_buf': (cout,),
+            f'{prefix}._bn._variance_buf': (cout,)}
+
+
+def resnet_expected_shapes(depth, class_dim, data_format):
+    """{name: shape} of a ``ResNet(depth, class_dim, data_format)``'s
+    parameters and BatchNorm buffers in Paddle layout (conv weights HWIO
+    for NHWC, OIHW for NCHW; ``out.weight`` (in, out)): the JAX model's
+    ``named_parameters()`` in order, then its ``named_buffers()`` in
+    order."""
+    if depth not in _RESNET_DEPTHS:
+        raise ValueError(f'depth must be one of {sorted(_RESNET_DEPTHS)}, '
+                         f'got {depth}')
+    if data_format not in ('NCHW', 'NHWC'):
+        raise ValueError(f'data_format must be NCHW or NHWC, got '
+                         f'{data_format!r}')
+    stages, bottleneck = _RESNET_DEPTHS[depth]
+    layers = _conv_bn_shapes('conv', 3, 64, 7, data_format)
+    cin, blk = 64, 0
+    for i, n in enumerate(stages):
+        f = 64 * 2 ** i
+        cout = f * 4 if bottleneck else f
+        for b in range(n):
+            pre = f'blocks.{blk}.'
+            if bottleneck:
+                convs = [('conv0', cin, f, 1), ('conv1', f, f, 3),
+                         ('conv2', f, cout, 1)]
+            else:
+                convs = [('conv0', cin, f, 3), ('conv1', f, f, 3)]
+            if b == 0:
+                convs.append(('short', cin, cout, 1))
+            for name, ci, co, k in convs:
+                layers.update(_conv_bn_shapes(pre + name, ci, co, k,
+                                              data_format))
+            cin, blk = cout, blk + 1
+    layers.update({'out.weight': (cin, class_dim), 'out.bias': (class_dim,)})
+    params = {n: s for n, s in layers.items() if not n.endswith('_buf')}
+    buffers = {n: s for n, s in layers.items() if n.endswith('_buf')}
+    return {**params, **buffers}
+
+
+def _resnet_dims(named_numpy):
+    """(depth, class_dim) of the ResNet these Paddle-layout arrays describe:
+    blocks per stage from the highest block index and the block kind (a
+    ``conv2`` means bottleneck), classes from ``out.bias``."""
+    if 'out.bias' not in named_numpy:
+        raise KeyError('missing parameter(s): out.bias')
+    blocks = {int(n.split('.')[1]) for n in named_numpy
+              if n.startswith('blocks.') and n.split('.')[1].isdigit()}
+    bottleneck = 'blocks.0.conv2._conv.weight' in named_numpy
+    n = max(blocks, default=-1) + 1
+    for depth, (stages, bn) in _RESNET_DEPTHS.items():
+        if bn == bottleneck and sum(stages) == n:
+            return depth, int(np.shape(named_numpy['out.bias'])[0])
+    raise KeyError(f'no ResNet depth has {n} '
+                   f'{"bottleneck" if bottleneck else "basic"} blocks')
+
+
+def resnet_state_dict_from_paddle(named_numpy, data_format):
+    """Paddle-layout ``{name: ndarray}`` (the JAX ``ResNet``'s
+    ``named_parameters()`` and ``named_buffers()`` as numpy) -> a torch
+    state dict for the port's ``ResNet`` of the same ``data_format``: conv
+    weights HWIO -> OIHW for NHWC (NCHW ones are OIHW already),
+    ``out.weight`` (in, out) -> (out, in), BatchNorm parameters and buffers
+    as they are; all f32. Raises on an unknown or missing name and on a
+    shape that does not match the model the names describe."""
+    depth, class_dim = _resnet_dims(named_numpy)
+    shapes = resnet_expected_shapes(depth, class_dim, data_format)
+
+    def relayout(name, arr):
+        if data_format == 'NHWC' and arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+        return arr
+
+    return _to_state_dict(named_numpy, shapes, ('out',), relayout)
+
+
+def resnet_init_params(depth, class_dim, data_format, seed):
+    """Seeded Paddle-layout parameters and buffers for ``ResNet(depth,
+    class_dim, data_format)`` built on numpy, as the reference initialises
+    them (its distributions, not its bits): conv weights normal with std
+    sqrt(2 / (kh * kw * C_in)), BatchNorm scale 1, bias 0, running mean 0
+    and variance 1, ``out.weight`` uniform in +-1/sqrt(features),
+    ``out.bias`` 0."""
+    rng = np.random.default_rng(int(seed))
+    out = {}
+    for name, shape in resnet_expected_shapes(depth, class_dim,
+                                              data_format).items():
+        if name.endswith('_conv.weight'):
+            if data_format == 'NHWC':
+                kh, kw, cin, _ = shape
+            else:
+                _, cin, kh, kw = shape
+            std = np.sqrt(2.0 / (kh * kw * cin))
+            out[name] = (rng.standard_normal(shape) * std).astype(np.float32)
+        elif name == 'out.weight':
+            stdv = 1.0 / np.sqrt(shape[0])
+            out[name] = rng.uniform(-stdv, stdv, shape).astype(np.float32)
+        elif name.endswith(('_bn.weight', '_variance_buf')):
+            out[name] = np.ones(shape, np.float32)
+        else:
+            out[name] = np.zeros(shape, np.float32)
+    return out

@@ -1,4 +1,7 @@
-"""Dygraph-mode training of the port: the fused training step (jit.py)."""
+"""Dygraph-mode layers (nn.py) and training of the port (the fused
+training step, jit.py)."""
 from .jit import TrainStep
+from .nn import BatchNorm, Conv2D, Dropout, LayerNorm, Linear, Pool2D
 
-__all__ = ['TrainStep']
+__all__ = ['TrainStep', 'Conv2D', 'Pool2D', 'BatchNorm', 'Linear',
+           'LayerNorm', 'Dropout']

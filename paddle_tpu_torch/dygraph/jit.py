@@ -46,7 +46,10 @@ class TrainStep:
     included), the gradients land on the f32 masters through the casts,
     and the optimizer updates in f32. This is not ``torch.autocast``,
     which would keep LayerNorm and softmax in f32 where the reference does
-    not.
+    not. Buffers are not cast: BatchNorm's running statistics stay f32 and
+    move during the step, in place on the layer's own buffers (dygraph/
+    nn.py:BatchNorm), as the JAX step returns its new buffers; ``state()``
+    returns them.
 
     ``donate`` is accepted for the reference's signature: the update is in
     place either way. ``accum_steps > 1``, ``remat``, ``async_fetch``,
@@ -63,7 +66,7 @@ class TrainStep:
         for name, asked in unported.items():
             if asked:
                 raise NotImplementedError(f'TrainStep({name}=...) is not '
-                                          f'ported yet (ROADMAP queue B)')
+                                          f'ported yet (ROADMAP A.4)')
         if amp_dtype is not None and not amp_dtype.is_floating_point:
             raise ValueError(f'amp_dtype must be a floating type, got '
                              f'{amp_dtype}')

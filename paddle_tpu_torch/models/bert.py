@@ -10,9 +10,11 @@ Attention has three paths, as in the JAX model:
   set;
 - otherwise the unfused matmul -> additive mask -> softmax -> matmul path.
 
-Linear layers keep torch's (out, in) weight layout; paddle_tpu_torch/
-convert.py transposes Paddle's (in, out) weights into it. Submodule names
-give exactly the JAX model's ``named_parameters()`` names. Types promote as
+Linear, LayerNorm and Dropout come from dygraph/nn.py, where the reference
+keeps them too. Linear layers keep torch's (out, in) weight layout;
+paddle_tpu_torch/convert.py transposes Paddle's (in, out) weights into it.
+Submodule names give exactly the JAX model's ``named_parameters()`` names.
+Types promote as
 in JAX where an f32 tensor meets bf16 weights under AMP (a (B, 1, 1, S)
 attention bias is f32), so such a mix computes in f32 rather than failing.
 
@@ -22,7 +24,6 @@ generator; the JAX model's bits are not reproduced.
 """
 from __future__ import annotations
 
-import functools
 import math
 import warnings
 
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..dygraph.nn import Dropout, LayerNorm, Linear, _promote
 from ..ops.loss_ops import softmax_with_cross_entropy
 from ..ops.nn_ops import fused_attention
 
@@ -77,67 +79,6 @@ class BertConfig:
         return BertConfig(vocab_size=1024, hidden_size=64,
                           num_hidden_layers=2, num_attention_heads=4,
                           intermediate_size=128, max_position_embeddings=128)
-
-
-def _promote(*ts):
-    """The tensors in their common type (JAX's promotion: bf16 with f32
-    gives f32); the tensors themselves when they already share one, the
-    case of every call but an f32 bias meeting bf16 weights under AMP."""
-    dt = ts[0].dtype
-    if all(t.dtype == dt for t in ts):
-        return ts
-    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
-    return [t if t.dtype == dt else t.to(dt) for t in ts]
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` with Paddle's fused activation (``'gelu'``, the exact
-    erf form, or ``'tanh'``) and JAX's type promotion."""
-
-    def __init__(self, in_features, out_features, act=None, device=None):
-        super().__init__(in_features, out_features, device=device)
-        if act not in (None, 'gelu', 'tanh'):
-            raise NotImplementedError(f'act={act!r}: only gelu and tanh are '
-                                      f'ported')
-        self.act = act
-
-    def forward(self, x):
-        y = F.linear(*_promote(x, self.weight, self.bias))
-        if self.act == 'gelu':
-            return F.gelu(y)
-        return torch.tanh(y) if self.act == 'tanh' else y
-
-
-class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` (epsilon 1e-5, as Paddle's) with JAX's type
-    promotion."""
-
-    def __init__(self, size, device=None):
-        super().__init__(size, eps=1e-5, device=device)
-
-    def forward(self, x):
-        x, w, b = _promote(x, self.weight, self.bias)
-        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
-
-
-class Dropout(nn.Module):
-    """Paddle's ``upscale_in_train`` dropout: in training, zero each entry
-    with probability ``p`` and scale the rest by 1/(1-p); identity in eval
-    and at p = 0. Masks come from ``generator`` when one is given."""
-
-    def __init__(self, p, generator=None):
-        super().__init__()
-        self.p = float(p)
-        self.generator = generator
-
-    def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        if self.generator is None:
-            return F.dropout(x, self.p, training=True)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
-        return x * keep / (1.0 - self.p)
 
 
 class MultiHeadAttention(nn.Module):

@@ -55,6 +55,11 @@ SOURCES = {
         'flash_attention_params_size': (_I, []),
         'flash_attention_error_string': (ctypes.c_char_p, [_I]),
     },
+    # K4: x, w, scale, shift, y, M, N, K, is_bf16, relu, stream
+    'conv1x1_bn_act': {
+        'conv1x1_bn_act': (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        'conv1x1_bn_act_error_string': (ctypes.c_char_p, [_I]),
+    },
 }
 
 _lock = threading.Lock()

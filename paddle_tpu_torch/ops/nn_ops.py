@@ -1,5 +1,6 @@
-"""Attention ops with hand-written CUDA kernels, their wrappers and their
-plain PyTorch versions (counterpart of paddle_tpu/ops/nn_ops.py).
+"""Neural-network ops of the port, their hand-written CUDA kernels'
+wrappers and their plain PyTorch versions (counterpart of
+paddle_tpu/ops/nn_ops.py).
 
 - ``paged_attention`` and ``paged_prefill_attention``: the two ops the
   decode-serving path runs in every attention layer
@@ -9,26 +10,34 @@ plain PyTorch versions (counterpart of paddle_tpu/ops/nn_ops.py).
   flash-attention kernels of csrc/flash_attention.cu
   (``flash_attention_fwd``, ``flash_attention_bwd_dkv``,
   ``flash_attention_bwd_dq``).
+- ``conv2d``, ``pool2d``, ``batch_norm`` and ``relu``: the ops ResNet runs.
+  The reference computes them in XLA, outside any Pallas kernel, so here
+  they are torch's own ops (``F.conv2d``, ``F.max_pool2d``, ...) with
+  Paddle's semantics and the reference's types.
 
-On a CUDA tensor each op launches its kernels or raises; on a CPU tensor it
-runs its plain version (``*_ref``). There is no fallback from a kernel to a
-plain version.
+On a CUDA tensor each kernel op launches its kernels or raises; on a CPU
+tensor it runs its plain version (``*_ref``). There is no fallback from a
+kernel to a plain version.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches`` (see
-:func:`launch_counts` / :func:`reset_launch_counts`), so a run can show that
-the path really went through the kernels.
+:func:`launch_counts` / :func:`reset_launch_counts`, which also cover
+ops/pallas_conv.py's K4), so a run can show that the path really went
+through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'paged_prefill_attention_ref', 'fused_attention',
            'fused_attention_ref', 'fused_attention_fwd_ref',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
+           'conv2d', 'pool2d', 'batch_norm', 'relu',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
 # head dims the kernels are compiled for (csrc/*.cu)
@@ -516,6 +525,164 @@ def fused_attention(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
                                  bool(causal))
 
 
+def _pair(v, n=2):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
+
+
+def _match_weight_dtype(x, w):
+    """The reference's AMP rule: a floating activation meeting a floating
+    weight of another type is cast to the WEIGHT's type (a bf16 weight
+    makes an f32 feed bf16). This is not type promotion."""
+    if (x.is_floating_point() and w.is_floating_point()
+            and x.dtype != w.dtype):
+        return x.to(w.dtype)
+    return x
+
+
+def _nchw(x, data_format):
+    """An NHWC tensor as its NCHW view (channels_last when ``x`` is
+    contiguous, so torch's convolutions and pools run NHWC kernels and
+    nothing is copied); an NCHW tensor as it is."""
+    if data_format == 'NCHW':
+        return x
+    if data_format != 'NHWC':
+        raise ValueError(f'data_format must be NCHW or NHWC, got '
+                         f'{data_format!r}')
+    return x.permute(0, 3, 1, 2)
+
+
+def _from_nchw(y, data_format):
+    return y if data_format == 'NCHW' else y.permute(0, 2, 3, 1)
+
+
+def _same_pads(size, k, s, d):
+    """XLA's SAME padding of one spatial axis: (low, high)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCHW'):
+    """Paddle's conv2d: ``x`` NCHW or NHWC, ``weight`` OIHW whatever the
+    data format (torch's layout; the reference's NHWC weights are HWIO,
+    and convert.py transposes them). ``padding``: an int, a pair, four
+    values (top, bottom, left, right) or ``'SAME'``/``'VALID'`` as XLA
+    reads them. ``x`` takes the weight's type (:func:`_match_weight_dtype`).
+    Runs ``F.conv2d``: the reference computes the convolution in XLA,
+    outside any Pallas kernel."""
+    x = _match_weight_dtype(x, weight)
+    stride, dilation = _pair(stride), _pair(dilation)
+    xc = _nchw(x, data_format)
+    kh, kw = weight.shape[2:]
+    if isinstance(padding, str):
+        if padding.upper() == 'VALID':
+            pads = (0, 0, 0, 0)
+        elif padding.upper() == 'SAME':
+            pads = (_same_pads(xc.shape[2], kh, stride[0], dilation[0])
+                    + _same_pads(xc.shape[3], kw, stride[1], dilation[1]))
+        else:
+            raise ValueError(f'padding {padding!r}: use SAME or VALID')
+    else:
+        p = _pair(padding)
+        pads = (p[0], p[0], p[1], p[1]) if len(p) == 2 else tuple(p)
+    top, bottom, left, right = pads
+    if top == bottom and left == right:
+        pad = (top, left)
+    else:
+        xc = F.pad(xc, (left, right, top, bottom))
+        pad = 0
+    y = F.conv2d(xc, weight, None, stride, pad, dilation, groups)
+    return _from_nchw(y, data_format)
+
+
+def pool2d(x, *, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, data_format='NCHW'):
+    """Paddle's pool2d, as the reference computes it: max pooling pads with
+    -inf; average pooling sums the window and divides by the count of
+    input elements in it (``exclusive``) or by the window's size;
+    ``ceil_mode`` pads the high side so the last partial window is kept;
+    ``global_pooling`` pools each whole feature map. Runs torch's pools,
+    NHWC through a channels_last view."""
+    if pool_type not in ('max', 'avg'):
+        raise ValueError(f'pool_type must be max or avg, got {pool_type!r}')
+    xc = _nchw(x, data_format)
+    if global_pooling:
+        ksize, stride, pad = tuple(xc.shape[2:]), tuple(xc.shape[2:]), (0, 0)
+    else:
+        ksize = _pair(pool_size)
+        stride = _pair(pool_stride if pool_stride is not None else ksize)
+        pad = _pair(pool_padding)
+    extra = [0, 0]
+    if ceil_mode:
+        for i in range(2):
+            rem = (xc.shape[2 + i] + 2 * pad[i] - ksize[i]) % stride[i]
+            extra[i] = stride[i] - rem if rem else 0
+    # (left, right, top, bottom) for F.pad
+    pads = (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0])
+    if pool_type == 'max':
+        if any(extra) or pad[0] > ksize[0] // 2 or pad[1] > ksize[1] // 2:
+            # beyond what max_pool2d's own (-inf) padding can express
+            xc, pad = F.pad(xc, pads, value=-math.inf), (0, 0)
+        y = F.max_pool2d(xc, ksize, stride, pad)
+    else:
+        padded = F.pad(xc, pads) if any(pads) else xc
+        y = F.avg_pool2d(padded, ksize, stride, divisor_override=1)
+        if exclusive:
+            ones = F.pad(torch.ones((1, 1) + tuple(xc.shape[2:]),
+                                    dtype=xc.dtype, device=xc.device), pads)
+            y = y / F.avg_pool2d(ones, ksize, stride, divisor_override=1)
+        else:
+            y = y / math.prod(ksize)
+    return _from_nchw(y, data_format)
+
+
+def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
+               epsilon=1e-5, is_test=False, use_global_stats=False,
+               data_layout='NCHW', sync_stats=False):
+    """Paddle's batch_norm: returns ``(y, new_mean, new_var)``.
+
+    In training the statistics are the f32 batch mean and the BIASED batch
+    variance over every axis but the channel's, and the running ones move
+    as ``momentum * running + (1 - momentum) * batch`` (Paddle's rule, the
+    mirror of torch's ``momentum``; ``F.batch_norm`` would also update with
+    the unbiased variance). ``new_mean``/``new_var`` carry no gradient.
+    With ``is_test`` or ``use_global_stats`` the running statistics
+    normalise and come back unchanged.
+
+    ``y = (x - mean) * rsqrt(var + eps) * scale + bias`` is computed in
+    ``x``'s type, as the reference does: under AMP a bf16 ``x`` with bf16
+    ``scale``/``bias`` gives bf16 ``y`` from f32 statistics, where torch's
+    promotion of bf16 with an f32 buffer would give f32. ``sync_stats`` is
+    not ported (it belongs with distributed training) and raises."""
+    if sync_stats:
+        raise NotImplementedError('batch_norm(sync_stats=True) is not ported '
+                                  'yet (ROADMAP A.9)')
+    if data_layout == 'NCHW' and x.dim() > 2:
+        axes = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+    else:
+        axes = tuple(range(x.dim() - 1))
+        shape = (1,) * (x.dim() - 1) + (-1,)
+    if is_test or use_global_stats:
+        m, v = mean, variance
+        new_mean, new_var = mean, variance
+    else:
+        v, m = torch.var_mean(x.float(), dim=axes, correction=0)
+        with torch.no_grad():
+            new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
+            new_var = (momentum * variance
+                       + (1 - momentum) * v.to(variance.dtype))
+    inv = torch.rsqrt(v.float() + epsilon).to(x.dtype)
+    return ((x - m.to(x.dtype).reshape(shape)) * inv.reshape(shape)
+            * scale.reshape(shape) + bias.reshape(shape)), new_mean, new_var
+
+
+def relu(x):
+    return torch.relu(x)
+
+
 paged_attention.launches = 0
 paged_prefill_attention.launches = 0
 flash_attention_fwd.launches = 0
@@ -526,11 +693,17 @@ _KERNEL_WRAPPERS = (paged_attention, paged_prefill_attention,
                     flash_attention_bwd_dq)
 
 
+def _kernel_wrappers():
+    # K4's wrapper lives in pallas_conv.py, which imports this module
+    from .pallas_conv import conv1x1_bn_act
+    return _KERNEL_WRAPPERS + (conv1x1_bn_act,)
+
+
 def launch_counts():
     """{wrapper name: kernel launches since the last reset}."""
-    return {f.__name__: f.launches for f in _KERNEL_WRAPPERS}
+    return {f.__name__: f.launches for f in _kernel_wrappers()}
 
 
 def reset_launch_counts():
-    for f in _KERNEL_WRAPPERS:
+    for f in _kernel_wrappers():
         f.launches = 0

@@ -8,7 +8,42 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ['adam', 'multi_tensor_adam']
+__all__ = ['momentum', 'multi_tensor_momentum', 'adam', 'multi_tensor_adam']
+
+
+@torch.no_grad()
+def momentum(param, grad, velocity, lr, *, mu=0.9, use_nesterov=False):
+    """Paddle's momentum step, in place on ``param`` and ``velocity``:
+
+        v = mu * v + g
+        p -= lr * v                    (Nesterov: p -= (g + mu * v) * lr)
+
+    ``lr`` is a float or a (1,) tensor. Returns ``param``."""
+    velocity.mul_(mu).add_(grad)
+    if use_nesterov:
+        param.sub_((grad + mu * velocity) * lr)
+    else:
+        param.sub_(lr * velocity)
+    return param
+
+
+@torch.no_grad()
+def multi_tensor_momentum(params, grads, velocities, lr, *, mu=0.9,
+                          use_nesterov=False):
+    """:func:`momentum` over lists of tensors, in place, with torch's
+    multi-tensor (``_foreach``) ops: a few launches for the whole list, the
+    counterpart of the reference's one fused update over all parameters.
+    The arithmetic is :func:`momentum`'s, operation for operation, so each
+    tensor gets the same bits."""
+    torch._foreach_mul_(velocities, mu)
+    torch._foreach_add_(velocities, grads)
+    if use_nesterov:
+        step = torch._foreach_mul(velocities, mu)
+        step = torch._foreach_add(grads, step)
+        torch._foreach_mul_(step, lr)
+    else:
+        step = torch._foreach_mul(velocities, lr)
+    torch._foreach_sub_(params, step)
 
 
 @torch.no_grad()

@@ -118,7 +118,8 @@ def test_greedy_streams_match_jax_scheduler(models):
                                       'paged_prefill_attention': 0,
                                       'flash_attention_fwd': 0,
                                       'flash_attention_bwd_dkv': 0,
-                                      'flash_attention_bwd_dq': 0}
+                                      'flash_attention_bwd_dq': 0,
+                                      'conv1x1_bn_act': 0}
 
 
 def test_eos_and_sampled_replay(models):

@@ -14,6 +14,14 @@ and rtol 8e-3: kernel and plain version both sum in f32 (the kernel's
 tensor-core products carry P and dS as two bf16 terms, about 16 bits) and
 round once to bf16, so they differ by about one bf16 ulp (at most 2**-7
 relative) where the two sums straddle a rounding boundary.
+
+K4 (fused 1x1 conv + BN affine + act): f32 atol 1e-4 and rtol 1e-4 (sums
+of up to 2048 f32 products in another order); bf16 within one bf16 ulp of
+the larger of the two values, plus 1e-5 absolute for values that ReLU cuts
+at zero: kernel and plain version both sum the exact bf16 products in f32
+and round once, so they differ only where the two f32 sums straddle a
+rounding boundary. ResNet-50 on the card against the CPU: rtol 1e-4 (f32
+throughout, TF32 off, sums in another order).
 """
 import numpy as np
 import pytest
@@ -139,7 +147,7 @@ def test_served_engine_goes_through_the_kernels(cuda):
         'paged_attention': engine.stats['decode_steps'] * layers,
         'paged_prefill_attention': engine.stats['prefills'] * layers,
         'flash_attention_fwd': 0, 'flash_attention_bwd_dkv': 0,
-        'flash_attention_bwd_dq': 0}
+        'flash_attention_bwd_dq': 0, 'conv1x1_bn_act': 0}
     for p, out in zip(prompts, outs):
         gaps = max_logit_gaps(model, p, out, pad_len=engine.padded_context)
         assert gaps.max() <= 1e-3
@@ -353,3 +361,169 @@ def test_multi_tensor_adam_gives_adams_bits_on_the_card(cuda):
     for a, b in zip(one + [t for s in one_s for t in s],
                     many + [t for s in many_s for t in s]):
         assert torch.equal(a, b)
+
+
+# (B, H, W, C, O): ResNet-50's bottleneck shapes at batch 128 x 224^2
+# (tools/bench_fused_conv.py's four reduce convs and an expand conv), and
+# odd ones: M off the 128-row tile, C 6 / O 5 (unaligned, scalar loads),
+# K 2048 with O off the 64-column tile, K not a multiple of the K slice
+K4_SHAPES = [(128, 56, 56, 256, 64), (128, 28, 28, 512, 128),
+             (128, 14, 14, 1024, 256), (128, 7, 7, 2048, 512),
+             (128, 56, 56, 64, 256), (2, 8, 8, 16, 12), (1, 4, 4, 6, 5),
+             (3, 7, 5, 2048, 33), (1, 3, 43, 72, 130), (1, 1, 1, 1, 1)]
+
+
+def k4_inputs(shape, dtype, dev, seed=0):
+    b, h, w, c, o = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    return (t(rng.standard_normal((b, h, w, c))),
+            t(rng.standard_normal((o, c, 1, 1)) * c ** -0.5),
+            t(rng.random(o) + 0.5), t(rng.standard_normal(o) * 0.1))
+
+
+def assert_within_bf16_ulp(got, want, atol=1e-5):
+    """|got - want| <= one bf16 ulp of the larger magnitude + atol."""
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), e - 8)
+    err = (got - want).abs()
+    assert bool((err <= ulp + atol).all()), (
+        f'max |diff| {err.max().item():.3e}, beyond one bf16 ulp at '
+        f'{int((err > ulp + atol).sum())} elements')
+
+
+@pytest.mark.parametrize('act', [None, 'relu'], ids=['none', 'relu'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', K4_SHAPES, ids=str)
+def test_conv1x1_kernel_matches_plain(cuda, shape, dtype, act):
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs(shape, dtype, cuda)
+    before = pallas_conv.conv1x1_bn_act.launches
+    got = pallas_conv.fused_conv1x1_bn_act(x, w, sc, sh, act=act)
+    torch.cuda.synchronize()
+    assert pallas_conv.conv1x1_bn_act.launches == before + 1
+    assert got.shape == shape[:3] + (shape[4],) and got.dtype == dtype
+    assert got.is_contiguous()
+    want = pallas_conv.fused_conv1x1_bn_act_ref(x, w, sc, sh, act=act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert_within_bf16_ulp(got, want)
+
+
+def test_conv1x1_kernel_is_bitwise_repeatable(cuda):
+    from paddle_tpu_torch.ops import pallas_conv
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, sc, sh = k4_inputs((4, 14, 14, 1024, 256), dtype, cuda, 1)
+        a = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
+        b = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
+        assert torch.equal(a, b)
+
+
+def test_conv1x1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs((2, 8, 8, 16, 12), torch.float32, cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        pallas_conv.fused_conv1x1_bn_act(x.transpose(1, 2), w, sc, sh)
+    with pytest.raises(ValueError, match='1x1'):
+        pallas_conv.fused_conv1x1_bn_act(
+            x, torch.zeros(12, 16, 3, 3, device=cuda), sc, sh)
+    with pytest.raises(TypeError, match='one type'):
+        pallas_conv.conv1x1_bn_act(x, w, sc.bfloat16(), sh)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        pallas_conv.conv1x1_bn_act(x.half(), w.half(), sc.half(), sh.half())
+    with pytest.raises(ValueError, match='scale'):
+        pallas_conv.fused_conv1x1_bn_act(x, w, sc[:11], sh)
+    with pytest.raises(ValueError, match='NHWC'):
+        pallas_conv.fused_conv1x1_bn_act(x, w, sc, sh, data_format='NCHW')
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        pallas_conv.conv1x1_bn_act(x.cpu(), w.cpu(), sc.cpu(), sh.cpu())
+
+
+def _resnet_losses(named, x, y, dev, steps=3):
+    from paddle_tpu_torch.convert import resnet_state_dict_from_paddle
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models import ResNet50
+    from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def loss_fn(model, x, y):
+        loss, _ = softmax_with_cross_entropy(model(x).float(), y)
+        return loss.mean()
+
+    model = ResNet50(10, 'NHWC', device=dev)
+    model.load_state_dict(resnet_state_dict_from_paddle(named, 'NHWC'))
+    step = TrainStep(model, loss_fn, Momentum(
+        0.01, momentum=0.9, parameter_list=list(model.parameters())))
+    return np.array([float(step(x, y)) for _ in range(steps)]), model
+
+
+def test_resnet50_f32_steps_on_the_card_match_the_cpu(cuda):
+    """Three f32 Momentum(0.01) steps at batch 4, 32x32, TF32 off. At this
+    size the model is ill-conditioned (tests/test_torch_resnet.py: f32
+    rounding moves even the first loss by ~3e-4 at batch 4, and the
+    trajectory is chaotic from the second step on), so the card's losses
+    must stay within 4x the CPU's own spread when its images move by 1e-7
+    relative, plus rtol 1e-4."""
+    from paddle_tpu_torch.convert import resnet_init_params
+    named = resnet_init_params(50, 10, 'NHWC', 0)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, (4, 1))
+    moved = (x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(
+        np.float32)
+    want, _ = _resnet_losses(named, torch.from_numpy(x),
+                             torch.from_numpy(y), 'cpu')
+    spread, _ = _resnet_losses(named, torch.from_numpy(moved),
+                               torch.from_numpy(y), 'cpu')
+    got, _ = _resnet_losses(named, torch.from_numpy(x).to(cuda),
+                            torch.from_numpy(y).to(cuda), cuda)
+    err, own = np.abs(got - want).max(), np.abs(spread - want).max()
+    assert err <= 4 * own + 1e-4 * np.abs(want).max(), (got, want, spread)
+
+
+def test_resnet50_eval_pass_launches_k4_on_every_1x1_layer(cuda):
+    """The 33 stride-1 1x1 ConvBNLayers of an eval forward, each folded
+    and run through K4: 33 launches, each output within atol and rtol
+    1e-4 of the layer's own (f32)."""
+    from paddle_tpu_torch.convert import (resnet_init_params,
+                                          resnet_state_dict_from_paddle)
+    from paddle_tpu_torch.models import ResNet50
+    from paddle_tpu_torch.models.resnet import ConvBNLayer
+    from paddle_tpu_torch.ops import pallas_conv
+    model = ResNet50(10, 'NHWC', device=cuda)
+    model.load_state_dict(resnet_state_dict_from_paddle(
+        resnet_init_params(50, 10, 'NHWC', 2), 'NHWC'))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 32, 32, 3)).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        model.train()(x)                   # running statistics of a batch
+    model.eval()
+    layers = [m for m in model.modules() if isinstance(m, ConvBNLayer)
+              and tuple(m._conv.weight.shape[2:]) == (1, 1)
+              and m._conv._attrs['stride'] == 1]
+    assert len(layers) == 33
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0], out)))
+        for m in layers]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    before = pallas_conv.conv1x1_bn_act.launches
+    for m, xin, want in seen:
+        bn = m._bn
+        scale = bn.weight / torch.sqrt(bn._variance_buf + 1e-5)
+        shift = bn.bias - bn._mean_buf * scale
+        with torch.no_grad():
+            got = pallas_conv.fused_conv1x1_bn_act(xin, m._conv.weight,
+                                                   scale, shift, act=m._act)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert pallas_conv.conv1x1_bn_act.launches == before + 33

@@ -127,7 +127,8 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
                                       'paged_prefill_attention': 0,
                                       'flash_attention_fwd': 0,
                                       'flash_attention_bwd_dkv': 0,
-                                      'flash_attention_bwd_dq': 0}
+                                      'flash_attention_bwd_dq': 0,
+                                      'conv1x1_bn_act': 0}
 
 
 def test_multi_query_read_is_a_later_slice():
