@@ -14,7 +14,10 @@ Phases:
 2. build: every source under ``paddle_tpu_torch/csrc/`` (the paged-attention,
    flash-attention and fused 1x1 conv kernels), one ``nvcc`` each for
    ``sm_90a``, all started together (seconds and ``-Xptxas -v`` lines
-   printed);
+   printed, spill lines included); then each flash body (forward, dK/dV,
+   dQ; bf16 and f32; every head dim) as the loaded library reports it:
+   registers, local memory a thread (spills), static and dynamic shared
+   memory and the CTAs an SM holds;
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence), each launch synchronised and compared; then
@@ -357,6 +360,30 @@ def flash_inputs(rng, dev, shape, dtype, mask=False):
         bias = torch.from_numpy(
             np.where(keep, 0.0, -1e4).astype(np.float32)).to(dev)
     return q, k, v, do, bias
+
+
+def report_flash_build():
+    """Phase 2, the flash bodies (forward, dK/dV, dQ; bf16 and f32; every
+    head dim) as the loaded library reports them: registers, local memory a
+    thread (spills), static and dynamic shared memory, threads and the CTAs
+    an SM holds. Returns the bf16 bodies' figures at D 64, the training
+    path's, by wrapper name."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    at_d64 = {}
+    for kind in nn_ops.FLASH_KINDS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in nn_ops.HEAD_DIMS:
+                info = nn_ops.flash_kernel_info(kind, d, dtype)
+                log(f'{kind} D {d} {str(dtype)[6:]}: {info["registers"]} '
+                    f'registers, {info["spill_bytes"]} B local a thread, '
+                    f'{info["static_smem"]} B static and '
+                    f'{info["dynamic_smem"]} B dynamic shared, '
+                    f'{info["threads"]} threads, {info["ctas_per_sm"]} CTAs '
+                    f'an SM')
+                if dtype == torch.bfloat16 and d == 64:
+                    at_d64[kind] = info
+    return at_d64
 
 
 def check_flash_chain(label, q, k, v, do, bias, causal, tol):
@@ -1172,6 +1199,7 @@ def main(argv=None):
         log(f'build {src}.cu: {i["seconds"]:.1f} s (cached {i["cached"]})')
         for line in i['ptxas']:
             log(f'  {line}')
+    flash_build = report_flash_build()
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
@@ -1191,6 +1219,7 @@ def main(argv=None):
     launches = train(args.seed, dev, smi)
     for kern in flash:
         kern['launches'] = launches[kern['name']]
+        kern['build'] = flash_build[kern['name']]
 
     # 6. ResNet-50 training
     model, x = train_resnet(args.seed, dev, smi)
@@ -1208,7 +1237,8 @@ def main(argv=None):
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')
     log(json.dumps({'kernels': [
-        {k: kern[k] for k in keys + (('stock',) if 'stock' in kern else ())}
+        {k: kern[k] for k in keys + tuple(x for x in ('stock', 'build')
+                                          if x in kern)}
         for kern in (k1, k2, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))

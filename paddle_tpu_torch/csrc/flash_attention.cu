@@ -12,10 +12,12 @@
 // Q, K, V and dO are f32 or bf16 with any row strides (the head-split views
 // of the projections are read in place); O, dQ, dK and dV are written
 // contiguous in the same type. Every sum is f32. Each kernel has two
-// bodies: bf16 runs its products on the tensor cores (WMMA m16n16k16, bf16
-// in, f32 accumulate; P and dS enter the second product as two bf16 terms,
-// so they keep about 16 bits); f32 runs them as plain f32 FMA, since TF32
-// would break the f32 contract.
+// bodies: bf16 runs its products on the tensor cores (bf16 in, f32
+// accumulate; P and dS enter the second product as two bf16 terms, hi +
+// lo, so they keep about 16 bits); f32 runs them as plain f32 FMA, since
+// TF32 would break the f32 contract. The bf16 forward and dK/dV run
+// mma.sync m16n8k16 with every accumulator in registers; the bf16 dQ still
+// runs WMMA m16n16k16 through shared memory.
 //
 // Shapes that bound them, at BERT-base's training step (B 128, H 12, S 128,
 // D 64, bf16) on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
@@ -27,29 +29,48 @@
 //   The stock kernel computes (Q.K^T + ab) * sm_scale, so the JAX op
 //   pre-divides its bias; this one computes the contract directly.
 //   Bound: about 101 MB (Q, K, V read, O and the f32 log-sum-exp written)
-//   against 6.4 GFLOP: bytes, about 30 us; the operations take about 6.5 us
-//   on the bf16 tensor cores.
-//   Design: one CTA per (64-row query tile, head, batch).
-//   The query tile is staged once; K/V tiles of 64 keys stream through
-//   shared memory with an online softmax, so the score matrix never reaches
-//   device memory and each Q, K, V row is read from device memory once per
-//   query tile (S 128 needs two). Writes O and the per-row log-sum-exp
-//   (B, H, Sq) f32 that the backward recomputes P from. Under causal the
-//   key loop stops at the tile's last causal key.
+//   against 6.4 GFLOP: bytes, about 30 us. With P as hi + lo the products
+//   are 9.7 GFLOP, about 10 us at the tensor cores' peak.
+//   Design (bf16): one CTA of 4 warps per (64-row query tile, head, batch),
+//   each warp a 16-row strip; Q and two stages of 64-key K/V tiles reach
+//   shared memory through cp.async, the next K/V tile in flight while the
+//   current one is computed. S = Q.K^T runs on mma.sync with Q and K
+//   fragments from ldmatrix; the scores stay in the accumulator registers,
+//   where scale, bias, mask, the row max and sum (quad shuffles) and
+//   p = exp2((x - m) log2 e) are applied (x and m in the natural-log
+//   domain: a finfo.min bias times log2 e would leave the f32 range); the
+//   accumulator layout is the next product's A layout, so P is split into
+//   hi and lo fragments in registers and P.V runs on mma.sync with V from
+//   ldmatrix.trans. O is rescaled and summed in registers, normalised once
+//   and staged through the Q buffer for 16-byte stores. What bounds it on
+//   this card: not bytes (it moves them at about half the memory rate) but
+//   the issue of its products, ldmatrix reads and elementwise work: 12
+//   warps an SM (143 registers, 3 CTAs) hold too little in flight to hide
+//   the mma.sync latencies, and hi + lo costs a third more products than
+//   one bf16 P. An interior tile (no bias, no ragged or causal edge) takes
+//   a branch-free path; the masked path tests each score.
+//   Writes O and the per-row log-sum-exp (B, H, Sq) f32 that the backward
+//   recomputes P from, in natural log: m + (log2 l) ln 2.
 //
 // flash_attention_bwd_dkv                                           (K3b)
 //   Replaces: the stock _flash_attention_bwd_dkv (flash_attention.py:1121).
 //   Computes dK and dV from Q, K, V, bias, dO, the log-sum-exp and
 //   di = rowsum(O . dO) (computed by the wrapper in torch, as the stock code
 //   computes it outside its Pallas calls).
-//   Bound: about 152 MB against 12.9 GFLOP: bytes, about 45 us; the
-//   operations take about 13 us on the bf16 tensor cores.
-//   Design: one CTA per (64-key tile, head, batch) looping over query tiles:
-//   K and V are staged once, Q and dO stream. It recomputes
-//   P^T = exp(K.Q^T * sm_scale + bias - lse), takes dS^T = P^T o (dP^T - di)
-//   and accumulates dV = P^T.dO and dK = dS^T.Q * sm_scale in registers.
-//   Every dK/dV row is owned by one CTA, so no atomics are needed and the
-//   gradients are deterministic.
+//   Bound: about 152 MB against 12.9 GFLOP: bytes, about 45 us; with P^T
+//   and dS^T as hi + lo the products are 19.3 GFLOP, about 20 us at peak.
+//   Design (bf16): one CTA of 4 warps per (64-key tile, head, batch), each
+//   warp a 16-key strip that owns its dK and dV rows (no atomics, so the
+//   gradients are deterministic). K and V are loaded once; Q, dO and their
+//   lse and di rows stream in 64-query tiles through a two-stage cp.async
+//   ring. Per 32-query block, in registers: S^T = K.Q^T and dP^T = V.dO^T
+//   on mma.sync; P^T = exp2((S^T sm_scale + bias - lse) log2 e),
+//   dS^T = P^T o (dP^T - di); then dV += P^T.dO and dK += dS^T.Q with P^T
+//   and dS^T re-laid as hi + lo A fragments and dO and Q from
+//   ldmatrix.trans. dK and dV stay in registers for the whole loop and are
+//   written once, scaled, through the strip's own K and V rows. What bounds
+//   it: as the forward, the issue of six products per block (168
+//   registers, 12 warps an SM) rather than bytes.
 //
 // flash_attention_bwd_dq                                            (K3b)
 //   Replaces: the stock _flash_attention_bwd_dq (flash_attention.py:1456).
@@ -59,31 +80,25 @@
 //   tiles; Q and dO staged once. dQ = dS.K * sm_scale accumulates in
 //   registers. When the bias needs a gradient it also writes dS in f32
 //   (B, H, Sq, Sk), which the wrapper sums to the bias's shape, as the stock
-//   backward returns `ds`.
+//   backward returns `ds`. bf16 runs WMMA: a warp's f32 score strips go
+//   through shared memory for the elementwise work (the accumulator
+//   fragments' layout is opaque), and that pass, not the products, bounds
+//   it. mma.sync with the scores in registers, as the forward and dK/dV
+//   now run, is the way on.
 //
-// The three kernels use the same exponent (expf of the same f32 score, bias
-// added after the scale), the same mask and the same log-sum-exp, so the P
-// the backward recomputes is the P the forward normalised.
+// The three kernels use the same mask and the same log-sum-exp, and the
+// same exponent up to rounding (expf in dQ and the f32 bodies, exp2 of the
+// same natural-log exponent times log2 e in the bf16 forward and dK/dV),
+// so the P the backward recomputes is the P the forward normalised.
 //
-// What the design does about the bound: it keeps every S x S intermediate
-// (scores, P, dP, dS) in registers and shared memory, so device memory
-// traffic is the inputs and outputs alone, the bytes the bound counts plus
-// one re-read of K/V (forward, dQ) or Q/dO (dK/dV) per 64-row tile.
-// - bf16 (the training path): 4 warps per 64-row tile, each a 16-row strip;
-//   the tiles stay bf16 in shared memory and feed WMMA directly; the
-//   softmax and gradient elementwise work reads the f32 score strips from
-//   shared memory (WMMA's accumulator layout is opaque). The products no
-//   longer bound the kernel; the elementwise pass through shared memory
-//   does. mma.sync with register-resident softmax, then wgmma with TMA, is
-//   the way on.
-// - f32: 256 threads per tile, each owning a 4 x 4 register block of the
-//   64 x 64 score tile (rows and columns 16 apart, so the float4 reads of
-//   shared rows padded by 4 floats are free of bank conflicts), compute-
-//   bound on the f32 FMA pipe.
+// f32 bodies: 256 threads per 64-row tile, each owning a 4 x 4 register
+// block of the 64 x 64 score tile (rows and columns 16 apart, so the
+// float4 reads of shared rows padded by 4 floats are free of bank
+// conflicts), compute-bound on the f32 FMA pipe.
 //
 // Head dims: D in {16, 32, 64, 128}, templated. Shared memory is dynamic
 // (up to 170 KB for the f32 dK/dV at D 128), raised above 48 KB with
-// cudaFuncSetAttribute before each launch.
+// cudaFuncSetAttribute once per kernel and device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -513,7 +528,8 @@ flash_bwd_dkv_kernel(const FlashParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the products on the tensor cores (WMMA m16n16k16, f32 accumulators)
+// bf16 dQ: the products on the tensor cores (WMMA m16n16k16, f32
+// accumulators)
 // ---------------------------------------------------------------------------
 //
 // One CTA of 4 warps per 64-row tile, each warp a 16-row strip. Tiles stay
@@ -632,116 +648,6 @@ __device__ __forceinline__ void store_strip(FragC (&acc)[kD / 16], float scale,
 
 template <int kD>
 __global__ void __launch_bounds__(kThreadsTC)
-flash_fwd_tc_kernel(const FlashParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kLD = tc_ld<kD>();
-  constexpr int kSC = sc_ld<kD>();
-  constexpr int kOL = kD + 4;
-  constexpr int kWarpF = 16 * kSC + 16 * kOL + 16;   // floats per warp
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTile * kLD;
-  bf16* v_s = k_s + kTile * kLD;
-  float* fbase = reinterpret_cast<float*>(v_s + kTile * kLD);
-  float* sc = fbase + warp * kWarpF;   // scores, then the P.V strip
-  float* os = sc + 16 * kSC;           // the running O strip
-  float* rs = os + 16 * kOL;           // per-row alpha
-  bf16* pb = reinterpret_cast<bf16*>(fbase + kWarpsTC * kWarpF)
-      + warp * 2 * 16 * kLDB;        // P as hi + lo
-  bf16* pl = pb + 16 * kLDB;
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q_rows = min(kTile, p.Sq - q0);
-  const int w_rows = q_rows - warp * 16;           // this warp's real rows
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_str[0]
-      + h * p.q_str[1] + q0 * p.q_str[2];
-  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_str[0]
-      + h * p.k_str[1];
-  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_str[0]
-      + h * p.v_str[1];
-  const float* bias = p.bias == nullptr ? nullptr
-      : p.bias + b * p.bias_str[0] + h * p.bias_str[1];
-
-  load_tile_tc<kD>(q_s, q, p.q_str[2], q_rows);
-  for (int e = lane; e < 16 * kOL; e += 32) os[e] = 0.f;
-
-  // softmax work: lane pair (2r, 2r + 1) owns row r, 32 columns each
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 32;
-  const int qi = q0 + warp * 16 + r;
-  float m = neg_inf();
-  float l = 0.f;
-
-  const int k_end = p.causal ? min(p.Sk, q0 + kTile) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int k_rows = min(kTile, p.Sk - k0);
-    __syncthreads();
-    load_tile_tc<kD>(k_s, kp + k0 * p.k_str[2], p.k_str[2], k_rows);
-    load_tile_tc<kD>(v_s, vp + k0 * p.v_str[2], p.v_str[2], k_rows);
-    __syncthreads();
-
-    strip_abt<kD>(q_s + warp * 16 * kLD, k_s, sc, kSC);
-    __syncwarp();
-    float* row = sc + r * kSC;
-    float mx = neg_inf();
-    for (int c = c0; c < c0 + 32; ++c) {
-      const int kj = k0 + c;
-      // rows past Sq keep their scores unbiased; they are never stored
-      const float x = qi < p.Sq ? biased(p, bias, row[c], qi, kj)
-          : (kj < p.Sk ? row[c] * p.sm_scale : neg_inf());
-      row[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(kFull, mx, 1)));
-    const float m_use = m_new == neg_inf() ? 0.f : m_new;
-    const float alpha = expf(m - m_use);
-    float sum = 0.f;
-    for (int c = c0; c < c0 + 32; ++c) {
-      const float pj = expf(row[c] - m_use);
-      split_store(pb, pl, r * kLDB + c, pj);
-      sum += pj;
-    }
-    l = l * alpha + sum + __shfl_xor_sync(kFull, sum, 1);
-    m = m_new;
-    if ((lane & 1) == 0) rs[r] = alpha;
-    __syncwarp();
-
-    FragC acc[kD / 16];
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-    strip_pb<kD>(pb, v_s, acc);
-    strip_pb<kD>(pl, v_s, acc);
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n)
-      wmma::store_matrix_sync(sc + n * 16, acc[n], kSC, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * kD; e += 32) {
-      const int rr = e / kD;
-      const int cc = e % kD;
-      os[rr * kOL + cc] = os[rr * kOL + cc] * rs[rr] + sc[rr * kSC + cc];
-    }
-    __syncwarp();
-  }
-
-  const size_t row0 = ((size_t)b * p.H + h) * p.Sq + q0 + warp * 16;
-  if ((lane & 1) == 0) {
-    rs[r] = 1.f / l;
-    if (r < w_rows) p.lse[row0 + r] = m + logf(l);
-  }
-  __syncwarp();
-  bf16* o = static_cast<bf16*>(p.o) + row0 * kD;
-  for (int e = lane; e < 16 * kD; e += 32) {
-    const int rr = e / kD;
-    const int cc = e % kD;
-    if (rr < w_rows) store(o + (size_t)rr * kD + cc, os[rr * kOL + cc] * rs[rr]);
-  }
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kThreadsTC)
 flash_bwd_dq_tc_kernel(const FlashParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int kLD = tc_ld<kD>();
@@ -824,36 +730,419 @@ flash_bwd_dq_tc_kernel(const FlashParams p) {
                   w_rows, lane);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward and dK/dV: mma.sync m16n8k16 with the softmax in registers
+// ---------------------------------------------------------------------------
+//
+// Each warp owns a 16-row strip (query rows in the forward, keys in dK/dV)
+// and keeps every product's accumulator in registers. The fragment layouts
+// of m16n8k16 (PTX ISA, "Matrix fragments for mma.m16n8k16"), lane = 4 g + t:
+//   A (16 x 16, row-major)  a0: row g, cols 2t, 2t+1   a1: row g+8, cols 2t..
+//                           a2: row g, cols 2t+8..     a3: row g+8, cols 2t+8..
+//   B (16 x 8, k x n)       b0: rows 2t, 2t+1 of col g b1: rows 2t+8, 2t+9
+//   C (16 x 8, f32)         c0, c1: row g, cols 2t, 2t+1; c2, c3: row g+8
+// so the C of two neighbouring n-tiles is, element for element, the A of the
+// next product over those 16 columns (acc_to_a), and P or dS never leave the
+// registers. The lower column of each pair sits in the lower 16 bits.
+//
+// Tiles reach shared memory through cp.async (16 bytes a thread, ragged rows
+// zero-filled by the src-size operand) in a two-stage ring, the next tile in
+// flight while the current one is computed; rows are kD + 8 bf16 long, so
+// the eight 16-byte rows an ldmatrix phase reads fall in distinct banks.
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros unless `ok`
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 4 bytes from global to shared memory, asynchronously; zero unless `ok`
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the ith
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(ptr)));
+}
+
+// d += a . b on the tensor cores: 16 x 16 bf16 by 16 x 8 bf16, f32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (ex2.approx: 2 ulp; -inf gives +0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) as two bf16 pairs, hi + lo: together about 16 bits of each, where
+// bf16 alone keeps 8; x in the lower half
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments (hi and lo) of the 16 x 16 block whose columns are the
+// accumulators c0 (columns 0-7) and c1 (columns 8-15).
+__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         unsigned (&hi)[4],
+                                         unsigned (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// ldmatrix row addresses, for a warp reading a 16 x 16 block at (r0, c0) of
+// a bf16 tile with rows of kLD:
+// - as an A fragment, or as the B fragments (ldsm4_t) of two n-tiles of a
+//   k x n block stored k-major: lane l gives row r0 + l % 16, col c0 + 8 (l/16)
+template <int kLD>
+__device__ __forceinline__ const bf16* frag_a(const bf16* t, int r0, int c0,
+                                              int lane) {
+  return t + (r0 + (lane & 15)) * kLD + c0 + ((lane >> 4) << 3);
+}
+// - as the B fragments (ldsm4) of two n-tiles of an n x k block stored
+//   n-major (rows r0..r0+15 are the n index, K rows in Q.K^T): matrices
+//   (rows 0-7, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 0-7), (8-15, 8-15)
+template <int kLD>
+__device__ __forceinline__ const bf16* frag_bt(const bf16* t, int r0, int c0,
+                                               int lane) {
+  return t + (r0 + (lane & 7) + ((lane >> 4) << 3)) * kLD + c0
+      + (((lane >> 3) & 1) << 3);
+}
+
+// Start copying a (rows, kD) bf16 tile with row stride `stride` into
+// `n_rows` shared rows of kD + 8; rows past `rows` are zero-filled.
+template <int kD, int kThr>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                long long stride, int rows,
+                                                int n_rows) {
+  constexpr int kChunks = kD / 8;
+  for (int e = threadIdx.x; e < n_rows * kChunks; e += kThr) {
+    const int r = e / kChunks;
+    const int c = e % kChunks;
+    const bool ok = r < rows;
+    cp_async16(dst + r * (kD + 8) + c * 8, ok ? src + r * stride + c * 8 : src,
+               ok);
+  }
+}
+
+// Write a warp's 16 x kD f32 accumulators (scaled by `scale`, rows of the
+// fragment layout) as bf16 rows `out + r * kD` for r < rows, staged through
+// the warp's own 16 shared rows `stage` (rows of kD + 8) so that each lane
+// stores 16 bytes at a time.
 template <int kD>
-__global__ void __launch_bounds__(kThreadsTC)
-flash_bwd_dkv_tc_kernel(const FlashParams p) {
+__device__ __forceinline__ void store_rows(const float (&acc)[kD / 8][4],
+                                           float scale0, float scale1,
+                                           bf16* stage, bf16* out, int rows,
+                                           int lane) {
+  constexpr int kLD = kD + 8;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * kLD + c) =
+        __floats2bfloat162_rn(acc[n][0] * scale0, acc[n][1] * scale0);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * kLD + c) =
+        __floats2bfloat162_rn(acc[n][2] * scale1, acc[n][3] * scale1);
+  }
+  __syncwarp();
+  constexpr int kChunks = kD / 8;
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks;
+    const int c = e % kChunks;
+    if (r < rows)
+      *reinterpret_cast<uint4*>(out + (size_t)r * kD + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * kLD + c * 8);
+  }
+}
+
+// The two mma.sync bodies' CTA shape: 4 warps, each a 16-row (forward) or
+// 16-key (dK/dV) strip, and at D <= 64 3 CTAs an SM, which caps the
+// registers at 170 a thread (D 128 asks for 2: its dK/dV accumulators alone
+// take kD registers a thread); dK/dV works through each query tile in
+// register blocks of 32 queries. At BERT-base's shape on the H100 this is as
+// fast as 4 CTAs an SM under a 128-register cap, which spills, and faster
+// than 8 warps in 1 or 2 CTAs (PERF.md).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaRows = 16 * kMmaWarps;   // query rows or keys a CTA takes
+constexpr int kDkvSub = 32;
+
+// Forward, bf16. One CTA per (kMmaRows query rows, head, batch); warp w
+// owns rows 16 w .. 16 w + 15 of the tile. K/V tiles of 64 keys stream
+// through a two-stage cp.async ring; each tile re-reads the warp's Q
+// fragments from shared memory (holding them would cost 4 kD / 16 registers
+// a thread for two ldmatrix reads at S 128). The scores x = s sm_scale +
+// bias, the running max m and sum l and the O accumulator stay in
+// registers, and p = 2^((x - m) log2 e). x and m stay in the natural-log
+// domain, so a bias near -FLT_MAX (a finfo.min mask) is never scaled out of
+// the f32 range: a row whose every key it masks gets the same weight on
+// every key, as the softmax gives it. O is normalised once and leaves
+// through the Q buffer.
+template <int kD>
+__global__ void __launch_bounds__(kMmaThreads, kD <= 64 ? 3 : 2)
+flash_fwd_mma_kernel(const FlashParams p) {
+  constexpr int kLD = kD + 8;
+  constexpr int kBM = kMmaRows;
+  constexpr int kThr = kMmaThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kLD = tc_ld<kD>();
-  constexpr int kSC = sc_ld<kD>();
-  constexpr int kWarpF = 16 * kSC + 16 * kLDF;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);          // [kBM][kLD]
+  bf16* kv_s = q_s + kBM * kLD;          // [stage][K, V][kTile][kLD]
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kTile * kLD;
-  bf16* q_s = v_s + kTile * kLD;
-  bf16* do_s = q_s + kTile * kLD;
-  float* lse_s = reinterpret_cast<float*>(do_s + kTile * kLD);
-  float* di_s = lse_s + kTile;
-  float* fbase = di_s + kTile;
-  float* st_w = fbase + warp * kWarpF;  // S^T strip, then the outputs
-  float* dpt_w = st_w + 16 * kSC;
-  // P^T and dS^T, each as hi + lo
-  bf16* pt_b = reinterpret_cast<bf16*>(fbase + kWarpsTC * kWarpF)
-      + warp * 4 * 16 * kLDB;
-  bf16* pt_l = pt_b + 16 * kLDB;
-  bf16* dst_b = pt_l + 16 * kLDB;
-  bf16* dst_l = dst_b + 16 * kLDB;
-
-  const int k0 = blockIdx.x * kTile;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = blockIdx.x * kBM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int k_rows = min(kTile, p.Sk - k0);
-  const int w_rows = k_rows - warp * 16;
+  const int q_rows = min(kBM, p.Sq - q0);
+  const int w0 = warp * 16;                       // the strip's first row
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_str[0]
+      + h * p.q_str[1] + q0 * p.q_str[2];
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_str[0]
+      + h * p.k_str[1];
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_str[0]
+      + h * p.v_str[1];
+  const float* bias = p.bias == nullptr ? nullptr
+      : p.bias + b * p.bias_str[0] + h * p.bias_str[1];
+
+  const int k_end = p.causal ? min(p.Sk, q0 + kBM) : p.Sk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  auto load_kv = [&](int t) {
+    const int k0 = t * kTile;
+    const int rows = min(kTile, p.Sk - k0);
+    bf16* ks = kv_s + (t & 1) * 2 * kTile * kLD;
+    load_rows_async<kD, kThr>(ks, kp + k0 * p.k_str[2], p.k_str[2], rows,
+                              kTile);
+    load_rows_async<kD, kThr>(ks + kTile * kLD, vp + k0 * p.v_str[2],
+                              p.v_str[2], rows, kTile);
+  };
+  load_rows_async<kD, kThr>(q_s, q, p.q_str[2], q_rows, kBM);
+  load_kv(0);
+  cp_async_commit();
+
+  // this thread's two query rows: g and g + 8 of the strip
+  const int qa = q0 + w0 + g;
+  const int qb = qa + 8;
+  const bool live = w0 < q_rows;
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()};
+  float l[2] = {0.f, 0.f};         // this thread's part of the row sums
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * kTile;
+    const bf16* ks = kv_s + (t & 1) * 2 * kTile * kLD;
+    const bf16* vs = ks + kTile * kLD;
+    // under causal a tile that starts past the strip's last row is masked
+    if (live && !(p.causal && k0 > q0 + w0 + 15)) {
+      float s[kTile / 8][4];
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        unsigned qf[4];
+        ldsm4(qf, frag_a<kLD>(q_s, w0, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+          unsigned kf[4];
+          ldsm4(kf, frag_bt<kLD>(ks, np * 16, kk * 16, lane));
+          mma(s[2 * np], qf, kf[0], kf[1]);
+          mma(s[2 * np + 1], qf, kf[2], kf[3]);
+        }
+      }
+
+      // scale, bias and mask; keys past Sk and masked keys are -inf before
+      // the row max. A tile with no bias, no key past Sk and (under causal)
+      // no key past the strip's first row needs only the scale.
+      const bool plain = bias == nullptr && k0 + kTile <= p.Sk
+          && !(p.causal && k0 + kTile - 1 > q0 + w0);
+      if (plain) {
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= p.sm_scale;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qi = e < 2 ? qa : qb;
+            const bool ok = kj < p.Sk && !(p.causal && kj > qi);
+            float bv = 0.f;                       // rows past Sq: unbiased
+            if (ok && bias != nullptr && qi < p.Sq)
+              bv = bias[qi * p.bias_str[2] + kj * p.bias_str[3]];
+            s[j][e] = ok ? fmaf(s[j][e], p.sm_scale, bv) : neg_inf();
+          }
+      }
+      float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        // a row with no attended key so far keeps p = 0 and alpha = 0
+        mu[i] = m_new == neg_inf() ? 0.f : m_new;
+        alpha[i] = exp2_approx((m[i] - mu[i]) * kLog2e);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pj = exp2_approx((s[j][e] - mu[e >> 1]) * kLog2e);
+          s[j][e] = pj;
+          l[e >> 1] += pj;
+        }
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+      // O += P . V, P as hi + lo A fragments straight from the scores
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        unsigned ph[4], pl[4];
+        acc_to_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+        for (int dp = 0; dp < kD / 16; ++dp) {
+          unsigned vf[4];
+          ldsm4_t(vf, frag_a<kLD>(vs, kk * 16, dp * 16, lane));
+          mma(o[2 * dp], ph, vf[0], vf[1]);
+          mma(o[2 * dp], pl, vf[0], vf[1]);
+          mma(o[2 * dp + 1], ph, vf[2], vf[3]);
+          mma(o[2 * dp + 1], pl, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();              // the stage is free for the next load
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+  }
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq + q0 + w0;
+  if (t4 == 0) {
+    // the natural-log log-sum-exp the backward reads: m + log2(l) ln 2
+    if (w0 + g < q_rows) p.lse[row0 + g] = m[0] + log2f(l[0]) * kLn2;
+    if (w0 + g + 8 < q_rows) p.lse[row0 + g + 8] = m[1] + log2f(l[1]) * kLn2;
+  }
+  // the Q rows are free: only this warp read its strip, before the loop's
+  // last barrier
+  store_rows<kD>(o, 1.f / l[0], 1.f / l[1], q_s + w0 * kLD,
+                 static_cast<bf16*>(p.o) + row0 * kD, q_rows - w0, lane);
+}
+
+// dK and dV, bf16. One CTA per (kMmaRows keys, head, batch); warp w owns
+// keys 16 w .. 16 w + 15 and their dK and dV rows, so no two warps write
+// one row and nothing is atomic. K and V are loaded once and re-read as A
+// fragments; query tiles of 64 stream Q, dO and their lse and di rows
+// through a two-stage cp.async ring. For each block of kDkvSub queries, in
+// registers:
+//   S^T = K.Q^T, dP^T = V.dO^T,
+//   P^T = 2^((S^T sm_scale + bias - lse) log2 e) (0 where masked; the sum
+//         in the natural-log domain, as in the forward, so a finfo.min bias
+//         stays finite),
+//   dS^T = P^T o (dP^T - di),
+//   dV += P^T.dO, dK += dS^T.Q (P^T and dS^T as hi + lo A fragments).
+template <int kD>
+__global__ void __launch_bounds__(kMmaThreads, kD <= 64 ? 3 : 2)
+flash_bwd_dkv_mma_kernel(const FlashParams p) {
+  constexpr int kLD = kD + 8;
+  constexpr int kBN = kMmaRows;
+  constexpr int kThr = kMmaThreads;
+  constexpr int kSub = kDkvSub;        // query columns per register block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);           // [kBN][kLD]
+  bf16* v_s = k_s + kBN * kLD;                             // [kBN][kLD]
+  bf16* qd_s = v_s + kBN * kLD;          // [stage][Q, dO][kTile][kLD]
+  float* lse_s = reinterpret_cast<float*>(qd_s + 4 * kTile * kLD);
+  float* di_s = lse_s + 2 * kTile;                       // [stage][kTile]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int k0 = blockIdx.x * kBN;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k_rows = min(kBN, p.Sk - k0);
+  const int w0 = warp * 16;                       // the strip's first key
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_str[0]
       + h * p.q_str[1];
   const bf16* dop = static_cast<const bf16*>(p.d_o) + b * p.do_str[0]
@@ -866,57 +1155,167 @@ flash_bwd_dkv_tc_kernel(const FlashParams p) {
       : p.bias + b * p.bias_str[0] + h * p.bias_str[1];
   const size_t bh_rows = ((size_t)b * p.H + h) * p.Sq;
 
-  load_tile_tc<kD>(k_s, kp, p.k_str[2], k_rows);
-  load_tile_tc<kD>(v_s, vp, p.v_str[2], k_rows);
-  FragC dk[kD / 16], dv[kD / 16];
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-
   // under causal (top-left) key k0 is first attended by query row k0
   const int q_begin = p.causal ? k0 : 0;
-  for (int q0 = q_begin; q0 < p.Sq; q0 += kTile) {
-    const int q_rows = min(kTile, p.Sq - q0);
-    __syncthreads();
-    load_tile_tc<kD>(q_s, qp + q0 * p.q_str[2], p.q_str[2], q_rows);
-    load_tile_tc<kD>(do_s, dop + q0 * p.do_str[2], p.do_str[2], q_rows);
-    for (int t = threadIdx.x; t < kTile; t += kThreadsTC) {
-      lse_s[t] = t < q_rows ? p.lse[bh_rows + q0 + t] : 0.f;
-      di_s[t] = t < q_rows ? p.di[bh_rows + q0 + t] : 0.f;
+  const int n_tiles = q_begin < p.Sq ? (p.Sq - q_begin + kTile - 1) / kTile
+                                     : 0;
+  auto load_q = [&](int t) {
+    const int q0 = q_begin + t * kTile;
+    const int rows = min(kTile, p.Sq - q0);
+    bf16* qs = qd_s + (t & 1) * 2 * kTile * kLD;
+    load_rows_async<kD, kThr>(qs, qp + q0 * p.q_str[2], p.q_str[2], rows,
+                              kTile);
+    load_rows_async<kD, kThr>(qs + kTile * kLD, dop + q0 * p.do_str[2],
+                              p.do_str[2], rows, kTile);
+    for (int e = threadIdx.x; e < kTile; e += kThr) {
+      const bool ok = e < rows;
+      const size_t r = bh_rows + q0 + (ok ? e : 0);
+      cp_async4(lse_s + (t & 1) * kTile + e, p.lse + r, ok);
+      cp_async4(di_s + (t & 1) * kTile + e, p.di + r, ok);
+    }
+  };
+  load_rows_async<kD, kThr>(k_s, kp, p.k_str[2], k_rows, kBN);
+  load_rows_async<kD, kThr>(v_s, vp, p.v_str[2], k_rows, kBN);
+  if (n_tiles > 0) load_q(0);
+  cp_async_commit();
+
+  // this thread's two keys: g and g + 8 of the strip
+  const int ka = k0 + w0 + g;
+  const int kb = ka + 8;
+  const bool live = w0 < k_rows;
+  const float sl2 = p.sm_scale * kLog2e;
+  float dk[kD / 8][4], dv[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
+    }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_q(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // transposed strips: rows are this warp's 16 keys, columns the queries
-    strip_abt<kD>(k_s + warp * 16 * kLD, q_s, st_w, kSC);
-    strip_abt<kD>(v_s + warp * 16 * kLD, do_s, dpt_w, kLDF);
-    __syncwarp();
-    for (int e = lane; e < 16 * kTile; e += 32) {
-      const int rr = e / kTile;          // key of the strip
-      const int cc = e % kTile;          // query of the tile
-      float pij = 0.f;
-      if (cc < q_rows) {
-        const float x = biased(p, bias, st_w[rr * kSC + cc], q0 + cc,
-                               k0 + warp * 16 + rr);
-        pij = x == neg_inf() ? 0.f : expf(x - lse_s[cc]);
+    const int q0 = q_begin + t * kTile;
+    const bf16* qs = qd_s + (t & 1) * 2 * kTile * kLD;
+    const bf16* ds = qs + kTile * kLD;
+    const float* lse_t = lse_s + (t & 1) * kTile;
+    const float* di_t = di_s + (t & 1) * kTile;
+    // under causal a tile that ends before the strip's first key is masked
+    if (live && !(p.causal && q0 + kTile - 1 < k0 + w0)) {
+#pragma unroll 1
+      for (int c0 = 0; c0 < kTile; c0 += kSub) {
+        float st[kSub / 8][4], dpt[kSub / 8][4];
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = 0.f;
+            dpt[j][e] = 0.f;
+          }
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          unsigned kf[4], vf[4];
+          ldsm4(kf, frag_a<kLD>(k_s, w0, kk * 16, lane));
+          ldsm4(vf, frag_a<kLD>(v_s, w0, kk * 16, lane));
+#pragma unroll
+          for (int np = 0; np < kSub / 16; ++np) {
+            unsigned bq[4], bd[4];
+            ldsm4(bq, frag_bt<kLD>(qs, c0 + np * 16, kk * 16, lane));
+            mma(st[2 * np], kf, bq[0], bq[1]);
+            mma(st[2 * np + 1], kf, bq[2], bq[3]);
+            ldsm4(bd, frag_bt<kLD>(ds, c0 + np * 16, kk * 16, lane));
+            mma(dpt[2 * np], vf, bd[0], bd[1]);
+            mma(dpt[2 * np + 1], vf, bd[2], bd[3]);
+          }
+        }
+        // P^T and dS^T; queries past Sq, keys past Sk and masked pairs give
+        // exactly 0, so nothing from a zero-filled row reaches dK or dV. A
+        // block with no bias, no query past Sq, no key past Sk and (under
+        // causal) no key past its first query needs no test.
+        const bool plain = bias == nullptr && q0 + c0 + kSub <= p.Sq
+            && k0 + w0 + 16 <= p.Sk
+            && !(p.causal && k0 + w0 + 15 > q0 + c0);
+        if (plain) {
+#pragma unroll
+          for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = c0 + 8 * j + 2 * t4 + (e & 1);
+              st[j][e] = exp2_approx(fmaf(st[j][e], sl2, -lse_t[qc] * kLog2e));
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = c0 + 8 * j + 2 * t4 + (e & 1);
+              const int qi = q0 + qc;
+              const int kj = e < 2 ? ka : kb;
+              const bool ok = qi < p.Sq && kj < p.Sk && !(p.causal && kj > qi);
+              float bv = 0.f;
+              if (ok && bias != nullptr)
+                bv = bias[qi * p.bias_str[2] + kj * p.bias_str[3]];
+              const float x = fmaf(st[j][e], p.sm_scale, bv);
+              st[j][e] = ok ? exp2_approx((x - lse_t[qc]) * kLog2e) : 0.f;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c0 + 8 * j + 2 * t4 + (e & 1);
+            dpt[j][e] = st[j][e] * (dpt[j][e] - di_t[qc]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) {
+          unsigned ph[4], pl[4], sh[4], sl[4];
+          acc_to_a(st[2 * kk], st[2 * kk + 1], ph, pl);
+          acc_to_a(dpt[2 * kk], dpt[2 * kk + 1], sh, sl);
+#pragma unroll
+          for (int dp = 0; dp < kD / 16; ++dp) {
+            unsigned f[4];
+            ldsm4_t(f, frag_a<kLD>(ds, c0 + kk * 16, dp * 16, lane));
+            mma(dv[2 * dp], ph, f[0], f[1]);
+            mma(dv[2 * dp], pl, f[0], f[1]);
+            mma(dv[2 * dp + 1], ph, f[2], f[3]);
+            mma(dv[2 * dp + 1], pl, f[2], f[3]);
+            ldsm4_t(f, frag_a<kLD>(qs, c0 + kk * 16, dp * 16, lane));
+            mma(dk[2 * dp], sh, f[0], f[1]);
+            mma(dk[2 * dp], sl, f[0], f[1]);
+            mma(dk[2 * dp + 1], sh, f[2], f[3]);
+            mma(dk[2 * dp + 1], sl, f[2], f[3]);
+          }
+        }
       }
-      split_store(pt_b, pt_l, rr * kLDB + cc, pij);
-      split_store(dst_b, dst_l, rr * kLDB + cc,
-                  pij * (dpt_w[rr * kLDF + cc] - di_s[cc]));
     }
-    __syncwarp();
-    strip_pb<kD>(pt_b, do_s, dv);
-    strip_pb<kD>(pt_l, do_s, dv);
-    strip_pb<kD>(dst_b, q_s, dk);
-    strip_pb<kD>(dst_l, q_s, dk);
+    __syncthreads();              // the stage is free for the next load
   }
+  cp_async_wait<0>();             // K and V, when no query tile ran
+  __syncthreads();
 
-  const size_t key0 = ((size_t)b * p.H + h) * p.Sk + k0 + warp * 16;
-  store_strip<kD>(dk, p.sm_scale, st_w, static_cast<bf16*>(p.dk) + key0 * kD,
-                  w_rows, lane);
-  store_strip<kD>(dv, 1.f, st_w, static_cast<bf16*>(p.dv) + key0 * kD,
-                  w_rows, lane);
+  // the warp's own K and V rows stage its dK and dV rows
+  const size_t key0 = ((size_t)b * p.H + h) * p.Sk + k0 + w0;
+  store_rows<kD>(dk, p.sm_scale, p.sm_scale, k_s + w0 * kLD,
+                 static_cast<bf16*>(p.dk) + key0 * kD, k_rows - w0, lane);
+  store_rows<kD>(dv, 1.f, 1.f, v_s + w0 * kLD,
+                 static_cast<bf16*>(p.dv) + key0 * kD, k_rows - w0, lane);
+}
+
+template <int kD>
+constexpr size_t fwd_mma_smem() {
+  return (size_t)(kMmaRows + 4 * kTile) * (kD + 8) * sizeof(bf16);
+}
+template <int kD>
+constexpr size_t dkv_mma_smem() {
+  return (size_t)(2 * kMmaRows + 4 * kTile) * (kD + 8) * sizeof(bf16)
+      + 4 * kTile * sizeof(float);
 }
 
 template <int kD>
@@ -926,56 +1325,133 @@ template <int kD>
 constexpr size_t tc_tile_bytes() { return (size_t)kTile * tc_ld<kD>() * sizeof(bf16); }
 constexpr size_t tc_strip_bytes() { return (size_t)16 * kLDB * sizeof(bf16); }
 
+// Raise `kernel`'s dynamic shared-memory ceiling to `smem` bytes, once per
+// device: `raised` is the caller's static bit set (one per kernel
+// instantiation, whose shared size never changes).
 template <typename Kernel>
-int launch(Kernel kernel, const FlashParams& p, int tiles, int threads,
-           size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t raise_smem(Kernel kernel, size_t smem, unsigned& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit != 0u && (__atomic_load_n(&raised, __ATOMIC_ACQUIRE) & bit))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess) __atomic_fetch_or(&raised, bit, __ATOMIC_RELEASE);
+  return e;
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, unsigned& raised, const FlashParams& p, int tiles,
+           int threads, size_t smem, cudaStream_t stream) {
+  const cudaError_t e = raise_smem(kernel, smem, raised);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(tiles, p.H, p.B), threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// One launchable body: the kernel, its block, its dynamic shared memory and
+// the rows or keys one CTA takes.
+template <typename Kernel>
+struct Body {
+  Kernel kernel;
+  int threads;
+  size_t smem;
+  int tile;
+};
+
+template <typename Kernel>
+Body<Kernel> body(Kernel kernel, int threads, size_t smem, int tile) {
+  return {kernel, threads, smem, tile};
+}
+
+// the six bodies' raise_smem flags at head dim kD
 template <int kD>
-int launch_fwd(const FlashParams& p, cudaStream_t st) {
-  const int tiles = (p.Sq + kTile - 1) / kTile;
-  if (p.bf16)
-    return launch(flash_fwd_tc_kernel<kD>, p, tiles, kThreadsTC,
-                  3 * tc_tile_bytes<kD>() + kWarpsTC * 2 * tc_strip_bytes()
-                      + kWarpsTC * sizeof(float)
-                            * (16 * sc_ld<kD>() + 16 * (kD + 4) + 16),
-                  st);
-  return launch(flash_fwd_kernel<kD>, p, tiles, kThreads,
-                3 * tile_bytes<kD>() + score_bytes(), st);
+unsigned* raised_flags() {
+  static unsigned raised[6];
+  return raised;
+}
+
+// kind 0: forward, 1: dK/dV, 2: dQ; calls f(Body, its raise_smem flag)
+template <int kD, typename F>
+int with_body(int kind, bool bf16, F&& f) {
+  unsigned* raised = raised_flags<kD>();
+  switch (kind * 2 + (bf16 ? 1 : 0)) {
+    case 0:
+      return f(body(flash_fwd_kernel<kD>, kThreads,
+                    3 * tile_bytes<kD>() + score_bytes(), kTile), raised[0]);
+    case 1:
+      return f(body(flash_fwd_mma_kernel<kD>, kMmaThreads, fwd_mma_smem<kD>(),
+                    kMmaRows), raised[1]);
+    case 2:
+      return f(body(flash_bwd_dkv_kernel<kD>, kThreads,
+                    4 * tile_bytes<kD>() + 2 * score_bytes()
+                        + 2 * kTile * sizeof(float), kTile), raised[2]);
+    case 3:
+      return f(body(flash_bwd_dkv_mma_kernel<kD>, kMmaThreads,
+                    dkv_mma_smem<kD>(), kMmaRows), raised[3]);
+    case 4:
+      return f(body(flash_bwd_dq_kernel<kD>, kThreads,
+                    4 * tile_bytes<kD>() + score_bytes(), kTile), raised[4]);
+    case 5:
+      return f(body(flash_bwd_dq_tc_kernel<kD>, kThreadsTC,
+                    4 * tc_tile_bytes<kD>() + kWarpsTC * 2 * tc_strip_bytes()
+                        + kWarpsTC * sizeof(float)
+                              * (16 * sc_ld<kD>() + 16 * kLDF + 32), kTile),
+               raised[5]);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int kD>
-int launch_dq(const FlashParams& p, cudaStream_t st) {
-  const int tiles = (p.Sq + kTile - 1) / kTile;
-  if (p.bf16)
-    return launch(flash_bwd_dq_tc_kernel<kD>, p, tiles, kThreadsTC,
-                  4 * tc_tile_bytes<kD>() + kWarpsTC * 2 * tc_strip_bytes()
-                      + kWarpsTC * sizeof(float)
-                            * (16 * sc_ld<kD>() + 16 * kLDF + 32),
-                  st);
-  return launch(flash_bwd_dq_kernel<kD>, p, tiles, kThreads,
-                4 * tile_bytes<kD>() + score_bytes(), st);
+int launch_kind(int kind, const FlashParams& p, cudaStream_t st) {
+  // the forward and dQ tile the queries, dK/dV the keys
+  const int rows = kind == 1 ? p.Sk : p.Sq;
+  return with_body<kD>(kind, p.bf16 != 0, [&](auto bd, unsigned& raised) {
+    return launch(bd.kernel, raised, p, (rows + bd.tile - 1) / bd.tile,
+                  bd.threads, bd.smem, st);
+  });
+}
+
+template <int kD>
+int launch_fwd(const FlashParams& p, cudaStream_t st) {
+  return launch_kind<kD>(0, p, st);
 }
 
 template <int kD>
 int launch_dkv(const FlashParams& p, cudaStream_t st) {
-  const int tiles = (p.Sk + kTile - 1) / kTile;
-  if (p.bf16)
-    return launch(flash_bwd_dkv_tc_kernel<kD>, p, tiles, kThreadsTC,
-                  4 * tc_tile_bytes<kD>() + 2 * kTile * sizeof(float)
-                      + kWarpsTC * 4 * tc_strip_bytes()
-                      + kWarpsTC * sizeof(float)
-                            * (16 * sc_ld<kD>() + 16 * kLDF),
-                  st);
-  return launch(flash_bwd_dkv_kernel<kD>, p, tiles, kThreads,
-                4 * tile_bytes<kD>() + 2 * score_bytes()
-                    + 2 * kTile * sizeof(float),
-                st);
+  return launch_kind<kD>(1, p, st);
+}
+
+template <int kD>
+int launch_dq(const FlashParams& p, cudaStream_t st) {
+  return launch_kind<kD>(2, p, st);
+}
+
+// out = {registers, local bytes a thread (spills), static shared bytes,
+// dynamic shared bytes, CTAs an SM holds, threads a CTA}
+template <int kD>
+int kernel_info(int kind, bool bf16, int* out) {
+  return with_body<kD>(kind, bf16, [&](auto bd, unsigned& raised) {
+    cudaError_t e = raise_smem(bd.kernel, bd.smem, raised);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, bd.kernel);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd.kernel,
+                                                      bd.threads, bd.smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = (int)bd.smem;
+    out[4] = blocks;
+    out[5] = bd.threads;
+    return 0;
+  });
 }
 
 }  // namespace
@@ -1006,6 +1482,21 @@ int flash_attention_bwd_dq(const void* params, void* stream) {
 }
 
 int flash_attention_params_size() { return (int)sizeof(FlashParams); }
+
+// What the body `kind` (0 forward, 1 dK/dV, 2 dQ) at head dim `d` in bf16 or
+// f32 was built with and how many of its CTAs an SM holds: out[6] =
+// {registers, spill bytes, static shared, dynamic shared, CTAs per SM,
+// threads per CTA}.
+int flash_attention_kernel_info(int kind, int d, int bf16, int* out) {
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return kernel_info<16>(kind, bf16 != 0, out);
+    case 32: return kernel_info<32>(kind, bf16 != 0, out);
+    case 64: return kernel_info<64>(kind, bf16 != 0, out);
+    case 128: return kernel_info<128>(kind, bf16 != 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 __all__ = ['CSRC_DIR', 'BUILD_DIR', 'SOURCES', 'build', 'build_info',
-           'library', 'nvcc_path']
+           'library', 'nvcc_path', 'use_build']
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -53,6 +53,8 @@ SOURCES = {
         'flash_attention_bwd_dkv': (_I, [_P, _P]),
         'flash_attention_bwd_dq': (_I, [_P, _P]),
         'flash_attention_params_size': (_I, []),
+        # kind (0 fwd, 1 dK/dV, 2 dQ), head dim, bf16, int[6] out
+        'flash_attention_kernel_info': (_I, [_I, _I, _I, _P]),
         'flash_attention_error_string': (ctypes.c_char_p, [_I]),
     },
     # K4: x, w, scale, shift, y, M, N, K, is_bf16, relu, stream
@@ -65,6 +67,7 @@ SOURCES = {
 _lock = threading.Lock()
 _libs = {}
 # source name -> {'seconds', 'cached', 'ptxas'}: what the last build did
+# ('ptxas': the compiler's -Xptxas -v lines, spill lines included)
 build_info = {}
 
 
@@ -120,7 +123,7 @@ def build(names=None):
             build_info[name] = {
                 'seconds': time.perf_counter() - t0, 'cached': False,
                 'ptxas': [ln.strip() for ln in out.splitlines()
-                          if 'ptxas' in ln]}
+                          if 'ptxas' in ln or 'bytes stack frame' in ln]}
     finally:
         for proc, tmp, _ in procs.values():
             if proc.poll() is None:
@@ -129,6 +132,15 @@ def build(names=None):
             if tmp.exists():
                 tmp.unlink()
     return build_info
+
+
+def _load(so, name):
+    lib = ctypes.CDLL(str(so))
+    for fn, (restype, argtypes) in SOURCES[name].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+    return lib
 
 
 def library(name):
@@ -140,10 +152,17 @@ def library(name):
             so = _so_path(name)
             if not so.exists():
                 build([name])
-            lib = ctypes.CDLL(str(so))
-            for fn, (restype, argtypes) in SOURCES[name].items():
-                f = getattr(lib, fn)
-                f.restype = restype
-                f.argtypes = argtypes
-            _libs[name] = lib
+            lib = _libs[name] = _load(so, name)
         return lib
+
+
+def use_build(name, so=None):
+    """Make :func:`library` (and so every wrapper) use the library at
+    ``so`` for source ``name``: another build of that source, compiled
+    elsewhere (a parent commit's copy, say), for timing side by side.
+    ``so=None`` goes back to the package's own build."""
+    with _lock:
+        if so is None:
+            _libs.pop(name, None)
+        else:
+            _libs[name] = _load(so, name)

@@ -37,6 +37,7 @@ __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'fused_attention_ref', 'fused_attention_fwd_ref',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
+           'flash_kernel_info', 'FLASH_KINDS',
            'conv2d', 'pool2d', 'batch_norm', 'relu',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
@@ -397,6 +398,33 @@ def _flash_launch(fn, params, dev):
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f'{fn} kernel launch failed: CUDA error {err} '
                            f'({msg})')
+
+
+FLASH_KINDS = ('flash_attention_fwd', 'flash_attention_bwd_dkv',
+               'flash_attention_bwd_dq')
+
+
+def flash_kernel_info(kind, head_dim, dtype):
+    """What the flash body for ``kind`` (one of :data:`FLASH_KINDS`) at
+    ``head_dim`` in ``dtype`` was built with, read from the loaded library
+    on the current card: ``{'registers', 'spill_bytes', 'static_smem',
+    'dynamic_smem', 'ctas_per_sm', 'threads'}`` (``spill_bytes``: the local
+    memory a thread uses)."""
+    from ._build import library
+    if (kind not in FLASH_KINDS or head_dim not in HEAD_DIMS
+            or dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f'no flash body for {kind}, head_dim {head_dim}, '
+                         f'{dtype}')
+    lib = library('flash_attention')
+    out = (ctypes.c_int * 6)()
+    err = lib.flash_attention_kernel_info(
+        FLASH_KINDS.index(kind), head_dim, int(dtype == torch.bfloat16), out)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f'flash_attention_kernel_info failed: CUDA error '
+                           f'{err} ({msg})')
+    return dict(zip(('registers', 'spill_bytes', 'static_smem',
+                     'dynamic_smem', 'ctas_per_sm', 'threads'), out))
 
 
 def _bwd_state(lse, di, q):

@@ -281,6 +281,137 @@ def test_flash_reads_strided_head_views(cuda):
     assert torch.equal(o, oc) and torch.equal(lse, lsec)
 
 
+def flash_chain(leaves, do, bias, causal, dtype):
+    """Run the autograd Function on ``leaves`` (q, k, v, each a leaf or a
+    view of one) and hold O, the log-sum-exp and the gradients of q, k and
+    v against the plain versions, as test_flash_gradients_match_plain
+    does: the plain backward runs on the forward kernel's own O and
+    log-sum-exp. Returns the gradients (dq, dk, dv) the Function gave."""
+    q, k, v = leaves
+    d = q.shape[-1]
+    kw = {'sm_scale': d ** -0.5, 'causal': causal}
+    for t in (q, k, v):
+        t.retain_grad()
+    before = dict(nn_ops.launch_counts())
+    o = nn_ops.fused_attention(q, k, v, bias, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    after = nn_ops.launch_counts()
+    for name in nn_ops.FLASH_KINDS:
+        assert after[name] == before[name] + 1
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o_k, lse_k = nn_ops.flash_attention_fwd(qd, kd, vd, bias, **kw)
+    assert torch.equal(o_k, o.detach())
+    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(qd, kd, vd, bias, **kw)
+    close(o_k, o_ref, FLASH_TOL[dtype]['o'])
+    close(lse_k, lse_ref, FLASH_TOL[torch.float32]['o'])
+    want = nn_ops.fused_attention_bwd_ref(qd, kd, vd, bias, o_k, lse_k, do,
+                                          **kw)
+    for t, ref in zip((q, k, v), want):
+        assert t.grad.dtype == dtype
+        close(t.grad, ref, FLASH_TOL[dtype]['grad'])
+    return q.grad, k.grad, v.grad
+
+
+def test_flash_bert_head_views_through_the_function(cuda):
+    """BERT-base's head shape (B 2, H 12, S 128, D 64, bf16), q, k and v
+    the head-split views of one fused (B, S, 3 * H * D) projection, read in
+    place by the kernels, with BertModel's (B, 1, 1, S) mask bias."""
+    rng = np.random.default_rng(4)
+    b, h, s, d = 2, 12, 128, 64
+    x = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d), np.float32)
+                         ).to(cuda, torch.bfloat16).requires_grad_()
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+               .transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    keep = rng.random((b, 1, 1, s)) < 0.85
+    keep[..., 0] = True
+    bias = torch.from_numpy(np.where(keep, 0.0, -1e4).astype(np.float32)
+                            ).to(cuda)
+    do = torch.from_numpy(rng.standard_normal((b, h, s, d), np.float32)
+                          ).to(cuda, torch.bfloat16)
+    dq, dk, dv = flash_chain([q, k, v], do, bias, False, torch.bfloat16)
+    # the views' gradients land in the fused projection's gradient
+    for i, g in enumerate((dq, dk, dv)):
+        assert torch.equal(x.grad[..., i * h * d:(i + 1) * h * d],
+                           g.transpose(1, 2).reshape(b, s, h * d))
+
+
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+@pytest.mark.parametrize('s', [1, 65, 129])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_ragged_by_one(cuda, s, dtype, causal):
+    """One row or key past a tile (S 65, 129) and a single one (S 1)."""
+    rng = np.random.default_rng(5)
+
+    def t():
+        return torch.from_numpy(rng.standard_normal((2, 3, s, 64), np.float32)
+                                ).to(cuda, dtype)
+
+    leaves = [t().requires_grad_() for _ in range(3)]
+    flash_chain(leaves, t(), None, causal, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_kernels_are_deterministic(cuda, dtype):
+    """Two launches of the forward and of dK/dV on the same inputs give
+    bitwise the same O, log-sum-exp, dK and dV: every output row is owned
+    by one warp and summed in one order, with no atomics."""
+    q, k, v, do, bias, _ = flash_inputs('mask', 64, dtype, cuda, seed=6)
+    kw = {'sm_scale': 0.125}
+    o1, lse1 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o2, lse2 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    di = nn_ops._row_dot(o1, do)
+    dk1, dv1 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse1, di, do,
+                                              **kw)
+    dk2, dv2 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse1, di, do,
+                                              **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_rows_masked_by_finfo_min(cuda, dtype):
+    """A (B, 1, 1, S) bias of finfo.min on some keys of batch row 0 and on
+    every key of batch row 1, at S 130 (a ragged tile). Times log2 e such a
+    bias leaves the f32 range; the kernels keep every output finite. The
+    log-sum-exp and row 0's O match the plain forward; row 1's O is the
+    softmax's, the same weight on every key (the plain forward's f32 sum
+    leaves that row unnormalised); dQ, dK and dV match the plain backward
+    run on the forward kernel's own O and log-sum-exp."""
+    rng = np.random.default_rng(7)
+    b, h, s, d = 2, 3, 130, 64
+
+    def t():
+        return torch.from_numpy(rng.standard_normal((b, h, s, d), np.float32)
+                                ).to(cuda, dtype)
+
+    q, k, v, do = t(), t(), t(), t()
+    keep = rng.random((b, 1, 1, s)) < 0.7
+    keep[0, ..., 0] = True
+    keep[1] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, np.finfo(np.float32).min)
+                            .astype(np.float32)).to(cuda)
+    kw = {'sm_scale': d ** -0.5}
+    tol = FLASH_TOL[dtype]
+    o, lse = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+    close(lse, lse_ref, FLASH_TOL[torch.float32]['o'])
+    close(o[0], o_ref[0], tol['o'])
+    close(o[1], nn_ops.fused_attention_ref(q, k, v, bias, **kw)[1],
+          tol['o'])
+    di = nn_ops._row_dot(o, do)
+    dk, dv = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, **kw)
+    dq, _ = nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do, **kw)
+    want = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, lse, do, **kw)
+    for got, ref in zip((dq, dk, dv), want):
+        close(got, ref, tol['grad'])
+
+
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 32, device=cuda)
     with pytest.raises(TypeError, match='f32 or bf16'):
