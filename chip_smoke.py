@@ -20,7 +20,9 @@ Phases:
    memory and the CTAs an SM holds;
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
-   24 blocks per sequence), each launch synchronised and compared; then
+   24 blocks per sequence): K1 at ragged contexts up to the full 384 and
+   at the served decode step's (contexts 128-188 on every slot), two
+   launches bitwise equal; each launch synchronised and compared; then
    the device time (torch.profiler) of the kernel, the plain version and
    one PyTorch library call (``scaled_dot_product_attention``, timed only,
    never called by the port), CUDA-event times of the same calls back to
@@ -32,11 +34,14 @@ Phases:
    bf16 with a (B, 1, 1, S) mask bias that takes a gradient (so dS is
    written), and at TransformerLM's causal shape (B 8, H 8, S 512, D 64,
    f32); each chain of launches synchronised and compared, max |diff|
-   printed beside its tolerance; then device times of each kernel, the
-   plain version and the library yardstick
-   (``scaled_dot_product_attention`` forward, and its autograd backward
-   for K3b; timed only, never called by the port) beside the bound (bytes
-   over 3.35 TB/s, or operations over 989 TFLOP/s bf16 or 67 TFLOP/s f32);
+   printed beside its tolerance; rows that a ``finfo.min`` bias masks
+   whole (bf16 at BERT-base's head shape, f32 causal) held to the JAX
+   op's formulation (``fused_attention_ref``'s autograd, in f32); then
+   device times of each kernel, the plain version and the library
+   yardstick (``scaled_dot_product_attention`` forward, and its autograd
+   backward for K3b; timed only, never called by the port) beside the
+   bound (bytes over 3.35 TB/s, or operations over 989 TFLOP/s bf16 or 67
+   TFLOP/s f32);
 4. served path: ``TransformerLM(CausalLMConfig())`` at full width from a
    seed, behind the replica stack's ``ServingServer`` on port 0 (8 slots,
    prompts up to 256, up to 128 new tokens); 16 concurrent ``/generate``
@@ -45,8 +50,8 @@ Phases:
    forcing; the kernels' launch counts equal to decode steps x layers and
    prefills x layers; tokens/s, decode-step p50, prefill ms by rung and
    peak device memory; then a profiled window of decode steps with every
-   slot active: host ms per step, device busy ms and idle share, and the
-   kernels that take the time;
+   slot active: host ms per step, device busy ms and idle share, K1's
+   share of it, and the kernels that take the time;
 5. training: ``BertForPretraining`` at BERT-base width and full depth (110 M
    parameters, ``use_fused_attention=True``, dropouts 0, 128 positions)
    from ``bert_init_params(cfg, seed)``, the batch ``bench.py`` makes (128
@@ -119,6 +124,10 @@ TIMED_LAUNCHES = 200
 
 # kernel shapes of the decode-serving path (replica ENGINE_DEFAULTS)
 S, H, D, BS, NB, MAX_BPS = 8, 8, 64, 16, 256, 24
+# K1's contexts: ragged up to the full 384, and the profiled decode step's
+# (every slot active, prompts of 128 and up to 60 tokens decoded)
+DECODE_CONTEXTS = [1, 17, 384, 100, None, 250, 33, 64]
+SERVED_CONTEXTS = [128, 137, 146, 155, 164, 173, 182, 188]
 PREFILL_RUNGS = (1, 16, 64, 256)
 # flash kernel shapes: BERT-base training (bench.py bench_bert) and the
 # causal TransformerLM (CausalLMConfig(): 8 heads of 64, 512 positions)
@@ -259,11 +268,13 @@ def make_tables(rng, contexts):
     return tables, np.asarray(ctx, np.int32)
 
 
-def check_decode_kernel(rng, dev):
+def check_decode_kernel(rng, dev, contexts):
+    """K1 against its plain version at ``contexts`` (two launches bitwise
+    equal), then its times beside the plain version, SDPA and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import nn_ops
-    contexts = [1, 17, 384, 100, None, 250, 33, 64]
     k_pages, v_pages = make_pool(rng, dev)
     tables, ctx = make_tables(rng, contexts)
     bt = torch.from_numpy(tables).to(dev)
@@ -274,6 +285,11 @@ def check_decode_kernel(rng, dev):
     want = nn_ops.paged_attention_ref(q, k_pages, v_pages, bt, cl,
                                       sm_scale=scale)
     err = compare('paged_decode_attention', got, want)
+    again = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl,
+                                   sm_scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError('paged_decode_attention: two launches differ')
 
     # yardstick: one library call on the pre-gathered dense view
     kd = nn_ops._gather_pages(k_pages, bt, S, H, D)
@@ -294,7 +310,7 @@ def check_decode_kernel(rng, dev):
     bms, by = bound_ms(nbytes, flops)
     return {'name': 'paged_decode_attention', 'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/paged_attention.cu',
-            'replaces': 'paddle_tpu/ops/nn_ops.py:776',
+            'replaces': 'paddle_tpu/ops/nn_ops.py:785',
             'shape': f'S={S} H={H} D={D} BS={BS} NB={NB} max_bps={MAX_BPS} '
                      f'ctx={ctx.tolist()}',
             'max_abs_err': err, 'bound_ms': bms, 'bound_by': by, **tm}
@@ -391,9 +407,9 @@ def check_flash_chain(label, q, k, v, do, bias, causal, tol):
     forward, then dK/dV and dQ, and dS where the bias takes a gradient)
     against the plain versions; returns {quantity: max |diff|}.
 
-    The forward's O and log-sum-exp are held against the plain forward;
+    The forward's O and row statistics are held against the plain forward;
     the gradients against the plain backward run on the forward kernel's
-    own saved O and log-sum-exp (the kernel is deterministic, so a second
+    own saved O and statistics (the kernel is deterministic, so a second
     launch gives the Function's). Fed the plain forward's bf16 O instead,
     ``di = rowsum(O . dO)`` would carry O's one-ulp rounding differences
     into every gradient and measure the forward twice. In f32 the whole
@@ -406,16 +422,16 @@ def check_flash_chain(label, q, k, v, do, bias, causal, tol):
     b = None if bias is None else bias.clone().requires_grad_()
     o = nn_ops.fused_attention(*leaves, b, **kw)
     o.backward(do)
-    o_k, lse_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
-    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+    o_k, st_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o_ref, st_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
     errs = {'o': compare(f'{label} O', o.detach(), o_ref, *tol['o']),
-            'lse': compare(f'{label} lse', lse_k, lse_ref,
-                           *FLASH_TOL['f32']['o'])}
-    refs = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, lse_k, do,
+            'stats': compare(f'{label} row statistics', st_k, st_ref,
+                             *FLASH_TOL['f32']['o'])}
+    refs = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, st_k, do,
                                            **kw)]
     if q.dtype == torch.float32:
         refs.append(nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_ref,
-                                                   lse_ref, do, **kw))
+                                                   st_ref, do, **kw))
     for i, want in enumerate(refs):
         tag = '' if i == 0 else ' (whole chain)'
         for name, leaf, ref in zip(('dq', 'dk', 'dv'), leaves, want):
@@ -439,7 +455,7 @@ def time_flash(q, k, v, do, causal):
     b, h, s, d = q.shape
     sm = d ** -0.5
     kw = {'sm_scale': sm, 'causal': causal}
-    o, lse = nn_ops.flash_attention_fwd(q, k, v, **kw)
+    o, stats = nn_ops.flash_attention_fwd(q, k, v, **kw)
     di = nn_ops._row_dot(o, do)
     fwd = times(lambda: nn_ops.flash_attention_fwd(q, k, v, **kw),
                 lambda: nn_ops.fused_attention_fwd_ref(q, k, v, **kw),
@@ -449,17 +465,17 @@ def time_flash(q, k, v, do, causal):
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                          scale=sm)
     plain_bwd = timed(lambda: nn_ops.fused_attention_bwd_ref(
-        q, k, v, None, o, lse, do, **kw))
+        q, k, v, None, o, stats, do, **kw))
     lib_bwd = timed(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                 retain_graph=True))
     dkv = times_of(timed(lambda: nn_ops.flash_attention_bwd_dkv(
-        q, k, v, None, lse, di, do, **kw)), plain_bwd, lib_bwd)
+        q, k, v, None, stats, di, do, **kw)), plain_bwd, lib_bwd)
     dq = times_of(timed(lambda: nn_ops.flash_attention_bwd_dq(
-        q, k, v, None, lse, di, do, **kw)), plain_bwd, lib_bwd)
-    # bytes: each (B, H, S, D) operand read or written once, the f32
-    # log-sum-exp and di rows; operations: 2 * D per attended pair and
-    # product (QK^T and PV forward; S, dP, dV, dK for dK/dV; S, dP, dQ for
-    # dQ)
+        q, k, v, None, stats, di, do, **kw)), plain_bwd, lib_bwd)
+    # bytes: each (B, H, S, D) operand read or written once, the f32 row
+    # statistics (m and log l) and di rows; operations: 2 * D per attended
+    # pair and product (QK^T and PV forward; S, dP, dV, dK for dK/dV; S,
+    # dP, dQ for dQ)
     row = b * h * s * d * q.element_size()
     vec = b * h * s * 4
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
@@ -467,9 +483,9 @@ def time_flash(q, k, v, do, causal):
         else F32_FLOPS_PER_S
     out = []
     for name, t, nbytes, products in (
-            ('flash_attention_fwd', fwd, 4 * row + vec, 2),
-            ('flash_attention_bwd_dkv', dkv, 6 * row + 2 * vec, 4),
-            ('flash_attention_bwd_dq', dq, 5 * row + 2 * vec, 3)):
+            ('flash_attention_fwd', fwd, 4 * row + 2 * vec, 2),
+            ('flash_attention_bwd_dkv', dkv, 6 * row + 3 * vec, 4),
+            ('flash_attention_bwd_dq', dq, 5 * row + 3 * vec, 3)):
         bms, by = bound_ms(nbytes, products * 2 * pairs * d, peak)
         out.append({'name': name, 'bound_ms': bms, 'bound_by': by, **t})
     return out
@@ -502,8 +518,8 @@ def check_flash_kernels(rng, dev, card):
         log(f'K3/K3b {label} (B, H, S, D)={shape} causal={causal}: max|diff| '
             + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
             + f' (O atol {tol["o"][0]} rtol {tol["o"][1]}, gradients atol '
-              f'{tol["grad"][0]} rtol {tol["grad"][1]}, lse atol {ATOL} '
-              f'rtol {RTOL})')
+              f'{tol["grad"][0]} rtol {tol["grad"][1]}, row statistics '
+              f'atol {ATOL} rtol {RTOL})')
         if not mask:
             timings = time_flash(q, k, v, do, causal)
             for t in timings:
@@ -524,7 +540,65 @@ def check_flash_kernels(rng, dev, card):
                     for t in timings]
         del q, k, v, do, bias
         torch.cuda.empty_cache()
+    for shape, dtype, causal in (((4, 12, 128, 64), torch.bfloat16, False),
+                                 ((2, 8, 130, 64), torch.float32, True)):
+        errs = check_flash_masked_rows(rng, dev, shape, dtype, causal)
+        tol = FLASH_TOL['bf16' if dtype == torch.bfloat16 else 'f32']
+        log(f'K3/K3b finfo.min rows {str(dtype)[6:]} (B, H, S, D)={shape} '
+            f'causal={causal} against fused_attention_ref autograd: max|diff| '
+            + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
+            + f' (O atol {tol["o"][0]} rtol {tol["o"][1]}, gradients atol '
+              f'{tol["grad"][0]} rtol {tol["grad"][1]})')
     return entries
+
+
+def check_flash_masked_rows(rng, dev, shape, dtype, causal):
+    """Rows that a ``finfo.min`` bias masks whole: a (B, 1, 1, S) bias of
+    ``finfo.min`` on about a third of batch row 0's keys and on every key
+    of batch row 1, taking a gradient. The kernels, through the autograd
+    Function, against ``fused_attention_ref``'s autograd (the JAX op's
+    formulation: weight 1/S on each key of a masked row, and under causal
+    on the keys past the diagonal too) on the same values in f32: O, and
+    the gradients of q, k, v and the bias, in f32 whole and in bf16 on
+    batch row 1. In bf16 every gradient is also held, as in
+    :func:`check_flash_chain`, to the plain backward run on the forward
+    kernel's own O (di = rowsum(O . dO) from a bf16 O differs from the f32
+    one by O's rounding, which moves row 0's gradients by more than the
+    bf16 tolerance)."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    q, k, v, do, _ = flash_inputs(rng, dev, shape, dtype)
+    b, _, s, d = shape
+    keep = rng.random((b, 1, 1, s)) < 0.7
+    keep[0, ..., 0] = True
+    keep[1] = False
+    bias = torch.from_numpy(np.where(keep, 0.0, np.finfo(np.float32).min)
+                            .astype(np.float32)).to(dev)
+    kw = {'sm_scale': d ** -0.5, 'causal': causal}
+    tol = FLASH_TOL['bf16' if dtype == torch.bfloat16 else 'f32']
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    o = nn_ops.fused_attention(*leaves, **kw)
+    o.backward(do)
+    refs = [t.float().requires_grad_() for t in (q, k, v, bias)]
+    o_ref = nn_ops.fused_attention_ref(*refs, **kw)
+    o_ref.backward(do.float())
+    errs = {'o': compare('finfo.min rows O', o.detach(), o_ref.detach(),
+                         *tol['o'])}
+    rows = slice(None) if dtype == torch.float32 else slice(1, 2)
+    names = ('dq', 'dk', 'dv', 'dbias')
+    for name, got, want in zip(names, leaves, refs):
+        errs[name] = compare(f'finfo.min rows {name}', got.grad[rows],
+                             want.grad[rows], *tol['grad'])
+    if dtype == torch.bfloat16:
+        o_k, st_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+        dq, dk, dv, ds = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k,
+                                                        st_k, do, **kw)
+        plain = (dq, dk, dv, nn_ops._sum_to(ds, bias.shape))
+        for name, got, want in zip(names, leaves, plain):
+            errs[name] = max(errs[name], compare(
+                f'finfo.min rows {name} (plain backward)', got.grad, want,
+                *tol['grad']))
+    return errs
 
 
 def train(seed, dev, card):
@@ -1157,10 +1231,15 @@ def profile_decode_steps(engine, rng, card, steps=20):
         log(f'decode step [{card}]: {wall_ms:.3f} ms per step; device busy '
             f'share not measured (the profiler recorded no device time)')
         return
+    k1 = [e for e in prof.key_averages() if 'paged_decode' in e.key]
+    k1_ms = sum(getattr(e, 'self_device_time_total', 0.0)
+                for e in k1) / 1e3 / steps
     log(f'decode step [{card}]: {engine.slots} active slots, context '
         f'{prompt_len}-{prompt_len + 3 * steps}: {wall_ms:.3f} ms per step '
         f'on the host clock, device busy {busy_ms:.3f} ms per step, idle '
-        f'share {1 - busy_ms / wall_ms:.3f}')
+        f'share {1 - busy_ms / wall_ms:.3f}; K1 {k1_ms:.4f} ms per step = '
+        f'{k1_ms / busy_ms:.3f} of busy, '
+        f'{sum(e.count for e in k1) // steps} kernel launches per step')
     top = sorted(prof.key_averages(), key=lambda e: -getattr(
         e, 'self_device_time_total', 0.0))[:8]
     for e in top:
@@ -1203,8 +1282,14 @@ def main(argv=None):
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
-    k1 = check_decode_kernel(rng, dev)
+    k1 = check_decode_kernel(rng, dev, DECODE_CONTEXTS)
     log(f'K1 [{smi}]: max|diff| {k1["max_abs_err"]:.3e} {fmt_times(k1)}')
+    served = check_decode_kernel(rng, dev, SERVED_CONTEXTS)
+    log(f'K1 at the served decode step [{smi}]: max|diff| '
+        f'{served["max_abs_err"]:.3e} {fmt_times(served)}')
+    k1['served_shape'] = {key: served[key] for key in (
+        'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+        'bound_by', 'timing')}
     k2 = check_prefill_kernel(rng, dev)
 
     # 3b. flash-attention kernels against their plain versions
@@ -1237,8 +1322,8 @@ def main(argv=None):
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')
     log(json.dumps({'kernels': [
-        {k: kern[k] for k in keys + tuple(x for x in ('stock', 'build')
-                                          if x in kern)}
+        {k: kern[k] for k in keys + tuple(
+            x for x in ('stock', 'build', 'served_shape') if x in kern)}
         for kern in (k1, k2, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))

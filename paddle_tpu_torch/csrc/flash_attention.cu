@@ -15,9 +15,26 @@
 // bodies: bf16 runs its products on the tensor cores (bf16 in, f32
 // accumulate; P and dS enter the second product as two bf16 terms, hi +
 // lo, so they keep about 16 bits); f32 runs them as plain f32 FMA, since
-// TF32 would break the f32 contract. The bf16 forward and dK/dV run
-// mma.sync m16n8k16 with every accumulator in registers; the bf16 dQ still
-// runs WMMA m16n16k16 through shared memory.
+// TF32 would break the f32 contract. The three bf16 bodies run mma.sync
+// m16n8k16 with every accumulator in registers.
+//
+// Saved row statistics. The forward writes, for each query row, the max m
+// of its scores x = s sm_scale + bias and log l, l = sum exp(x - m) over
+// its keys, as two f32 (B, H, Sq) rows (natural log), and the backward
+// recomputes P = exp((x - m) - log l). One log-sum-exp m + log l would do
+// for ordinary rows, but where a finfo.min bias masks every key of a row
+// (m = -FLT_MAX) the sum rounds back to m and drops log l: P would come
+// out 1 on every key where the softmax gives 1/S.
+//
+// The causal mask follows the JAX op, which fills masked scores with
+// finfo.min: they weigh nothing unless every attended key of the row
+// scores -FLT_MAX too, and then the row's scores all tie and the softmax
+// weighs all Sk keys alike, those past the diagonal included. The kernels
+// never visit the masked tiles, so they patch such rows afterwards
+// (lowest_row and the helpers beside it): O is the mean of all Sk V rows
+// and log l = log Sk (forward), and each masked key's dV gains dO / Sk
+// (dK/dV). dS stays 0 on masked pairs: the mask's `where` passes a masked
+// score no gradient.
 //
 // Shapes that bound them, at BERT-base's training step (B 128, H 12, S 128,
 // D 64, bf16) on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16):
@@ -28,9 +45,9 @@
 //   (jax/experimental/pallas/ops/tpu/flash_attention.py:758, with `ab`).
 //   The stock kernel computes (Q.K^T + ab) * sm_scale, so the JAX op
 //   pre-divides its bias; this one computes the contract directly.
-//   Bound: about 101 MB (Q, K, V read, O and the f32 log-sum-exp written)
-//   against 6.4 GFLOP: bytes, about 30 us. With P as hi + lo the products
-//   are 9.7 GFLOP, about 10 us at the tensor cores' peak.
+//   Bound: about 101 MB (Q, K, V read, O and the f32 row statistics
+//   written) against 6.4 GFLOP: bytes, about 30 us. With P as hi + lo the
+//   products are 9.7 GFLOP, about 10 us at the tensor cores' peak.
 //   Design (bf16): one CTA of 4 warps per (64-row query tile, head, batch),
 //   each warp a 16-row strip; Q and two stages of 64-key K/V tiles reach
 //   shared memory through cp.async, the next K/V tile in flight while the
@@ -49,12 +66,12 @@
 //   the mma.sync latencies, and hi + lo costs a third more products than
 //   one bf16 P. An interior tile (no bias, no ragged or causal edge) takes
 //   a branch-free path; the masked path tests each score.
-//   Writes O and the per-row log-sum-exp (B, H, Sq) f32 that the backward
-//   recomputes P from, in natural log: m + (log2 l) ln 2.
+//   Writes O and the row statistics (m, log l) that the backward
+//   recomputes P from, in natural log (log l = (log2 l) ln 2).
 //
 // flash_attention_bwd_dkv                                           (K3b)
 //   Replaces: the stock _flash_attention_bwd_dkv (flash_attention.py:1121).
-//   Computes dK and dV from Q, K, V, bias, dO, the log-sum-exp and
+//   Computes dK and dV from Q, K, V, bias, dO, the row statistics and
 //   di = rowsum(O . dO) (computed by the wrapper in torch, as the stock code
 //   computes it outside its Pallas calls).
 //   Bound: about 152 MB against 12.9 GFLOP: bytes, about 45 us; with P^T
@@ -62,9 +79,9 @@
 //   Design (bf16): one CTA of 4 warps per (64-key tile, head, batch), each
 //   warp a 16-key strip that owns its dK and dV rows (no atomics, so the
 //   gradients are deterministic). K and V are loaded once; Q, dO and their
-//   lse and di rows stream in 64-query tiles through a two-stage cp.async
-//   ring. Per 32-query block, in registers: S^T = K.Q^T and dP^T = V.dO^T
-//   on mma.sync; P^T = exp2((S^T sm_scale + bias - lse) log2 e),
+//   m, log l and di rows stream in 64-query tiles through a two-stage
+//   cp.async ring. Per 32-query block, in registers: S^T = K.Q^T and
+//   dP^T = V.dO^T on mma.sync; P^T = exp2((x - m) log2 e - log2 l),
 //   dS^T = P^T o (dP^T - di); then dV += P^T.dO and dK += dS^T.Q with P^T
 //   and dS^T re-laid as hi + lo A fragments and dO and Q from
 //   ldmatrix.trans. dK and dV stay in registers for the whole loop and are
@@ -72,24 +89,30 @@
 //   it: as the forward, the issue of six products per block (168
 //   registers, 12 warps an SM) rather than bytes.
 //
-// flash_attention_bwd_dq                                            (K3b)
+// flash_attention_bwd_dq                                         (K3b-dq)
 //   Replaces: the stock _flash_attention_bwd_dq (flash_attention.py:1456).
-//   Bound: about 127 MB against 9.7 GFLOP: bytes, about 38 us; the
-//   operations take about 10 us on the bf16 tensor cores.
-//   Design: one CTA per (64-row query tile, head, batch) looping over key
-//   tiles; Q and dO staged once. dQ = dS.K * sm_scale accumulates in
-//   registers. When the bias needs a gradient it also writes dS in f32
-//   (B, H, Sq, Sk), which the wrapper sums to the bias's shape, as the stock
-//   backward returns `ds`. bf16 runs WMMA: a warp's f32 score strips go
-//   through shared memory for the elementwise work (the accumulator
-//   fragments' layout is opaque), and that pass, not the products, bounds
-//   it. mma.sync with the scores in registers, as the forward and dK/dV
-//   now run, is the way on.
+//   Bound: about 127 MB against 9.7 GFLOP: bytes, about 38 us; with dS as
+//   hi + lo the products are 12.9 GFLOP, about 13 us at the tensor cores'
+//   peak.
+//   Design (bf16): one CTA of 4 warps per (64-row query tile, head,
+//   batch), each warp a 16-row strip, as the forward. Q and dO are loaded
+//   once; K/V tiles of 64 stream through a two-stage cp.async ring. Per
+//   32-key block, in registers: S = Q.K^T and dP = dO.V^T on mma.sync (K
+//   and V as n-major B fragments from ldmatrix), P = exp2((x - m) log2 e
+//   - log2 l), dS = P o (dP - di), then dQ += dS.K with dS re-laid as hi +
+//   lo A fragments and K from ldmatrix.trans. dQ stays in registers for
+//   the whole loop and is written once, scaled, through the strip's own Q
+//   rows. When the bias needs a gradient it also writes dS in f32
+//   (B, H, Sq, Sk) straight from the accumulators, which the wrapper sums
+//   to the bias's shape, as the stock backward returns `ds`. A separate
+//   kernel from dK/dV, so neither needs atomics and both are bitwise
+//   repeatable. What bounds it: as the forward, the issue of its five
+//   products per block (S, dP, two for dQ's hi + lo) rather than bytes.
 //
-// The three kernels use the same mask and the same log-sum-exp, and the
-// same exponent up to rounding (expf in dQ and the f32 bodies, exp2 of the
-// same natural-log exponent times log2 e in the bf16 forward and dK/dV),
-// so the P the backward recomputes is the P the forward normalised.
+// The three kernels use the same mask and the same row statistics, and
+// the same exponent up to rounding (expf in the f32 bodies, exp2 of the
+// same natural-log exponent times log2 e in the bf16 bodies), so the P the
+// backward recomputes is the P the forward normalised.
 //
 // f32 bodies: 256 threads per 64-row tile, each owning a 4 x 4 register
 // block of the 64 x 64 score tile (rows and columns 16 apart, so the
@@ -100,11 +123,9 @@
 // (up to 170 KB for the f32 dK/dV at D 128), raised above 48 KB with
 // cudaFuncSetAttribute once per kernel and device.
 
+#include <cfloat>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-namespace wmma = nvcuda::wmma;
 
 struct FlashParams {
   const void* q;
@@ -112,7 +133,8 @@ struct FlashParams {
   const void* v;
   const void* d_o;     // dO, the gradient of O
   const float* bias;   // (B, H, Sq, Sk) through bias_str, or null
-  float* lse;          // (B, H, Sq) f32: written by fwd, read by backward
+  float* row_max;      // (B, H, Sq) f32: each row's max score m; written
+  float* row_log_l;    // by fwd, read by backward; log l, l = sum exp(x - m)
   const float* di;     // (B, H, Sq) f32: rowsum(O . dO)
   void* o;             // (B, H, Sq, D) contiguous
   void* dq;            // (B, H, Sq, D) contiguous
@@ -150,9 +172,53 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+// Patches for causal rows whose every attended key scores -FLT_MAX (the
+// header's "causal mask"): the softmax weighs all Sk keys 1 / Sk there.
+// lowest_row tells such a row by its max, and whether it has masked keys
+// (it lies above the last key). Rare (a finfo.min mask over a whole causal
+// row), so the patches read device memory directly.
+__device__ __forceinline__ bool lowest_row(const FlashParams& p, float m,
+                                           int qi) {
+  return p.causal && m == -FLT_MAX && qi < p.Sq && qi < p.Sk - 1;
+}
+
+// sum over all Sk keys of V[key][c]
+template <typename T>
+__device__ float key_sum(const T* vp, long long stride, int sk, int c) {
+  float s = 0.f;
+  for (int j = 0; j < sk; ++j) s += load_f(vp + j * stride + c);
+  return s;
+}
+
+// Whether any query row below `q_hi` (of the (b, h) rows from `rows`) is a
+// lowest row: the dK/dV CTAs whose keys such rows mask ask this together
+// (every thread of the CTA must call it).
+__device__ __forceinline__ bool any_lowest_row(const FlashParams& p,
+                                               const float* rows, int q_hi) {
+  int any = 0;
+  for (int i = threadIdx.x; i < min(q_hi, p.Sq); i += blockDim.x)
+    any |= lowest_row(p, rows[i], i);
+  return __syncthreads_or(any) != 0;
+}
+
+// dV of key kj, column c: what the lowest rows above it (which do not
+// attend it) add, sum over those rows qi < kj of dO[qi][c] / Sk.
+template <typename T>
+__device__ float masked_dv(const FlashParams& p, const float* rows,
+                           const T* dop, int kj, int c) {
+  float s = 0.f;
+  for (int qi = 0; qi < min(kj, p.Sq); ++qi)
+    if (lowest_row(p, rows[qi], qi)) s += load_f(dop + qi * p.do_str[2] + c);
+  return s / p.Sk;
 }
 
 // Stage `rows` rows of a (rows, kD) f32 tile with row stride `stride` into
@@ -332,12 +398,21 @@ flash_fwd_kernel(const FlashParams p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg + 16 * i;
+    if (lowest_row(p, m[i], q0 + r)) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        acc[i][c] = key_sum(vp, p.v_str[2], p.Sk, cg + 16 * c);
+      l[i] = (float)p.Sk;
+    }
     if (r < q_rows) {
       const float inv = 1.f / l[i];
 #pragma unroll
       for (int c = 0; c < kC; ++c)
         store(o + (size_t)r * kD + cg + 16 * c, acc[i][c] * inv);
-      if (cg == 0) p.lse[row0 + r] = m[i] + logf(l[i]);
+      if (cg == 0) {
+        p.row_max[row0 + r] = m[i];
+        p.row_log_l[row0 + r] = logf(l[i]);
+      }
     }
   }
 }
@@ -374,11 +449,12 @@ flash_bwd_dq_kernel(const FlashParams p) {
 
   load_tile<kD>(q_s, q, p.q_str[2], q_rows);
   load_tile<kD>(do_s, dop, p.do_str[2], q_rows);
-  float lse[4], di[4], acc[4][kC];
+  float mx[4], ll[4], di[4], acc[4][kC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg + 16 * i;
-    lse[i] = r < q_rows ? p.lse[row0 + r] : 0.f;
+    mx[i] = r < q_rows ? p.row_max[row0 + r] : 0.f;
+    ll[i] = r < q_rows ? p.row_log_l[row0 + r] : 0.f;
     di[i] = r < q_rows ? p.di[row0 + r] : 0.f;
 #pragma unroll
     for (int c = 0; c < kC; ++c) acc[i][c] = 0.f;
@@ -405,7 +481,7 @@ flash_bwd_dq_kernel(const FlashParams p) {
         float d = 0.f;
         if (r < q_rows) {
           const float x = biased(p, bias, s[i][j], qi, kj);
-          const float pij = x == neg_inf() ? 0.f : expf(x - lse[i]);
+          const float pij = x == neg_inf() ? 0.f : expf((x - mx[i]) - ll[i]);
           d = pij * (dp[i][j] - di[i]);
           if (ds != nullptr && kj < p.Sk) ds[(size_t)r * p.Sk + kj] = d;
         }
@@ -440,8 +516,9 @@ flash_bwd_dkv_kernel(const FlashParams p) {
   float* do_s = q_s + kTile * kLD;
   float* pt_s = do_s + kTile * kLD;
   float* dst_s = pt_s + kTile * kLDS;
-  float* lse_s = dst_s + kTile * kLDS;
-  float* di_s = lse_s + kTile;
+  float* m_s = dst_s + kTile * kLDS;
+  float* ll_s = m_s + kTile;
+  float* di_s = ll_s + kTile;
 
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
@@ -480,7 +557,8 @@ flash_bwd_dkv_kernel(const FlashParams p) {
     load_tile<kD>(q_s, qp + q0 * p.q_str[2], p.q_str[2], q_rows);
     load_tile<kD>(do_s, dop + q0 * p.do_str[2], p.do_str[2], q_rows);
     for (int t = threadIdx.x; t < kTile; t += kThreads) {
-      lse_s[t] = t < q_rows ? p.lse[bh_rows + q0 + t] : 0.f;
+      m_s[t] = t < q_rows ? p.row_max[bh_rows + q0 + t] : 0.f;
+      ll_s[t] = t < q_rows ? p.row_log_l[bh_rows + q0 + t] : 0.f;
       di_s[t] = t < q_rows ? p.di[bh_rows + q0 + t] : 0.f;
     }
     __syncthreads();
@@ -500,7 +578,7 @@ flash_bwd_dkv_kernel(const FlashParams p) {
         float pij = 0.f;
         if (c < q_rows) {
           const float x = biased(p, bias, st[i][j], qi, kj);
-          pij = x == neg_inf() ? 0.f : expf(x - lse_s[c]);
+          pij = x == neg_inf() ? 0.f : expf((x - m_s[c]) - ll_s[c]);
         }
         pt_s[r * kLDS + c] = pij;
         dst_s[r * kLDS + c] = pij * (dpt[i][j] - di_s[c]);
@@ -509,6 +587,15 @@ flash_bwd_dkv_kernel(const FlashParams p) {
     __syncthreads();
     pv_tile<kD>(pt_s, do_s, dv, rg, cg);
     pv_tile<kD>(dst_s, q_s, dk, rg, cg);
+  }
+
+  if (p.causal && any_lowest_row(p, p.row_max + bh_rows, k0 + kTile - 1)) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        dv[i][c] += masked_dv(p, p.row_max + bh_rows, dop, k0 + rg + 16 * i,
+                              cg + 16 * c);
   }
 
   const size_t key0 = ((size_t)b * p.H + h) * p.Sk + k0;
@@ -525,209 +612,6 @@ flash_bwd_dkv_kernel(const FlashParams p) {
       }
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 dQ: the products on the tensor cores (WMMA m16n16k16, f32
-// accumulators)
-// ---------------------------------------------------------------------------
-//
-// One CTA of 4 warps per 64-row tile, each warp a 16-row strip. Tiles stay
-// bf16 in shared memory (rows padded by 8 elements); a warp's 16 x 64 score
-// strips go through f32 shared memory for the elementwise softmax and
-// gradient work (the accumulator fragments' layout is opaque). P and dS
-// enter the second product as two bf16 terms, hi + lo (split_store), so it
-// carries about 16 bits of them rather than bf16's 8 and the result agrees
-// with the f32 plain version to its own output rounding. The sums of the
-// softmax (max, l, the log-sum-exp) are f32 over the f32 scores.
-
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kWarpsTC = 4;
-constexpr int kThreadsTC = kWarpsTC * 32;
-constexpr int kLDB = kTile + 8;      // bf16 row stride of a 16 x 64 strip
-constexpr int kLDF = kTile + 4;      // f32 row stride of a 16 x 64 strip
-
-template <int kD>
-__host__ __device__ constexpr int tc_ld() { return kD + 8; }
-// f32 scratch rows wide enough for a 64-key strip or a D-wide output
-template <int kD>
-__host__ __device__ constexpr int sc_ld() {
-  return (kD > kTile ? kD : kTile) + 4;
-}
-
-// Copy a (rows, kD) bf16 tile with row stride `stride` into shared rows of
-// kD + 8; rows past `rows` are zero.
-template <int kD>
-__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* src,
-                                             long long stride, int rows) {
-  constexpr int kChunks = kD / 8;
-  for (int e = threadIdx.x; e < kTile * kChunks; e += kThreadsTC) {
-    const int r = e / kChunks;
-    const int c = e % kChunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * tc_ld<kD>() + c * 8) = v;
-  }
-}
-
-// out[16][64] (f32, row stride ldo) = a[16][kD] . b[64][kD]^T
-template <int kD>
-__device__ __forceinline__ void strip_abt(const bf16* a, const bf16* b,
-                                          float* out, int ldo) {
-  FragC c[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(c[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kD; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, tc_ld<kD>());
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      FragBc fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * tc_ld<kD>() + kk, tc_ld<kD>());
-      wmma::mma_sync(c[j], fa, fb, c[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(out + j * 16, c[j], ldo, wmma::mem_row_major);
-}
-
-// acc[n] += p[16][64] . b[64][kD], n over the kD / 16 column blocks
-template <int kD>
-__device__ __forceinline__ void strip_pb(const bf16* p, const bf16* b,
-                                         FragC (&acc)[kD / 16]) {
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk, kLDB);
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
-      FragBr fb;
-      wmma::load_matrix_sync(fb, b + kk * tc_ld<kD>() + n * 16, tc_ld<kD>());
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// x as two bf16 terms, hi + lo, at hi[i] and lo[i]: together about 16 bits
-// of x's mantissa, where bf16 alone keeps 8
-__device__ __forceinline__ void split_store(bf16* hi, bf16* lo, int i,
-                                            float x) {
-  const bf16 h = __float2bfloat16(x);
-  hi[i] = h;
-  lo[i] = __float2bfloat16(x - __bfloat162float(h));
-}
-
-// Write a warp's 16 x kD result (fragments scaled by `scale`) as bf16 rows
-// `out + r * kD`, r < rows, through the warp's f32 scratch.
-template <int kD>
-__device__ __forceinline__ void store_strip(FragC (&acc)[kD / 16], float scale,
-                                            float* scratch, bf16* out,
-                                            int rows, int lane) {
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) {
-#pragma unroll
-    for (int i = 0; i < acc[n].num_elements; ++i) acc[n].x[i] *= scale;
-    wmma::store_matrix_sync(scratch + n * 16, acc[n], sc_ld<kD>(),
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int e = lane; e < 16 * kD; e += 32) {
-    const int r = e / kD;
-    const int c = e % kD;
-    if (r < rows) store(out + (size_t)r * kD + c, scratch[r * sc_ld<kD>() + c]);
-  }
-  __syncwarp();
-}
-
-template <int kD>
-__global__ void __launch_bounds__(kThreadsTC)
-flash_bwd_dq_tc_kernel(const FlashParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kLD = tc_ld<kD>();
-  constexpr int kSC = sc_ld<kD>();
-  constexpr int kWarpF = 16 * kSC + 16 * kLDF + 32;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kTile * kLD;
-  bf16* k_s = do_s + kTile * kLD;
-  bf16* v_s = k_s + kTile * kLD;
-  float* fbase = reinterpret_cast<float*>(v_s + kTile * kLD);
-  float* s_w = fbase + warp * kWarpF;   // scores, then the dQ strip
-  float* dp_w = s_w + 16 * kSC;
-  float* lse_w = dp_w + 16 * kLDF;
-  float* di_w = lse_w + 16;
-  bf16* ds_b = reinterpret_cast<bf16*>(fbase + kWarpsTC * kWarpF)
-      + warp * 2 * 16 * kLDB;        // dS as hi + lo
-  bf16* ds_l = ds_b + 16 * kLDB;
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q_rows = min(kTile, p.Sq - q0);
-  const int w_rows = q_rows - warp * 16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_str[0]
-      + h * p.q_str[1] + q0 * p.q_str[2];
-  const bf16* dop = static_cast<const bf16*>(p.d_o) + b * p.do_str[0]
-      + h * p.do_str[1] + q0 * p.do_str[2];
-  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_str[0]
-      + h * p.k_str[1];
-  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_str[0]
-      + h * p.v_str[1];
-  const float* bias = p.bias == nullptr ? nullptr
-      : p.bias + b * p.bias_str[0] + h * p.bias_str[1];
-  const size_t row0 = ((size_t)b * p.H + h) * p.Sq + q0 + warp * 16;
-  float* ds = p.ds == nullptr ? nullptr : p.ds + row0 * p.Sk;
-
-  load_tile_tc<kD>(q_s, q, p.q_str[2], q_rows);
-  load_tile_tc<kD>(do_s, dop, p.do_str[2], q_rows);
-  if (lane < 16) {
-    lse_w[lane] = lane < w_rows ? p.lse[row0 + lane] : 0.f;
-    di_w[lane] = lane < w_rows ? p.di[row0 + lane] : 0.f;
-  }
-  FragC acc[kD / 16];
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int k_end = p.causal ? min(p.Sk, q0 + kTile) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int k_rows = min(kTile, p.Sk - k0);
-    __syncthreads();
-    load_tile_tc<kD>(k_s, kp + k0 * p.k_str[2], p.k_str[2], k_rows);
-    load_tile_tc<kD>(v_s, vp + k0 * p.v_str[2], p.v_str[2], k_rows);
-    __syncthreads();
-
-    strip_abt<kD>(q_s + warp * 16 * kLD, k_s, s_w, kSC);
-    strip_abt<kD>(do_s + warp * 16 * kLD, v_s, dp_w, kLDF);
-    __syncwarp();
-    for (int e = lane; e < 16 * kTile; e += 32) {
-      const int rr = e / kTile;          // query row of the strip
-      const int cc = e % kTile;          // key of the tile
-      const int kj = k0 + cc;
-      float d = 0.f;
-      if (rr < w_rows) {
-        const float x = biased(p, bias, s_w[rr * kSC + cc], q0 + warp * 16 + rr,
-                               kj);
-        const float pij = x == neg_inf() ? 0.f : expf(x - lse_w[rr]);
-        d = pij * (dp_w[rr * kLDF + cc] - di_w[rr]);
-        if (ds != nullptr && kj < p.Sk) ds[(size_t)rr * p.Sk + kj] = d;
-      }
-      split_store(ds_b, ds_l, rr * kLDB + cc, d);
-    }
-    __syncwarp();
-    strip_pb<kD>(ds_b, k_s, acc);
-    strip_pb<kD>(ds_l, k_s, acc);
-  }
-
-  store_strip<kD>(acc, p.sm_scale, s_w, static_cast<bf16*>(p.dq) + row0 * kD,
-                  w_rows, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -906,17 +790,20 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kD / 8][4],
   }
 }
 
-// The two mma.sync bodies' CTA shape: 4 warps, each a 16-row (forward) or
-// 16-key (dK/dV) strip, and at D <= 64 3 CTAs an SM, which caps the
+// The three mma.sync bodies' CTA shape: 4 warps, each a 16-row (forward,
+// dQ) or 16-key (dK/dV) strip, and at D <= 64 3 CTAs an SM, which caps the
 // registers at 170 a thread (D 128 asks for 2: its dK/dV accumulators alone
 // take kD registers a thread); dK/dV works through each query tile in
-// register blocks of 32 queries. At BERT-base's shape on the H100 this is as
-// fast as 4 CTAs an SM under a 128-register cap, which spills, and faster
-// than 8 warps in 1 or 2 CTAs (PERF.md).
+// register blocks of 32 queries, dQ through each key tile whole (64 keys:
+// 168 registers at D 64, no spills, 2-4% faster than blocks of 32 or 16).
+// At BERT-base's shape on the H100 this is as fast as 4 CTAs an SM under a
+// 128-register cap, which spills, and faster than 8 warps in 1 or 2 CTAs
+// (PERF.md).
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRows = 16 * kMmaWarps;   // query rows or keys a CTA takes
 constexpr int kDkvSub = 32;
+constexpr int kDqSub = 64;
 
 // Forward, bf16. One CTA per (kMmaRows query rows, head, batch); warp w
 // owns rows 16 w .. 16 w + 15 of the tile. K/V tiles of 64 keys stream
@@ -928,7 +815,7 @@ constexpr int kDkvSub = 32;
 // domain, so a bias near -FLT_MAX (a finfo.min mask) is never scaled out of
 // the f32 range: a row whose every key it masks gets the same weight on
 // every key, as the softmax gives it. O is normalised once and leaves
-// through the Q buffer.
+// through the Q buffer; m and log l go to the row statistics.
 template <int kD>
 __global__ void __launch_bounds__(kMmaThreads, kD <= 64 ? 3 : 2)
 flash_fwd_mma_kernel(const FlashParams p) {
@@ -1095,12 +982,24 @@ flash_fwd_mma_kernel(const FlashParams p) {
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    if (lowest_row(p, m[i], i == 0 ? qa : qb)) {
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        o[n][2 * i] = key_sum(vp, p.v_str[2], p.Sk, 8 * n + 2 * t4);
+        o[n][2 * i + 1] = key_sum(vp, p.v_str[2], p.Sk, 8 * n + 2 * t4 + 1);
+      }
+      l[i] = (float)p.Sk;
+    }
   }
   const size_t row0 = ((size_t)b * p.H + h) * p.Sq + q0 + w0;
   if (t4 == 0) {
-    // the natural-log log-sum-exp the backward reads: m + log2(l) ln 2
-    if (w0 + g < q_rows) p.lse[row0 + g] = m[0] + log2f(l[0]) * kLn2;
-    if (w0 + g + 8 < q_rows) p.lse[row0 + g + 8] = m[1] + log2f(l[1]) * kLn2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (w0 + g + 8 * i < q_rows) {
+        p.row_max[row0 + g + 8 * i] = m[i];
+        p.row_log_l[row0 + g + 8 * i] = log2f(l[i]) * kLn2;
+      }
+    }
   }
   // the Q rows are free: only this warp read its strip, before the loop's
   // last barrier
@@ -1111,13 +1010,13 @@ flash_fwd_mma_kernel(const FlashParams p) {
 // dK and dV, bf16. One CTA per (kMmaRows keys, head, batch); warp w owns
 // keys 16 w .. 16 w + 15 and their dK and dV rows, so no two warps write
 // one row and nothing is atomic. K and V are loaded once and re-read as A
-// fragments; query tiles of 64 stream Q, dO and their lse and di rows
+// fragments; query tiles of 64 stream Q, dO and their m, log l and di rows
 // through a two-stage cp.async ring. For each block of kDkvSub queries, in
 // registers:
 //   S^T = K.Q^T, dP^T = V.dO^T,
-//   P^T = 2^((S^T sm_scale + bias - lse) log2 e) (0 where masked; the sum
-//         in the natural-log domain, as in the forward, so a finfo.min bias
-//         stays finite),
+//   P^T = 2^((x - m) log2 e - log2 l), x = S^T sm_scale + bias (0 where
+//         masked; x - m in the natural-log domain, as in the forward, so a
+//         finfo.min bias stays finite),
 //   dS^T = P^T o (dP^T - di),
 //   dV += P^T.dO, dK += dS^T.Q (P^T and dS^T as hi + lo A fragments).
 template <int kD>
@@ -1131,8 +1030,9 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);           // [kBN][kLD]
   bf16* v_s = k_s + kBN * kLD;                             // [kBN][kLD]
   bf16* qd_s = v_s + kBN * kLD;          // [stage][Q, dO][kTile][kLD]
-  float* lse_s = reinterpret_cast<float*>(qd_s + 4 * kTile * kLD);
-  float* di_s = lse_s + 2 * kTile;                       // [stage][kTile]
+  float* m_s = reinterpret_cast<float*>(qd_s + 4 * kTile * kLD);
+  float* ll_s = m_s + 2 * kTile;                         // [stage][kTile]
+  float* di_s = ll_s + 2 * kTile;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1170,7 +1070,8 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
     for (int e = threadIdx.x; e < kTile; e += kThr) {
       const bool ok = e < rows;
       const size_t r = bh_rows + q0 + (ok ? e : 0);
-      cp_async4(lse_s + (t & 1) * kTile + e, p.lse + r, ok);
+      cp_async4(m_s + (t & 1) * kTile + e, p.row_max + r, ok);
+      cp_async4(ll_s + (t & 1) * kTile + e, p.row_log_l + r, ok);
       cp_async4(di_s + (t & 1) * kTile + e, p.di + r, ok);
     }
   };
@@ -1205,7 +1106,8 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
     const int q0 = q_begin + t * kTile;
     const bf16* qs = qd_s + (t & 1) * 2 * kTile * kLD;
     const bf16* ds = qs + kTile * kLD;
-    const float* lse_t = lse_s + (t & 1) * kTile;
+    const float* m_t = m_s + (t & 1) * kTile;
+    const float* ll_t = ll_s + (t & 1) * kTile;
     const float* di_t = di_s + (t & 1) * kTile;
     // under causal a tile that ends before the strip's first key is masked
     if (live && !(p.causal && q0 + kTile - 1 < k0 + w0)) {
@@ -1248,7 +1150,8 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int qc = c0 + 8 * j + 2 * t4 + (e & 1);
-              st[j][e] = exp2_approx(fmaf(st[j][e], sl2, -lse_t[qc] * kLog2e));
+              st[j][e] = exp2_approx(
+                  fmaf(st[j][e], sl2, -(m_t[qc] + ll_t[qc]) * kLog2e));
             }
         } else {
 #pragma unroll
@@ -1263,7 +1166,9 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
               if (ok && bias != nullptr)
                 bv = bias[qi * p.bias_str[2] + kj * p.bias_str[3]];
               const float x = fmaf(st[j][e], p.sm_scale, bv);
-              st[j][e] = ok ? exp2_approx((x - lse_t[qc]) * kLog2e) : 0.f;
+              st[j][e] = ok ? exp2_approx(fmaf(x - m_t[qc], kLog2e,
+                                               -ll_t[qc] * kLog2e))
+                            : 0.f;
             }
         }
 #pragma unroll
@@ -1299,6 +1204,14 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
   }
   cp_async_wait<0>();             // K and V, when no query tile ran
   __syncthreads();
+  if (p.causal && any_lowest_row(p, p.row_max + bh_rows, k0 + kBN - 1)) {
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dv[n][e] += masked_dv(p, p.row_max + bh_rows, dop, e < 2 ? ka : kb,
+                              8 * n + 2 * t4 + (e & 1));
+  }
 
   // the warp's own K and V rows stage its dK and dV rows
   const size_t key0 = ((size_t)b * p.H + h) * p.Sk + k0 + w0;
@@ -1308,6 +1221,201 @@ flash_bwd_dkv_mma_kernel(const FlashParams p) {
                  static_cast<bf16*>(p.dv) + key0 * kD, k_rows - w0, lane);
 }
 
+// dQ, bf16. One CTA per (kMmaRows query rows, head, batch); warp w owns
+// rows 16 w .. 16 w + 15 and their dQ rows. Q and dO are loaded once and
+// re-read as A fragments; K/V tiles of 64 stream through a two-stage
+// cp.async ring. For each block of kDqSub keys, in registers:
+//   S = Q.K^T, dP = dO.V^T,
+//   P = 2^((x - m) log2 e - log2 l), x = S sm_scale + bias (0 where
+//       masked), as in dK/dV,
+//   dS = P o (dP - di), written to ds in f32 when the bias takes a
+//        gradient,
+//   dQ += dS.K (dS as hi + lo A fragments, K from ldmatrix.trans).
+template <int kD>
+__global__ void __launch_bounds__(kMmaThreads, kD <= 64 ? 3 : 2)
+flash_bwd_dq_mma_kernel(const FlashParams p) {
+  constexpr int kLD = kD + 8;
+  constexpr int kBM = kMmaRows;
+  constexpr int kThr = kMmaThreads;
+  constexpr int kSub = kDqSub;         // keys per register block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);           // [kBM][kLD]
+  bf16* do_s = q_s + kBM * kLD;                            // [kBM][kLD]
+  bf16* kv_s = do_s + kBM * kLD;         // [stage][K, V][kTile][kLD]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int q0 = blockIdx.x * kBM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q_rows = min(kBM, p.Sq - q0);
+  const int w0 = warp * 16;                       // the strip's first row
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_str[0]
+      + h * p.q_str[1] + q0 * p.q_str[2];
+  const bf16* dop = static_cast<const bf16*>(p.d_o) + b * p.do_str[0]
+      + h * p.do_str[1] + q0 * p.do_str[2];
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_str[0]
+      + h * p.k_str[1];
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_str[0]
+      + h * p.v_str[1];
+  const float* bias = p.bias == nullptr ? nullptr
+      : p.bias + b * p.bias_str[0] + h * p.bias_str[1];
+  const size_t row0 = ((size_t)b * p.H + h) * p.Sq + q0 + w0;
+  float* ds = p.ds == nullptr ? nullptr : p.ds + row0 * p.Sk;
+
+  const int k_end = p.causal ? min(p.Sk, q0 + kBM) : p.Sk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  auto load_kv = [&](int t) {
+    const int k0 = t * kTile;
+    const int rows = min(kTile, p.Sk - k0);
+    bf16* ks = kv_s + (t & 1) * 2 * kTile * kLD;
+    load_rows_async<kD, kThr>(ks, kp + k0 * p.k_str[2], p.k_str[2], rows,
+                              kTile);
+    load_rows_async<kD, kThr>(ks + kTile * kLD, vp + k0 * p.v_str[2],
+                              p.v_str[2], rows, kTile);
+  };
+  load_rows_async<kD, kThr>(q_s, q, p.q_str[2], q_rows, kBM);
+  load_rows_async<kD, kThr>(do_s, dop, p.do_str[2], q_rows, kBM);
+  load_kv(0);
+  cp_async_commit();
+
+  // this thread's two query rows, g and g + 8 of the strip, and their
+  // statistics: m, log2 l, di and, for the interior path, (m + log l) log2 e
+  const int qa = q0 + w0 + g;
+  const int qb = qa + 8;
+  const bool live = w0 < q_rows;
+  float mr[2], l2[2], dr[2], cr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = (i == 0 ? qa : qb) < p.Sq;
+    const size_t r = row0 + g + 8 * i;
+    mr[i] = ok ? p.row_max[r] : 0.f;
+    l2[i] = ok ? p.row_log_l[r] * kLog2e : 0.f;
+    dr[i] = ok ? p.di[r] : 0.f;
+    cr[i] = fmaf(mr[i], kLog2e, l2[i]);
+  }
+  const float sl2 = p.sm_scale * kLog2e;
+  float dq[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = t * kTile;
+    const bf16* ks = kv_s + (t & 1) * 2 * kTile * kLD;
+    const bf16* vs = ks + kTile * kLD;
+    if (live) {
+#pragma unroll 1
+      for (int c0 = 0; c0 < kTile; c0 += kSub) {
+        // a block past Sk, or (under causal) past the strip's last row,
+        // has P = 0 throughout
+        if (k0 + c0 >= p.Sk || (p.causal && k0 + c0 > q0 + w0 + 15)) break;
+        float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = 0.f;
+            dp[j][e] = 0.f;
+          }
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          unsigned qf[4], df[4];
+          ldsm4(qf, frag_a<kLD>(q_s, w0, kk * 16, lane));
+          ldsm4(df, frag_a<kLD>(do_s, w0, kk * 16, lane));
+#pragma unroll
+          for (int np = 0; np < kSub / 16; ++np) {
+            unsigned kf[4], vf[4];
+            ldsm4(kf, frag_bt<kLD>(ks, c0 + np * 16, kk * 16, lane));
+            mma(s[2 * np], qf, kf[0], kf[1]);
+            mma(s[2 * np + 1], qf, kf[2], kf[3]);
+            ldsm4(vf, frag_bt<kLD>(vs, c0 + np * 16, kk * 16, lane));
+            mma(dp[2 * np], df, vf[0], vf[1]);
+            mma(dp[2 * np + 1], df, vf[2], vf[3]);
+          }
+        }
+        // P; keys past Sk and masked pairs give exactly 0. A block with no
+        // bias, no key past Sk and (under causal) no key past the strip's
+        // first row needs no test; rows past Sq read zero Q and dO rows
+        // and give dS = 0.
+        const bool plain = bias == nullptr && k0 + c0 + kSub <= p.Sk
+            && !(p.causal && k0 + c0 + kSub - 1 > q0 + w0);
+        if (plain) {
+#pragma unroll
+          for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = exp2_approx(fmaf(s[j][e], sl2, -cr[e >> 1]));
+        } else {
+#pragma unroll
+          for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kj = k0 + c0 + 8 * j + 2 * t4 + (e & 1);
+              const int qi = e < 2 ? qa : qb;
+              const bool ok = kj < p.Sk && !(p.causal && kj > qi);
+              float bv = 0.f;
+              if (ok && bias != nullptr && qi < p.Sq)
+                bv = bias[qi * p.bias_str[2] + kj * p.bias_str[3]];
+              const float x = fmaf(s[j][e], p.sm_scale, bv);
+              s[j][e] = ok ? exp2_approx(fmaf(x - mr[e >> 1], kLog2e,
+                                              -l2[e >> 1]))
+                           : 0.f;
+            }
+        }
+        // dS = P o (dP - di), in dp
+#pragma unroll
+        for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = s[j][e] * (dp[j][e] - dr[e >> 1]);
+        if (ds != nullptr) {
+#pragma unroll
+          for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kj = k0 + c0 + 8 * j + 2 * t4 + (e & 1);
+              if ((e < 2 ? qa : qb) < p.Sq && kj < p.Sk)
+                ds[(size_t)(g + 8 * (e >> 1)) * p.Sk + kj] = dp[j][e];
+            }
+        }
+        // dQ += dS . K
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) {
+          unsigned sh[4], sl[4];
+          acc_to_a(dp[2 * kk], dp[2 * kk + 1], sh, sl);
+#pragma unroll
+          for (int dn = 0; dn < kD / 16; ++dn) {
+            unsigned f[4];
+            ldsm4_t(f, frag_a<kLD>(ks, c0 + kk * 16, dn * 16, lane));
+            mma(dq[2 * dn], sh, f[0], f[1]);
+            mma(dq[2 * dn], sl, f[0], f[1]);
+            mma(dq[2 * dn + 1], sh, f[2], f[3]);
+            mma(dq[2 * dn + 1], sl, f[2], f[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();              // the stage is free for the next load
+  }
+
+  // the Q rows are free: only this warp read its strip, before the loop's
+  // last barrier
+  store_rows<kD>(dq, p.sm_scale, p.sm_scale, q_s + w0 * kLD,
+                 static_cast<bf16*>(p.dq) + row0 * kD, q_rows - w0, lane);
+}
+
 template <int kD>
 constexpr size_t fwd_mma_smem() {
   return (size_t)(kMmaRows + 4 * kTile) * (kD + 8) * sizeof(bf16);
@@ -1315,15 +1423,16 @@ constexpr size_t fwd_mma_smem() {
 template <int kD>
 constexpr size_t dkv_mma_smem() {
   return (size_t)(2 * kMmaRows + 4 * kTile) * (kD + 8) * sizeof(bf16)
-      + 4 * kTile * sizeof(float);
+      + 6 * kTile * sizeof(float);
+}
+template <int kD>
+constexpr size_t dq_mma_smem() {
+  return (size_t)(2 * kMmaRows + 4 * kTile) * (kD + 8) * sizeof(bf16);
 }
 
 template <int kD>
 constexpr size_t tile_bytes() { return (size_t)kTile * (kD + 4) * sizeof(float); }
 constexpr size_t score_bytes() { return (size_t)kTile * kLDS * sizeof(float); }
-template <int kD>
-constexpr size_t tc_tile_bytes() { return (size_t)kTile * tc_ld<kD>() * sizeof(bf16); }
-constexpr size_t tc_strip_bytes() { return (size_t)16 * kLDB * sizeof(bf16); }
 
 // Raise `kernel`'s dynamic shared-memory ceiling to `smem` bytes, once per
 // device: `raised` is the caller's static bit set (one per kernel
@@ -1387,7 +1496,7 @@ int with_body(int kind, bool bf16, F&& f) {
     case 2:
       return f(body(flash_bwd_dkv_kernel<kD>, kThreads,
                     4 * tile_bytes<kD>() + 2 * score_bytes()
-                        + 2 * kTile * sizeof(float), kTile), raised[2]);
+                        + 3 * kTile * sizeof(float), kTile), raised[2]);
     case 3:
       return f(body(flash_bwd_dkv_mma_kernel<kD>, kMmaThreads,
                     dkv_mma_smem<kD>(), kMmaRows), raised[3]);
@@ -1395,11 +1504,8 @@ int with_body(int kind, bool bf16, F&& f) {
       return f(body(flash_bwd_dq_kernel<kD>, kThreads,
                     4 * tile_bytes<kD>() + score_bytes(), kTile), raised[4]);
     case 5:
-      return f(body(flash_bwd_dq_tc_kernel<kD>, kThreadsTC,
-                    4 * tc_tile_bytes<kD>() + kWarpsTC * 2 * tc_strip_bytes()
-                        + kWarpsTC * sizeof(float)
-                              * (16 * sc_ld<kD>() + 16 * kLDF + 32), kTile),
-               raised[5]);
+      return f(body(flash_bwd_dq_mma_kernel<kD>, kMmaThreads,
+                    dq_mma_smem<kD>(), kMmaRows), raised[5]);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,18 +17,30 @@
 //   scaled by sm_scale; this one scales the scores, as the plain version
 //   does (equal up to rounding).
 //   Bound: bytes. Each attended key costs 2 * D * 4 bytes of K and V rows
-//   read once, against 4 * D flops; there is no reuse to exploit.
-//   Design: one CTA of 8 warps per (head, slot). The CTA reads its q row
-//   once into shared memory and reads only the keys below the context,
-//   each located through block_tables[s, t / BS]; keys at or beyond the
-//   context are never read. The warps split the keys in chunks of 32, so a
-//   long context has 8 chunks' loads in flight at once and every lane has a
-//   key whatever the block size. In a warp each lane scores one key (float4
-//   row reads, unrolled over D), then the lanes own slices of D for the
-//   P.V update, so V rows are read coalesced and the unrolled key loop
-//   issues its loads together. Each warp keeps a running max, sum and o[D]
-//   (online softmax); the warps merge through shared memory at the end. No
-//   score vector is materialised.
+//   read once, against 4 * D flops; there is no reuse to exploit. At the
+//   served shape (8 slots, 8 heads of 64, contexts 128-188) that is about
+//   5 MB, under 2 us at 3.35 TB/s: the latency of a chain of dependent
+//   loads and the launch, not the bytes, set the time.
+//   Design: split-context flash-decoding in one launch. The grid is
+//   (H, S, ranges); each CTA of 8 warps takes a fixed range of kSplitKeys
+//   keys of one (head, slot) (several in turn once a context needs more
+//   than kMaxCluster ranges), so a served context of 128-188 keys keeps 2-3
+//   CTAs of each pair busy and the grid fills the card. A CTA whose range
+//   starts at or past its slot's context reads no K or V row. The CTA
+//   loads its range's block-table entries into shared memory once (the
+//   first range's beside the context length, which they do not depend
+//   on), so no key waits on a dependent table read. A warp takes 8 keys;
+//   kD / 4 lanes share one key row, each with a float4 of K and of V, so
+//   one warp instruction reads whole 256-byte rows (at D 64, two
+//   neighbouring keys), every K and V load of the warp is issued before the
+//   first score, and the dot products reduce by shuffles. Scores are scaled by sm_scale log2 e and
+//   exponentiated with exp2f. The warps merge their (max, sum, o[D])
+//   through shared memory into the CTA's partial. The ranges of one (head,
+//   slot) form a thread-block cluster (Hopper), and its rank 0 merges the
+//   partials in range order straight from the other CTAs' shared memory:
+//   no second kernel, no scratch in device memory and no float atomics,
+//   so a launch is bitwise repeatable (the served replay contract rests on
+//   it).
 //
 // paged_prefill_attention
 //   Replaces: the stock Pallas flash_attention(causal=True) forward that
@@ -57,11 +69,14 @@
 // Both kernels are compiled for head_dim D in {16, 32, 64, 128} and take any
 // BS >= 1.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kDecodeWarps = 8;
+constexpr int kSplitKeys = 64;        // keys of one decode range
+constexpr int kSplitWarps = 8;
+constexpr int kMaxCluster = 8;        // CTAs of one (head, slot): portable
 constexpr int kPrefillRows = 16;      // query rows per CTA
 constexpr int kKeyChunk = 32;         // keys staged per step: one per lane
 constexpr int kPrefillWarps = 8;
@@ -99,106 +114,182 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return acc;
 }
 
+// One CTA per (head, slot, rank); the ranks of one (head, slot) are one
+// cluster along z. Rank r takes keys [r passes kSplitKeys, (r + 1) passes
+// kSplitKeys), kSplitKeys at a time with an online softmax across passes.
 template <int kD>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
+__global__ void __launch_bounds__(kSplitWarps * 32)
 paged_decode_attention_kernel(const float* __restrict__ q,
                               const float* __restrict__ k_pages,
                               const float* __restrict__ v_pages,
                               const int* __restrict__ block_tables,
                               const int* __restrict__ context_lens,
                               float* __restrict__ out, int H, int NB, int BS,
-                              int max_bps, float sm_scale) {
-  constexpr int kPer = (kD + 31) / 32;   // o values per lane
-  __shared__ __align__(16) float q_s[kD];
-  __shared__ float m_s[kDecodeWarps];
-  __shared__ float l_s[kDecodeWarps];
-  __shared__ float o_s[kDecodeWarps][kD];
+                              int max_bps, int passes, float scale_log2) {
+  namespace cg = cooperative_groups;
+  constexpr int kLanes = kD / 4;             // lanes that share one key row
+  constexpr int kRows = 32 / kLanes;         // keys a warp reads at a time
+  constexpr int kWarpKeys = kSplitKeys / kSplitWarps;
+  constexpr int kSteps = kWarpKeys / kRows;
+  static_assert(kWarpKeys % kRows == 0, "key split");
+  __shared__ int blk_s[kSplitKeys];          // the range's table entries
+  __shared__ float m_s[kSplitWarps];
+  __shared__ float l_s[kSplitWarps];
+  __shared__ __align__(16) float o_s[kSplitWarps][kD];
+  __shared__ float ml_c[2];                  // the CTA's max and sum
+  __shared__ float o_c[kD];                  // and its unnormalised o
 
+  const cg::cluster_group cluster = cg::this_cluster();
   const int h = blockIdx.x;
   const int s = blockIdx.y;
+  const int rank = blockIdx.z;               // the cluster spans z
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t row_off = ((size_t)s * H + h) * kD;
-
-  const int n_keys = min(context_lens[s], max_bps * BS);
-  if (n_keys <= 0) {  // nothing to attend: a defined zero row
-    for (int d = threadIdx.x; d < kD; d += blockDim.x) out[row_off + d] = 0.f;
-    return;
-  }
-  for (int d = threadIdx.x; d < kD; d += blockDim.x) q_s[d] = q[row_off + d];
-  __syncthreads();
-
+  const int span = passes * kSplitKeys;
+  const int max_keys = max_bps * BS;
   const int* table = block_tables + (size_t)s * max_bps;
-  const size_t head_off = (size_t)h * NB * BS * kD;
+  // the first range's table entries lie in the table whatever the context:
+  // read them beside the context length rather than after it
+  const int c_first = rank * span;
+  const int first_blocks = c_first < max_keys
+      ? (min(c_first + kSplitKeys, max_keys) - 1) / BS - c_first / BS + 1 : 0;
+  const int blk_first =
+      threadIdx.x < first_blocks ? table[c_first / BS + threadIdx.x] : 0;
+  const int n_keys = min(context_lens[s], max_keys);
+  const int k_stop = min((rank + 1) * span, n_keys);
 
-  float m = neg_inf();
-  float l = 0.f;
-  float o[kPer];
+  // lane group `grp` reads key k0 + grp of each step; the lane holds
+  // columns col .. col + 3 of it
+  const int grp = lane / kLanes;
+  const int col = (lane % kLanes) * 4;
+  const float4 qv = *reinterpret_cast<const float4*>(q + row_off + col);
+  const float* kh = k_pages + (size_t)h * NB * BS * kD + col;
+  const float* vh = v_pages + (size_t)h * NB * BS * kD + col;
+  // a warp with no key (past the context) keeps m = -inf, l = 0, o = 0
+  float mw = neg_inf();
+  float lw = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = c_first; c0 < k_stop; c0 += kSplitKeys) {
+    const int k_end = min(c0 + kSplitKeys, k_stop);
+    const int b_first = c0 / BS;
+    __syncthreads();                 // the last pass's table readers are done
+    if (c0 == c_first) {
+      if (threadIdx.x < first_blocks) blk_s[threadIdx.x] = blk_first;
+    } else {
+      for (int i = threadIdx.x; i <= (k_end - 1) / BS - b_first;
+           i += blockDim.x)
+        blk_s[i] = table[b_first + i];
+    }
+    __syncthreads();
+    const int w_begin = c0 + warp * kWarpKeys;
+    float4 kr[kSteps], vr[kSteps];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) o[i] = 0.f;
-
-  // warp w takes the 32-key chunks w, w + kDecodeWarps, ...; lane j scores
-  // key chunk * 32 + j, located through the table, so every lane has a key
-  // whatever the block size
-  for (int k0 = warp * 32; k0 < n_keys; k0 += kDecodeWarps * 32) {
-    const int nk = min(32, n_keys - k0);
-    const int t = k0 + lane;
-    const size_t row = lane < nk
-        ? head_off + ((size_t)table[t / BS] * BS + t % BS) * kD : 0;
-    const float score =
-        lane < nk ? dot<kD>(k_pages + row, q_s) * sm_scale : neg_inf();
-    // lane 0's key is always valid, so m_new is finite
-    const float m_new = fmaxf(m, warp_max(score));
-    const float alpha = expf(m - m_new);
-    const float p = lane < nk ? expf(score - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) o[i] *= alpha;
-    const unsigned long long row_ull = row;
-#pragma unroll
-    for (int jj = 0; jj < 32; ++jj) {
-      if (jj < nk) {                      // uniform across the warp
-        const float pj = __shfl_sync(kFull, p, jj);
-        const float* vr = v_pages + __shfl_sync(kFull, row_ull, jj);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int d = lane + 32 * i;
-          if (d < kD) o[i] = fmaf(pj, vr[d], o[i]);
-        }
+    for (int st = 0; st < kSteps; ++st) {
+      const int t = w_begin + st * kRows + grp;
+      kr[st] = vr[st] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < k_end) {
+        const size_t row =
+            ((size_t)blk_s[t / BS - b_first] * BS + t % BS) * kD;
+        kr[st] = __ldg(reinterpret_cast<const float4*>(kh + row));
+        vr[st] = __ldg(reinterpret_cast<const float4*>(vh + row));
       }
     }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    m_s[warp] = m;
-    l_s[warp] = l;
+    float sc[kSteps];
+    float mx = neg_inf();
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      float d = qv.x * kr[st].x;
+      d = fmaf(qv.y, kr[st].y, d);
+      d = fmaf(qv.z, kr[st].z, d);
+      d = fmaf(qv.w, kr[st].w, d);
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1)
+        d += __shfl_xor_sync(kFull, d, o);
+      sc[st] = w_begin + st * kRows + grp < k_end ? d * scale_log2
+                                                  : neg_inf();
+      mx = fmaxf(mx, sc[st]);
+    }
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    const float m_new = fmaxf(mw, mx);
+    const float alpha = mw == neg_inf() ? 0.f : exp2f(mw - m_new);
+    lw *= alpha;
+    acc.x *= alpha;
+    acc.y *= alpha;
+    acc.z *= alpha;
+    acc.w *= alpha;
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st) {
+      const float pj = sc[st] == neg_inf() ? 0.f : exp2f(sc[st] - m_new);
+      lw += pj;
+      acc.x = fmaf(pj, vr[st].x, acc.x);
+      acc.y = fmaf(pj, vr[st].y, acc.y);
+      acc.z = fmaf(pj, vr[st].z, acc.z);
+      acc.w = fmaf(pj, vr[st].w, acc.w);
+    }
+    mw = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int d = lane + 32 * i;
-    if (d < kD) o_s[warp][d] = o[i];
+  for (int o = kLanes; o < 32; o <<= 1) {
+    lw += __shfl_xor_sync(kFull, lw, o);
+    acc.x += __shfl_xor_sync(kFull, acc.x, o);
+    acc.y += __shfl_xor_sync(kFull, acc.y, o);
+    acc.z += __shfl_xor_sync(kFull, acc.z, o);
+    acc.w += __shfl_xor_sync(kFull, acc.w, o);
   }
+  if (lane == 0) {
+    m_s[warp] = mw;
+    l_s[warp] = lw;
+  }
+  if (lane < kLanes) *reinterpret_cast<float4*>(&o_s[warp][col]) = acc;
   __syncthreads();
 
-  // warp 0 took key 0, so M is finite; idle warps carry m = -inf, l = 0
+  // the CTA's partial; a CTA past the context keeps M = -inf, L = 0, o = 0
   float M = neg_inf();
 #pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, m_s[w]);
-  float scale[kDecodeWarps];
+  for (int w = 0; w < kSplitWarps; ++w) M = fmaxf(M, m_s[w]);
+  float wt[kSplitWarps];
   float L = 0.f;
 #pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) {
-    scale[w] = expf(m_s[w] - M);
-    L = fmaf(l_s[w], scale[w], L);
+  for (int w = 0; w < kSplitWarps; ++w) {
+    wt[w] = m_s[w] == neg_inf() ? 0.f : exp2f(m_s[w] - M);
+    L = fmaf(l_s[w], wt[w], L);
   }
-  const float inv_l = 1.f / L;
   for (int d = threadIdx.x; d < kD; d += blockDim.x) {
-    float acc = 0.f;
+    float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) acc = fmaf(o_s[w][d], scale[w], acc);
-    out[row_off + d] = acc * inv_l;
+    for (int w = 0; w < kSplitWarps; ++w) a = fmaf(o_s[w][d], wt[w], a);
+    o_c[d] = a;
   }
+  if (threadIdx.x == 0) {
+    ml_c[0] = M;
+    ml_c[1] = L;
+  }
+  cluster.sync();
+
+  if (rank == 0) {
+    // the ranks that hold keys, merged in rank order
+    const int n = (n_keys + span - 1) / span;
+    float Mc = neg_inf();
+    for (int r = 0; r < n; ++r)
+      Mc = fmaxf(Mc, cluster.map_shared_rank(ml_c, r)[0]);
+    float Lc = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const float* ml = cluster.map_shared_rank(ml_c, r);
+      Lc = fmaf(ml[1], exp2f(ml[0] - Mc), Lc);
+    }
+    for (int d = threadIdx.x; d < kD; d += blockDim.x) {
+      float a = 0.f;
+      for (int r = 0; r < n; ++r)
+        a = fmaf(cluster.map_shared_rank(o_c, r)[d],
+                 exp2f(cluster.map_shared_rank(ml_c, r)[0] - Mc), a);
+      // nothing to attend (n = 0): a defined zero row
+      out[row_off + d] = n > 0 ? a / Lc : 0.f;
+    }
+  }
+  cluster.sync();        // every rank's shared memory outlives rank 0's reads
 }
 
 template <int kD>
@@ -321,17 +412,38 @@ paged_prefill_attention_kernel(const float* __restrict__ q,
   }
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (H, S, ranks) CTAs in clusters of (1, 1, ranks): up to kMaxCluster
+// ranks, each taking `passes` ranges of kSplitKeys keys
 template <int kD>
 int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   const void* block_tables, const void* context_lens,
                   void* out, int S, int H, int NB, int BS, int max_bps,
                   float sm_scale, cudaStream_t stream) {
-  paged_decode_attention_kernel<kD><<<dim3(H, S), kDecodeWarps * 32, 0,
-                                      stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages), static_cast<const int*>(block_tables),
+  int ranges = (max_bps * BS + kSplitKeys - 1) / kSplitKeys;
+  if (ranges < 1) ranges = 1;
+  const int ranks = ranges < kMaxCluster ? ranges : kMaxCluster;
+  const int passes = (ranges + ranks - 1) / ranks;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, S, ranks);
+  cfg.blockDim = dim3(kSplitWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = ranks;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, paged_decode_attention_kernel<kD>, static_cast<const float*>(q),
+      static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
+      static_cast<const int*>(block_tables),
       static_cast<const int*>(context_lens), static_cast<float*>(out), H, NB,
-      BS, max_bps, sm_scale);
+      BS, max_bps, passes, sm_scale * kLog2e);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

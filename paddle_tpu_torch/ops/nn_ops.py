@@ -139,8 +139,11 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     - ``context_lens``: (S,) int32, keys to attend per slot, including the
       token written this step; inactive slots pass 1 and read scratch.
 
-    Returns (S, H, D) f32. CUDA tensors launch the hand-written kernel,
-    CPU tensors run :func:`paged_attention_ref`."""
+    Returns (S, H, D) f32. CUDA tensors launch the hand-written kernel
+    (split-context: each CTA takes 64-key ranges of one slot and head, and
+    the CTAs of a slot and head, one thread-block cluster, merge their
+    ranges in a fixed order), CPU tensors run :func:`paged_attention_ref`.
+    """
     if q.dim() == 4:
         raise NotImplementedError(
             'the multi-query (S, H, K, D) read of speculative decoding comes '
@@ -239,27 +242,39 @@ def fused_attention_ref(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
     return torch.einsum('bhqk,bhkd->bhqd', probs, v.to(probs.dtype))
 
 
+def _causal_keep(s):
+    """The top-left ``tril`` over the last two dims of ``s``."""
+    return torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+
+
 def _scores_f32(q, k, bias, sm_scale, causal):
-    """The kernels' scores in f32: ``Q.K^T * sm_scale + bias``, -inf where
-    the causal mask drops a key."""
+    """The kernels' scores in f32: ``Q.K^T * sm_scale + bias``, with the
+    keys the causal mask drops at ``finfo.min``, as the JAX op fills them.
+    They weigh nothing unless every attended key of the row scores
+    ``finfo.min`` too (a mask bias over the whole row); then all the row's
+    scores tie and the softmax weighs every key alike, as there."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if bias is not None:
         s = s + bias.float()
     if causal:
-        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=s.device).tril()
-        s = s.masked_fill(~keep, float('-inf'))
+        s = s.masked_fill(~_causal_keep(s), torch.finfo(torch.float32).min)
     return s
 
 
 def fused_attention_fwd_ref(q, k, v, bias=None, *, sm_scale=1.0,
                             causal=False):
-    """Plain version of the forward kernel: ``(O, lse)``, O in ``q``'s type
-    and the per-row log-sum-exp (B, H, Sq) in f32, every sum in f32."""
+    """Plain version of the forward kernel: ``(O, stats)``, O in ``q``'s
+    type, every sum in f32. ``stats`` (2, B, H, Sq) f32 holds each row's
+    max score m and log l, l = sum exp(S - m): the backward recomputes
+    ``P = exp((S - m) - log l)``. (One log-sum-exp m + log l would lose
+    log l where a ``finfo.min`` bias masks every key of a row: the sum
+    rounds back to m.)"""
     s = _scores_f32(q, k, bias, sm_scale, causal)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    return torch.matmul(p, v.float()).to(q.dtype), lse
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(dim=-1)
+    o = torch.matmul(e, v.float()) / l[..., None]
+    return o.to(q.dtype), torch.stack((m, torch.log(l)))
 
 
 def _row_dot(o, do):
@@ -269,34 +284,38 @@ def _row_dot(o, do):
     return (o.float() * do.float()).sum(-1)
 
 
-def _bwd_from_di(q, k, v, bias, lse, di, do, sm_scale, causal):
+def _bwd_from_di(q, k, v, bias, stats, di, do, sm_scale, causal):
     s = _scores_f32(q, k, bias, sm_scale, causal)
-    p = torch.exp(s - lse[..., None])
+    m, log_l = stats
+    p = torch.exp((s - m[..., None]) - log_l[..., None])
     dof = do.float()
     dv = torch.matmul(p.transpose(-1, -2), dof)
     ds = p * (torch.matmul(dof, v.float().transpose(-1, -2)) - di[..., None])
+    if causal:      # the mask's where passes a dropped score no gradient
+        ds = ds.masked_fill(~_causal_keep(ds), 0.0)
     dq = torch.matmul(ds, k.float()) * sm_scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
-def fused_attention_bwd_ref(q, k, v, bias, o, lse, do, *, sm_scale=1.0,
+def fused_attention_bwd_ref(q, k, v, bias, o, stats, do, *, sm_scale=1.0,
                             causal=False):
-    """Plain version of the backward kernels, from the forward's saved
-    log-sum-exp: recompute ``P = exp(S - lse)``, then ``dV = P^T.dO``,
-    ``dS = P o (dO.V^T - rowsum(O . dO))``, ``dQ = dS.K * sm_scale``,
+    """Plain version of the backward kernels, from the forward's saved row
+    statistics: recompute ``P = exp((S - m) - log l)``, then
+    ``dV = P^T.dO``, ``dS = P o (dO.V^T - rowsum(O . dO))`` (0 where the
+    causal mask drops a key), ``dQ = dS.K * sm_scale``,
     ``dK = dS^T.Q * sm_scale``. Returns ``(dq, dk, dv, ds)``; ``ds`` is the
     full (B, H, Sq, Sk) f32 score gradient, the bias's gradient before it is
     summed to the bias's shape."""
-    return _bwd_from_di(q, k, v, bias, lse, _row_dot(o, do), do, sm_scale,
+    return _bwd_from_di(q, k, v, bias, stats, _row_dot(o, do), do, sm_scale,
                         causal)
 
 
 class _FlashParams(ctypes.Structure):
     """Mirror of ``struct FlashParams`` in csrc/flash_attention.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ('q', 'k', 'v', 'd_o', 'bias', 'lse', 'di', 'o', 'dq', 'dk',
-                  'dv', 'ds')]
+                 ('q', 'k', 'v', 'd_o', 'bias', 'row_max', 'row_log_l', 'di',
+                  'o', 'dq', 'dk', 'dv', 'ds')]
                 + [(n, ctypes.c_longlong * 3) for n in
                    ('q_str', 'k_str', 'v_str', 'do_str')]
                 + [('bias_str', ctypes.c_longlong * 4)]
@@ -427,61 +446,72 @@ def flash_kernel_info(kind, head_dim, dtype):
                      'dynamic_smem', 'ctas_per_sm', 'threads'), out))
 
 
-def _bwd_state(lse, di, q):
+def _bwd_state(stats, di, q):
     b, h, sq, _ = q.shape
-    for name, t in (('lse', lse), ('di', di)):
+    for name, t, shape in (('stats', stats, (2, b, h, sq)),
+                           ('di', di, (b, h, sq))):
         if (t.device != q.device or t.dtype != torch.float32
-                or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()):
-            raise ValueError(f'{name} must be a contiguous {(b, h, sq)} f32 '
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f'{name} must be a contiguous {shape} f32 '
                              f'tensor on {q.device}')
 
 
+def _set_stats(p, stats):
+    p.row_max, p.row_log_l = stats[0].data_ptr(), stats[1].data_ptr()
+
+
 def flash_attention_fwd(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
-    """Launch the forward kernel (K3) on CUDA tensors: ``(O, lse)``, O
-    contiguous in ``q``'s type, lse (B, H, Sq) f32. Raises on what the
-    kernel does not take; the plain version is
-    :func:`fused_attention_fwd_ref`."""
+    """Launch the forward kernel (K3) on CUDA tensors: ``(O, stats)``, O
+    contiguous in ``q``'s type, ``stats`` (2, B, H, Sq) f32, each row's max
+    score and log of its sum of exponentials (see
+    :func:`fused_attention_fwd_ref`, the plain version). Raises on what the
+    kernel does not take."""
     q, k, v, bias, _ = _flash_inputs(q, k, v, bias)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    stats = torch.empty((2,) + q.shape[:3], dtype=torch.float32,
+                        device=q.device)
     p = _flash_params(q, k, v, bias, sm_scale, causal)
-    p.o, p.lse = o.data_ptr(), lse.data_ptr()
+    p.o = o.data_ptr()
+    _set_stats(p, stats)
     _flash_launch('flash_attention_fwd', p, q.device)
     flash_attention_fwd.launches += 1
-    return o, lse
+    return o, stats
 
 
-def flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, *, sm_scale=1.0,
+def flash_attention_bwd_dkv(q, k, v, bias, stats, di, do, *, sm_scale=1.0,
                             causal=False):
     """Launch the dK/dV backward kernel (K3b) on CUDA tensors: ``(dk, dv)``
-    contiguous in ``k``'s type. ``lse`` is the forward's, ``di`` is
+    contiguous in ``k``'s type. ``stats`` is the forward's, ``di`` is
     ``rowsum(O . dO)`` in f32."""
     q, k, v, bias, do = _flash_inputs(q, k, v, bias, do)
-    _bwd_state(lse, di, q)
+    _bwd_state(stats, di, q)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     p = _flash_params(q, k, v, bias, sm_scale, causal, do)
-    p.lse, p.di = lse.data_ptr(), di.data_ptr()
+    _set_stats(p, stats)
+    p.di = di.data_ptr()
     p.dk, p.dv = dk.data_ptr(), dv.data_ptr()
     _flash_launch('flash_attention_bwd_dkv', p, q.device)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, bias, lse, di, do, *, sm_scale=1.0,
+def flash_attention_bwd_dq(q, k, v, bias, stats, di, do, *, sm_scale=1.0,
                            causal=False, need_ds=False):
-    """Launch the dQ backward kernel (K3b) on CUDA tensors: ``(dq, ds)``, dq
-    contiguous in ``q``'s type; ``ds`` is the (B, H, Sq, Sk) f32 score
-    gradient when ``need_ds`` (the bias's gradient), else None."""
+    """Launch the dQ backward kernel (K3b-dq) on CUDA tensors:
+    ``(dq, ds)``, dq contiguous in ``q``'s type; ``ds`` is the
+    (B, H, Sq, Sk) f32 score gradient when ``need_ds`` (the bias's
+    gradient), else None."""
     q, k, v, bias, do = _flash_inputs(q, k, v, bias, do)
-    _bwd_state(lse, di, q)
+    _bwd_state(stats, di, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ds = None
     if need_ds:
         ds = torch.zeros(q.shape[:3] + (k.shape[2],), dtype=torch.float32,
                          device=q.device)
     p = _flash_params(q, k, v, bias, sm_scale, causal, do)
-    p.lse, p.di, p.dq = lse.data_ptr(), di.data_ptr(), dq.data_ptr()
+    _set_stats(p, stats)
+    p.di, p.dq = di.data_ptr(), dq.data_ptr()
     if ds is not None:
         p.ds = ds.data_ptr()
     _flash_launch('flash_attention_bwd_dq', p, q.device)
@@ -507,27 +537,29 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, sm_scale, causal):
         if q.device.type == 'cpu':
-            o, lse = fused_attention_fwd_ref(q, k, v, bias, sm_scale=sm_scale,
-                                             causal=causal)
+            o, stats = fused_attention_fwd_ref(q, k, v, bias,
+                                               sm_scale=sm_scale,
+                                               causal=causal)
         else:
-            o, lse = flash_attention_fwd(q, k, v, bias, sm_scale=sm_scale,
-                                         causal=causal)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
+            o, stats = flash_attention_fwd(q, k, v, bias, sm_scale=sm_scale,
+                                           causal=causal)
+        ctx.save_for_backward(q, k, v, bias, o, stats)
         ctx.sm_scale, ctx.causal = sm_scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, stats = ctx.saved_tensors
         kw = {'sm_scale': ctx.sm_scale, 'causal': ctx.causal}
         need_ds = bias is not None and ctx.needs_input_grad[3]
         if do.device.type == 'cpu':
-            dq, dk, dv, ds = fused_attention_bwd_ref(q, k, v, bias, o, lse,
+            dq, dk, dv, ds = fused_attention_bwd_ref(q, k, v, bias, o, stats,
                                                      do, **kw)
         else:
             di = _row_dot(o, do)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, **kw)
-            dq, ds = flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+            dk, dv = flash_attention_bwd_dkv(q, k, v, bias, stats, di, do,
+                                             **kw)
+            dq, ds = flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
                                             need_ds=need_ds, **kw)
         dbias = _sum_to(ds, bias.shape).to(bias.dtype) if need_ds else None
         return dq, dk, dv, dbias, None, None

@@ -1,7 +1,9 @@
 """Time builds of the flash-attention source side by side on one CUDA card:
 the package's own ``csrc/flash_attention.cu`` and copies of it (a parent
-commit's, or one with other CTA-shape constants), the bf16 forward (K3) and
-dK/dV (K3b) at BERT-base's shape (B 128, H 12, S 128, D 64, no bias).
+commit's, or one with other CTA-shape constants), the bf16 forward (K3),
+dK/dV (K3b-dkv) and dQ (K3b-dq) at BERT-base's shape (B 128, H 12, S 128,
+D 64, no bias). A copy must share the package's ``FlashParams`` layout (the
+wrappers check its size).
 
     python3 -m paddle_tpu_torch.tools.bench_flash_tiles [NAME=SOURCE ...]
 
@@ -9,8 +11,8 @@ Run it from the repo root: it reuses ``chip_smoke.py``'s inputs, tolerances
 and timer. Every build compiles in parallel into
 ``paddle_tpu_torch/build/variants/`` with the package's nvcc flags. Each is
 held against the plain versions with the smoke's bf16 tolerances and its
-two bodies' registers, local (spill) bytes, shared memory and CTAs an SM are
-printed; then the forward and dK/dV are timed (``chip_smoke.timed``:
+three bodies' registers, local (spill) bytes, shared memory and CTAs an SM
+are printed; then the three kernels are timed (``chip_smoke.timed``:
 torch.profiler device time per launch, and CUDA events) in the order given
 and again in reverse, so drift shows. The card's name and power limit come
 first.
@@ -85,35 +87,40 @@ def main(argv=None):
     try:
         for name, so in built.items():
             _build.use_build('flash_attention', so)
-            for kind in nn_ops.FLASH_KINDS[:2]:
+            for kind in nn_ops.FLASH_KINDS:
                 print(f'{name}: {kind} D 64 bf16 '
                       f'{nn_ops.flash_kernel_info(kind, 64, torch.bfloat16)}',
                       flush=True)
-            o, lse = nn_ops.flash_attention_fwd(q, k, v, **kw)
+            o, stats = nn_ops.flash_attention_fwd(q, k, v, **kw)
             e_o = chip_smoke.compare(f'{name} O', o, o_ref, *tol['o'])
             di = nn_ops._row_dot(o, do)
-            _, dk_ref, dv_ref, _ = nn_ops.fused_attention_bwd_ref(
-                q, k, v, None, o, lse, do, **kw)
-            dk, dv = nn_ops.flash_attention_bwd_dkv(q, k, v, None, lse, di,
+            dq_ref, dk_ref, dv_ref, _ = nn_ops.fused_attention_bwd_ref(
+                q, k, v, None, o, stats, do, **kw)
+            dk, dv = nn_ops.flash_attention_bwd_dkv(q, k, v, None, stats, di,
                                                     do, **kw)
+            dq, _ = nn_ops.flash_attention_bwd_dq(q, k, v, None, stats, di,
+                                                  do, **kw)
             e_g = max(
                 chip_smoke.compare(f'{name} dK', dk, dk_ref, *tol['grad']),
                 chip_smoke.compare(f'{name} dV', dv, dv_ref, *tol['grad']))
-            print(f'{name}: max|diff| O {e_o:.3e}, dK/dV {e_g:.3e}',
-                  flush=True)
+            e_q = chip_smoke.compare(f'{name} dQ', dq, dq_ref, *tol['grad'])
+            print(f'{name}: max|diff| O {e_o:.3e}, dK/dV {e_g:.3e}, dQ '
+                  f'{e_q:.3e}', flush=True)
 
         order = list(built)
         for name in order + order[::-1]:
             _build.use_build('flash_attention', built[name])
-            o, lse = nn_ops.flash_attention_fwd(q, k, v, **kw)
+            o, stats = nn_ops.flash_attention_fwd(q, k, v, **kw)
             di = nn_ops._row_dot(o, do)
             fwd = chip_smoke.timed(
                 lambda: nn_ops.flash_attention_fwd(q, k, v, **kw))
             dkv = chip_smoke.timed(lambda: nn_ops.flash_attention_bwd_dkv(
-                q, k, v, None, lse, di, do, **kw))
+                q, k, v, None, stats, di, do, **kw))
+            dq = chip_smoke.timed(lambda: nn_ops.flash_attention_bwd_dq(
+                q, k, v, None, stats, di, do, **kw))
             print(f'{name} [{smi}]: forward {fwd[0]!r} ms (events '
-                  f'{fwd[1]!r}), dK/dV {dkv[0]!r} ms (events {dkv[1]!r})',
-                  flush=True)
+                  f'{fwd[1]!r}), dK/dV {dkv[0]!r} ms (events {dkv[1]!r}), '
+                  f'dQ {dq[0]!r} ms (events {dq[1]!r})', flush=True)
     finally:
         _build.use_build('flash_attention')
     return 0

@@ -5,8 +5,8 @@ it runs off the TPU) and through the port's autograd Function, whose CPU
 forward and backward are the plain versions of the three flash kernels.
 
 Tolerance atol 1e-5: f32 throughout, the port sums in another order (its
-plain forward goes through the log-sum-exp the kernels save, its backward
-recomputes P from it) and O(1) inputs keep every value near 1.
+plain forward goes through the row statistics the kernels save, its
+backward recomputes P from them) and O(1) inputs keep every value near 1.
 """
 import jax
 import numpy as np
@@ -98,7 +98,7 @@ def test_gradients_match_jax(shape, kind):
 @pytest.mark.parametrize('kind', KINDS)
 @pytest.mark.parametrize('shape', SHAPES, ids=str)
 def test_bwd_ref_matches_autograd_of_the_plain_version(shape, kind):
-    """The backward the kernels implement, from the saved log-sum-exp,
+    """The backward the kernels implement, from the saved row statistics,
     against torch autograd through ``fused_attention_ref``."""
     q, k, v, do, bias, causal = inputs(shape, kind, seed=2)
     sm = shape[-1] ** -0.5
@@ -107,11 +107,11 @@ def test_bwd_ref_matches_autograd_of_the_plain_version(shape, kind):
         torch.from_numpy(do))
     tq, tk, tv, tb = (None if a is None else torch.from_numpy(a)
                       for a in (q, k, v, bias))
-    o, lse = nn_ops.fused_attention_fwd_ref(tq, tk, tv, tb, sm_scale=sm,
-                                            causal=causal)
-    assert lse.shape == tq.shape[:3] and lse.dtype == torch.float32
+    o, stats = nn_ops.fused_attention_fwd_ref(tq, tk, tv, tb, sm_scale=sm,
+                                              causal=causal)
+    assert stats.shape == (2,) + tq.shape[:3] and stats.dtype == torch.float32
     dq, dk, dv, ds = nn_ops.fused_attention_bwd_ref(
-        tq, tk, tv, tb, o, lse, torch.from_numpy(do), sm_scale=sm,
+        tq, tk, tv, tb, o, stats, torch.from_numpy(do), sm_scale=sm,
         causal=causal)
     for g, t in zip((dq, dk, dv), ts):
         np.testing.assert_allclose(g.numpy(), t.grad.numpy(), atol=ATOL,
@@ -147,3 +147,30 @@ def test_bias_grad_sums_to_the_broadcast_shape():
     out = nn_ops.fused_attention(*leaves(q, k, v), frozen, sm_scale=0.25)
     out.sum().backward()
     assert frozen.grad is None
+
+
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+def test_rows_masked_by_finfo_min_match_jax(causal):
+    """A (B, 1, 1, S) bias of ``finfo.min`` on every key of batch row 1 (B 2,
+    H 2, S 8, D 16, sm_scale 0.25). The JAX op's softmax weighs every key of
+    those rows 1/S (under causal the keys past the diagonal too: its mask
+    fills them with ``finfo.min`` as well), and the port's CPU path gives
+    its O and its gradients of q, k, v and the bias; batch row 0 is an
+    ordinary row."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (rng.standard_normal((2, 2, 8, 16)).astype(np.float32)
+                   for _ in range(4))
+    bias = np.zeros((2, 1, 1, 8), np.float32)
+    bias[1] = np.finfo(np.float32).min
+    want_o, want = jax_fwd_vjp(q, k, v, do, bias, causal, 0.25)
+    np.testing.assert_allclose(
+        want_o[1], np.broadcast_to(v[1].mean(-2, keepdims=True), v[1].shape),
+        atol=ATOL, rtol=0)
+    ts = leaves(q, k, v, bias)
+    out = nn_ops.fused_attention(*ts, sm_scale=0.25, causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), want_o, atol=ATOL,
+                               rtol=0)
+    out.backward(torch.from_numpy(do))
+    for name, t, w in zip(('dq', 'dk', 'dv', 'dbias'), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=ATOL, rtol=0,
+                                   err_msg=name)

@@ -12,6 +12,7 @@ plain versions' answer for a row whose every key a ``finfo.min`` bias
 masks, which the kernels are held to on the card.
 """
 import ctypes
+import math
 import re
 
 import pytest
@@ -132,8 +133,9 @@ def test_flash_launch_wrappers_take_only_cuda_tensors(wrapper):
     CPU tensors they raise (the autograd Function picks the plain version
     on the CPU instead)."""
     q, k, v, do = cpu_operands()
-    lse = torch.zeros(q.shape[:3])
-    args = (q, k, v, None) + ((lse, lse, do) if 'bwd' in wrapper else ())
+    stats = torch.zeros((2,) + q.shape[:3])
+    args = (q, k, v, None) + ((stats, stats[0], do) if 'bwd' in wrapper
+                              else ())
     with pytest.raises(ValueError, match='run on CUDA tensors'):
         getattr(nn_ops, wrapper)(*args, sm_scale=0.25)
 
@@ -142,28 +144,44 @@ def test_flash_launch_wrappers_take_only_cuda_tensors(wrapper):
                          ids=['f32', 'bf16'])
 def test_plain_versions_keep_a_row_masked_by_finfo_min_finite(dtype):
     """A (B, 1, 1, S) bias of finfo.min on every key of batch row 1: the
-    plain forward gives that row the log-sum-exp finfo.min and the weight 1
-    on every key (the f32 sum absorbs the scores), the softmax gives it the
-    weight 1 / S, and the plain backward from either stays finite. The
-    kernels reproduce the log-sum-exp and the backward, and the softmax's
-    O (tests/test_torch_gpu.py)."""
+    plain forward gives that row the max score finfo.min and log l = log S,
+    so the weight 1 / S on every key, as the softmax gives it
+    (``fused_attention_ref``), and the plain backward from it stays finite.
+    The kernels are held to the same rows on the card
+    (tests/test_torch_gpu.py)."""
     q, k, v, do = cpu_operands(b=2, dtype=dtype)
+    s = q.shape[2]
     tol = {'atol': 1e-5, 'rtol': 1e-5} if dtype == torch.float32 else \
         {'atol': 8e-3, 'rtol': 8e-3}
-    bias = torch.zeros(2, 1, 1, q.shape[2])
+    bias = torch.zeros(2, 1, 1, s)
     bias[1] = torch.finfo(torch.float32).min
     kw = {'sm_scale': 0.25}
-    o, lse = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
-    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
-    assert (lse[1] == torch.finfo(torch.float32).min).all()
+    o, stats = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+    assert torch.isfinite(o).all() and torch.isfinite(stats).all()
+    assert (stats[0, 1] == torch.finfo(torch.float32).min).all()
+    torch.testing.assert_close(stats[1, 1],
+                               torch.full_like(stats[1, 1], math.log(s)))
     torch.testing.assert_close(o[1].float(),
-                               v[1].float().sum(-2, keepdim=True)
+                               v[1].float().mean(-2, keepdim=True)
                                .expand_as(o[1]), **tol)
     soft = nn_ops.fused_attention_ref(q, k, v, bias, **kw)
     torch.testing.assert_close(soft[1].float(),
                                v[1].float().mean(-2, keepdim=True)
                                .expand_as(soft[1]), atol=1e-2, rtol=1e-2)
     for out in (o, soft.to(dtype)):
-        grads = nn_ops.fused_attention_bwd_ref(q, k, v, bias, out, lse, do,
+        grads = nn_ops.fused_attention_bwd_ref(q, k, v, bias, out, stats, do,
                                                **kw)
         assert all(torch.isfinite(g).all() for g in grads)
+
+
+
+
+def test_paged_decode_ranges_are_the_ones_its_tests_assume():
+    """The split-context decode kernel's 64-key ranges and its at most 8
+    CTAs (one cluster) of a slot and head, which tests/test_torch_gpu.py's
+    range-edge contexts are built from; 8 is the portable cluster size (a
+    larger cluster needs an opt-in attribute the launcher does not set)."""
+    text = strip_comments(source('paged_attention'))
+    consts = dict(re.findall(r'constexpr int (kSplitKeys|kMaxCluster) = '
+                             r'(\d+);', text))
+    assert consts == {'kSplitKeys': '64', 'kMaxCluster': '8'}

@@ -8,7 +8,7 @@ machine with a card and the CUDA toolkit:
 
 Paged kernels: atol 2e-5, rtol 1e-5: f32 throughout, sums taken in another
 order than the plain version's matmuls. Flash kernels: f32 as the paged ones
-for O and the log-sum-exp, atol 1e-4 and rtol 1e-4 for the gradients (sums
+for O and the row statistics, atol 1e-4 and rtol 1e-4 for the gradients (sums
 of up to Sq * D f32 products of O(1) terms in another order); bf16 atol 1e-3
 and rtol 8e-3: kernel and plain version both sum in f32 (the kernel's
 tensor-core products carry P and dS as two bf16 terms, about 16 bits) and
@@ -30,6 +30,10 @@ import torch
 from paddle_tpu_torch.ops import nn_ops
 
 ATOL, RTOL = 2e-5, 1e-5
+# the paged decode kernel's key range and its CTAs of one slot and head
+# (kSplitKeys, kMaxCluster in csrc/paged_attention.cu, which the tier-1
+# tests/test_torch_flash_layout.py pins to these values)
+DECODE_SPLIT_KEYS, DECODE_MAX_RANKS = 64, 8
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +85,41 @@ def test_decode_kernel_matches_plain(cuda, d, bs):
     assert nn_ops.paged_attention.launches == before + 1
     want = nn_ops.paged_attention_ref(q, k, v, bt, cl, sm_scale=d ** -0.5)
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize('max_keys', [200, 1100])
+@pytest.mark.parametrize('bs', [1, 16])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+def test_decode_kernel_split_edges(cuda, d, bs, max_keys):
+    """The split-context kernel at its range edges: contexts 0 (a zero
+    row), 1, exactly one range (64 keys), one key past it, exactly one
+    CTA's span and one key past it, and the full max_bps * BS. At 200
+    padded keys each of 4 CTAs takes one range; at 1100, 18 ranges, each of
+    the 8 CTAs of a cluster takes 3 in turn. Two launches bitwise equal
+    (the served replay contract)."""
+    split, ranks = DECODE_SPLIT_KEYS, DECODE_MAX_RANKS
+    rng = np.random.default_rng(7 * d + bs + max_keys)
+    h = 3
+    max_bps = -(-max_keys // bs)
+    full = max_bps * bs
+    ranges = -(-full // split)
+    span = -(-ranges // min(ranges, ranks)) * split
+    contexts = [0, 1, split, split + 1, span, span + 1, full, full - 1]
+    nb = 2 + sum(-(-c // bs) for c in contexts)
+    k, v = pool(rng, h, nb, bs, d, cuda)
+    tables, ctx = tables_for(rng, contexts, bs, nb, max_bps)
+    bt, cl = torch.from_numpy(tables).to(cuda), torch.from_numpy(ctx).to(cuda)
+    q = torch.from_numpy(
+        rng.standard_normal((len(contexts), h, d), np.float32)).to(cuda)
+    before = nn_ops.paged_attention.launches
+    got = nn_ops.paged_attention(q, k, v, bt, cl, sm_scale=d ** -0.5)
+    again = nn_ops.paged_attention(q, k, v, bt, cl, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert nn_ops.paged_attention.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = nn_ops.paged_attention_ref(q, k, v, bt, cl, sm_scale=d ** -0.5)
+    torch.testing.assert_close(got[1:], want[1:], atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize('d,bs', [(16, 4), (32, 1), (64, 16), (128, 48)])
@@ -198,15 +237,15 @@ def close(got, want, tol):
 def test_flash_forward_matches_plain(cuda, kind, d, dtype):
     q, k, v, _, bias, causal = flash_inputs(kind, d, dtype, cuda)
     before = nn_ops.flash_attention_fwd.launches
-    o, lse = nn_ops.flash_attention_fwd(q, k, v, bias, sm_scale=d ** -0.5,
+    o, stats = nn_ops.flash_attention_fwd(q, k, v, bias, sm_scale=d ** -0.5,
                                         causal=causal)
     torch.cuda.synchronize()
     assert nn_ops.flash_attention_fwd.launches == before + 1
-    assert o.dtype == dtype and lse.dtype == torch.float32
-    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(
+    assert o.dtype == dtype and stats.dtype == torch.float32
+    o_ref, stats_ref = nn_ops.fused_attention_fwd_ref(
         q, k, v, bias, sm_scale=d ** -0.5, causal=causal)
     close(o, o_ref, FLASH_TOL[dtype]['o'])
-    close(lse, lse_ref, FLASH_TOL[torch.float32]['o'])
+    close(stats, stats_ref, FLASH_TOL[torch.float32]['o'])
     if dtype == torch.float32:      # and the op's own XLA formulation
         close(o, nn_ops.fused_attention_ref(q, k, v, bias, sm_scale=d ** -0.5,
                                             causal=causal), (2e-5, 1e-5))
@@ -237,14 +276,14 @@ def test_flash_gradients_match_plain(cuda, kind, d, dtype):
     for name in ('flash_attention_fwd', 'flash_attention_bwd_dkv',
                  'flash_attention_bwd_dq'):
         assert after[name] == before[name] + 1
-    o_k, lse_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o_k, stats_k = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
     assert torch.equal(o_k, o.detach())          # deterministic
-    wants = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, lse_k, do,
+    wants = [nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, stats_k, do,
                                             **kw)]
     if dtype == torch.float32:
-        o_ref, lse = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+        o_ref, stats = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
         wants.append(nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_ref,
-                                                    lse, do, **kw))
+                                                    stats, do, **kw))
     tol = FLASH_TOL[dtype]['grad']
     for dq, dk, dv, ds in wants:
         for got, want in zip(leaves[:3], (dq, dk, dv)):
@@ -254,16 +293,48 @@ def test_flash_gradients_match_plain(cuda, kind, d, dtype):
             close(leaves[3].grad, nn_ops._sum_to(ds, bias.shape), tol)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_dq_writes_ds_for_a_head_broadcast_bias(cuda, dtype):
+    """A (B, 1, Sq, Sk) bias, broadcast over heads, that takes a gradient:
+    dQ writes dS for every head from its accumulators, and the Function
+    sums it over the heads into dbias."""
+    rng = np.random.default_rng(9)
+    b, h, sq, sk, d = 2, 3, 80, 100, 64
+    q = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32)
+                         ).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, sk, d), np.float32)
+                             ).to(cuda, dtype) for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((b, h, sq, d), np.float32)
+                          ).to(cuda, dtype)
+    bias = torch.from_numpy(rng.standard_normal((b, 1, sq, sk), np.float32)
+                            ).to(cuda)
+    kw = {'sm_scale': d ** -0.5}
+    o, stats = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    di = nn_ops._row_dot(o, do)
+    dq, ds = nn_ops.flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
+                                           need_ds=True, **kw)
+    want = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, stats, do, **kw)
+    tol = FLASH_TOL[dtype]['grad']
+    close(dq, want[0], tol)
+    close(ds, want[3], FLASH_TOL[torch.float32]['grad'] if dtype ==
+          torch.float32 else tol)
+    leaf = bias.clone().requires_grad_()
+    nn_ops.fused_attention(q, k, v, leaf, **kw).backward(do)
+    assert leaf.grad.shape == (b, 1, sq, sk)
+    close(leaf.grad, nn_ops._sum_to(want[3], bias.shape), tol)
+
+
 def test_flash_dq_writes_the_score_gradient(cuda):
     q, k, v, do, bias, _ = flash_inputs('full', 32, torch.float32, cuda, 2)
-    o, lse = nn_ops.fused_attention_fwd_ref(q, k, v, bias, sm_scale=0.2)
+    o, stats = nn_ops.fused_attention_fwd_ref(q, k, v, bias, sm_scale=0.2)
     di = nn_ops._row_dot(o, do)
-    dq, ds = nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+    dq, ds = nn_ops.flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
                                            sm_scale=0.2, need_ds=True)
-    _, _, _, ds_ref = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, lse,
+    _, _, _, ds_ref = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, stats,
                                                      do, sm_scale=0.2)
     close(ds, ds_ref, FLASH_TOL[torch.float32]['grad'])
-    assert nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do,
+    assert nn_ops.flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
                                          sm_scale=0.2)[1] is None
 
 
@@ -275,10 +346,10 @@ def test_flash_reads_strided_head_views(cuda):
                          ).to(cuda)
     q = x.reshape(2, 48, 4, 64).transpose(1, 2)
     assert not q.is_contiguous()
-    o, lse = nn_ops.flash_attention_fwd(q, q, q, sm_scale=0.125)
-    oc, lsec = nn_ops.flash_attention_fwd(q.contiguous(), q.contiguous(),
+    o, stats = nn_ops.flash_attention_fwd(q, q, q, sm_scale=0.125)
+    oc, statsc = nn_ops.flash_attention_fwd(q.contiguous(), q.contiguous(),
                                           q.contiguous(), sm_scale=0.125)
-    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    assert torch.equal(o, oc) and torch.equal(stats, statsc)
 
 
 def flash_chain(leaves, do, bias, causal, dtype):
@@ -300,12 +371,12 @@ def flash_chain(leaves, do, bias, causal, dtype):
     for name in nn_ops.FLASH_KINDS:
         assert after[name] == before[name] + 1
     qd, kd, vd = (t.detach() for t in (q, k, v))
-    o_k, lse_k = nn_ops.flash_attention_fwd(qd, kd, vd, bias, **kw)
+    o_k, stats_k = nn_ops.flash_attention_fwd(qd, kd, vd, bias, **kw)
     assert torch.equal(o_k, o.detach())
-    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(qd, kd, vd, bias, **kw)
+    o_ref, stats_ref = nn_ops.fused_attention_fwd_ref(qd, kd, vd, bias, **kw)
     close(o_k, o_ref, FLASH_TOL[dtype]['o'])
-    close(lse_k, lse_ref, FLASH_TOL[torch.float32]['o'])
-    want = nn_ops.fused_attention_bwd_ref(qd, kd, vd, bias, o_k, lse_k, do,
+    close(stats_k, stats_ref, FLASH_TOL[torch.float32]['o'])
+    want = nn_ops.fused_attention_bwd_ref(qd, kd, vd, bias, o_k, stats_k, do,
                                           **kw)
     for t, ref in zip((q, k, v), want):
         assert t.grad.dtype == dtype
@@ -357,17 +428,17 @@ def test_flash_ragged_by_one(cuda, s, dtype, causal):
                          ids=['f32', 'bf16'])
 def test_flash_kernels_are_deterministic(cuda, dtype):
     """Two launches of the forward and of dK/dV on the same inputs give
-    bitwise the same O, log-sum-exp, dK and dV: every output row is owned
-    by one warp and summed in one order, with no atomics."""
+    bitwise the same O, row statistics, dK and dV: every output row is
+    owned by one warp and summed in one order, with no atomics."""
     q, k, v, do, bias, _ = flash_inputs('mask', 64, dtype, cuda, seed=6)
     kw = {'sm_scale': 0.125}
-    o1, lse1 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
-    o2, lse2 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
-    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    o1, stats1 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    o2, stats2 = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    assert torch.equal(o1, o2) and torch.equal(stats1, stats2)
     di = nn_ops._row_dot(o1, do)
-    dk1, dv1 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse1, di, do,
+    dk1, dv1 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, stats1, di, do,
                                               **kw)
-    dk2, dv2 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse1, di, do,
+    dk2, dv2 = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, stats1, di, do,
                                               **kw)
     torch.cuda.synchronize()
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
@@ -375,14 +446,37 @@ def test_flash_kernels_are_deterministic(cuda, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-def test_flash_rows_masked_by_finfo_min(cuda, dtype):
+def test_flash_dq_is_deterministic(cuda, dtype):
+    """Two launches of dQ, with dS written, give bitwise the same dQ and
+    dS: each warp owns its rows' dQ, nothing is atomic."""
+    q, k, v, do, bias, _ = flash_inputs('full', 64, dtype, cuda, seed=6)
+    kw = {'sm_scale': 0.125}
+    o, stats = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    di = nn_ops._row_dot(o, do)
+    dq1, ds1 = nn_ops.flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
+                                             need_ds=True, **kw)
+    dq2, ds2 = nn_ops.flash_attention_bwd_dq(q, k, v, bias, stats, di, do,
+                                             need_ds=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2) and torch.equal(ds1, ds2)
+
+
+@pytest.mark.parametrize('causal', [False, True], ids=['full', 'causal'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_flash_rows_masked_by_finfo_min(cuda, dtype, causal):
     """A (B, 1, 1, S) bias of finfo.min on some keys of batch row 0 and on
-    every key of batch row 1, at S 130 (a ragged tile). Times log2 e such a
-    bias leaves the f32 range; the kernels keep every output finite. The
-    log-sum-exp and row 0's O match the plain forward; row 1's O is the
-    softmax's, the same weight on every key (the plain forward's f32 sum
-    leaves that row unnormalised); dQ, dK and dV match the plain backward
-    run on the forward kernel's own O and log-sum-exp."""
+    every key of batch row 1, at S 130 (a ragged tile), taking a gradient.
+    Times log2 e such a bias leaves the f32 range; the kernels keep every
+    output finite. Through the autograd Function, O and the gradients of
+    q, k, v and the bias are held to ``fused_attention_ref``'s autograd on
+    the same values in f32, the JAX op's formulation: the softmax weighs
+    every key of row 1 alike (under causal the keys past the diagonal too,
+    which its mask fills with finfo.min as well); in bf16 the gradients on
+    row 1, and all of them against the plain backward on the forward
+    kernel's own O (row 0's di = rowsum(O . dO) carries O's bf16 rounding,
+    as in flash_chain). The row statistics match the plain forward's: max
+    finfo.min and log S on row 1."""
     rng = np.random.default_rng(7)
     b, h, s, d = 2, 3, 130, 64
 
@@ -396,20 +490,27 @@ def test_flash_rows_masked_by_finfo_min(cuda, dtype):
     keep[1] = False
     bias = torch.from_numpy(np.where(keep, 0.0, np.finfo(np.float32).min)
                             .astype(np.float32)).to(cuda)
-    kw = {'sm_scale': d ** -0.5}
+    kw = {'sm_scale': d ** -0.5, 'causal': causal}
     tol = FLASH_TOL[dtype]
-    o, lse = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
-    o_ref, lse_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
-    close(lse, lse_ref, FLASH_TOL[torch.float32]['o'])
-    close(o[0], o_ref[0], tol['o'])
-    close(o[1], nn_ops.fused_attention_ref(q, k, v, bias, **kw)[1],
-          tol['o'])
-    di = nn_ops._row_dot(o, do)
-    dk, dv = nn_ops.flash_attention_bwd_dkv(q, k, v, bias, lse, di, do, **kw)
-    dq, _ = nn_ops.flash_attention_bwd_dq(q, k, v, bias, lse, di, do, **kw)
-    want = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o, lse, do, **kw)
-    for got, ref in zip((dq, dk, dv), want):
-        close(got, ref, tol['grad'])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias)]
+    o = nn_ops.fused_attention(*leaves, **kw)
+    o.backward(do)
+    torch.cuda.synchronize()
+    refs = [x.float().requires_grad_() for x in (q, k, v, bias)]
+    o_ref = nn_ops.fused_attention_ref(*refs, **kw)
+    o_ref.backward(do.float())
+    close(o.detach(), o_ref.detach(), tol['o'])
+    rows = slice(None) if dtype == torch.float32 else slice(1, 2)
+    for got, want in zip(leaves, refs):
+        close(got.grad[rows], want.grad[rows], tol['grad'])
+    o_k, stats = nn_ops.flash_attention_fwd(q, k, v, bias, **kw)
+    _, stats_ref = nn_ops.fused_attention_fwd_ref(q, k, v, bias, **kw)
+    close(stats, stats_ref, FLASH_TOL[torch.float32]['o'])
+    assert (stats[0, 1] == torch.finfo(torch.float32).min).all()
+    dq, dk, dv, ds = nn_ops.fused_attention_bwd_ref(q, k, v, bias, o_k, stats,
+                                                    do, **kw)
+    for got, want in zip(leaves, (dq, dk, dv, nn_ops._sum_to(ds, bias.shape))):
+        close(got.grad, want, tol['grad'])
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -427,9 +528,10 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         nn_ops.fused_attention(q, q.cpu(), q)
     with pytest.raises(ValueError, match='CUDA tensors'):
         nn_ops.flash_attention_fwd(q.cpu(), q.cpu(), q.cpu())
-    lse = torch.zeros(1, 2, 8, device=cuda)
-    with pytest.raises(ValueError, match='lse'):
-        nn_ops.flash_attention_bwd_dq(q, q, q, None, lse.double(), lse, q)
+    stats = torch.zeros(2, 1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match='stats'):
+        nn_ops.flash_attention_bwd_dq(q, q, q, None, stats.double(), stats[0],
+                                      q)
 
 
 def test_tiny_train_step_goes_through_the_flash_kernels(cuda):
