@@ -17,11 +17,14 @@ Phases:
    printed, spill lines included); then each flash body (forward, dK/dV,
    dQ; bf16 and f32; every head dim) as the loaded library reports it:
    registers, local memory a thread (spills), static and dynamic shared
-   memory and the CTAs an SM holds;
+   memory and the CTAs an SM holds; then the same for K2's key-split body
+   (every head dim) and K4's bodies (bf16 wgmma at 64 and 128 tile
+   columns, bf16 WMMA, f32);
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence): K1 at ragged contexts up to the full 384 and
    at the served decode step's (contexts 128-188 on every slot), two
+   launches bitwise equal; K2 at every prompt rung (1, 16, 64, 256), two
    launches bitwise equal; each launch synchronised and compared; then
    the device time (torch.profiler) of the kernel, the plain version and
    one PyTorch library call (``scaled_dot_product_attention``, timed only,
@@ -85,13 +88,15 @@ Phases:
    plain version and the library yardstick (``F.conv2d`` on the
    channels_last input with the weight pre-multiplied by scale and
    ``bias=shift``, then ``relu_``; timed only, never called by the port)
-   beside the bound. Then K4's path: the trained model in eval mode, the
+   beside the bound, kernel / library, and the body and tile the launcher
+   chose, a row per shape. Then K4's path: the trained model in eval mode, the
    input and output of each of the 33 layers captured in one eval forward
    in f32 and one with the weights cast to bf16; each layer's BN folded
    into scale and shift and run through ``fused_conv1x1_bn_act``, held
    against the layer's own output (f32 atol and rtol 1e-4; bf16 within
    2**-5 of the sum of the magnitudes the layer rounds, see
-   ``check_k4_on_model``); K4 launched exactly 33 times per pass;
+   ``check_k4_on_model``); K4 launched exactly 33 times per pass, in
+   bf16 all 33 through its wgmma body (that body's own counter);
 8. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -329,17 +334,23 @@ def check_prefill_kernel(rng, dev):
         bt = torch.from_numpy(tables).to(dev)
         q = torch.from_numpy(
             rng.standard_normal((1, H, lb, D), np.float32)).to(dev)
-        got = nn_ops.paged_prefill_attention(q, k_pages, v_pages, bt,
+        got = nn_ops.paged_prefill_attention(q, q, q, k_pages, v_pages, bt,
                                              sm_scale=scale)
         want = nn_ops.paged_prefill_attention_ref(q, k_pages, v_pages, bt,
                                                   sm_scale=scale)
         errs.append(compare(f'paged_prefill_attention Lb={lb}', got, want))
+        again = nn_ops.paged_prefill_attention(q, q, q, k_pages, v_pages, bt,
+                                               sm_scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f'paged_prefill_attention Lb={lb}: two '
+                                 f'launches differ')
         # yardstick: causal SDPA on the raw prompt K/V (what the TPU
         # kernel attended); the same rows the paged view holds
         kr = nn_ops._gather_pages(k_pages, bt, 1, H, D)[:, :, :lb]
         vr = nn_ops._gather_pages(v_pages, bt, 1, H, D)[:, :, :lb]
         tm = times(lambda: nn_ops.paged_prefill_attention(
-                       q, k_pages, v_pages, bt, sm_scale=scale),
+                       q, q, q, k_pages, v_pages, bt, sm_scale=scale),
                    lambda: nn_ops.paged_prefill_attention_ref(
                        q, k_pages, v_pages, bt, sm_scale=scale),
                    lambda: F.scaled_dot_product_attention(
@@ -400,6 +411,32 @@ def report_flash_build():
                 if dtype == torch.bfloat16 and d == 64:
                     at_d64[kind] = info
     return at_d64
+
+
+def report_k2_k4_build():
+    """Phase 2, K2's bodies (every head dim) and K4's (the bf16 wgmma body
+    at each tile width, the bf16 WMMA body, the f32 body) as the loaded
+    libraries report them. Returns K2's figures at D 64 and K4's by body
+    and tile, labelled as ``check_k4_kernel`` labels them (``'wgmma
+    128x64'``)."""
+    from paddle_tpu_torch.ops import nn_ops, pallas_conv
+
+    def line(label, info):
+        log(f'{label}: {info["registers"]} registers, {info["spill_bytes"]} '
+            f'B local a thread, {info["static_smem"]} B static and '
+            f'{info["dynamic_smem"]} B dynamic shared, {info["threads"]} '
+            f'threads, {info["ctas_per_sm"]} CTAs an SM')
+
+    k2 = {}
+    for d in nn_ops.HEAD_DIMS:
+        k2[d] = nn_ops.prefill_kernel_info(d)
+        line(f'paged_prefill_attention D {d}', k2[d])
+    k4 = {}
+    for body, bn in [('wgmma', t) for t in pallas_conv.K4_WGMMA_TILES] + [
+            ('wmma', 64), ('f32', 64)]:
+        k4[f'{body} 128x{bn}'] = pallas_conv.conv1x1_kernel_info(body, bn)
+        line(f'conv1x1_bn_act {body} 128 x {bn}', k4[f'{body} 128x{bn}'])
+    return k2[D], k4
 
 
 def check_flash_chain(label, q, k, v, do, bias, causal, tol):
@@ -900,7 +937,12 @@ def check_k4_on_model(model, x, card):
     the folded scale), and together they come to at most 7 * 2**-8 of
     their sum B: the bound is 2**-5 B, elementwise.
 
-    Returns (launches in the two passes, the 33 layers' (B, H, W, K, N))."""
+    Every bf16 layer is a shape the TMA loads of K4's wgmma body describe,
+    so the bf16 pass launches that body 33 times (its own counter), the f32
+    pass the f32 body.
+
+    Returns (launches in the two passes, the wgmma body's under
+    ``'conv1x1_bn_act wgmma'``; the 33 layers' (B, H, W, K, N))."""
     import torch
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.ops.pallas_conv import (conv1x1_bn_act,
@@ -911,6 +953,7 @@ def check_k4_on_model(model, x, card):
                              f'expected {K4_PER_PASS}')
     model.eval()
     shapes = []
+    wgmma_launches = 0
     nn_ops.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         captured = {}
@@ -925,6 +968,7 @@ def check_k4_on_model(model, x, card):
         for h in hooks:
             h.remove()
         before = conv1x1_bn_act.launches
+        before_wgmma = conv1x1_bn_act.launches_wgmma
         worst, worst_b = 0.0, 0.0
         for n, m in layers:
             xin, want = captured.pop(n)
@@ -960,17 +1004,24 @@ def check_k4_on_model(model, x, card):
             del c, bound, err
         torch.cuda.synchronize()
         ran = conv1x1_bn_act.launches - before
-        if ran != K4_PER_PASS:
-            raise AssertionError(f'K4 launched {ran} times in one '
-                                 f'{dtype} pass, expected {K4_PER_PASS}')
+        ran_wgmma = conv1x1_bn_act.launches_wgmma - before_wgmma
+        # every bf16 layer of the pass is a shape TMA describes
+        want_wgmma = K4_PER_PASS if dtype == torch.bfloat16 else 0
+        if ran != K4_PER_PASS or ran_wgmma != want_wgmma:
+            raise AssertionError(f'K4 launched {ran} times ({ran_wgmma} of '
+                                 f'the wgmma body) in one {dtype} pass, '
+                                 f'expected {K4_PER_PASS} ({want_wgmma})')
+        wgmma_launches += ran_wgmma
         log(f'K4 on the trained model, eval {dtype} [{card}]: 33 layers, '
-            f'{ran} launches, max|diff| against the layers {worst:.3e}'
+            f'{ran} launches ({ran_wgmma} of the wgmma body), max|diff| '
+            f'against the layers {worst:.3e}'
             + (f', max |diff| / (1e-4 + 1e-4 |y|) {worst_b:.3e} (limit 1)'
                if dtype == torch.float32 else
                f', max |diff| / B {worst_b:.3e} (limit 2**-5 = 0.03125)'))
         del captured, params
         torch.cuda.empty_cache()
     launches = nn_ops.launch_counts()
+    launches['conv1x1_bn_act wgmma'] = wgmma_launches
     return launches, shapes
 
 
@@ -1002,22 +1053,27 @@ def check_k4_kernel(layer_shapes, dev, card):
     """Phase 7, K4 against its plain version at every distinct shape of its
     path (``layer_shapes``, one per layer), bf16 and f32, act None and
     relu, then its device time (relu) beside the plain version, the
-    library yardstick and the bound, and those times summed over the
-    path's layers. Returns the kernels-line entry at
+    library yardstick and the bound, kernel / library, and the body and
+    tile the launcher chose; a row per shape, and those times summed over
+    the path's layers. Returns the kernels-line entry at
     tools/bench_fused_conv.py's first shape (256 -> 64 at 56x56), bf16."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.pallas_conv import (conv1x1_bn_act,
+                                                  conv1x1_plan,
                                                   fused_conv1x1_bn_act_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     entry = None
     per_pass = {}             # dtype label -> summed ms over the layers
+    rows = []
     for shape in dict.fromkeys(layer_shapes):
         b, h, w, k, n = shape
         m = b * h * w
+        cells = []
         for dtype in (torch.bfloat16, torch.float32):
             x, wt, sc, sh = k4_inputs(shape, dtype, dev, gen)
+            plan = conv1x1_plan(x, wt, sc, sh)
             errs = []
             for act in (None, 'relu'):
                 got = conv1x1_bn_act(x, wt, sc, sh, act=act)
@@ -1055,8 +1111,15 @@ def check_k4_kernel(layer_shapes, dev, card):
             bms, by = bound_ms(nbytes, 2 * m * n * k, peak)
             tm.update(bound_ms=bms, bound_by=by)
             label = 'bf16' if dtype == torch.bfloat16 else 'f32'
-            log(f'K4 {k}->{n}@{h}x{w} (M {m}) {label} [{card}]: max|diff| '
-                f'{max(errs):.3e}; {fmt_times(tm, "conv2d")}')
+            body = f'{plan["body"]} 128x{plan["bn"]}'
+            ratio = tm['ms'] / tm['library_ms']
+            log(f'K4 {k}->{n}@{h}x{w} (M {m}) {label} [{card}]: body {body}, '
+                f'{plan["grid"]} CTAs, {plan["stages"]} stages; max|diff| '
+                f'{max(errs):.3e}; {fmt_times(tm, "conv2d")}; kernel / '
+                f'conv2d {ratio:.3f}')
+            cells.append(f'{label} {body} {tm["ms"]:.5f} / '
+                         f'{tm["plain_ms"]:.5f} / {tm["library_ms"]:.5f} / '
+                         f'{tm["bound_ms"]:.5f} ({ratio:.2f})')
             total = per_pass.setdefault(label, dict.fromkeys(
                 ('ms', 'plain_ms', 'library_ms', 'bound_ms'), 0.0))
             for key in total:
@@ -1065,11 +1128,18 @@ def check_k4_kernel(layer_shapes, dev, card):
                 entry = {'name': 'conv1x1_bn_act', 'route': 'cuda',
                          'source': 'paddle_tpu_torch/csrc/conv1x1_bn_act.cu',
                          'replaces': 'paddle_tpu/ops/pallas_conv.py:93',
+                         'body': body,
                          'shape': f'M={m} K={k} N={n} ({k}->{n}@{h}x{w}, '
                                   f'batch {b}) {label}, relu',
                          'max_abs_err': max(errs), **tm}
             del x, wt, sc, sh, wl, xl
+        rows.append(f'{k}->{n} @{h} x{layer_shapes.count(shape)}: '
+                    + '; '.join(cells))
         torch.cuda.empty_cache()
+    log(f'K4 by shape [{card}] (kernel / plain / conv2d + relu_ / bound ms, '
+        f'kernel / conv2d):')
+    for row in rows:
+        log(f'  {row}')
     for label, t in per_pass.items():
         log(f'K4 over the {len(layer_shapes)} layers of one {label} pass '
             f'[{card}]: kernel {t["ms"]:.5f} ms, plain {t["plain_ms"]:.5f} '
@@ -1279,6 +1349,7 @@ def main(argv=None):
         for line in i['ptxas']:
             log(f'  {line}')
     flash_build = report_flash_build()
+    k2_build, k4_build = report_k2_k4_build()
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
@@ -1299,6 +1370,7 @@ def main(argv=None):
     launches = serve(args.seed, smi)
     k1['launches'] = launches['paged_attention']
     k2['launches'] = launches['paged_prefill_attention']
+    k2['build'] = k2_build
 
     # 5. training path
     launches = train(args.seed, dev, smi)
@@ -1316,6 +1388,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     k4 = check_k4_kernel(shapes, dev, smi)
     k4['launches'] = launches['conv1x1_bn_act']
+    k4['launches_wgmma'] = launches['conv1x1_bn_act wgmma']
+    k4['build'] = k4_build[k4['body']]
 
     # 8. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
@@ -1323,7 +1397,8 @@ def main(argv=None):
             'shape')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
-            x for x in ('stock', 'build', 'served_shape') if x in kern)}
+            x for x in ('body', 'launches_wgmma', 'stock', 'build',
+                        'served_shape') if x in kern)}
         for kern in (k1, k2, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))

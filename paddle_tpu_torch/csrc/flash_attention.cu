@@ -127,6 +127,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kernel_info.cuh"
+
 struct FlashParams {
   const void* q;
   const void* k;
@@ -1536,27 +1538,13 @@ int launch_dq(const FlashParams& p, cudaStream_t st) {
   return launch_kind<kD>(2, p, st);
 }
 
-// out = {registers, local bytes a thread (spills), static shared bytes,
-// dynamic shared bytes, CTAs an SM holds, threads a CTA}
+// out as describe_kernel (kernel_info.cuh) gives it
 template <int kD>
 int kernel_info(int kind, bool bf16, int* out) {
   return with_body<kD>(kind, bf16, [&](auto bd, unsigned& raised) {
-    cudaError_t e = raise_smem(bd.kernel, bd.smem, raised);
+    const cudaError_t e = raise_smem(bd.kernel, bd.smem, raised);
     if (e != cudaSuccess) return (int)e;
-    cudaFuncAttributes a;
-    e = cudaFuncGetAttributes(&a, bd.kernel);
-    if (e != cudaSuccess) return (int)e;
-    int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bd.kernel,
-                                                      bd.threads, bd.smem);
-    if (e != cudaSuccess) return (int)e;
-    out[0] = a.numRegs;
-    out[1] = (int)a.localSizeBytes;
-    out[2] = (int)a.sharedSizeBytes;
-    out[3] = (int)bd.smem;
-    out[4] = blocks;
-    out[5] = bd.threads;
-    return 0;
+    return describe_kernel(bd.kernel, bd.threads, (int)bd.smem, out);
   });
 }
 

@@ -54,23 +54,40 @@
 //   Bound: per head 2 * Lq * (Lq + 1) * D f32 flops (the causal half)
 //   against 16 * Lq * D bytes (q, K, V, out read or written once): bytes
 //   below Lq ~ 160 on an H100, f32 operations above (the top rung is 256).
-//   Design: one CTA of 8 warps per (16-row query tile, head, sequence), so
-//   a 256-token prompt over 8 heads fills 128 CTAs. The q tile is staged in
-//   shared memory once; K/V are staged 32 keys at a time, each key row
-//   located through the block table, so any block size works. The key loop
-//   stops at the tile's last causal key. Each warp owns two query rows and
-//   each lane one key of the chunk, so a row's online-softmax update (max,
-//   rescale, sum) is a warp shuffle reduction on scores held in registers;
-//   each thread then keeps a slice of the tile's output in registers for
-//   the P.V update. Shared rows are padded by 4 floats so float4 reads
-//   across lanes are free of bank conflicts. Plain f32 FMA, no tensor cores
-//   (f32, no TF32).
+//   At the served shape (8 heads of 64, Lq 256) that is about 1 us: the
+//   time is the latency of the chain table entry -> K/V rows -> scores ->
+//   softmax -> P.V -> merge, not bytes or operations.
+//   Design: key-split flash attention. One CTA per (16-row query tile,
+//   head, sequence), 8 warps (4 at D 128, for shared memory). The tile's
+//   causal keys 0 .. q0 + 15 are cut into one contiguous range a warp, so
+//   the split follows the tile's key count: at Lq 256 the last tile's
+//   warps take 32 keys each and the first tile's 2, and no warp walks more
+//   than one 32-key chunk in series. Each warp reads its keys' block-table
+//   entries (one a lane), then issues every K and V row of its chunk with
+//   cp.async, 16 bytes a lane with neighbouring lanes on neighbouring
+//   addresses, beside the CTA's q tile, before the first score. Scores
+//   are register-blocked as one key a lane against all 16 rows (K rows
+//   padded by 4 floats, so the lanes' float4 reads are free of bank
+//   conflicts; q rows are broadcast), pre-scaled by sm_scale log2 e and
+//   exponentiated with exp2f; a row's online-softmax update is one
+//   shuffle reduction of its max, and each lane keeps its own share of
+//   the row sums until the end. P goes through a small per-warp buffer to
+//   the P.V update, in which a lane owns 1-4 columns of every row. The
+//   warps merge their (max, sum, O) once, through shared memory, in warp
+//   order: no atomics, so a launch is bitwise repeatable. Plain f32 FMA,
+//   no tensor cores (f32, no TF32).
+//   Built: 204 registers a thread at D 64 (164-220 across D), no local
+//   memory, 164,096 bytes of dynamic shared memory at D 64 (62,720 at D
+//   16, 153,856 at D 128), 1 CTA an SM.
 //
 // Both kernels are compiled for head_dim D in {16, 32, 64, 128} and take any
 // BS >= 1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -78,9 +95,7 @@ constexpr int kSplitKeys = 64;        // keys of one decode range
 constexpr int kSplitWarps = 8;
 constexpr int kMaxCluster = 8;        // CTAs of one (head, slot): portable
 constexpr int kPrefillRows = 16;      // query rows per CTA
-constexpr int kKeyChunk = 32;         // keys staged per step: one per lane
-constexpr int kPrefillWarps = 8;
-constexpr int kPrefillThreads = kPrefillWarps * 32;
+constexpr int kKeyChunk = 32;         // keys a warp holds at once: one a lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -95,23 +110,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
-}
-
-template <int kD>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < kD / 4; ++c) {
-    const float4 x = a4[c];
-    const float4 y = b4[c];
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-    acc = fmaf(x.z, y.z, acc);
-    acc = fmaf(x.w, y.w, acc);
-  }
-  return acc;
 }
 
 // One CTA per (head, slot, rank); the ranks of one (head, slot) are one
@@ -292,123 +290,272 @@ paged_decode_attention_kernel(const float* __restrict__ q,
   cluster.sync();        // every rank's shared memory outlives rank 0's reads
 }
 
+// ------------------------------------------------------------- prefill ---
+
 template <int kD>
-__global__ void __launch_bounds__(kPrefillThreads)
+struct Prefill {
+  static constexpr int kWarps = kD == 128 ? 4 : 8;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kD4 = kD / 4;
+  static constexpr int kDP = kD + 4;          // padded K, V and q rows
+  static constexpr int kPP = kPrefillRows + 4;  // padded P rows (a key's)
+  // P.V: a lane owns kLaneCols columns of kLaneRows rows of the tile
+  static constexpr int kLaneCols = kD >= 32 ? kD / 32 : 1;
+  static constexpr int kColLanes = kD / kLaneCols;
+  static constexpr int kLaneRows = kPrefillRows * kColLanes / 32;
+  // shared memory, in floats: the q tile, then each warp's K and V rows,
+  // then each warp's P; the merge reuses the K and V rows
+  static constexpr int kQ = kPrefillRows * kDP;
+  static constexpr int kWarpKV = 2 * kKeyChunk * kDP;
+  static constexpr int kWarpP = kKeyChunk * kPP;
+  static constexpr int kMerge = kWarps * kPrefillRows * (kD + 2);
+  static constexpr int kSmem = (kQ + kWarps * (kWarpKV + kWarpP)) * 4;
+  static_assert(kMerge <= kWarps * kWarpKV, "merge fits in the K/V rows");
+  static_assert(kLaneRows % 4 == 0, "P rows are read as float4");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// The K and V rows of keys c0 .. c0 + nk - 1 (nk <= 32) into k_s and v_s,
+// all in flight at once: each lane first finds its key's row through the
+// block table, then the warp copies 16 bytes a lane, neighbouring lanes on
+// neighbouring addresses of a row.
+template <int kD>
+__device__ __forceinline__ void load_keys(float* k_s, float* v_s,
+                                          const float* kh, const float* vh,
+                                          const int* table, int BS, int c0,
+                                          int nk, int lane) {
+  using P = Prefill<kD>;
+  const int t = c0 + lane;
+  const int row = lane < nk ? table[t / BS] * BS + t % BS : 0;
+#pragma unroll
+  for (int i = 0; i < P::kD4; ++i) {
+    const int e = lane + 32 * i;
+    const int j = e / P::kD4;
+    const int c = 4 * (e % P::kD4);
+    const int rj = __shfl_sync(kFull, row, j);
+    if (j < nk) {
+      cp_async16(k_s + j * P::kDP + c, kh + (size_t)rj * kD + c);
+      cp_async16(v_s + j * P::kDP + c, vh + (size_t)rj * kD + c);
+    }
+  }
+}
+
+// One CTA per (16-row query tile, head, sequence). The tile's causal keys
+// 0 .. q0 + rows - 1 are split into kWarps contiguous ranges, one a warp;
+// each warp runs an online softmax over its range for all 16 rows, 32 keys
+// at a time, and the warps merge their (max, sum, O) once, in warp order.
+template <int kD>
+__global__ void __launch_bounds__(Prefill<kD>::kThreads, 1)
 paged_prefill_attention_kernel(const float* __restrict__ q,
                                const float* __restrict__ k_pages,
                                const float* __restrict__ v_pages,
                                const int* __restrict__ block_tables,
                                float* __restrict__ out, int H, int Lq, int NB,
-                               int BS, int max_bps, float sm_scale) {
-  constexpr int kDP = kD + 4;                 // padded shared row stride
-  constexpr int kSP = kKeyChunk + 1;          // padded score row stride
-  constexpr int kD4 = kD / 4;
-  constexpr int kAcc = kPrefillRows * kD / kPrefillThreads;
-  constexpr int kRowsPerWarp = kPrefillRows / kPrefillWarps;
-  static_assert(kPrefillRows * kD % kPrefillThreads == 0, "tile split");
-  __shared__ __align__(16) float q_s[kPrefillRows * kDP];
-  __shared__ __align__(16) float k_s[kKeyChunk * kDP];
-  __shared__ __align__(16) float v_s[kKeyChunk * kDP];
-  __shared__ float p_s[kPrefillRows * kSP];
-  __shared__ float a_s[kPrefillRows];
-  __shared__ float l_s[kPrefillRows];
+                               int BS, int max_bps, float scale_log2) {
+  using P = Prefill<kD>;
+  constexpr int kR = kPrefillRows;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* kv_all = q_s + P::kQ;
+  float* p_all = kv_all + P::kWarps * P::kWarpKV;
 
-  const int q0 = blockIdx.x * kPrefillRows;
+  const int q0 = blockIdx.x * kR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int rows = min(kPrefillRows, Lq - q0);
+  const int rows = min(kR, Lq - q0);
   const size_t bh_off = ((size_t)b * H + h) * Lq * kD;
-
-  for (int e = tid; e < kPrefillRows * kD4; e += kPrefillThreads) {
-    const int r = e / kD4;
-    const int c = e % kD4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) val = reinterpret_cast<const float4*>(q + bh_off + (size_t)(q0 + r) * kD)[c];
-    *reinterpret_cast<float4*>(q_s + r * kDP + 4 * c) = val;
-  }
-
-  // warp w owns rows w, w + kPrefillWarps, ...: their running max and sum
-  // live in registers (every lane holds the same copy)
-  float m_row[kRowsPerWarp];
-  float l_row[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m_row[i] = neg_inf();
-    l_row[i] = 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-
   const int* table = block_tables + (size_t)b * max_bps;
-  const size_t head_off = (size_t)h * NB * BS * kD;
-  const int n_keys = q0 + rows;               // the tile's last causal key + 1
+  const float* kh = k_pages + (size_t)h * NB * BS * kD;
+  const float* vh = v_pages + (size_t)h * NB * BS * kD;
+  float* k_s = kv_all + warp * P::kWarpKV;
+  float* v_s = k_s + kKeyChunk * P::kDP;
+  float* p_s = p_all + warp * P::kWarpP;
 
-  for (int k0 = 0; k0 < n_keys; k0 += kKeyChunk) {
-    const int nk = min(kKeyChunk, n_keys - k0);
-    for (int e = tid; e < nk * kD4; e += kPrefillThreads) {
-      const int j = e / kD4;
-      const int c = e % kD4;
-      const int t = k0 + j;
-      const size_t row = head_off + ((size_t)table[t / BS] * BS + t % BS) * kD;
-      *reinterpret_cast<float4*>(k_s + j * kDP + 4 * c) =
-          reinterpret_cast<const float4*>(k_pages + row)[c];
-      *reinterpret_cast<float4*>(v_s + j * kDP + 4 * c) =
-          reinterpret_cast<const float4*>(v_pages + row)[c];
-    }
-    __syncthreads();
+  // this warp's share of the tile's causal keys
+  const int n_keys = q0 + rows;
+  const int span = (n_keys + P::kWarps - 1) / P::kWarps;
+  const int k_begin = min(warp * span, n_keys);
+  const int k_end = min(k_begin + span, n_keys);
 
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + i * kPrefillWarps;
-      float p = 0.f;
-      float alpha = 0.f;
-      if (r < rows) {                         // uniform across the warp
-        const bool valid = lane < nk && k0 + lane <= q0 + r;
-        const float sc = valid
-            ? dot<kD>(q_s + r * kDP, k_s + lane * kDP) * sm_scale : neg_inf();
-        // key 0 is causal for every row, so m_new is finite from chunk 0 on
-        const float m_new = fmaxf(m_row[i], warp_max(sc));
-        alpha = expf(m_row[i] - m_new);
-        p = valid ? expf(sc - m_new) : 0.f;
-        l_row[i] = l_row[i] * alpha + warp_sum(p);
-        m_row[i] = m_new;
-      }
-      p_s[r * kSP + lane] = p;
-      if (lane == 0) a_s[r] = alpha;
-    }
-    __syncthreads();
+  // the q tile (rows past the prompt zero, never stored) and the warp's
+  // first chunk of keys, all in flight before the first score
+  for (int e = tid; e < kR * P::kD4; e += P::kThreads) {
+    const int r = e / P::kD4;
+    const int c = 4 * (e % P::kD4);
+    if (r < rows)
+      cp_async16(q_s + r * P::kDP + c, q + bh_off + (size_t)(q0 + r) * kD + c);
+    else
+      *reinterpret_cast<float4*>(q_s + r * P::kDP + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (k_begin < k_end)
+    load_keys<kD>(k_s, v_s, kh, vh, table, BS, k_begin,
+                  min(kKeyChunk, k_end - k_begin), lane);
+  cp_async_wait_all();
+  __syncthreads();
 
+  // the lane's P.V block: columns col0 .., rows row0 .. of the tile
+  const int col0 = (lane % P::kColLanes) * P::kLaneCols;
+  const int row0 = (lane / P::kColLanes) * P::kLaneRows;
+  float o[P::kLaneRows][P::kLaneCols];
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kPrefillThreads;
-      const int r = e / kD;
-      const int d = e % kD;
-      const float* pr = p_s + r * kSP;
-      float a = acc[i] * a_s[r];
+  for (int i = 0; i < P::kLaneRows; ++i)
 #pragma unroll
-      for (int j = 0; j < kKeyChunk; ++j) {
-        if (j < nk) a = fmaf(pr[j], v_s[j * kDP + d], a);
-      }
-      acc[i] = a;
-    }
-    __syncthreads();
+    for (int c = 0; c < P::kLaneCols; ++c) o[i][c] = 0.f;
+  // running max (the same in every lane) and the lane's share of the sum
+  float m_row[kR];
+  float l_row[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    m_row[r] = neg_inf();
+    l_row[r] = 0.f;
   }
 
+  for (int c0 = k_begin; c0 < k_end; c0 += kKeyChunk) {
+    const int nk = min(kKeyChunk, k_end - c0);
+    if (c0 != k_begin) {
+      load_keys<kD>(k_s, v_s, kh, vh, table, BS, c0, nk, lane);
+      cp_async_wait_all();
+      __syncwarp();
+    }
+    // scores: lane j holds key c0 + j against every row (a lane past the
+    // chunk reads a stale row, masked below)
+    float s[kR];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    if (lane == 0) l_s[warp + i * kPrefillWarps] = l_row[i];
+    for (int r = 0; r < kR; ++r) s[r] = 0.f;
+    const float* kr = k_s + lane * P::kDP;
+#pragma unroll 4
+    for (int c = 0; c < kD; c += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + r * P::kDP + c);
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+    // online softmax per row; the lane's P column goes to shared memory
+    const int t = c0 + lane;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float sc =
+          lane < nk && t <= q0 + r ? s[r] * scale_log2 : neg_inf();
+      const float m_new = fmaxf(m_row[r], warp_max(sc));
+      const float alpha =
+          m_row[r] == neg_inf() ? 0.f : exp2f(m_row[r] - m_new);
+      const float p = sc == neg_inf() ? 0.f : exp2f(sc - m_new);
+      l_row[r] = fmaf(l_row[r], alpha, p);
+      m_row[r] = m_new;
+      s[r] = p;
+      // rescale the lane's O rows (kLaneRows < kR only at D 16: rows
+      // row0 .. row0 + 7)
+      if (P::kLaneRows == kR || (r < P::kLaneRows) == (row0 == 0)) {
+#pragma unroll
+        for (int c = 0; c < P::kLaneCols; ++c)
+          o[r % P::kLaneRows][c] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; r += 4)
+      *reinterpret_cast<float4*>(p_s + lane * P::kPP + r) =
+          make_float4(s[r], s[r + 1], s[r + 2], s[r + 3]);
+    __syncwarp();
+    // O += P . V over the chunk's keys
+    for (int j = 0; j < nk; ++j) {
+      float pv[P::kLaneRows];
+#pragma unroll
+      for (int i = 0; i < P::kLaneRows; i += 4) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(p_s + j * P::kPP + row0 + i);
+        pv[i] = x.x;
+        pv[i + 1] = x.y;
+        pv[i + 2] = x.z;
+        pv[i + 3] = x.w;
+      }
+      float vv[P::kLaneCols];
+      const float* vr = v_s + j * P::kDP + col0;
+      if constexpr (P::kLaneCols == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(vr);
+        vv[0] = x.x;
+        vv[1] = x.y;
+        vv[2] = x.z;
+        vv[3] = x.w;
+      } else if constexpr (P::kLaneCols == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(vr);
+        vv[0] = x.x;
+        vv[1] = x.y;
+      } else {
+        vv[0] = vr[0];
+      }
+#pragma unroll
+      for (int i = 0; i < P::kLaneRows; ++i)
+#pragma unroll
+        for (int c = 0; c < P::kLaneCols; ++c)
+          o[i][c] = fmaf(pv[i], vv[c], o[i][c]);
+    }
+    __syncwarp();        // the next chunk overwrites K, V and P
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) l_row[r] = warp_sum(l_row[r]);
+
+  // merge the warps' (max, sum, O) in warp order, through the K/V rows
+  __syncthreads();
+  float* o_m = kv_all;                          // [warp][row][kD]
+  float* m_m = o_m + P::kWarps * kR * kD;       // [warp][row]
+  float* l_m = m_m + P::kWarps * kR;
+#pragma unroll
+  for (int i = 0; i < P::kLaneRows; ++i)
+#pragma unroll
+    for (int c = 0; c < P::kLaneCols; ++c)
+      o_m[(warp * kR + row0 + i) * kD + col0 + c] = o[i][c];
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      m_m[warp * kR + r] = m_row[r];
+      l_m[warp * kR + r] = l_row[r];
+    }
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kPrefillThreads;
+  // each row's weight of every warp and its sum, once a row (a warp with
+  // no key of the row weighs 0; key 0 is every row's, so M is finite)
+  float* wt = p_all;                            // [row][warp], then L
+  float* l_tot = wt + kR * P::kWarps;
+  if (tid < rows) {
+    float M = neg_inf();
+    for (int w = 0; w < P::kWarps; ++w) M = fmaxf(M, m_m[w * kR + tid]);
+    float L = 0.f;
+    for (int w = 0; w < P::kWarps; ++w) {
+      const float m = m_m[w * kR + tid];
+      const float x = m == neg_inf() ? 0.f : exp2f(m - M);
+      wt[tid * P::kWarps + w] = x;
+      L = fmaf(l_m[w * kR + tid], x, L);
+    }
+    l_tot[tid] = L;
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * kD; e += P::kThreads) {
     const int r = e / kD;
     const int d = e % kD;
-    if (r < rows) out[bh_off + (size_t)(q0 + r) * kD + d] = acc[i] / l_s[r];
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < P::kWarps; ++w)
+      a = fmaf(o_m[(w * kR + r) * kD + d], wt[r * P::kWarps + w], a);
+    out[bh_off + (size_t)(q0 + r) * kD + d] = a / l_tot[r];
   }
 }
 
@@ -452,12 +599,28 @@ int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_tables, void* out, int B, int H, int Lq,
                    int NB, int BS, int max_bps, float sm_scale,
                    cudaStream_t stream) {
+  using P = Prefill<kD>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_prefill_attention_kernel<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lq + kPrefillRows - 1) / kPrefillRows, H, B);
-  paged_prefill_attention_kernel<kD><<<grid, kPrefillThreads, 0, stream>>>(
+  paged_prefill_attention_kernel<kD><<<grid, P::kThreads, P::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<float*>(out), H, Lq, NB, BS, max_bps, sm_scale);
+      static_cast<float*>(out), H, Lq, NB, BS, max_bps, sm_scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+template <int kD>
+int prefill_info(int* out) {
+  using P = Prefill<kD>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_prefill_attention_kernel<kD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  return describe_kernel(paged_prefill_attention_kernel<kD>, P::kThreads,
+                         P::kSmem, out);
 }
 
 }  // namespace
@@ -513,6 +676,19 @@ int paged_prefill_attention(const void* q, const void* k_pages,
       return launch_prefill<128>(q, k_pages, v_pages, block_tables,
                                  out, B, H, Lq, NB, BS, max_bps, sm_scale,
                                  st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What the prefill body for head_dim d was built with: out[0] registers,
+// out[1] local memory a thread, out[2] static and out[3] dynamic shared
+// memory, out[4] CTAs an SM, out[5] threads.
+int paged_prefill_attention_kernel_info(int d, int* out) {
+  switch (d) {
+    case 16: return prefill_info<16>(out);
+    case 32: return prefill_info<32>(out);
+    case 64: return prefill_info<64>(out);
+    case 128: return prefill_info<128>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,9 +4,10 @@ through ``ctypes``.
 Each source under ``paddle_tpu_torch/csrc/`` becomes one shared library with
 a plain C interface, compiled for Hopper (``sm_90a``) into
 ``paddle_tpu_torch/build/`` (git-ignored). The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a stale
-build is never loaded. A build writes to a temporary name and renames it
-into place, so concurrent processes never load a half-written library.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale build is never loaded. A
+build writes to a temporary name and renames it into place, so concurrent
+processes never load a half-written library.
 
 Nothing here runs at import: the CPU tests import every module of the
 package, and this machine may have no ``nvcc``.
@@ -22,8 +23,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ['CSRC_DIR', 'BUILD_DIR', 'SOURCES', 'build', 'build_info',
-           'library', 'nvcc_path', 'use_build']
+__all__ = ['CSRC_DIR', 'BUILD_DIR', 'SOURCES', 'KERNEL_INFO_KEYS', 'build',
+           'build_info', 'kernel_info', 'library', 'nvcc_command',
+           'nvcc_path', 'use_build']
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -44,6 +46,8 @@ SOURCES = {
             _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
         'paged_prefill_attention': (
             _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        # head dim, int[6] out
+        'paged_prefill_attention_kernel_info': (_I, [_I, _P]),
         'paged_attention_error_string': (ctypes.c_char_p, [_I]),
     },
     # each launcher takes a pointer to a FlashParams block (ops/nn_ops.py
@@ -60,6 +64,11 @@ SOURCES = {
     # K4: x, w, scale, shift, y, M, N, K, is_bf16, relu, stream
     'conv1x1_bn_act': {
         'conv1x1_bn_act': (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # M, N, K, is_bf16, x, w, scale, shift, y, int[4] out
+        'conv1x1_bn_act_plan': (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                     _P]),
+        # body, tile columns, int[6] out
+        'conv1x1_bn_act_kernel_info': (_I, [_I, _I, _P]),
         'conv1x1_bn_act_error_string': (ctypes.c_char_p, [_I]),
     },
 }
@@ -85,11 +94,20 @@ def nvcc_path():
                        'machine with the CUDA toolkit (set CUDA_HOME)')
 
 
+def nvcc_command(src, out):
+    """The ``nvcc`` command that builds source ``src`` into library ``out``
+    with the package's flags; the package's headers (``csrc/*.cuh``) are
+    found from a copy of a source elsewhere too."""
+    return [nvcc_path(), *NVCC_FLAGS, '-I', str(CSRC_DIR), '-o', str(out),
+            str(src)]
+
+
 def _so_path(name):
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}_{digest}.so'
+    digest = hashlib.sha256()
+    for f in [CSRC_DIR / f'{name}.cu', *sorted(CSRC_DIR.glob('*.cuh'))]:
+        digest.update(f.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
 
 
 def build(names=None):
@@ -109,8 +127,7 @@ def build(names=None):
                                     'ptxas': []}
                 continue
             tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-            cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-                   str(CSRC_DIR / f'{name}.cu')]
+            cmd = nvcc_command(CSRC_DIR / f'{name}.cu', tmp)
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, so)
@@ -154,6 +171,25 @@ def library(name):
                 build([name])
             lib = _libs[name] = _load(so, name)
         return lib
+
+
+KERNEL_INFO_KEYS = ('registers', 'spill_bytes', 'static_smem',
+                    'dynamic_smem', 'ctas_per_sm', 'threads')
+
+
+def kernel_info(name, fn, *args):
+    """What a body of source ``name`` was built with, read from its loaded
+    library on the current card through the C function ``fn`` (``args``,
+    then an int[6] out; kernel_info.cuh's layout): ``{'registers',
+    'spill_bytes', 'static_smem', 'dynamic_smem', 'ctas_per_sm',
+    'threads'}`` (``spill_bytes``: the local memory a thread uses)."""
+    lib = library(name)
+    out = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = getattr(lib, fn)(*args, out)
+    if err != 0:
+        msg = getattr(lib, f'{name}_error_string')(err).decode()
+        raise RuntimeError(f'{fn} failed: CUDA error {err} ({msg})')
+    return dict(zip(KERNEL_INFO_KEYS, out))
 
 
 def use_build(name, so=None):

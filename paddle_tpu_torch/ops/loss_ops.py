@@ -6,19 +6,32 @@ import torch
 __all__ = ['softmax_with_cross_entropy']
 
 
-def softmax_with_cross_entropy(logits, label, *, ignore_index=-100):
-    """Hard-label softmax cross entropy over the last axis: returns
-    ``(loss, softmax)``, ``loss`` of ``logits``'s shape with the last axis
-    kept at 1, both in ``logits``'s type. A ``label`` with a trailing axis of
-    1 (``(N, 1)``) is squeezed. Rows whose label equals ``ignore_index``
-    (negative sentinels such as -1 or -100 included) give exactly 0."""
-    logp = torch.log_softmax(logits, dim=-1)
+def softmax_with_cross_entropy(logits, label, *, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False, numeric_stable_mode=True):
+    """Softmax cross entropy over ``axis``: returns ``(loss, softmax)``,
+    ``loss`` of ``logits``'s shape with ``axis`` kept at 1, both in
+    ``logits``'s type, as the reference computes them.
+
+    - ``soft_label``: ``label`` is a distribution of ``logits``'s shape and
+      the loss is ``-sum(label * log_softmax(logits), axis)``.
+    - Otherwise ``label`` holds class indices; a ``label`` of ``logits``'s
+      rank with 1 along ``axis`` is squeezed there. Rows whose label equals
+      ``ignore_index`` (negative sentinels such as -1 or -100 included)
+      give exactly 0.
+
+    ``return_softmax`` and ``numeric_stable_mode`` are accepted and ignored,
+    as the reference ignores them: the softmax is always returned, and the
+    log-softmax is always the stable one."""
+    logp = torch.log_softmax(logits, dim=axis)
     sm = torch.exp(logp)
-    if label.dim() == logits.dim() and label.shape[-1] == 1:
-        label = label.squeeze(-1)
-    li = label.clamp(0, logits.shape[-1] - 1).long()
-    loss = -torch.gather(logp, -1, li.unsqueeze(-1))
-    loss = torch.where((label == ignore_index).unsqueeze(-1),
+    if soft_label:
+        return -(label * logp).sum(dim=axis, keepdim=True), sm
+    if label.dim() == logits.dim() and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    li = label.clamp(0, logits.shape[axis] - 1).long()
+    loss = -torch.gather(logp, axis, li.unsqueeze(axis))
+    loss = torch.where((label == ignore_index).unsqueeze(axis),
                        torch.zeros((), dtype=loss.dtype, device=loss.device),
                        loss)
     return loss, sm

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +38,7 @@ __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'fused_attention_ref', 'fused_attention_fwd_ref',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
-           'flash_kernel_info', 'FLASH_KINDS',
+           'flash_kernel_info', 'FLASH_KINDS', 'prefill_kernel_info',
            'conv2d', 'pool2d', 'batch_norm', 'relu',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
@@ -121,6 +122,23 @@ def _check_pool(k_pages, v_pages, block_tables, dev):
     return h, nb, bs, d, block_tables.shape[1]
 
 
+def _no_scales(k_scales, v_scales):
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError('k_scales / v_scales: quantized KV pools '
+                                  'are not ported yet (ROADMAP A.6)')
+
+
+def prefill_kernel_info(head_dim):
+    """What K2's body at ``head_dim`` was built with, read from the loaded
+    library on the current card: ``{'registers', 'spill_bytes',
+    'static_smem', 'dynamic_smem', 'ctas_per_sm', 'threads'}``."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f'no prefill body for head_dim {head_dim}')
+    from ._build import kernel_info
+    return kernel_info('paged_attention',
+                       'paged_prefill_attention_kernel_info', head_dim)
+
+
 def _check_status(lib, err, name):
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
@@ -128,8 +146,9 @@ def _check_status(lib, err, name):
                            f'({msg})')
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    sm_scale=1.0):
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    k_scales=None, v_scales=None, *, sm_scale=1.0,
+                    pages_per_compute_block=4):
     """Single-token decode attention over the paged KV pool.
 
     - ``q``: (S, H, D) f32, one query row per decode slot.
@@ -138,12 +157,23 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
       padded with the scratch block.
     - ``context_lens``: (S,) int32, keys to attend per slot, including the
       token written this step; inactive slots pass 1 and read scratch.
+    - ``k_scales`` / ``v_scales``: the reference's dequant scales of int8
+      pools; quantized pools are not ported yet, so anything but ``None``
+      raises.
+    - ``pages_per_compute_block``: the TPU kernel's tiling knob, checked
+      and otherwise unused (the kernel here splits the context itself).
 
     Returns (S, H, D) f32. CUDA tensors launch the hand-written kernel
     (split-context: each CTA takes 64-key ranges of one slot and head, and
     the CTAs of a slot and head, one thread-block cluster, merge their
     ranges in a fixed order), CPU tensors run :func:`paged_attention_ref`.
     """
+    _no_scales(k_scales, v_scales)
+    if (not isinstance(pages_per_compute_block, numbers.Integral)
+            or isinstance(pages_per_compute_block, bool)
+            or pages_per_compute_block < 1):
+        raise ValueError(f'pages_per_compute_block must be a positive int, '
+                         f'got {pages_per_compute_block!r}')
     if q.dim() == 4:
         raise NotImplementedError(
             'the multi-query (S, H, K, D) read of speculative decoding comes '
@@ -181,15 +211,25 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     return out
 
 
-def paged_prefill_attention(q, k_pages, v_pages, block_tables, *,
-                            sm_scale=1.0):
+def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
+                            k_scales=None, v_scales=None, *, sm_scale=1.0):
     """Prefill attention for the decode engine: causal attention of the
     bucket-padded prompt's ``q`` (B, H, Lq, D) f32 over the paged K/V view
     (the caller has already written the prompt's K/V into its blocks).
-    ``block_tables`` is (B, max_bps) int32 with Lq <= max_bps * BS. Row r
-    attends keys 0..r; rows past the real prompt are finite garbage, never
-    read. CUDA tensors launch the hand-written kernel, CPU tensors run
+    ``k`` and ``v`` are the prompt's own (B, H, Lq, D) projections, which
+    the reference hands only to its TPU kernel: they are checked for shape
+    and not read. ``block_tables`` is (B, max_bps) int32 with
+    Lq <= max_bps * BS. Row r attends keys 0..r; rows past the real prompt
+    are finite garbage, never read. ``k_scales`` / ``v_scales`` (quantized
+    pools) are not ported yet and raise. CUDA tensors launch the
+    hand-written kernel (key-split: the warps of a CTA share a 16-row query
+    tile's causal keys and merge once), CPU tensors run
     :func:`paged_prefill_attention_ref`."""
+    _no_scales(k_scales, v_scales)
+    for name, t in (('k', k), ('v', v)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f'{name} {tuple(t.shape)} must have q\'s shape '
+                             f'{tuple(q.shape)}')
     if q.device.type == 'cpu':
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
                                            sm_scale=sm_scale)
@@ -429,21 +469,14 @@ def flash_kernel_info(kind, head_dim, dtype):
     on the current card: ``{'registers', 'spill_bytes', 'static_smem',
     'dynamic_smem', 'ctas_per_sm', 'threads'}`` (``spill_bytes``: the local
     memory a thread uses)."""
-    from ._build import library
+    from ._build import kernel_info
     if (kind not in FLASH_KINDS or head_dim not in HEAD_DIMS
             or dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError(f'no flash body for {kind}, head_dim {head_dim}, '
                          f'{dtype}')
-    lib = library('flash_attention')
-    out = (ctypes.c_int * 6)()
-    err = lib.flash_attention_kernel_info(
-        FLASH_KINDS.index(kind), head_dim, int(dtype == torch.bfloat16), out)
-    if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f'flash_attention_kernel_info failed: CUDA error '
-                           f'{err} ({msg})')
-    return dict(zip(('registers', 'spill_bytes', 'static_smem',
-                     'dynamic_smem', 'ctas_per_sm', 'threads'), out))
+    return kernel_info('flash_attention', 'flash_attention_kernel_info',
+                       FLASH_KINDS.index(kind), head_dim,
+                       int(dtype == torch.bfloat16))
 
 
 def _bwd_state(stats, di, q):
@@ -765,5 +798,9 @@ def launch_counts():
 
 
 def reset_launch_counts():
+    """Every kernel's launch count to 0, K4's count of its wgmma body's
+    launches too."""
     for f in _kernel_wrappers():
         f.launches = 0
+    from .pallas_conv import conv1x1_bn_act
+    conv1x1_bn_act.launches_wgmma = 0

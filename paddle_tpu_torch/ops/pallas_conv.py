@@ -18,13 +18,16 @@ take them.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from .nn_ops import _match_weight_dtype
 
 __all__ = ['stem_space_to_depth', 'fused_conv1x1_bn_act',
-           'fused_conv1x1_bn_act_ref', 'conv1x1_bn_act']
+           'fused_conv1x1_bn_act_ref', 'conv1x1_bn_act', 'conv1x1_plan',
+           'conv1x1_kernel_info', 'K4_BODIES', 'K4_WGMMA_TILES']
 
 _ACTS = (None, 'relu')
 
@@ -101,13 +104,75 @@ def _check_k4(x, weight, scale, shift):
                              f'got {tuple(t.shape)}')
 
 
+# conv1x1_bn_act_plan's body numbers
+K4_BODIES = ('wmma', 'wgmma', 'f32')
+K4_WGMMA_TILES = (64, 128)
+
+
+def _k4_library():
+    from ._build import library
+    return library('conv1x1_bn_act')
+
+
+def _k4_status(lib, err, what):
+    if err != 0:
+        msg = lib.conv1x1_bn_act_error_string(err).decode()
+        raise RuntimeError(f'{what} failed: CUDA error {err} ({msg})')
+
+
+def _k4_plan(lib, x, weight, scale, shift, out, m, o, c):
+    plan = (ctypes.c_int * 4)()
+    _k4_status(lib, lib.conv1x1_bn_act_plan(
+        m, o, c, int(x.dtype == torch.bfloat16), x.data_ptr(),
+        weight.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        out.data_ptr(), plan), 'conv1x1_bn_act_plan')
+    return dict(zip(('body', 'bn', 'grid', 'stages'), plan),
+                body=K4_BODIES[plan[0]])
+
+
+def conv1x1_plan(x, weight, scale, shift):
+    """What :func:`conv1x1_bn_act` launches for these CUDA tensors, as the
+    launcher chooses it from the type, the shape and the alignment alone:
+    ``{'body': 'wgmma' | 'wmma' | 'f32', 'bn': tile columns, 'grid': CTAs,
+    'stages': K slices in flight}`` (the output is a fresh, aligned
+    tensor)."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'conv1x1_plan describes a launch on CUDA tensors, '
+                         f'x is on {x.device}')
+    _check_k4(x, weight, scale, shift)
+    b, h, w, c = x.shape
+    o = weight.shape[0]
+    out = torch.empty((1,), dtype=x.dtype, device=x.device)
+    return _k4_plan(_k4_library(), x, weight, scale, shift, out, b * h * w,
+                    o, c)
+
+
+def conv1x1_kernel_info(body, bn=64):
+    """What a K4 body (one of :data:`K4_BODIES`; the wgmma body at tile
+    columns ``bn`` in :data:`K4_WGMMA_TILES`) was built with, read from the
+    loaded library on the current card: ``{'registers', 'spill_bytes',
+    'static_smem', 'dynamic_smem', 'ctas_per_sm', 'threads'}``."""
+    if body not in K4_BODIES or (body == 'wgmma'
+                                 and bn not in K4_WGMMA_TILES):
+        raise ValueError(f'no K4 body {body!r} with {bn} tile columns')
+    from ._build import kernel_info
+    return kernel_info('conv1x1_bn_act', 'conv1x1_bn_act_kernel_info',
+                       K4_BODIES.index(body), bn)
+
+
 def conv1x1_bn_act(x, weight, scale, shift, *, act=None):
     """Launch K4 (csrc/conv1x1_bn_act.cu) on CUDA tensors: the (B, H, W, O)
     NHWC output of ``act((x . w) * scale + shift)``, in ``x``'s type, on the
     current stream. ``x`` contiguous (B, H, W, C), ``weight`` contiguous
     (O, C, 1, 1), ``scale``/``shift`` (O,); all one type, float32 or
     bfloat16. Raises on anything else; the plain version is
-    :func:`fused_conv1x1_bn_act_ref`."""
+    :func:`fused_conv1x1_bn_act_ref`.
+
+    The launcher runs the bf16 wgmma body wherever TMA can describe the
+    operands (C and O multiples of 8, aligned bases), the bf16 WMMA body
+    elsewhere and the f32 body for f32 (:func:`conv1x1_plan` says which).
+    ``conv1x1_bn_act.launches`` counts every launch,
+    ``conv1x1_bn_act.launches_wgmma`` those of the wgmma body."""
     if act not in _ACTS:
         raise ValueError(f'act must be None or relu, got {act!r}')
     if x.device.type != 'cuda':
@@ -119,22 +184,22 @@ def conv1x1_bn_act(x, weight, scale, shift, *, act=None):
     m = b * h * w
     out = torch.empty((b, h, w, o), dtype=x.dtype, device=x.device)
     if m and o:
-        from ._build import library
-        lib = library('conv1x1_bn_act')
-        err = lib.conv1x1_bn_act(
+        lib = _k4_library()
+        body = _k4_plan(lib, x, weight, scale, shift, out, m, o, c)['body']
+        _k4_status(lib, lib.conv1x1_bn_act(
             x.data_ptr(), weight.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), out.data_ptr(), m, o, c,
             int(x.dtype == torch.bfloat16), int(act == 'relu'),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            msg = lib.conv1x1_bn_act_error_string(err).decode()
-            raise RuntimeError(f'conv1x1_bn_act kernel launch failed: CUDA '
-                               f'error {err} ({msg})')
+            torch.cuda.current_stream(x.device).cuda_stream),
+            'conv1x1_bn_act kernel launch')
         conv1x1_bn_act.launches += 1
+        if body == 'wgmma':
+            conv1x1_bn_act.launches_wgmma += 1
     return out
 
 
 conv1x1_bn_act.launches = 0
+conv1x1_bn_act.launches_wgmma = 0
 
 
 class _FusedConv1x1(torch.autograd.Function):
@@ -172,8 +237,18 @@ class _FusedConv1x1(torch.autograd.Function):
                 dshift.to(scale.dtype), None)
 
 
+def _unfused(x, weight, scale, shift, *, act=None):
+    """The reference's unfused formulation (its ``force_pallas=False``
+    branch) in torch ops: the product in ``x``'s type, then the affine in
+    ``x``'s type, then the activation; differentiated by autograd."""
+    c = x.shape[3]
+    y = torch.einsum('nhwc,oc->nhwo', x, weight.reshape(-1, c)) * scale \
+        + shift
+    return torch.relu(y) if act == 'relu' else y
+
+
 def fused_conv1x1_bn_act(x, weight, scale, shift, *, act=None,
-                         data_format='NHWC'):
+                         data_format='NHWC', force_pallas=None):
     """``act((x . weight) * scale + shift)`` for a 1x1 OIHW ``weight``
     (O, C, 1, 1) and NHWC ``x`` (B, H, W, C); ``scale``/``shift`` are the
     folded BatchNorm affine (gamma / sqrt(var + eps), beta - mean * that),
@@ -181,9 +256,12 @@ def fused_conv1x1_bn_act(x, weight, scale, shift, *, act=None,
     ``shift`` are cast to it, as in the reference. Differentiable in all
     four inputs.
 
-    On the card it launches K4 (:func:`conv1x1_bn_act`) and raises on what
-    the kernel does not take; on the CPU it runs
-    :func:`fused_conv1x1_bn_act_ref`."""
+    With ``force_pallas`` None or True it launches K4
+    (:func:`conv1x1_bn_act`) on the card and raises on what the kernel does
+    not take, and runs :func:`fused_conv1x1_bn_act_ref` on the CPU.
+    ``force_pallas=False`` is the caller's request for the reference's
+    unfused formulation (:func:`_unfused`) on either
+    device; nothing else chooses it."""
     if data_format != 'NHWC':
         raise ValueError('fused_conv1x1_bn_act requires NHWC')
     if weight.dim() != 4 or tuple(weight.shape[2:]) != (1, 1):
@@ -193,6 +271,11 @@ def fused_conv1x1_bn_act(x, weight, scale, shift, *, act=None,
         raise ValueError(f'act must be None or relu, got {act!r}')
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {x.device}')
+    if force_pallas is not None and not isinstance(force_pallas, bool):
+        raise ValueError(f'force_pallas must be None, True or False, got '
+                         f'{force_pallas!r}')
     x = _match_weight_dtype(x, weight)
-    return _FusedConv1x1.apply(x, weight, scale.to(x.dtype),
-                               shift.to(x.dtype), act)
+    scale, shift = scale.to(x.dtype), shift.to(x.dtype)
+    if force_pallas is False:
+        return _unfused(x, weight, scale, shift, act=act)
+    return _FusedConv1x1.apply(x, weight, scale, shift, act)

@@ -265,7 +265,7 @@ class CacheContext:
             self.pool.write_prefill(layer, self.tables[0], k[0], v[0])
             k_pages, v_pages = self.pool.pages(layer)
             return nn_ops.paged_prefill_attention(
-                q.contiguous(), k_pages, v_pages, self._tables,
+                q.contiguous(), k, v, k_pages, v_pages, self._tables,
                 sm_scale=float(sm_scale))
         # decode: (S, H, 1, D) -> (H, S, D) token rows
         s, h, _, d = q.shape

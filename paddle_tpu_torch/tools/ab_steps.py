@@ -12,7 +12,9 @@ kernels and runs its own ``chip_smoke.py`` phases:
   step: device busy ms, idle share and the flash kernels' share;
 - ``profile_decode_steps``: the served LM (``CausalLMConfig()``) on the
   replica's engine, 8 active slots at contexts 128-188: host ms and device
-  busy ms per decode step and the kernels that take it.
+  busy ms per decode step and the kernels that take it;
+- one profiled prefill of a 256-token prompt (the top rung) on the same
+  engine: device busy ms and the paged prefill kernel's (K2) ms.
 
 Each run's lines go to standard output prefixed with its NAME; the card's
 name and power limit come first. Run it from the repo root.
@@ -37,6 +39,22 @@ card = sys.argv[1]
 chip_smoke.train(0, resolve_device('cuda'), card)
 engine, _ = build_replica_stack(build_lm('default', 0, 'cuda'))
 chip_smoke.profile_decode_steps(engine, np.random.RandomState(0), card)
+prompt = [int(t) for t in np.random.RandomState(1).randint(
+    0, engine.model.cfg.vocab_size, 256)]
+
+
+def prefill():
+    table = engine.reserve_table(len(prompt), 1)
+    engine.prefill(prompt, table)
+    engine.release_table(table)
+
+
+prof = chip_smoke.profiled(prefill)
+k2 = [e for e in prof.key_averages() if 'paged_prefill' in e.key]
+print(f'prefill of {len(prompt)} tokens [{card}]: device busy '
+      f'{chip_smoke.device_us(prof) / 1e3:.4f} ms, K2 '
+      f'{sum(e.self_device_time_total for e in k2) / 1e3:.4f} ms in '
+      f'{sum(e.count for e in k2)} launches')
 '''
 
 

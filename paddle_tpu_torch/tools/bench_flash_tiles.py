@@ -35,9 +35,8 @@ def build_all(sources):
     procs = {}
     for name, src in sources.items():
         so = out_dir / f'libflash_attention_{name}.so'
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, '-o', str(so),
-               str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_build.nvcc_command(src, so),
+                                        stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        so)
     built = {}

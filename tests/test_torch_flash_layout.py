@@ -185,3 +185,71 @@ def test_paged_decode_ranges_are_the_ones_its_tests_assume():
     consts = dict(re.findall(r'constexpr int (kSplitKeys|kMaxCluster) = '
                              r'(\d+);', text))
     assert consts == {'kSplitKeys': '64', 'kMaxCluster': '8'}
+
+
+def test_paged_prefill_split_is_the_one_its_tests_assume():
+    """The key-split prefill kernel's 16-row query tiles and 32-key chunks
+    (one key a lane), which tests/test_torch_gpu.py's prompt lengths are
+    chosen around (Lq 1, 16, 33, 255, 256: warps without keys, a split past
+    one key a warp, the top rung with and without a ragged tile)."""
+    text = strip_comments(source('paged_attention'))
+    consts = dict(re.findall(r'constexpr int (kPrefillRows|kKeyChunk) = '
+                             r'(\d+);', text))
+    assert consts == {'kPrefillRows': '16', 'kKeyChunk': '32'}
+
+
+def test_conv1x1_tile_widths_match_the_wrapper():
+    """The wgmma body's tile widths that ``conv1x1_kernel_info`` and the
+    side-by-side timing tool name exist in the source's launcher."""
+    from paddle_tpu_torch.ops import pallas_conv
+    text = strip_comments(source('conv1x1_bn_act'))
+    launched = sorted(int(n) for n in re.findall(r'launch_wgmma<(\d+)>\(',
+                                                 text))
+    assert tuple(launched) == pallas_conv.K4_WGMMA_TILES
+
+
+@pytest.mark.parametrize('bn', [64, 128])
+def test_conv1x1_tile_rule_is_the_one_the_timing_tool_edits(bn):
+    """bench_conv_tiles times K4 at each tile width through copies of the
+    source with the launcher's tile rule replaced; the shipped source holds
+    that rule once, and a copy holds the width in its place."""
+    from paddle_tpu_torch.ops import pallas_conv
+    from paddle_tpu_torch.tools import bench_conv_tiles
+    assert bn in pallas_conv.K4_WGMMA_TILES
+    text = source('conv1x1_bn_act')
+    copy = bench_conv_tiles.width_copy(text, bn)
+    assert bench_conv_tiles.TILE_RULE not in copy
+    assert copy.count(f'const int bn = {bn};') == 1
+    assert len(copy) == len(text) - len(bench_conv_tiles.TILE_RULE) + len(
+        f'const int bn = {bn};')
+
+
+def test_every_kernel_info_entry_fills_the_shared_layout():
+    """Each source's *_kernel_info entry point reports through the one
+    helper of csrc/kernel_info.cuh, whose six ints are the keys
+    ``_build.kernel_info`` reads."""
+    header = strip_comments(
+        (_build.CSRC_DIR / 'kernel_info.cuh').read_text())
+    filled = sorted(int(i) for i in re.findall(r'out\[(\d+)\] =', header))
+    assert filled == list(range(len(_build.KERNEL_INFO_KEYS)))
+    for name, fns in _build.SOURCES.items():
+        infos = [fn for fn in fns if fn.endswith('_kernel_info')]
+        text = strip_comments(source(name))
+        assert len(infos) == 1, name
+        assert '#include "kernel_info.cuh"' in text, name
+        assert 'describe_kernel(' in text, name
+        assert 'cudaOccupancyMaxActiveBlocksPerMultiprocessor' not in text
+
+
+def test_a_library_name_changes_with_a_shared_header(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh gives every source a new library name, so a
+    build made before the edit is never loaded."""
+    import shutil
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, 'CSRC_DIR', csrc)
+    before = {name: _build._so_path(name) for name in _build.SOURCES}
+    header = csrc / 'kernel_info.cuh'
+    header.write_text(header.read_text() + '\n')
+    after = {name: _build._so_path(name) for name in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)

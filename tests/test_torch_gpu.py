@@ -135,12 +135,55 @@ def test_prefill_kernel_matches_plain(cuda, d, bs, lq):
     q = torch.from_numpy(
         rng.standard_normal((2, h, lq, d), np.float32)).to(cuda)
     before = nn_ops.paged_prefill_attention.launches
-    got = nn_ops.paged_prefill_attention(q, k, v, bt, sm_scale=d ** -0.5)
+    got = nn_ops.paged_prefill_attention(q, q, q, k, v, bt,
+                                         sm_scale=d ** -0.5)
     torch.cuda.synchronize()
     assert nn_ops.paged_prefill_attention.launches == before + 1
     want = nn_ops.paged_prefill_attention_ref(q, k, v, bt, sm_scale=d ** -0.5)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+# K2's key split (csrc/paged_attention.cu): 16-row query tiles, the tile's
+# causal keys cut into one range a warp (8 warps, 4 at D 128), 32 keys a
+# chunk. Lq 1 and 16 leave warps without keys, 33 puts a tile's split past
+# one key a warp, 255 and 256 are the top rung with and without a ragged
+# tile; BS 1, 16 and 48 put block edges inside, at and across chunks.
+@pytest.mark.parametrize('bs', [1, 16, 48])
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('lq', [1, 16, 33, 64, 255, 256])
+def test_prefill_key_split_matches_plain(cuda, lq, d, bs):
+    rng = np.random.default_rng(1000 * d + 10 * bs + lq)
+    h = 2
+    max_bps = -(-(lq + 5) // bs)
+    nb = max_bps + 3
+    k, v = pool(rng, h, nb, bs, d, cuda)
+    tables, _ = tables_for(rng, [lq + 5], bs, nb, max_bps)
+    bt = torch.from_numpy(tables).to(cuda)
+    q = torch.from_numpy(
+        rng.standard_normal((1, h, lq, d), np.float32)).to(cuda)
+    got = nn_ops.paged_prefill_attention(q, q, q, k, v, bt,
+                                         sm_scale=d ** -0.5)
+    want = nn_ops.paged_prefill_attention_ref(q, k, v, bt, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize('d', [64, 128])
+def test_prefill_kernel_is_bitwise_repeatable(cuda, d):
+    rng = np.random.default_rng(d)
+    bs, lq, h = 16, 256, 8
+    max_bps = lq // bs + 2
+    k, v = pool(rng, h, 2 * max_bps + 1, bs, d, cuda)
+    tables, _ = tables_for(rng, [lq + 20], bs, 2 * max_bps + 1, max_bps)
+    bt = torch.from_numpy(tables).to(cuda)
+    q = torch.from_numpy(
+        rng.standard_normal((1, h, lq, d), np.float32)).to(cuda)
+    a = nn_ops.paged_prefill_attention(q, q, q, k, v, bt, sm_scale=0.125)
+    b = nn_ops.paged_prefill_attention(q, q, q, k, v, bt, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -162,8 +205,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         nn_ops.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                                k, k, bt, cl)
     with pytest.raises(ValueError, match='Lq'):
-        nn_ops.paged_prefill_attention(torch.zeros(1, 2, 9, 16, device=cuda),
-                                       k, k, bt[:1])
+        q9 = torch.zeros(1, 2, 9, 16, device=cuda)
+        nn_ops.paged_prefill_attention(q9, q9, q9, k, k, bt[:1])
 
 
 def test_served_engine_goes_through_the_kernels(cuda):
@@ -657,6 +700,117 @@ def test_conv1x1_kernel_is_bitwise_repeatable(cuda):
         a = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
         b = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
         assert torch.equal(a, b)
+
+
+# (B, H, W, C, O) of ResNet-50's 12 distinct stride-1 1x1 layers, at batch
+# 8 (every M at least four 128-row tiles)
+K4_PATH_SHAPES = [(8, 56, 56, 64, 64), (8, 56, 56, 64, 256),
+                  (8, 56, 56, 256, 64), (8, 56, 56, 256, 128),
+                  (8, 28, 28, 128, 512), (8, 28, 28, 512, 128),
+                  (8, 28, 28, 512, 256), (8, 14, 14, 256, 1024),
+                  (8, 14, 14, 1024, 256), (8, 14, 14, 1024, 512),
+                  (8, 7, 7, 512, 2048), (8, 7, 7, 2048, 512)]
+
+
+@pytest.mark.parametrize('act', [None, 'relu'], ids=['none', 'relu'])
+@pytest.mark.parametrize('shape', K4_PATH_SHAPES, ids=str)
+def test_conv1x1_wgmma_body_at_the_path_shapes(cuda, shape, act):
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs(shape, torch.bfloat16, cuda, 4)
+    plan = pallas_conv.conv1x1_plan(x, w, sc, sh)
+    assert plan['body'] == 'wgmma'
+    before = (pallas_conv.conv1x1_bn_act.launches,
+              pallas_conv.conv1x1_bn_act.launches_wgmma)
+    got = pallas_conv.fused_conv1x1_bn_act(x, w, sc, sh, act=act)
+    torch.cuda.synchronize()
+    assert (pallas_conv.conv1x1_bn_act.launches,
+            pallas_conv.conv1x1_bn_act.launches_wgmma) == (
+                before[0] + 1, before[1] + 1)
+    assert_within_bf16_ulp(
+        got, pallas_conv.fused_conv1x1_bn_act_ref(x, w, sc, sh, act=act))
+
+
+@pytest.mark.parametrize('batch', [8, 128])
+def test_conv1x1_tiles_at_the_path_shapes(cuda, batch):
+    """The wgmma body at every path shape, 64 tile columns where O <= 64
+    and 128 elsewhere, a persistent grid of min(tiles, SMs) CTAs."""
+    from paddle_tpu_torch.ops import pallas_conv
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for _, hh, ww, c, o in K4_PATH_SHAPES:
+        x, w, sc, sh = (torch.empty(s, dtype=torch.bfloat16, device=cuda)
+                        for s in ((batch, hh, ww, c), (o, c, 1, 1), (o,),
+                                  (o,)))
+        plan = pallas_conv.conv1x1_plan(x, w, sc, sh)
+        bn = 64 if o <= 64 else 128
+        tiles = -(-batch * hh * ww // 128) * -(-o // bn)
+        assert plan == {'body': 'wgmma', 'bn': bn,
+                        'grid': min(tiles, sms),
+                        'stages': 8 if bn == 64 else 6}, (c, o, plan)
+
+
+@pytest.mark.parametrize('shape,dtype,body', [
+    ((2, 8, 8, 16, 16), torch.bfloat16, 'wgmma'),    # K < one 64-deep slice
+    ((2, 8, 8, 16, 12), torch.bfloat16, 'wmma'),     # N % 8 != 0
+    ((1, 4, 4, 6, 8), torch.bfloat16, 'wmma'),       # K % 8 != 0
+    ((1, 3, 43, 72, 136), torch.bfloat16, 'wgmma'),  # M, N off the tile
+    ((1, 3, 43, 72, 130), torch.bfloat16, 'wmma'),
+    ((3, 7, 5, 2048, 40), torch.bfloat16, 'wgmma'),
+    ((3, 7, 5, 2048, 33), torch.bfloat16, 'wmma'),
+    ((1, 1, 1, 8, 8), torch.bfloat16, 'wgmma'),
+    ((1, 1, 1, 1, 1), torch.bfloat16, 'wmma'),
+    ((2, 8, 8, 16, 16), torch.float32, 'f32')], ids=str)
+def test_conv1x1_launcher_picks_the_body_by_shape(cuda, shape, dtype, body):
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs(shape, dtype, cuda, 5)
+    assert pallas_conv.conv1x1_plan(x, w, sc, sh)['body'] == body
+    before = pallas_conv.conv1x1_bn_act.launches_wgmma
+    got = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
+    torch.cuda.synchronize()
+    assert (pallas_conv.conv1x1_bn_act.launches_wgmma - before
+            == int(body == 'wgmma'))
+    want = pallas_conv.fused_conv1x1_bn_act_ref(x, w, sc, sh, act='relu')
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        assert_within_bf16_ulp(got, want)
+
+
+def test_conv1x1_launcher_takes_unaligned_operands_to_wmma(cuda):
+    """A view of x one element into its storage is not 16-byte aligned,
+    which TMA needs: the WMMA body takes it."""
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs((2, 8, 8, 64, 64), torch.bfloat16, cuda, 6)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert pallas_conv.conv1x1_plan(xu, w, sc, sh)['body'] == 'wmma'
+    assert pallas_conv.conv1x1_plan(x, w, sc, sh)['body'] == 'wgmma'
+    got = pallas_conv.conv1x1_bn_act(xu, w, sc, sh)
+    torch.cuda.synchronize()
+    assert_within_bf16_ulp(got, pallas_conv.fused_conv1x1_bn_act_ref(
+        x, w, sc, sh))
+
+
+@pytest.mark.parametrize('shape', [(8, 7, 7, 2048, 512), (8, 56, 56, 64, 256),
+                                   (8, 14, 14, 1024, 256)], ids=str)
+def test_conv1x1_wgmma_body_is_bitwise_repeatable(cuda, shape):
+    from paddle_tpu_torch.ops import pallas_conv
+    x, w, sc, sh = k4_inputs(shape, torch.bfloat16, cuda, 7)
+    assert pallas_conv.conv1x1_plan(x, w, sc, sh)['body'] == 'wgmma'
+    a = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
+    b = pallas_conv.conv1x1_bn_act(x, w, sc, sh, act='relu')
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('body,bn', [('wmma', 64), ('f32', 64),
+                                     ('wgmma', 64), ('wgmma', 128)])
+def test_conv1x1_kernel_info_reports_each_body(cuda, body, bn):
+    from paddle_tpu_torch.ops import pallas_conv
+    info = pallas_conv.conv1x1_kernel_info(body, bn)
+    assert info['ctas_per_sm'] >= 1 and info['registers'] > 0
+    if body == 'wgmma':
+        assert info['threads'] == 384 and info['dynamic_smem'] > 48 * 1024
 
 
 def test_conv1x1_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -81,8 +81,8 @@ def test_prefill_matches_jax(bs, d):
         vq = rng.randn(1, H, lq, d).astype(np.float32)   # op's kernel inputs
         ref = np.asarray(jax_ops.paged_prefill_attention(
             q, kq, vq, k, v, tables, sm_scale=scale))
-        got = nn_ops.paged_prefill_attention(*torch_inputs(q, k, v, tables),
-                                             sm_scale=scale)
+        got = nn_ops.paged_prefill_attention(
+            *torch_inputs(q, kq, vq, k, v, tables), sm_scale=scale)
         np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
 
 
@@ -107,8 +107,10 @@ def test_stale_blocks_do_not_bleed(op):
         b = nn_ops.paged_attention(*torch_inputs(q, k2, v2, tables, ctx))
     else:
         q = rng.randn(1, H, lens[0], d).astype(np.float32)
-        a = nn_ops.paged_prefill_attention(*torch_inputs(q, k, v, tables))
-        b = nn_ops.paged_prefill_attention(*torch_inputs(q, k2, v2, tables))
+        a = nn_ops.paged_prefill_attention(*torch_inputs(q, q, q, k, v,
+                                                         tables))
+        b = nn_ops.paged_prefill_attention(*torch_inputs(q, q, q, k2, v2,
+                                                         tables))
     assert torch.equal(a, b)
 
 
@@ -122,7 +124,7 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
     assert torch.equal(nn_ops.paged_attention(*args),
                        nn_ops.paged_attention_ref(*args))
     qp = torch.from_numpy(rng.randn(1, H, 3, 16).astype(np.float32))
-    nn_ops.paged_prefill_attention(qp, *args[1:3], args[3][:1])
+    nn_ops.paged_prefill_attention(qp, qp, qp, *args[1:3], args[3][:1])
     assert nn_ops.launch_counts() == {'paged_attention': 0,
                                       'paged_prefill_attention': 0,
                                       'flash_attention_fwd': 0,

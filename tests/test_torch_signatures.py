@@ -1,0 +1,282 @@
+"""The port's public ops take the reference's parameters, and the ones it
+took over in doing so behave as the reference's do (on the CPU).
+
+- Every public callable of ``paddle_tpu_torch.ops.{nn_ops, loss_ops,
+  optimizer_ops, pallas_conv}`` that the reference's module of the same
+  name also has is held to the reference's parameter names, kinds and
+  defaults (``inspect.signature``), so a call written for the reference
+  binds the same way in the port.
+- ``softmax_with_cross_entropy`` with ``soft_label`` and on another
+  ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
+  same formula).
+- The quantized-pool scales of ``paged_attention`` and
+  ``paged_prefill_attention`` are not ported and raise.
+- ``fused_conv1x1_bn_act(force_pallas=False)``, the reference's unfused
+  formulation, against the JAX op's: f32 atol and rtol 1e-5 (sums in
+  another order); bf16 within one bf16 ulp of the larger value plus 1e-6
+  (both round the product, the affine's product and its sum to bf16 in
+  the same order; they differ only where an f32 sum straddles a rounding
+  boundary). Its gradients against ``jax.grad``: atol 1e-5, rtol 1e-4.
+"""
+import importlib
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import loss_ops as jax_loss
+from paddle_tpu.ops import pallas_conv as jpc
+from paddle_tpu_torch.ops import loss_ops, nn_ops, pallas_conv
+
+# (module, op) of every public op both packages have
+SHARED_OPS = [
+    ('nn_ops', 'paged_attention'), ('nn_ops', 'paged_prefill_attention'),
+    ('nn_ops', 'fused_attention'), ('nn_ops', 'conv2d'),
+    ('nn_ops', 'pool2d'), ('nn_ops', 'batch_norm'),
+    ('loss_ops', 'softmax_with_cross_entropy'),
+    ('optimizer_ops', 'momentum'), ('optimizer_ops', 'adam'),
+    ('pallas_conv', 'fused_conv1x1_bn_act'),
+    ('pallas_conv', 'stem_space_to_depth')]
+MODULES = sorted({m for m, _ in SHARED_OPS})
+
+
+def modules(name):
+    return (importlib.import_module(f'paddle_tpu_torch.ops.{name}'),
+            importlib.import_module(f'paddle_tpu.ops.{name}'))
+
+
+def public_callables(mod):
+    """Names of the functions ``mod`` itself defines and does not hide."""
+    return {n for n, f in vars(mod).items()
+            if not n.startswith('_') and callable(f)
+            and getattr(f, '__module__', None) == mod.__name__}
+
+
+@pytest.mark.parametrize('name', MODULES)
+def test_the_shared_op_list_is_complete(name):
+    port, ref = modules(name)
+    shared = {n for n in public_callables(port) if hasattr(ref, n)}
+    assert shared == {op for m, op in SHARED_OPS if m == name}
+
+
+@pytest.mark.parametrize('module,op', SHARED_OPS,
+                         ids=[f'{m}.{op}' for m, op in SHARED_OPS])
+def test_op_takes_the_reference_parameters(module, op):
+    port, ref = modules(module)
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert params(getattr(port, op)) == params(getattr(ref, op))
+
+
+# ------------------------------------------------ softmax_with_cross_entropy
+
+def test_soft_label_matches_jax():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((6, 11)).astype(np.float32) * 3
+    label = rng.random((6, 11)).astype(np.float32)
+    label /= label.sum(-1, keepdims=True)
+    want_loss, want_sm = jax_loss.softmax_with_cross_entropy(
+        logits, label, soft_label=True)
+    loss, sm = loss_ops.softmax_with_cross_entropy(
+        torch.from_numpy(logits), torch.from_numpy(label), soft_label=True)
+    assert loss.shape == (6, 1)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(sm.numpy(), np.asarray(want_sm), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('soft', [False, True], ids=['hard', 'soft'])
+def test_axis_1_of_a_3d_input_matches_jax(soft):
+    """Classes on axis 1 of (N, C, T), a hard label (N, 1, T) with an
+    ignored entry, or a soft label of the logits' shape."""
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((3, 7, 5)).astype(np.float32) * 2
+    if soft:
+        label = rng.random((3, 7, 5)).astype(np.float32)
+        label /= label.sum(1, keepdims=True)
+    else:
+        label = rng.integers(0, 7, (3, 1, 5)).astype(np.int64)
+        label[1, 0, 2] = -100
+    kw = {'soft_label': soft, 'axis': 1, 'return_softmax': True,
+          'numeric_stable_mode': False}
+    want_loss, want_sm = jax_loss.softmax_with_cross_entropy(logits, label,
+                                                             **kw)
+    loss, sm = loss_ops.softmax_with_cross_entropy(
+        torch.from_numpy(logits), torch.from_numpy(label), **kw)
+    assert loss.shape == (3, 1, 5) == np.asarray(want_loss).shape
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(sm.numpy(), np.asarray(want_sm), atol=1e-6,
+                               rtol=0)
+    if not soft:
+        assert loss[1, 0, 2].item() == 0.0
+
+
+# -------------------------------------------------------- paged attention
+
+def paged_operands():
+    q = torch.zeros(2, 2, 16)
+    pages = torch.zeros(2, 4, 4, 16)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    return q, pages, tables, torch.ones(2, dtype=torch.int32)
+
+
+@pytest.mark.parametrize('which', ['k', 'v'])
+def test_paged_attention_scales_are_not_ported(which):
+    q, pages, tables, ctx = paged_operands()
+    scales = {f'{which}_scales': torch.ones(2, 4, 4)}
+    with pytest.raises(NotImplementedError, match='A.6'):
+        nn_ops.paged_attention(q, pages, pages, tables, ctx, **scales)
+
+
+@pytest.mark.parametrize('which', ['k', 'v'])
+def test_paged_prefill_attention_scales_are_not_ported(which):
+    _, pages, tables, _ = paged_operands()
+    q = torch.zeros(1, 2, 3, 16)
+    scales = {f'{which}_scales': torch.ones(2, 4, 4)}
+    with pytest.raises(NotImplementedError, match='A.6'):
+        nn_ops.paged_prefill_attention(q, q, q, pages, pages, tables[:1],
+                                       **scales)
+
+
+@pytest.mark.parametrize('ppcb', [0, -1, 2.0, True, None])
+def test_paged_attention_checks_pages_per_compute_block(ppcb):
+    q, pages, tables, ctx = paged_operands()
+    with pytest.raises(ValueError, match='pages_per_compute_block'):
+        nn_ops.paged_attention(q, pages, pages, tables, ctx,
+                               pages_per_compute_block=ppcb)
+
+
+def test_paged_attention_ignores_pages_per_compute_block():
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 16), np.float32))
+    pages = torch.from_numpy(rng.standard_normal((2, 4, 4, 16), np.float32))
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    ctx = torch.tensor([6, 3], dtype=torch.int32)
+    want = nn_ops.paged_attention(q, pages, pages, tables, ctx)
+    for ppcb in (1, 3, np.int64(8)):
+        got = nn_ops.paged_attention(q, pages, pages, tables, ctx, None,
+                                     None, pages_per_compute_block=ppcb)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('which', ['k', 'v'])
+def test_paged_prefill_checks_the_raw_projections_shape(which):
+    _, pages, tables, _ = paged_operands()
+    q = torch.zeros(1, 2, 3, 16)
+    raw = {'k': q, 'v': q}
+    raw[which] = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match=f'{which} .* q'):
+        nn_ops.paged_prefill_attention(q, raw['k'], raw['v'], pages, pages,
+                                       tables[:1])
+
+
+def test_paged_prefill_does_not_read_the_raw_projections():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 5, 16), np.float32))
+    pages = torch.from_numpy(rng.standard_normal((2, 4, 4, 16), np.float32))
+    tables = torch.tensor([[2, 1]], dtype=torch.int32)
+    a = nn_ops.paged_prefill_attention(q, q, q, pages, pages, tables)
+    b = nn_ops.paged_prefill_attention(q, torch.full_like(q, 1e30),
+                                       torch.full_like(q, float('nan')),
+                                       pages, pages, tables)
+    assert torch.equal(a, b)
+
+
+# ------------------------------------------ fused_conv1x1_bn_act, unfused
+
+# (B, H, W, C, O): the reference's parity shapes and one with a deeper K
+UNFUSED_SHAPES = {'c16-o12': (2, 8, 8, 16, 12), 'c6-o5': (1, 4, 4, 6, 5),
+                  'c64-o24': (2, 5, 7, 64, 24)}
+
+
+def conv_inputs(shape, seed):
+    b, h, w, c, o = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, w, c)).astype(np.float32),
+            (rng.standard_normal((1, 1, c, o)) * 0.3).astype(np.float32),
+            (rng.random(o) + 0.5).astype(np.float32),
+            (rng.standard_normal(o) * 0.1).astype(np.float32))
+
+
+def port_conv_args(x, w, scale, shift, dtype):
+    oihw = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(oihw).to(dtype),
+            torch.from_numpy(scale), torch.from_numpy(shift))
+
+
+@pytest.mark.parametrize('act', [None, 'relu'], ids=['none', 'relu'])
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('shape', list(UNFUSED_SHAPES))
+def test_force_pallas_false_matches_the_jax_unfused_op(shape, dtype, act):
+    x, w, scale, shift = conv_inputs(UNFUSED_SHAPES[shape], 4)
+    tdt, jdt = {'f32': (torch.float32, jnp.float32),
+                'bf16': (torch.bfloat16, jnp.bfloat16)}[dtype]
+    want = np.asarray(jpc.fused_conv1x1_bn_act(
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt), scale, shift, act=act,
+        force_pallas=False)).astype(np.float32)
+    nn_ops.reset_launch_counts()
+    got = pallas_conv.fused_conv1x1_bn_act(
+        *port_conv_args(x, w, scale, shift, tdt), act=act,
+        force_pallas=False)
+    assert got.dtype == tdt
+    assert set(nn_ops.launch_counts().values()) == {0}
+    got = got.float().numpy()
+    if dtype == 'f32':
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        big = np.maximum(np.abs(got), np.abs(want))
+        ulp = np.ldexp(1.0, np.frexp(big)[1] - 8)
+        assert np.all(np.abs(got - want) <= ulp + 1e-6), \
+            np.abs(got - want).max()
+
+
+@pytest.mark.parametrize('act', [None, 'relu'], ids=['none', 'relu'])
+def test_force_pallas_false_gradients_match_jax(act):
+    x, w, scale, shift = conv_inputs(UNFUSED_SHAPES['c16-o12'], 5)
+    g = np.random.default_rng(6).standard_normal((2, 8, 8, 12)).astype(
+        np.float32)
+
+    def f(*a):
+        return jnp.sum(jpc.fused_conv1x1_bn_act(
+            *a, act=act, force_pallas=False) * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(x, w, scale, shift)
+    leaves = [a.requires_grad_()
+              for a in port_conv_args(x, w, scale, shift, torch.float32)]
+    (pallas_conv.fused_conv1x1_bn_act(*leaves, act=act, force_pallas=False)
+     * torch.from_numpy(g)).sum().backward()
+    got = [leaves[0].grad.numpy(),
+           leaves[1].grad.numpy().transpose(2, 3, 1, 0),     # OIHW -> HWIO
+           leaves[2].grad.numpy(), leaves[3].grad.numpy()]
+    for name, gg, ww in zip(('x', 'w', 'scale', 'shift'), got, want):
+        np.testing.assert_allclose(gg, np.asarray(ww), atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize('force', [None, True])
+def test_force_pallas_none_and_true_run_the_kernels_plain_version(force):
+    """On the CPU both run the kernel's plain version (the f32 sum, the
+    affine on it, one rounding), not the unfused formulation."""
+    args = port_conv_args(*conv_inputs(UNFUSED_SHAPES['c64-o24'], 7),
+                          torch.bfloat16)
+    got = pallas_conv.fused_conv1x1_bn_act(*args, act='relu',
+                                           force_pallas=force)
+    x, w, scale, shift = args
+    want = pallas_conv.fused_conv1x1_bn_act_ref(
+        x, w, scale.bfloat16(), shift.bfloat16(), act='relu')
+    assert torch.equal(got, want)
+
+
+def test_force_pallas_takes_only_none_true_or_false():
+    args = port_conv_args(*conv_inputs(UNFUSED_SHAPES['c6-o5'], 8),
+                          torch.float32)
+    with pytest.raises(ValueError, match='force_pallas'):
+        pallas_conv.fused_conv1x1_bn_act(*args, force_pallas='yes')
