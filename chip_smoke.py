@@ -97,7 +97,19 @@ Phases:
    2**-5 of the sum of the magnitudes the layer rounds, see
    ``check_k4_on_model``); K4 launched exactly 33 times per pass, in
    bf16 all 33 through its wgmma body (that body's own counter);
-8. a ``{"kernels": [...]}`` line (all six kernels) and, last,
+8. the static graph: README's Fluid script, ``build_static_lenet``
+   (MNIST LeNet at its published width, 431,080 parameters) with
+   ``Adam(0.001)``, through ``Executor(CUDAPlace(0))`` on a seeded f32
+   batch of 64; the first step's loss, accuracy and every ``@GRAD``
+   against the same step on ``Executor(CPUPlace())`` from the card's
+   startup values copied across (atol 1e-5, rtol 1e-4); then 2 warm-up and
+   20 timed steps, each synchronised, every loss finite and the last below
+   the first; one lowering of the main program for all of them and a
+   second after one step at batch 32; steps/s, images/s, step p50, min and
+   max, host dispatch ms and peak device memory; one profiled step: device
+   busy ms, idle share, kernel launches and the top kernels. None of the
+   port's kernels is on this path: every launch count stays 0;
+9. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -144,6 +156,11 @@ TRAIN_STEPS, WARMUP_STEPS = 20, 2
 RESNET_BATCH, RESNET_IMG, RESNET_CLASSES = 128, 224, 1000
 RESNET_GFLOP_PER_IMAGE = 12.3
 RESNET_S2D_STEPS = 10
+# MNIST LeNet on the static graph: the book recipe's batch and Adam(0.001);
+# the card against the CPU executor at a stated tolerance (f32, TF32 off,
+# sums in another order)
+LENET_BATCH, LENET_SMALL_BATCH, LENET_PARAMS = 64, 32, 431080
+LENET_ATOL, LENET_RTOL = 1e-5, 1e-4
 K4_PER_PASS = 33                # stride-1 1x1 ConvBNLayers of ResNet-50
 
 
@@ -742,7 +759,8 @@ def train(seed, dev, card):
     return launches
 
 
-def profile_train_step(step, feeds, step_ms, card, groups):
+def profile_train_step(step, feeds, step_ms, card, groups,
+                       what='train step'):
     """Where a training step's time goes: the device's busy ms in one
     profiled step against the step's p50 on the host clock, the kernels
     that take it, and for each ``label: match`` of ``groups`` the share of
@@ -750,7 +768,7 @@ def profile_train_step(step, feeds, step_ms, card, groups):
     prof = profiled(lambda: step(*feeds))
     busy_ms = device_us(prof) / 1e3
     if busy_ms <= 0:
-        log(f'train step [{card}]: device busy share not measured (the '
+        log(f'{what} [{card}]: device busy share not measured (the '
             f'profiler recorded no device time)')
         return
 
@@ -764,7 +782,7 @@ def profile_train_step(step, feeds, step_ms, card, groups):
         ms = sum(dev_ms(e) for e in matched)
         shares.append(f'{label} {ms:.3f} ms = {ms / busy_ms:.3f} of busy, '
                       f'{sum(e.count for e in matched)} launches')
-    log(f'train step [{card}]: p50 {step_ms:.3f} ms on the host clock, '
+    log(f'{what} [{card}]: p50 {step_ms:.3f} ms on the host clock, '
         f'device busy {busy_ms:.3f} ms, idle share '
         f'{1 - busy_ms / step_ms:.3f}; ' + '; '.join(shares))
     for e in events[:12]:
@@ -909,6 +927,132 @@ def train_resnet(seed, dev, card):
     del s2d, step
     torch.cuda.empty_cache()
     return model, x
+
+
+def lenet_programs():
+    """README's Fluid script: ``build_static_lenet`` + ``Adam(0.001)`` on
+    the port's static graph. Returns (main, startup, loss, acc)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_static_lenet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data('img', [1, 28, 28], dtype='float32')
+        label = fluid.layers.data('label', [1], dtype='int64')
+        loss, acc, _ = build_static_lenet(img, label)
+        fluid.optimizer.Adam(learning_rate=0.001).minimize(loss)
+    return main, startup, loss, acc
+
+
+def train_static_lenet(seed, card):
+    """Phase 8: MNIST LeNet through ``Executor(CUDAPlace(0))``, held
+    against ``Executor(CPUPlace())``, then timed and profiled. Returns the
+    kernels' launch counts over the phase (none of the port's kernels is
+    on this path)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.convert import scope_from_paddle
+    from paddle_tpu_torch.ops import nn_ops
+    fluid.seed(seed)
+    main, startup, loss, acc = lenet_programs()
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    if n_params != LENET_PARAMS:
+        raise AssertionError(f'LeNet has {n_params} parameters, not '
+                             f'{LENET_PARAMS}')
+    rng = np.random.default_rng(seed)
+    feed = {'img': rng.random((LENET_BATCH, 1, 28, 28), dtype=np.float32),
+            'label': rng.integers(0, 10, (LENET_BATCH, 1))}
+    grads = [p.name + '@GRAD' for p in main.all_parameters()]
+    fetch = [loss, acc] + grads
+
+    nn_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    # the same first step on the CPU executor, from the card's startup
+    # values copied across
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    persist = sorted(v.name for v in main.list_vars() if v.persistable)
+    scope_from_paddle({n: gscope.find(n).cpu().numpy() for n in persist},
+                      cscope, fluid.CPUPlace(), program=main)
+    got = gpu.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+    worst = {}
+    for name, g, w in zip(['loss', 'acc'] + grads, got, want):
+        worst[name] = float(np.max(np.abs(g - w)))
+        if g.shape != w.shape or not np.allclose(g, w, atol=LENET_ATOL,
+                                                 rtol=LENET_RTOL):
+            raise AssertionError(f'LeNet {name} on the card differs from '
+                                 f'the CPU executor: max|diff| '
+                                 f'{worst[name]:.3e}')
+    log(f'LeNet static graph, batch {LENET_BATCH}, {n_params} parameters: '
+        f'first step on the card against the CPU executor within atol '
+        f'{LENET_ATOL} rtol {LENET_RTOL}: loss {float(got[0])!r} (cpu '
+        f'{float(want[0])!r}), acc {float(got[1])!r}; max|diff| ' + ', '.join(
+            f'{n} {e:.3e}' for n, e in worst.items()))
+
+    losses, secs = [float(got[0])], []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = gpu.run(main, feed=feed, fetch_list=[loss], scope=gscope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+    peak = torch.cuda.max_memory_allocated()
+    log('LeNet static-graph Adam losses: ' + ' '.join(repr(v)
+                                                      for v in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'LeNet losses {losses}: not finite or not '
+                             f'falling')
+    lowered = gpu.lowering_count(main)
+    if lowered != 1:
+        raise AssertionError(f'main program lowered {lowered} times over '
+                             f'{len(losses)} steps of one feed shape')
+    timed_s = secs[WARMUP_STEPS:]
+    p50 = statistics.median(timed_s) * 1e3
+    # host dispatch: the run with device tensors fetched, before the sync
+    dispatch = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        gpu.run(main, feed=feed, fetch_list=[loss], scope=gscope,
+                return_numpy=False)
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    log(f'LeNet static graph trained [{card}]: {len(losses)} steps '
+        f'({WARMUP_STEPS} warm-up, {TRAIN_STEPS} timed), '
+        f'{TRAIN_STEPS / sum(timed_s):.1f} steps/s, '
+        f'{LENET_BATCH * TRAIN_STEPS / sum(timed_s):.1f} images/s, step p50 '
+        f'{p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}); host dispatch p50 '
+        f'{statistics.median(dispatch) * 1e3:.3f} ms (run returning device '
+        f'tensors, before the sync); peak device memory {peak} bytes; '
+        f'lowerings of the main program {lowered}')
+    profile_train_step(
+        lambda: gpu.run(main, feed=feed, fetch_list=[loss], scope=gscope),
+        (), p50, card, {
+            'kernels': lambda key: not key.startswith(('Memcpy', 'Memset')),
+            'copies and fills': lambda key: key.startswith(('Memcpy',
+                                                            'Memset')),
+            'convolutions': lambda key: any(
+                t in key.lower() for t in ('conv', 'xmma', 'cudnn', 'dgrad',
+                                           'wgrad', 'implicit_gemm')),
+            'gemm': lambda key: any(t in key.lower() for t in (
+                'gemm', 'nvjet', 'sm90_', 'cutlass')),
+            'elementwise': lambda key: 'elementwise' in key,
+            'reductions': lambda key: 'reduce_kernel' in key,
+            'pooling': lambda key: 'pool' in key.lower()},
+        what='LeNet static-graph step')
+
+    small = {k: v[:LENET_SMALL_BATCH] for k, v in feed.items()}
+    out = gpu.run(main, feed=small, fetch_list=[loss], scope=gscope)
+    lowered = gpu.lowering_count(main)
+    if lowered != 2 or not np.isfinite(out[0]):
+        raise AssertionError(f'batch {LENET_SMALL_BATCH}: {lowered} '
+                             f'lowerings, loss {out[0]}')
+    log(f'LeNet at batch {LENET_SMALL_BATCH}: loss {float(out[0])!r}, '
+        f'lowerings of the main program {lowered} (one more for the new '
+        f'feed shape)')
+    return nn_ops.launch_counts()
 
 
 def k4_layers(model):
@@ -1391,7 +1535,15 @@ def main(argv=None):
     k4['launches_wgmma'] = launches['conv1x1_bn_act wgmma']
     k4['build'] = k4_build[k4['body']]
 
-    # 8. result lines
+    # 8. the static graph: MNIST LeNet on Executor(CUDAPlace(0)); no kernel
+    # of the port is on this path, and none may launch
+    static = train_static_lenet(args.seed, smi)
+    if any(static.values()):
+        raise AssertionError(f'kernels launched on the static-graph path: '
+                             f'{static}')
+    log(f'static-graph path kernel launches: {static}')
+
+    # 9. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')

@@ -20,6 +20,10 @@ differs: Paddle's ``Linear`` stores (in, out), torch's ``nn.Linear``
   checkpoint's HWIO weights are transposed, an NCHW one's are OIHW
   already; ``out.weight`` goes from (in, out) to (out, in); BatchNorm's
   parameters and buffers keep their layout.
+- The static graph: :func:`scope_from_paddle` copies a JAX scope's
+  persistables into the port's scope by name. Static parameters share
+  Paddle's layouts in both packages (``mul`` weights (in, out), conv OIHW),
+  so nothing is relaid out.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 __all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params',
            'bert_expected_shapes', 'bert_state_dict_from_paddle',
            'bert_init_params', 'resnet_expected_shapes',
-           'resnet_state_dict_from_paddle', 'resnet_init_params']
+           'resnet_state_dict_from_paddle', 'resnet_init_params',
+           'scope_from_paddle']
 
 _LINEARS = ('attn.q', 'attn.k', 'attn.v', 'attn.out', 'ffn1', 'ffn2')
 _BERT_LINEARS = _LINEARS + ('bert.pooler', 'heads.transform', 'heads.nsp')
@@ -312,3 +317,34 @@ def resnet_init_params(depth, class_dim, data_format, seed):
         else:
             out[name] = np.zeros(shape, np.float32)
     return out
+
+
+def scope_from_paddle(named_numpy, scope=None, place=None, program=None):
+    """Copy ``named_numpy`` ({name: array}, e.g. the JAX scope's
+    persistables) into ``scope`` (the global scope if None) as tensors on
+    ``place``'s device (the card if None). Each name the scope already
+    holds, or that ``program`` declares, must keep that value's (or
+    declaration's) shape and type; a mismatch raises and names the
+    variable. Returns the names copied."""
+    from .core.dtypes import convert_dtype, to_torch_dtype
+    from .core.places import get_device
+    from .core.scope import global_scope
+    scope = scope if scope is not None else global_scope()
+    dev = get_device(place)
+    declared = ({v.name: v for v in program.list_vars()}
+                if program is not None else {})
+    for name, value in named_numpy.items():
+        arr = np.asarray(value)
+        want = None
+        old = scope.find(name)
+        if old is not None:
+            want = (tuple(old.shape), convert_dtype(old.dtype))
+        elif name in declared and declared[name].shape is not None:
+            want = (declared[name].shape, declared[name].dtype)
+        got = (tuple(arr.shape), convert_dtype(arr.dtype))
+        if want is not None and want != got:
+            raise ValueError(f'{name}: shape and dtype {got} do not match '
+                             f'{want}')
+        scope.set(name, torch.from_numpy(np.array(arr)).to(
+            dev, to_torch_dtype(got[1])))
+    return list(named_numpy)

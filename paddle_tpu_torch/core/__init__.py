@@ -1,0 +1,7 @@
+"""Core of the port's static graph (counterpart of paddle_tpu/core/): names,
+types, the scope of persistable values, places and random generators."""
+from . import dtypes, places, random, scope, unique_name
+from .dtypes import convert_dtype, to_torch_dtype
+from .places import (CPUPlace, CUDAPlace, Place, TPUPlace, XLAPlace,
+                     cpu_places, cuda_places, is_compiled_with_cuda)
+from .scope import Scope, global_scope, scope_guard

@@ -152,20 +152,20 @@ class BatchNorm(nn.Module):
 
 class Linear(nn.Linear):
     """``nn.Linear`` with Paddle's fused activation (``'gelu'``, the exact
-    erf form, or ``'tanh'``) and JAX's type promotion."""
+    erf form, ``'tanh'`` or ``'relu'``) and JAX's type promotion."""
+
+    _ACTS = {'gelu': F.gelu, 'tanh': torch.tanh, 'relu': torch.relu}
 
     def __init__(self, in_features, out_features, act=None, device=None):
         super().__init__(in_features, out_features, device=device)
-        if act not in (None, 'gelu', 'tanh'):
-            raise NotImplementedError(f'act={act!r}: only gelu and tanh are '
-                                      f'ported')
+        if act is not None and act not in self._ACTS:
+            raise NotImplementedError(f'act={act!r}: only gelu, tanh and '
+                                      f'relu are ported')
         self.act = act
 
     def forward(self, x):
         y = F.linear(*_promote(x, self.weight, self.bias))
-        if self.act == 'gelu':
-            return F.gelu(y)
-        return torch.tanh(y) if self.act == 'tanh' else y
+        return y if self.act is None else self._ACTS[self.act](y)
 
 
 class LayerNorm(nn.LayerNorm):

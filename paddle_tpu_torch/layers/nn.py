@@ -1,0 +1,219 @@
+"""Neural-network layers of the static graph (counterpart of
+paddle_tpu/layers/nn.py): ``fc``, ``conv2d``, ``pool2d``, ``batch_norm``,
+``softmax``, ``matmul``, ``mul``, ``dropout``, and the generated one-op
+layers of the JAX package's list. A generated layer whose op the port has
+not registered yet raises ``NotImplementedError`` when called (ROADMAP
+A.10), never at import."""
+from __future__ import annotations
+
+import math
+
+from ..core import unique_name
+from ..initializer import ConstantInitializer, NormalInitializer
+from ..layer_helper import LayerHelper
+from ..ops.registry import has_op
+from .common import apply_op_layer, generate_layer_fn
+
+__all__ = ['fc', 'conv2d', 'pool2d', 'batch_norm', 'dropout', 'softmax',
+           'matmul', 'mul']
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """``mul`` of each input with its weight (in, out), summed, plus the
+    bias, then ``act``."""
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    helper = LayerHelper('fc', param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    mul_results = []
+    for x in inputs:
+        in_feat = math.prod(x.shape[num_flatten_dims:])
+        w = helper.create_parameter(helper.param_attr, [in_feat, size],
+                                    x.dtype)
+        mul_results.append(apply_op_layer(
+            'mul', {'x': x, 'y': w},
+            {'x_num_col_dims': num_flatten_dims, 'y_num_col_dims': 1}))
+    out = (mul_results[0] if len(mul_results) == 1
+           else apply_op_layer('sum', {'xs': mul_results}))
+    b = helper.create_parameter(helper.bias_attr, [size], 'float32',
+                                is_bias=True)
+    if b is not None:
+        out = apply_op_layer('elementwise_add', {'x': out, 'y': b},
+                             {'axis': num_flatten_dims})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format='NCHW'):
+    """A conv2d op with an OIHW weight drawn from
+    Normal(0, sqrt(2 / (fh * fw * C))), plus the bias and ``act``
+    (``use_cudnn`` is accepted; torch chooses)."""
+    helper = LayerHelper('conv2d', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c_in = input.shape[1] if data_format == 'NCHW' else input.shape[-1]
+    fs = (filter_size if isinstance(filter_size, (list, tuple))
+          else (filter_size, filter_size))
+    std = math.sqrt(2.0 / (fs[0] * fs[1] * c_in))
+    w = helper.create_parameter(
+        helper.param_attr, [num_filters, c_in // groups, fs[0], fs[1]],
+        input.dtype, default_initializer=NormalInitializer(0.0, std))
+    out = apply_op_layer('conv2d', {'x': input, 'weight': w},
+                         {'stride': stride, 'padding': padding,
+                          'dilation': dilation, 'groups': groups,
+                          'data_format': data_format})
+    b = helper.create_parameter(helper.bias_attr, [num_filters], 'float32',
+                                is_bias=True)
+    if b is not None:
+        axis = 1 if data_format == 'NCHW' else 3
+        out = apply_op_layer('elementwise_add', {'x': out, 'y': b},
+                             {'axis': axis})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format='NCHW'):
+    return apply_op_layer('pool2d', {'x': input},
+                          {'pool_size': pool_size, 'pool_type': pool_type,
+                           'pool_stride': pool_stride,
+                           'pool_padding': pool_padding,
+                           'global_pooling': global_pooling,
+                           'ceil_mode': ceil_mode, 'exclusive': exclusive,
+                           'data_format': data_format}, name=name)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False, sync_stats=False):
+    """A batch_norm op with its scale (ones) and bias (zeros) parameters
+    and its running mean (zeros) and variance (ones), persistables that the
+    op's ``MeanOut``/``VarianceOut`` write back."""
+    helper = LayerHelper('batch_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == 'NCHW' else input.shape[-1]
+    dtype = 'float32'
+    scale = helper.create_parameter(
+        helper.param_attr, [c], dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], dtype,
+                                   is_bias=True)
+    mean_name = moving_mean_name or unique_name.generate(
+        helper.name + '.mean')
+    var_name = moving_variance_name or unique_name.generate(
+        helper.name + '.variance')
+
+    def stat_var(nm, init_val):
+        v = helper.main_program.global_block().create_var(
+            name=nm, shape=[c], dtype=dtype, persistable=True,
+            stop_gradient=True)
+        sb = helper.startup_program.global_block()
+        sv = sb.create_var(name=nm, shape=[c], dtype=dtype,
+                           persistable=True, stop_gradient=True)
+        ConstantInitializer(init_val)(sv, sb)
+        return v
+
+    mean = stat_var(mean_name, 0.0)
+    variance = stat_var(var_name, 1.0)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type='batch_norm',
+        inputs={'x': input.name, 'scale': scale.name, 'bias': bias.name,
+                'mean': mean.name, 'variance': variance.name},
+        outputs={'Y': out.name, 'MeanOut': mean.name,
+                 'VarianceOut': var_name},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'use_global_stats': use_global_stats,
+               'data_layout': data_layout, 'sync_stats': sync_stats})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation='downgrade_in_infer'):
+    return apply_op_layer('dropout', {'x': x},
+                          {'dropout_prob': dropout_prob, 'is_test': is_test,
+                           'dropout_implementation': dropout_implementation},
+                          name=name)
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    return apply_op_layer('softmax', {'x': input}, {'axis': axis}, name=name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    return apply_op_layer('matmul', {'x': x, 'y': y},
+                          {'transpose_x': transpose_x,
+                           'transpose_y': transpose_y, 'alpha': alpha},
+                          name=name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    return apply_op_layer('mul', {'x': x, 'y': y},
+                          {'x_num_col_dims': x_num_col_dims,
+                           'y_num_col_dims': y_num_col_dims}, name=name)
+
+
+def _not_ported(op_type, fname):
+    def layer(*args, **kwargs):
+        raise NotImplementedError(
+            f'layers.{fname}: the op {op_type!r} is not ported yet '
+            f'(ROADMAP A.10)')
+    layer.__name__ = fname
+    layer.__doc__ = f'Layer of the op `{op_type}`: not ported yet.'
+    return layer
+
+
+def _gen(op_type, *, fname=None):
+    fname = fname or op_type
+    fn = (generate_layer_fn(op_type) if has_op(op_type)
+          else _not_ported(op_type, fname))
+    fn.__name__ = fname
+    globals()[fname] = fn
+    __all__.append(fname)
+    return fn
+
+
+# the JAX package's generated layers, in its order
+for _op in ['sigmoid', 'logsigmoid', 'exp', 'tanh', 'atan', 'tanh_shrink',
+            'sqrt', 'rsqrt', 'abs', 'ceil', 'floor', 'cos', 'sin', 'acos',
+            'asin', 'cosh', 'sinh', 'round', 'reciprocal', 'square',
+            'softplus', 'softsign', 'softshrink', 'hard_shrink',
+            'thresholded_relu', 'log_softmax',
+            'relu', 'relu6', 'leaky_relu', 'elu', 'selu', 'brelu',
+            'soft_relu', 'stanh', 'hard_sigmoid', 'hard_swish', 'swish',
+            'maxout', 'pow', 'gelu', 'erf', 'log', 'sign', 'mean',
+            'reduce_sum', 'reduce_mean', 'reduce_max', 'reduce_min',
+            'reduce_prod', 'reduce_all', 'reduce_any', 'logsumexp',
+            'elementwise_add', 'elementwise_sub', 'elementwise_mul',
+            'elementwise_div', 'elementwise_max', 'elementwise_min',
+            'elementwise_pow', 'elementwise_mod', 'elementwise_floordiv',
+            'scale', 'clip', 'clip_by_norm', 'cos_sim',
+            'transpose', 'squeeze', 'unsqueeze', 'reshape', 'flatten',
+            'gather', 'gather_nd', 'scatter', 'scatter_nd_add',
+            'expand', 'expand_as', 'pad', 'pad2d', 'pad_constant_like',
+            'label_smooth', 'shard_index', 'where',
+            'space_to_depth', 'shuffle_channel', 'temporal_shift',
+            'grid_sampler', 'affine_channel', 'pixel_shuffle', 'unfold',
+            'add_position_encoding', 'log_loss', 'unstack',
+            'uniform_random', 'gaussian_random',
+            'uniform_random_batch_size_like',
+            'gaussian_random_batch_size_like', 'sampling_id', 'random_crop',
+            'logical_and', 'logical_or', 'logical_xor', 'logical_not',
+            'has_inf', 'has_nan', 'isfinite', 'mean_iou', 'cumsum']:
+    _gen(_op)
+
+_gen('slice')
+_gen('strided_slice')
+_gen('fsp', fname='fsp_matrix')
+_gen('arg_min', fname='argmin')
+_gen('arg_max', fname='argmax')
+_gen('argsort')

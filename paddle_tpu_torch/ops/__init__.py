@@ -1,4 +1,6 @@
-"""Ops of the port: attention, conv, pool and batch norm (nn_ops.py), the
-conv-efficiency ops with the fused 1x1 conv kernel (pallas_conv.py), the
-CUDA kernels' build (_build.py), the training path's loss (loss_ops.py)
-and optimizer updates (optimizer_ops.py)."""
+"""Ops of the port: attention, conv, pool, batch norm, softmax and dropout
+(nn_ops.py), the conv-efficiency ops with the fused 1x1 conv kernel
+(pallas_conv.py), the CUDA kernels' build (_build.py), losses and metrics
+(loss_ops.py), optimizer updates (optimizer_ops.py), elementwise math and
+reductions (math_ops.py) and tensor ops (tensor_ops.py). Each op the static
+graph runs is registered by name in registry.py."""

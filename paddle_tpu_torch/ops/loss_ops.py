@@ -1,11 +1,15 @@
-"""Losses of the training path (counterpart of paddle_tpu/ops/loss_ops.py)."""
+"""Losses and metrics of the training paths (counterpart of
+paddle_tpu/ops/loss_ops.py)."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ['softmax_with_cross_entropy']
+from .registry import register_op
+
+__all__ = ['softmax_with_cross_entropy', 'accuracy']
 
 
+@register_op('softmax_with_cross_entropy', outputs=['Loss', 'Softmax'])
 def softmax_with_cross_entropy(logits, label, *, soft_label=False,
                                ignore_index=-100, axis=-1,
                                return_softmax=False, numeric_stable_mode=True):
@@ -35,3 +39,25 @@ def softmax_with_cross_entropy(logits, label, *, soft_label=False,
                        torch.zeros((), dtype=loss.dtype, device=loss.device),
                        loss)
     return loss, sm
+
+
+def _squeeze_label(label):
+    if label.dim() >= 2 and label.shape[-1] == 1:
+        return label[..., 0]
+    return label
+
+
+@register_op('accuracy', outputs=['Out', 'Correct', 'Total'])
+def accuracy(pred, label, *, k=1):
+    """Top-``k`` accuracy of ``pred`` (N, C) against class indices
+    ``label`` (N,) or (N, 1): ``(correct / N, correct, N)``, the first
+    f32 and the counts int32 (Paddle's accuracy op counts in int; the JAX
+    package's int64 computes in int32 with x64 off). All three are
+    scalars, as in the JAX package."""
+    label = _squeeze_label(label)
+    top = torch.topk(pred, k, dim=-1).indices
+    correct = (top == label.to(top.dtype)[:, None]).any(-1)
+    ncorrect = correct.sum().to(torch.int32)
+    total = torch.full((), pred.shape[0], dtype=torch.int32,
+                       device=pred.device)
+    return ncorrect.float() / total.float(), ncorrect, total

@@ -10,7 +10,8 @@ paddle_tpu/ops/nn_ops.py).
   flash-attention kernels of csrc/flash_attention.cu
   (``flash_attention_fwd``, ``flash_attention_bwd_dkv``,
   ``flash_attention_bwd_dq``).
-- ``conv2d``, ``pool2d``, ``batch_norm`` and ``relu``: the ops ResNet runs.
+- ``conv2d``, ``pool2d``, ``batch_norm`` and ``relu``: the ops ResNet runs;
+  ``softmax`` and ``dropout`` with them on the static graph's path.
   The reference computes them in XLA, outside any Pallas kernel, so here
   they are torch's own ops (``F.conv2d``, ``F.max_pool2d``, ...) with
   Paddle's semantics and the reference's types.
@@ -33,13 +34,15 @@ import numbers
 import torch
 import torch.nn.functional as F
 
+from .registry import register_op
+
 __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'paged_prefill_attention_ref', 'fused_attention',
            'fused_attention_ref', 'fused_attention_fwd_ref',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
            'flash_kernel_info', 'FLASH_KINDS', 'prefill_kernel_info',
-           'conv2d', 'pool2d', 'batch_norm', 'relu',
+           'conv2d', 'pool2d', 'batch_norm', 'relu', 'softmax', 'dropout',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
 # head dims the kernels are compiled for (csrc/*.cu)
@@ -146,6 +149,7 @@ def _check_status(lib, err, name):
                            f'({msg})')
 
 
+@register_op('paged_attention')
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     k_scales=None, v_scales=None, *, sm_scale=1.0,
                     pages_per_compute_block=4):
@@ -211,6 +215,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     return out
 
 
+@register_op('paged_prefill_attention')
 def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
                             k_scales=None, v_scales=None, *, sm_scale=1.0):
     """Prefill attention for the decode engine: causal attention of the
@@ -598,6 +603,7 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None
 
 
+@register_op('fused_attention')
 def fused_attention(q, k, v, bias=None, *, sm_scale=1.0, causal=False):
     """Fused multi-head attention, (B, H, S, D) layout:
     ``softmax(Q.K^T * sm_scale + bias).V``, optionally causal (top-left
@@ -655,6 +661,7 @@ def _same_pads(size, k, s, d):
     return total // 2, total - total // 2
 
 
+@register_op('conv2d')
 def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
            data_format='NCHW'):
     """Paddle's conv2d: ``x`` NCHW or NHWC, ``weight`` OIHW whatever the
@@ -689,6 +696,7 @@ def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
     return _from_nchw(y, data_format)
 
 
+@register_op('pool2d')
 def pool2d(x, *, pool_size=-1, pool_type='max', pool_stride=1,
            pool_padding=0, global_pooling=False, ceil_mode=False,
            exclusive=True, data_format='NCHW'):
@@ -731,6 +739,8 @@ def pool2d(x, *, pool_size=-1, pool_type='max', pool_stride=1,
     return _from_nchw(y, data_format)
 
 
+@register_op('batch_norm',
+             outputs=['Y', 'MeanOut', 'VarianceOut'])
 def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
                epsilon=1e-5, is_test=False, use_global_stats=False,
                data_layout='NCHW', sync_stats=False):
@@ -772,8 +782,37 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
             * scale.reshape(shape) + bias.reshape(shape)), new_mean, new_var
 
 
+@register_op('relu')
 def relu(x):
     return torch.relu(x)
+
+
+@register_op('softmax')
+def softmax(x, *, axis=-1):
+    return torch.softmax(x, dim=axis)
+
+
+@register_op('dropout', needs_rng=True)
+def dropout(x, *, dropout_prob=0.5, is_test=False,
+            dropout_implementation='downgrade_in_infer', key=None):
+    """Paddle's dropout. In training each element is kept with
+    probability ``1 - dropout_prob`` (the mask drawn from ``key``, the
+    device's ``torch.Generator``), and ``upscale_in_train`` divides the
+    kept ones by that probability; at test time ``downgrade_in_infer``
+    scales by it instead. The masks differ from the JAX package's PRNG by
+    design."""
+    if is_test:
+        if dropout_implementation == 'downgrade_in_infer':
+            return x * (1.0 - dropout_prob)
+        return x
+    if dropout_prob == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=key, device=x.device) \
+        < (1.0 - dropout_prob)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if dropout_implementation == 'upscale_in_train':
+        return torch.where(keep, x / (1.0 - dropout_prob), zero).to(x.dtype)
+    return torch.where(keep, x, zero)
 
 
 paged_attention.launches = 0

@@ -1,14 +1,54 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py).
 
 The JAX ops return new arrays, which the fused training step donates so XLA
-writes them in place. Here the update writes the parameter and its slots in
-place under ``no_grad``; that takes the place of the donation.
+writes them in place. Here the dygraph update writes the parameter and its
+slots in place under ``no_grad``; that takes the place of the donation
+(``momentum``, ``adam`` and their multi-tensor forms, which ``TrainStep``
+runs).
+
+The static graph's ops are the functional forms the JAX package registers:
+``sgd``, ``momentum`` and ``adam`` return the new parameter and slots
+(``ParamOut``, ``VelocityOut``, ``Moment1Out``, ...), which the executor
+writes back to the scope. The registry binds ``momentum`` and ``adam`` to
+:func:`_momentum_out` and :func:`_adam_out`, the same arithmetic with the
+JAX ops' outputs.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ['momentum', 'multi_tensor_momentum', 'adam', 'multi_tensor_adam']
+from .registry import register_op
+
+__all__ = ['sgd', 'momentum', 'multi_tensor_momentum', 'adam',
+           'multi_tensor_adam']
+
+
+@register_op('sgd', outputs=['ParamOut'])
+def sgd(param, grad, lr):
+    """``param - lr * grad``, a new tensor."""
+    return param - lr * grad
+
+
+@register_op('momentum', outputs=['ParamOut', 'VelocityOut'])
+def _momentum_out(param, grad, velocity, lr, *, mu=0.9, use_nesterov=False):
+    """:func:`momentum`'s step as new tensors: ``(param, velocity)``."""
+    v_new = mu * velocity + grad
+    if use_nesterov:
+        return param - (grad + mu * v_new) * lr, v_new
+    return param - lr * v_new, v_new
+
+
+@register_op('adam', outputs=['ParamOut', 'Moment1Out', 'Moment2Out',
+                              'Beta1PowOut', 'Beta2PowOut'])
+def _adam_out(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
+              beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """:func:`adam`'s step as new tensors: ``(param, moment1, moment2,
+    beta1_pow, beta2_pow)``."""
+    m1n = beta1 * moment1 + (1 - beta1) * grad
+    m2n = beta2 * moment2 + (1 - beta2) * torch.square(grad)
+    lr_t = lr * torch.sqrt(1 - beta2_pow) / (1 - beta1_pow)
+    pn = param - lr_t * m1n / (torch.sqrt(m2n) + epsilon)
+    return pn, m1n, m2n, beta1_pow * beta1, beta2_pow * beta2
 
 
 @torch.no_grad()
@@ -19,12 +59,10 @@ def momentum(param, grad, velocity, lr, *, mu=0.9, use_nesterov=False):
         p -= lr * v                    (Nesterov: p -= (g + mu * v) * lr)
 
     ``lr`` is a float or a (1,) tensor. Returns ``param``."""
-    velocity.mul_(mu).add_(grad)
-    if use_nesterov:
-        param.sub_((grad + mu * velocity) * lr)
-    else:
-        param.sub_(lr * velocity)
-    return param
+    p_new, v_new = _momentum_out(param, grad, velocity, lr, mu=mu,
+                                 use_nesterov=use_nesterov)
+    velocity.copy_(v_new)
+    return param.copy_(p_new)
 
 
 @torch.no_grad()
@@ -62,14 +100,10 @@ def adam(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr, *,
     to the bias-corrected second moment, which gives another step wherever
     sqrt(m2) is near epsilon. ``lr`` is a float or a (1,) tensor. Returns
     ``param``."""
-    m1n = beta1 * moment1 + (1 - beta1) * grad
-    m2n = beta2 * moment2 + (1 - beta2) * torch.square(grad)
-    lr_t = lr * torch.sqrt(1 - beta2_pow) / (1 - beta1_pow)
-    param.copy_(param - lr_t * m1n / (torch.sqrt(m2n) + epsilon))
-    moment1.copy_(m1n)
-    moment2.copy_(m2n)
-    beta1_pow.mul_(beta1)
-    beta2_pow.mul_(beta2)
+    outs = _adam_out(param, grad, moment1, moment2, beta1_pow, beta2_pow,
+                     lr, beta1=beta1, beta2=beta2, epsilon=epsilon)
+    for t, new in zip((param, moment1, moment2, beta1_pow, beta2_pow), outs):
+        t.copy_(new)
     return param
 
 

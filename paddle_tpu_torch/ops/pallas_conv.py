@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .nn_ops import _match_weight_dtype
+from .registry import register_op
 
 __all__ = ['stem_space_to_depth', 'fused_conv1x1_bn_act',
            'fused_conv1x1_bn_act_ref', 'conv1x1_bn_act', 'conv1x1_plan',
@@ -247,6 +248,7 @@ def _unfused(x, weight, scale, shift, *, act=None):
     return torch.relu(y) if act == 'relu' else y
 
 
+@register_op('fused_conv1x1_bn_act')
 def fused_conv1x1_bn_act(x, weight, scale, shift, *, act=None,
                          data_format='NHWC', force_pallas=None):
     """``act((x . weight) * scale + shift)`` for a 1x1 OIHW ``weight``

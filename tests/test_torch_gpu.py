@@ -914,3 +914,40 @@ def test_resnet50_eval_pass_launches_k4_on_every_1x1_layer(cuda):
                                                    scale, shift, act=m._act)
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert pallas_conv.conv1x1_bn_act.launches == before + 33
+
+
+def test_static_lenet_on_the_card_matches_the_cpu(cuda):
+    """MNIST LeNet on the static graph (build_static_lenet + Adam(0.001),
+    batch 64, f32) through Executor(CUDAPlace(0)) against the same programs
+    on Executor(CPUPlace()) from the card's startup values: the first
+    step's loss, accuracy and every @GRAD, then three more losses, within
+    atol 1e-5, rtol 1e-4 (TF32 off, sums in another order), as
+    chip_smoke.py holds them; one lowering of the main program."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.convert import scope_from_paddle
+    from paddle_tpu_torch.models.lenet import build_static_lenet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data('img', [1, 28, 28], dtype='float32')
+        label = fluid.layers.data('label', [1], dtype='int64')
+        loss, acc, _ = build_static_lenet(img, label)
+        fluid.optimizer.Adam(learning_rate=0.001).minimize(loss)
+    rng = np.random.default_rng(4)
+    feed = {'img': rng.random((64, 1, 28, 28), dtype=np.float32),
+            'label': rng.integers(0, 10, (64, 1))}
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    scope_from_paddle({n: gscope.find(n).cpu().numpy() for n in persist},
+                      cscope, fluid.CPUPlace(), program=main)
+    fetch = [loss, acc] + [p.name + '@GRAD' for p in main.all_parameters()]
+    for step in range(4):
+        got = gpu.run(main, feed=feed, fetch_list=fetch if step == 0
+                      else [loss], scope=gscope)
+        want = cpu.run(main, feed=feed, fetch_list=fetch if step == 0
+                       else [loss], scope=cscope)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-4)
+    assert gpu.lowering_count(main) == 1
+    assert gscope.find('fc_0.w_0').device.type == 'cuda'

@@ -2,10 +2,13 @@
 took over in doing so behave as the reference's do (on the CPU).
 
 - Every public callable of ``paddle_tpu_torch.ops.{nn_ops, loss_ops,
-  optimizer_ops, pallas_conv}`` that the reference's module of the same
-  name also has is held to the reference's parameter names, kinds and
-  defaults (``inspect.signature``), so a call written for the reference
-  binds the same way in the port.
+  optimizer_ops, pallas_conv, math_ops, tensor_ops}`` that the reference's
+  module of the same name also has is held to the reference's parameter
+  names, kinds and defaults (``inspect.signature``), so a call written for
+  the reference binds the same way in the port. So are the static graph's
+  entry points that a Fluid script calls (``program_guard``, the layers
+  LeNet uses, ``simple_img_conv_pool``, ``append_backward``,
+  ``Executor.run`` and ``Optimizer.minimize``).
 - ``softmax_with_cross_entropy`` with ``soft_label`` and on another
   ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
   same formula).
@@ -36,10 +39,19 @@ SHARED_OPS = [
     ('nn_ops', 'paged_attention'), ('nn_ops', 'paged_prefill_attention'),
     ('nn_ops', 'fused_attention'), ('nn_ops', 'conv2d'),
     ('nn_ops', 'pool2d'), ('nn_ops', 'batch_norm'),
-    ('loss_ops', 'softmax_with_cross_entropy'),
-    ('optimizer_ops', 'momentum'), ('optimizer_ops', 'adam'),
+    ('nn_ops', 'softmax'), ('nn_ops', 'dropout'),
+    ('loss_ops', 'softmax_with_cross_entropy'), ('loss_ops', 'accuracy'),
+    ('optimizer_ops', 'sgd'), ('optimizer_ops', 'momentum'),
+    ('optimizer_ops', 'adam'),
     ('pallas_conv', 'fused_conv1x1_bn_act'),
-    ('pallas_conv', 'stem_space_to_depth')]
+    ('pallas_conv', 'stem_space_to_depth'),
+    ('math_ops', 'elementwise_add'), ('math_ops', 'elementwise_sub'),
+    ('math_ops', 'elementwise_mul'), ('math_ops', 'elementwise_div'),
+    ('math_ops', 'scale'), ('math_ops', 'matmul'), ('math_ops', 'mul'),
+    ('math_ops', 'mean'), ('math_ops', 'reduce_sum'),
+    ('math_ops', 'reduce_mean'),
+    ('tensor_ops', 'cast'), ('tensor_ops', 'reshape'),
+    ('tensor_ops', 'fill_constant')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -72,6 +84,29 @@ def test_op_takes_the_reference_parameters(module, op):
                 for p in inspect.signature(fn).parameters.values()]
 
     assert params(getattr(port, op)) == params(getattr(ref, op))
+
+
+# (module of both packages, attribute path) of the static graph's entry
+# points a Fluid script calls
+FLUID_ENTRY_POINTS = [
+    ('framework', 'program_guard'), ('layers', 'fc'), ('layers', 'conv2d'),
+    ('layers', 'pool2d'), ('layers', 'data'), ('layers', 'softmax'),
+    ('layers', 'accuracy'), ('nets', 'simple_img_conv_pool'),
+    ('backward', 'append_backward'), ('executor', 'Executor.run'),
+    ('optimizer', 'Adam.minimize')]
+
+
+@pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,
+                         ids=[f'{m}.{p}' for m, p in FLUID_ENTRY_POINTS])
+def test_fluid_entry_point_takes_the_reference_parameters(module, path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(obj).parameters.values()]
+
+    assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
 
 
 # ------------------------------------------------ softmax_with_cross_entropy
