@@ -109,7 +109,29 @@ Phases:
    max, host dispatch ms and peak device memory; one profiled step: device
    busy ms, idle share, kernel launches and the top kernels. None of the
    port's kernels is on this path: every launch count stays 0;
-9. a ``{"kernels": [...]}`` line (all six kernels) and, last,
+9. the dygraph API: README's dygraph script at Transformer-big
+   (``TransformerConfig.big(dropout=0.0, max_length=64)``, 6 + 6 layers at
+   full width, about 275 M parameters) from
+   ``transformer_init_params(cfg, seed)`` under ``guard(CUDAPlace(0))``,
+   on bench.py's batch (64 x 64 source, target and label ids from
+   ``RandomState(0)``): an f32 forward, loss and five parameters'
+   gradients at batch 2 against the same weights under
+   ``guard(CPUPlace())``; three steps of the user loop (``backward`` ->
+   ``Adam(NoamDecay(1024, 4000)).minimize`` -> ``clear_gradients``), every
+   loss finite and every rate the formula's; then
+   ``TrainStep(amp_dtype=torch.bfloat16)`` with ``Adam(1e-4)``, 2 warm-up
+   and 20 timed steps, each synchronised, every loss finite, the last
+   below the first, every master an f32 Parameter: tokens/s by bench.py's
+   count, step p50, min and max, host dispatch, peak device memory and the
+   model-FLOP share (bench.py's FLOPs a token over 989 TFLOP/s); one
+   profiled step (device busy ms, idle share, launches and the top
+   kernels by kind); ``save_dygraph`` -> ``load_dygraph`` into a fresh
+   model with identical logits; ``greedy_decode`` and
+   ``beam_search_decode`` (beam 4, 16 new tokens) of two rows on the card
+   and on the CPU from the trained weights, equal or parting only at a
+   near tie; the host cost of the dygraph API per call. None of the
+   port's kernels is on this path: every launch count stays 0;
+10. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -162,6 +184,12 @@ RESNET_S2D_STEPS = 10
 LENET_BATCH, LENET_SMALL_BATCH, LENET_PARAMS = 64, 32, 431080
 LENET_ATOL, LENET_RTOL = 1e-5, 1e-4
 K4_PER_PASS = 33                # stride-1 1x1 ConvBNLayers of ResNet-50
+# Transformer-big WMT en-de: bench.py bench_transformer_big's on-chip batch
+# (64 x 64, max_length 64); the card against the CPU in f32, TF32 off, sums
+# in another order: logits and loss at atol/rtol 1e-4, gradients within
+# 1e-3 of their tensor's largest entry; decode at 16 new tokens
+NMT_BATCH, NMT_SEQ, NMT_DECODE_LEN = 64, 64, 16
+NMT_ATOL, NMT_RTOL, NMT_GRAD_RTOL = 1e-4, 1e-4, 1e-3
 
 
 def log(*parts):
@@ -1055,6 +1083,360 @@ def train_static_lenet(seed, card):
     return nn_ops.launch_counts()
 
 
+def nmt_batch(cfg, batch, seq, seed=0):
+    """bench.py's Transformer batch: source, target and (B, S, 1) label ids
+    in [1, vocab) from ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(1, cfg.src_vocab_size, (batch, seq)).astype(np.int64)
+    trg = rng.randint(1, cfg.trg_vocab_size, (batch, seq)).astype(np.int64)
+    lbl = rng.randint(1, cfg.trg_vocab_size,
+                      (batch, seq, 1)).astype(np.int64)
+    return src, trg, lbl
+
+
+def nmt_flops_per_token(cfg, seq):
+    """bench.py's analytic train FLOPs per token of Transformer-big (2 FLOP
+    a MAC, train = 3x forward, averaged over source and target tokens)."""
+    d, di, layers = cfg.d_model, cfg.d_inner, cfg.n_layer
+    enc_lin = 2.0 * (4 * d * d + 2 * d * di)
+    dec_lin = 2.0 * (8 * d * d + 2 * d * di)
+    attn = 4.0 * seq * d
+    fwd_per_pair = (layers * (enc_lin + attn) + layers * (dec_lin + 2 * attn)
+                    + 2.0 * d * cfg.trg_vocab_size)
+    return 3.0 * fwd_per_pair / 2.0
+
+
+def noam_rate(d_model, warmup, n):
+    n = max(n, 1)
+    return d_model ** -0.5 * min(n ** -0.5, warmup ** -1.5 * n)
+
+
+def dygraph_host_costs(dev, card, n=20000):
+    """Host microseconds a call of what the dygraph API adds to a plain
+    torch op: the op on plain tensors, the op on a dygraph Tensor (torch
+    function off), Python arithmetic on a Tensor (wrapped back into one),
+    and an outermost against a nested Layer call of a 1x1 Linear."""
+    import torch
+    from paddle_tpu_torch import dygraph
+    x = torch.ones(4, device=dev)
+    t = x.as_subclass(dygraph.Tensor)
+
+    def host_us(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+        return us
+
+    with dygraph.guard(dev):
+        fc = dygraph.Linear(4, 4)
+        outer = dygraph.Sequential(fc)
+    costs = {'torch.add(plain, plain)': host_us(lambda: torch.add(x, x)),
+             'torch.add(Tensor, plain)': host_us(lambda: torch.add(t, x)),
+             'plain + plain': host_us(lambda: x + x),
+             'Tensor + plain': host_us(lambda: t + x),
+             'F.linear (what Linear runs)': host_us(
+                 lambda: torch.nn.functional.linear(x, fc.weight.t(),
+                                                    fc.bias)),
+             'Linear call, outermost': host_us(lambda: fc(x)),
+             'Sequential(Linear) call': host_us(lambda: outer(x))}
+    log(f'dygraph host cost per call [{card}], {n} calls each on the host '
+        f'clock: ' + '; '.join(f'{k} {v:.2f} us' for k, v in costs.items()))
+    return costs
+
+
+def decode_equal_or_near_tie(cpu_model, src, got, want, eos, what):
+    """Greedy tokens of the card (``got``) against the CPU's (``want``):
+    equal, or at the first step where they part the CPU's top two
+    log-probabilities lie within ``NEAR_TIE`` (teacher-forced on the
+    common prefix). Returns the rows that parted."""
+    import torch
+    from paddle_tpu_torch.ops.nn_ops import log_softmax
+    parted = []
+    for r in range(got.shape[0]):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        ys = np.full((1, got.shape[1] + 1), eos, np.int64)
+        ys[0, 0] = 1
+        ys[0, 1:t + 1] = want[r, :t]
+        with torch.no_grad():
+            enc = cpu_model.encode(torch.from_numpy(src[r:r + 1]))
+            logp = log_softmax(cpu_model.decode(torch.from_numpy(ys),
+                                                enc)[0, t]).numpy()
+        top = np.sort(logp)[-2:]
+        gap = float(top[1] - top[0])
+        log(f'{what}: row {r} parts at step {t}: card {got[r, t]} cpu '
+            f'{want[r, t]}, the CPU\'s top-two gap {gap:.3e} (near-tie '
+            f'limit {NEAR_TIE})')
+        if gap > NEAR_TIE:
+            raise AssertionError(f'{what}: row {r} differs at step {t} with '
+                                 f'a top-two gap of {gap}')
+        parted.append(r)
+    return parted
+
+
+def beam_equal_or_near_tie(cpu_model, src, got, want, eos, alpha, what):
+    """Beam hypotheses of the card against the CPU's: equal, or, where a
+    row's best hypothesis differs, the two hypotheses' length-normalised
+    scores under the CPU model (teacher-forced) within ``NEAR_TIE``: a
+    near tie between whole hypotheses."""
+    import torch
+    from paddle_tpu_torch.ops.nn_ops import log_softmax
+
+    def score(r, hyp):
+        ys = np.concatenate([[1], hyp]).astype(np.int64)[None]
+        with torch.no_grad():
+            enc = cpu_model.encode(torch.from_numpy(src[r:r + 1]))
+            logp = log_softmax(cpu_model.decode(torch.from_numpy(ys),
+                                                enc)[0]).numpy()
+        total, n = 0.0, 0
+        for t, tok in enumerate(hyp):
+            total += float(logp[t, tok])
+            n += 1
+            if tok == eos:
+                break
+        length = int((hyp != eos).sum()) + 1
+        return total / (((5 + length) / 6.0) ** alpha)
+
+    for r in range(got.shape[0]):
+        if np.array_equal(got[r], want[r]):
+            continue
+        gap = abs(score(r, got[r]) - score(r, want[r]))
+        log(f'{what}: row {r} differs; the hypotheses\' normalised CPU '
+            f'scores differ by {gap:.3e} (near-tie limit {NEAR_TIE})')
+        if gap > NEAR_TIE:
+            raise AssertionError(f'{what}: row {r} differs with a score gap '
+                                 f'of {gap}')
+
+
+def train_dygraph_transformer(seed, card):
+    """Phase 9: the dygraph API training Transformer-big WMT en-de on the
+    card (``guard(CUDAPlace(0))``) at bench.py's on-chip configuration.
+    Returns the kernels' launch counts over the phase (none of the port's
+    kernels is on this path)."""
+    import os
+    import shutil
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.convert import transformer_init_params
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, beam_search_decode, greedy_decode,
+        transformer_loss)
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.optimizer import Adam
+
+    nn_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = TransformerConfig.big(dropout=0.0, max_length=NMT_SEQ)
+    named = transformer_init_params(cfg, seed)
+    gpu, cpu = fluid.CUDAPlace(0), fluid.CPUPlace()
+    with dygraph.guard(gpu):
+        model = Transformer(cfg)
+        model.set_dict(named)
+    n_params = sum(p.numel() for p in model.parameters())
+    src, trg, lbl = nmt_batch(cfg, NMT_BATCH, NMT_SEQ)
+    log(f'dygraph Transformer-big: TransformerConfig.big(d_model '
+        f'{cfg.d_model}, {cfg.n_head} heads, {cfg.n_layer} + {cfg.n_layer} '
+        f'layers, d_inner {cfg.d_inner}, vocab {cfg.src_vocab_size}/'
+        f'{cfg.trg_vocab_size}, max_length {cfg.max_length}, dropout 0) '
+        f'{n_params} parameters on {model.parameters()[0].device}; '
+        f'batch {NMT_BATCH} x {NMT_SEQ}; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    # 1. the card against the CPU: f32 forward, loss and a few gradients
+    # at batch 2, the same weights
+    with dygraph.guard(cpu):
+        cpu_model = Transformer(cfg)
+        cpu_model.set_dict(named)
+    del named
+    last = f'dec_{cfg.n_layer - 1}'
+    names = ('src_emb.weight', 'enc_0.attn.q.weight', f'{last}.ffn.fc2.weight',
+             f'{last}.ln3.bias', 'proj.weight')
+    out = {}
+    for where, place, m in (('card', gpu, model), ('cpu', cpu, cpu_model)):
+        with dygraph.guard(place):
+            logits = m(dygraph.to_variable(src[:2]),
+                       dygraph.to_variable(trg[:2]))
+            loss = transformer_loss(logits, dygraph.to_variable(lbl[:2]))
+            loss.backward()
+            params = dict(m.named_parameters())
+            out[where] = (
+                logits.numpy(), float(loss.numpy()),
+                {n: params[n].gradient() for n in names})
+            m.clear_gradients()
+    (gl, gloss, gg), (cl, closs, cg) = out['card'], out['cpu']
+    err = float(np.abs(gl - cl).max())
+    lerr = abs(gloss - closs) / abs(closs)
+    gerr = {n: float(np.abs(gg[n] - cg[n]).max() / np.abs(cg[n]).max())
+            for n in names}
+    log(f'Transformer-big card vs CPU, f32, batch 2: logits max|diff| '
+        f'{err:.3e} (atol {NMT_ATOL} + rtol {NMT_RTOL}), loss {gloss!r} vs '
+        f'{closs!r} (relative {lerr:.3e}, limit {NMT_RTOL}); gradients '
+        f'max|diff| / max|grad|: ' + ', '.join(
+            f'{n} {e:.3e}' for n, e in gerr.items())
+        + f' (limit {NMT_GRAD_RTOL})')
+    if not np.allclose(gl, cl, atol=NMT_ATOL, rtol=NMT_RTOL) \
+            or not lerr <= NMT_RTOL \
+            or not max(gerr.values()) <= NMT_GRAD_RTOL:
+        raise AssertionError('Transformer-big on the card differs from the '
+                             'CPU')
+
+    # 2. the user loop of README's dygraph script, f32: backward ->
+    # Adam(NoamDecay(1024, 4000)).minimize -> clear_gradients
+    feeds = [torch.from_numpy(a).cuda() for a in (src, trg, lbl)]
+    with dygraph.guard(gpu):
+        sched = dygraph.NoamDecay(1024, 4000)
+        opt = fluid.optimizer.Adam(learning_rate=sched,
+                                   parameter_list=model.parameters())
+        losses, rates, secs = [], [], []
+        for n in range(1, 4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = transformer_loss(model(dygraph.to_variable(feeds[0]),
+                                          dygraph.to_variable(feeds[1])),
+                                    dygraph.to_variable(feeds[2]))
+            loss.backward()
+            rates.append(opt.current_step_lr)
+            opt.minimize(loss)
+            model.clear_gradients()
+            losses.append(float(loss.numpy()))
+            secs.append(time.perf_counter() - t)
+            want = noam_rate(1024, 4000, n)
+            if abs(rates[-1] - want) > 1e-12 * want:
+                raise AssertionError(f'NoamDecay rate {rates[-1]} at step '
+                                     f'{n}, formula {want}')
+    log(f'user loop (f32, Adam(NoamDecay(1024, 4000))): losses '
+        + ' '.join(repr(v) for v in losses) + '; rates '
+        + ' '.join(f'{r:.6e}' for r in rates) + ' (the formula\'s); step ms '
+        + ' '.join(f'{s * 1e3:.1f}' for s in secs))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'user-loop losses not finite: {losses}')
+    del opt
+    torch.cuda.empty_cache()
+
+    # 3. TrainStep(amp_dtype=bf16) with Adam(1e-4), as bench.py runs it
+    def loss_fn(m, s, t, y):
+        return transformer_loss(m(s, t), y)
+
+    params = model.parameters()
+    step = TrainStep(model, loss_fn, Adam(1e-4, parameter_list=params),
+                     amp_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, host = [], [], []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = step(*feeds)
+        host.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    log('Transformer-big bf16 AMP losses: ' + ' '.join(repr(v)
+                                                       for v in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'losses not finite or not falling: {losses}')
+    if not all(p.dtype == torch.float32 and type(p) is dygraph.Parameter
+               for p in model.parameters()) or model.parameters() != params:
+        raise AssertionError('a master parameter is not an f32 Parameter '
+                             'after the AMP steps')
+    timed_s = secs[WARMUP_STEPS:]
+    tokens = NMT_BATCH * 2 * NMT_SEQ
+    tok_s = tokens * TRAIN_STEPS / sum(timed_s)
+    p50 = statistics.median(timed_s) * 1e3
+    flops = nmt_flops_per_token(cfg, NMT_SEQ)
+    log(f'Transformer-big trained [{card}]: {len(losses)} steps '
+        f'({WARMUP_STEPS} warm-up), {tok_s:.1f} tokens/s (bench.py\'s count, '
+        f'{tokens} source + target tokens a step) over the {TRAIN_STEPS} '
+        f'timed steps, step p50 {p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, '
+        f'max {max(timed_s) * 1e3:.3f}); host dispatch p50 '
+        f'{statistics.median(host[WARMUP_STEPS:]) * 1e3:.3f} ms (the call '
+        f'returning, before the sync); peak device memory {peak} bytes; '
+        f'model FLOPs {flops / 1e9:.4f} G per token, '
+        f'{flops * tok_s / 1e12:.1f} TFLOP/s = '
+        f'{flops * tok_s / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s bf16')
+    profile_train_step(step, feeds, p50, card, {
+        'all kernels': lambda key: not key.startswith(('Memcpy', 'Memset')),
+        'gemm': lambda key: any(s in key.lower() for s in (
+            'gemm', 'nvjet', 'sm90_', 'cutlass', 'xmma')),
+        'multi-tensor (optimizer, casts)': lambda key: 'multi_tensor' in key
+        or 'foreach' in key.lower(),
+        'softmax': lambda key: 'softmax' in key.lower(),
+        'layer norm': lambda key: 'layer_norm' in key.lower(),
+        'elementwise': lambda key: 'elementwise' in key,
+        'reductions': lambda key: 'reduce_kernel' in key,
+        'embedding': lambda key: 'embedding' in key.lower()
+        or 'index' in key.lower(),
+        'copies and fills': lambda key: key.startswith(('Memcpy',
+                                                        'Memset'))},
+        what='Transformer-big bf16 step')
+    del step
+    torch.cuda.empty_cache()
+
+    # 4. checkpoint: save_dygraph of the trained state, load_dygraph into a
+    # fresh model, identical logits
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'paddle_tpu_torch', 'build', 'smoke_ckpt',
+                        'transformer')
+    t = time.perf_counter()
+    dygraph.save_dygraph(model.state_dict(), path)
+    saved_s = time.perf_counter() - t
+    state, _ = dygraph.load_dygraph(path)
+    shutil.rmtree(os.path.dirname(path))
+    with dygraph.guard(gpu), torch.no_grad():
+        fresh = Transformer(cfg)
+        fresh.set_dict(state)
+        model.eval()
+        fresh.eval()
+        a = model(feeds[0][:4], feeds[1][:4])
+        b = fresh(feeds[0][:4], feeds[1][:4])
+        same = torch.equal(a, b)
+    log(f'checkpoint: save_dygraph of {len(state)} arrays in {saved_s:.1f} '
+        f's, load_dygraph into a fresh model: logits identical {same} '
+        f'(max|diff| {float((a - b).abs().max()):.3e})')
+    if not same:
+        raise AssertionError('a reloaded checkpoint gives other logits')
+    del fresh, a, b, state
+    torch.cuda.empty_cache()
+
+    # 5. decode on two source rows, the card against the CPU, the trained
+    # weights
+    cpu_model.set_dict(model.state_dict())
+    cpu_model.eval()
+    rows = src[:2]
+    res = {}
+    for where, place, m in (('card', gpu, model), ('cpu', cpu, cpu_model)):
+        with dygraph.guard(place):
+            t = time.perf_counter()
+            g = greedy_decode(m, rows, 1, 2, max_len=NMT_DECODE_LEN)
+            g_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            b = beam_search_decode(m, rows, 1, 2, beam_size=4,
+                                   max_len=NMT_DECODE_LEN)
+            b_ms = (time.perf_counter() - t) * 1e3
+        res[where] = (g, b, g_ms, b_ms)
+    (gg, gb, ggms, gbms), (cg_, cb, cgms, cbms) = res['card'], res['cpu']
+    log(f'decode of 2 rows, max_len {NMT_DECODE_LEN} [{card}]: greedy '
+        f'{ggms:.1f} ms on the card ({cgms:.1f} ms on the CPU), beam 4 '
+        f'{gbms:.1f} ms ({cbms:.1f} ms); greedy tokens equal '
+        f'{np.array_equal(gg, cg_)}, beam tokens equal '
+        f'{np.array_equal(gb, cb)}; card greedy {gg.tolist()}, beam '
+        f'{gb.tolist()}')
+    with dygraph.guard(cpu):
+        decode_equal_or_near_tie(cpu_model, rows, gg, cg_, 2, 'greedy')
+        beam_equal_or_near_tie(cpu_model, rows, gb, cb, 2, 0.6, 'beam')
+    del cpu_model
+    return nn_ops.launch_counts()
+
+
 def k4_layers(model):
     """(name, ConvBNLayer) of the model's stride-1 1x1 ConvBNLayers, the
     layers K4 takes: every bottleneck's conv0 (relu) and conv2 (no act),
@@ -1543,7 +1925,16 @@ def main(argv=None):
                              f'{static}')
     log(f'static-graph path kernel launches: {static}')
 
-    # 9. result lines
+    # 9. the dygraph API: Transformer-big under guard(CUDAPlace(0)); no
+    # kernel of the port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    nmt = train_dygraph_transformer(args.seed, smi)
+    if any(nmt.values()):
+        raise AssertionError(f'kernels launched on the dygraph path: {nmt}')
+    log(f'dygraph path kernel launches: {nmt}')
+    dygraph_host_costs(dev, smi)
+
+    # 10. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')

@@ -16,7 +16,10 @@ pretraining (``models/bert.py``, ``optimizer.py``, ``dygraph/jit.py``
 (``ops/pallas_conv.py``); the fourth is Fluid's static graph
 (``framework.py``, ``layers/``, ``backward.py``, ``optimizer.py``,
 ``executor.py``), so that a Fluid script runs with
-``import paddle_tpu_torch as fluid``::
+``import paddle_tpu_torch as fluid``; the fifth is the dygraph API
+(``dygraph/``: ``guard``, ``to_variable``, ``Layer``, schedules,
+checkpoints) with the NMT Transformer (``models/transformer.py``). A static
+script::
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -51,6 +54,9 @@ from .backward import append_backward, gradients
 from . import optimizer
 from .executor import Executor
 from . import nets
+from . import dygraph
+from .dygraph import (disable_dygraph, enable_dygraph, load_dygraph,
+                      save_dygraph)
 
 __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'XLAPlace', 'cpu_places', 'cuda_places', 'is_compiled_with_cuda',
@@ -59,4 +65,6 @@ __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'Variable', 'default_main_program', 'default_startup_program',
            'in_dygraph_mode', 'manual_seed', 'name_scope', 'program_guard',
            'ops', 'initializer', 'ParamAttr', 'layers', 'data', 'backward',
-           'append_backward', 'gradients', 'optimizer', 'Executor', 'nets']
+           'append_backward', 'gradients', 'optimizer', 'Executor', 'nets',
+           'dygraph', 'enable_dygraph', 'disable_dygraph', 'save_dygraph',
+           'load_dygraph']

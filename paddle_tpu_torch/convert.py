@@ -1,11 +1,11 @@
 """Weights between the JAX package's layout and the port's.
 
-The JAX model's ``named_parameters()`` names and torch's ``state_dict()``
+The JAX model's ``named_parameters()`` names and the port's ``state_dict()``
 names are the same (``blocks.0.attn.q.weight``,
-``bert.encoder.0.attn.q.weight``, ...); only the layout of the Linear weights
-differs: Paddle's ``Linear`` stores (in, out), torch's ``nn.Linear``
-(out, in). Embeddings (V, H), LayerNorm scale and bias and BERT's
-``heads.decoder_bias`` keep their layout.
+``bert.encoder.0.attn.q.weight``, ``enc_0.attn.q.weight``, ...), and so are
+the layouts of Linear weights ((in, out), Paddle's), embeddings (V, H),
+LayerNorm scale and bias and BERT's ``heads.decoder_bias``: those load as
+they are, checked by name and shape and made f32.
 
 - ``TransformerLM``: :func:`expected_shapes`, :func:`state_dict_from_paddle`,
   :func:`init_params`.
@@ -18,8 +18,12 @@ differs: Paddle's ``Linear`` stores (in, out), torch's ``nn.Linear``
   names cover the parameters and BatchNorm's running-statistics buffers.
   The port's conv weights are OIHW whatever the data format: an NHWC
   checkpoint's HWIO weights are transposed, an NCHW one's are OIHW
-  already; ``out.weight`` goes from (in, out) to (out, in); BatchNorm's
-  parameters and buffers keep their layout.
+  already; BatchNorm's parameters and buffers keep their layout.
+- The NMT ``Transformer``: :func:`transformer_expected_shapes`,
+  :func:`transformer_state_dict_from_paddle`,
+  :func:`transformer_init_params`. With ``weight_sharing`` the one table
+  appears under both ``src_emb.weight`` and ``trg_emb.weight``, as in the
+  JAX model's ``state_dict()``.
 - The static graph: :func:`scope_from_paddle` copies a JAX scope's
   persistables into the port's scope by name. Static parameters share
   Paddle's layouts in both packages (``mul`` weights (in, out), conv OIHW),
@@ -34,10 +38,9 @@ __all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params',
            'bert_expected_shapes', 'bert_state_dict_from_paddle',
            'bert_init_params', 'resnet_expected_shapes',
            'resnet_state_dict_from_paddle', 'resnet_init_params',
+           'transformer_expected_shapes',
+           'transformer_state_dict_from_paddle', 'transformer_init_params',
            'scope_from_paddle']
-
-_LINEARS = ('attn.q', 'attn.k', 'attn.v', 'attn.out', 'ffn1', 'ffn2')
-_BERT_LINEARS = _LINEARS + ('bert.pooler', 'heads.transform', 'heads.nsp')
 
 
 def _block_shapes(h, f, prefix):
@@ -98,17 +101,15 @@ def _infer_dims(named_numpy, prefix):
 def state_dict_from_paddle(named_numpy):
     """Paddle-layout ``{name: ndarray}`` (the JAX model's
     ``named_parameters()`` as numpy) -> a torch state dict for
-    ``TransformerLM``: Linear weights transposed from (in, out) to (out, in),
-    everything else as it is, all f32. Raises on an unknown or missing name
-    and on a shape that does not match the model the embeddings and block
-    0 describe."""
-    return _to_state_dict(named_numpy, _infer_shapes(named_numpy), _LINEARS)
+    ``TransformerLM``, all f32. Raises on an unknown or missing name and on
+    a shape that does not match the model the embeddings and block 0
+    describe."""
+    return _to_state_dict(named_numpy, _infer_shapes(named_numpy))
 
 
-def _to_state_dict(named_numpy, shapes, linears, relayout=None):
-    """Check names and Paddle-layout shapes, then transpose the Linear
-    weights named by ``linears`` and apply ``relayout(name, arr)`` (if
-    given) to every array."""
+def _to_state_dict(named_numpy, shapes, relayout=None):
+    """Check names and Paddle-layout shapes, then apply
+    ``relayout(name, arr)`` (if given) to every array."""
     unknown = sorted(set(named_numpy) - set(shapes))
     missing = sorted(set(shapes) - set(named_numpy))
     if unknown:
@@ -121,9 +122,6 @@ def _to_state_dict(named_numpy, shapes, linears, relayout=None):
         if arr.shape != shapes[name]:
             raise ValueError(f'{name}: shape {arr.shape} != expected '
                              f'{shapes[name]}')
-        if any(name == f'{lin}.weight' or name.endswith(f'.{lin}.weight')
-               for lin in linears):
-            arr = arr.T
         if relayout is not None:
             arr = relayout(name, arr)
         out[name] = torch.tensor(np.ascontiguousarray(arr))
@@ -181,10 +179,7 @@ def bert_expected_shapes(cfg):
 def bert_state_dict_from_paddle(named_numpy):
     """Paddle-layout ``{name: ndarray}`` (the JAX ``BertForPretraining``'s
     ``named_parameters()`` as numpy) -> a torch state dict for the port's
-    ``BertForPretraining``: the Linear weights (``attn.q/k/v/out``,
-    ``ffn1``, ``ffn2``, ``bert.pooler``, ``heads.transform``,
-    ``heads.nsp``) transposed from (in, out) to (out, in); embeddings,
-    LayerNorm parameters and ``heads.decoder_bias`` as they are; all f32.
+    ``BertForPretraining``, all f32.
     Raises on an unknown or missing name and on a shape that does not match
     the model the embeddings and block 0 describe."""
     from .models.bert import BertConfig
@@ -193,8 +188,7 @@ def bert_state_dict_from_paddle(named_numpy):
     cfg = BertConfig(
         **_infer_dims(named_numpy, 'bert.'),
         type_vocab_size=np.shape(named_numpy['bert.type_emb.weight'])[0])
-    return _to_state_dict(named_numpy, bert_expected_shapes(cfg),
-                          _BERT_LINEARS)
+    return _to_state_dict(named_numpy, bert_expected_shapes(cfg))
 
 
 def bert_init_params(cfg, seed):
@@ -276,9 +270,8 @@ def resnet_state_dict_from_paddle(named_numpy, data_format):
     """Paddle-layout ``{name: ndarray}`` (the JAX ``ResNet``'s
     ``named_parameters()`` and ``named_buffers()`` as numpy) -> a torch
     state dict for the port's ``ResNet`` of the same ``data_format``: conv
-    weights HWIO -> OIHW for NHWC (NCHW ones are OIHW already),
-    ``out.weight`` (in, out) -> (out, in), BatchNorm parameters and buffers
-    as they are; all f32. Raises on an unknown or missing name and on a
+    weights HWIO -> OIHW for NHWC (NCHW ones are OIHW already), everything
+    else as it is; all f32. Raises on an unknown or missing name and on a
     shape that does not match the model the names describe."""
     depth, class_dim = _resnet_dims(named_numpy)
     shapes = resnet_expected_shapes(depth, class_dim, data_format)
@@ -288,7 +281,7 @@ def resnet_state_dict_from_paddle(named_numpy, data_format):
             return arr.transpose(3, 2, 0, 1)
         return arr
 
-    return _to_state_dict(named_numpy, shapes, ('out',), relayout)
+    return _to_state_dict(named_numpy, shapes, relayout)
 
 
 def resnet_init_params(depth, class_dim, data_format, seed):
@@ -316,6 +309,87 @@ def resnet_init_params(depth, class_dim, data_format, seed):
             out[name] = np.ones(shape, np.float32)
         else:
             out[name] = np.zeros(shape, np.float32)
+    return out
+
+
+def transformer_expected_shapes(cfg):
+    """{name: shape} of a ``Transformer(cfg)``'s state dict (the NMT model
+    of models/transformer.py), in the JAX model's order: the embeddings,
+    then ``enc_i`` and ``dec_i`` in turn, then ``proj``."""
+    d, f = cfg.d_model, cfg.d_inner
+
+    def linear(prefix, i, o):
+        return {f'{prefix}.weight': (i, o), f'{prefix}.bias': (o,)}
+
+    def norm(prefix):
+        return {f'{prefix}.weight': (d,), f'{prefix}.bias': (d,)}
+
+    def attn(prefix):
+        out = {}
+        for sub in ('q', 'k', 'v', 'out'):
+            out.update(linear(f'{prefix}.{sub}', d, d))
+        return out
+
+    def ffn(prefix):
+        return {**linear(f'{prefix}.fc1', d, f),
+                **linear(f'{prefix}.fc2', f, d)}
+
+    shapes = {'src_emb.weight': (cfg.src_vocab_size, d),
+              'trg_emb.weight': (cfg.trg_vocab_size, d)}
+    for i in range(cfg.n_layer):
+        e, t = f'enc_{i}', f'dec_{i}'
+        shapes.update({**attn(f'{e}.attn'), **norm(f'{e}.ln1'),
+                       **ffn(f'{e}.ffn'), **norm(f'{e}.ln2')})
+        shapes.update({**attn(f'{t}.self_attn'), **norm(f'{t}.ln1'),
+                       **attn(f'{t}.cross_attn'), **norm(f'{t}.ln2'),
+                       **ffn(f'{t}.ffn'), **norm(f'{t}.ln3')})
+    shapes.update(linear('proj', d, cfg.trg_vocab_size))
+    return shapes
+
+
+def transformer_state_dict_from_paddle(named_numpy):
+    """Paddle-layout ``{name: ndarray}`` (the JAX ``Transformer``'s
+    ``state_dict()`` as numpy) -> a torch state dict for the port's
+    ``Transformer``, all f32. The widths, vocabularies and depth are read
+    from the embeddings, ``enc_0``'s FFN and the highest layer index.
+    Raises on an unknown or missing name and on a shape that does not
+    match."""
+    from .models.transformer import TransformerConfig
+    for name in ('src_emb.weight', 'trg_emb.weight', 'enc_0.ffn.fc1.weight'):
+        if name not in named_numpy:
+            raise KeyError(f'missing parameter(s): {name}')
+    vs, d = np.shape(named_numpy['src_emb.weight'])
+    layers = 1 + max(int(n.split('.')[0][4:]) for n in named_numpy
+                     if n.startswith('enc_'))
+    cfg = TransformerConfig(
+        src_vocab_size=vs,
+        trg_vocab_size=np.shape(named_numpy['trg_emb.weight'])[0],
+        d_model=d, n_head=1, n_layer=layers,
+        d_inner=np.shape(named_numpy['enc_0.ffn.fc1.weight'])[1])
+    return _to_state_dict(named_numpy, transformer_expected_shapes(cfg))
+
+
+def transformer_init_params(cfg, seed):
+    """Seeded Paddle-layout weights for ``Transformer(cfg)`` built on
+    numpy, from the reference's distributions (not its bits): embeddings
+    and Linear weights Normal(0, d_model**-0.5) in f32, biases 0,
+    LayerNorm scale 1 and shift 0. With ``cfg.weight_sharing`` (and equal
+    vocabularies) ``trg_emb.weight`` is the same array as
+    ``src_emb.weight``."""
+    rng = np.random.default_rng(int(seed))
+    std = np.float32(cfg.d_model ** -0.5)
+    shared = cfg.weight_sharing and cfg.src_vocab_size == cfg.trg_vocab_size
+    out = {}
+    for name, shape in transformer_expected_shapes(cfg).items():
+        if shared and name == 'trg_emb.weight':
+            out[name] = out['src_emb.weight']
+        elif '.ln' in name:
+            fill = 1.0 if name.endswith('weight') else 0.0
+            out[name] = np.full(shape, fill, np.float32)
+        elif name.endswith('bias'):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            out[name] = rng.standard_normal(shape, np.float32) * std
     return out
 
 

@@ -8,25 +8,37 @@ lands the gradients on them and the optimizer updates them in place.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
-from torch import nn
-from torch.func import functional_call
 
 __all__ = ['TrainStep']
 
 
-class _LossModule(nn.Module):
-    """``loss_fn(layer, *batch)`` as a module over ``layer``'s parameters,
-    so that ``functional_call`` can bind other values to them."""
-
-    def __init__(self, layer, loss_fn):
-        super().__init__()
-        self.layer = layer
-        self.loss_fn = loss_fn
-
-    def forward(self, *batch):
-        return self.loss_fn(self.layer, *batch)
+@contextlib.contextmanager
+def _cast_parameters(layer, dtype):
+    """Bind each floating parameter of ``layer`` to a ``dtype`` copy of it
+    inside the autograd graph, once per parameter however many modules or
+    names share it, for the ``with`` body; the parameters come back after
+    it. (``torch.func.functional_call`` binds by name, and restores a
+    module that sits under two names, such as the Transformer's shared
+    embedding, to the copy instead of the parameter.)"""
+    casts, swapped = {}, []
+    try:
+        for mod in layer.modules():
+            for name, p in mod._parameters.items():
+                if p is None or not p.is_floating_point():
+                    continue
+                c = casts.get(id(p))
+                if c is None:
+                    c = casts[id(p)] = p.to(dtype)
+                swapped.append((mod, name, p))
+                mod._parameters[name] = c
+        yield
+    finally:
+        for mod, name, p in reversed(swapped):
+            mod._parameters[name] = p
 
 
 class TrainStep:
@@ -40,8 +52,8 @@ class TrainStep:
 
     ``amp_dtype`` (e.g. ``torch.bfloat16``) follows the JAX step's rule: the
     parameters stay f32 masters; inside the autograd graph each floating
-    parameter is cast to ``amp_dtype`` and bound to the layer with
-    ``torch.func.functional_call`` (the counterpart of ``_bind``), so the
+    parameter is cast to ``amp_dtype`` and bound to the layer in its place,
+    once however many names share it (the counterpart of ``_bind``), so the
     forward and backward run in ``amp_dtype`` (LayerNorm and softmax
     included), the gradients land on the f32 masters through the casts,
     and the optimizer updates in f32. This is not ``torch.autocast``,
@@ -50,6 +62,10 @@ class TrainStep:
     move during the step, in place on the layer's own buffers (dygraph/
     nn.py:BatchNorm), as the JAX step returns its new buffers; ``state()``
     returns them.
+
+    The optimizer's learning rate may be a dygraph schedule: it is read
+    each call, reaches the update as a device scalar (optimizer.py) and
+    steps after it, as in the JAX step.
 
     ``donate`` is accepted for the reference's signature: the update is in
     place either way. ``accum_steps > 1``, ``remat``, ``async_fetch``,
@@ -71,7 +87,7 @@ class TrainStep:
             raise ValueError(f'amp_dtype must be a floating type, got '
                              f'{amp_dtype}')
         self._layer = layer
-        self._loss = _LossModule(layer, loss_fn)
+        self._loss_fn = loss_fn
         self._opt = optimizer
         self._amp_dtype = amp_dtype
 
@@ -97,12 +113,10 @@ class TrainStep:
         for p in params:
             p.grad = None
         if self._amp_dtype is None:
-            loss = self._loss(*batch)
+            loss = self._loss_fn(self._layer, *batch)
         else:
-            cast = {f'layer.{n}': (p.to(self._amp_dtype)
-                                   if p.is_floating_point() else p)
-                    for n, p in self._layer.named_parameters()}
-            loss = functional_call(self._loss, cast, tuple(batch))
+            with _cast_parameters(self._layer, self._amp_dtype):
+                loss = self._loss_fn(self._layer, *batch)
         loss = loss.sum()
         loss.backward()
         self._opt.apply_gradients(params)

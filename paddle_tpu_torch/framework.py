@@ -31,10 +31,18 @@ _DYNAMIC_DIM_SENTINEL = 1999
 BACKWARD_OP_TYPE = '__backward__'
 
 
+# the dygraph Tracer (dygraph/base.py) while a ``dygraph.guard`` is open
+_dygraph_tracer_ = None
+
+
 def in_dygraph_mode():
-    """The static graph is the only mode of the port's Fluid API so far
-    (the dygraph ``guard`` is ROADMAP A.4)."""
-    return False
+    """Whether a ``dygraph.guard`` is open: layer functions then run their
+    ops eagerly instead of appending them to a program."""
+    return _dygraph_tracer_ is not None
+
+
+def _dygraph_tracer():
+    return _dygraph_tracer_
 
 
 class Variable:

@@ -1,10 +1,11 @@
 """What the layer functions share (counterpart of
 paddle_tpu/layers/common.py): :func:`apply_op_layer` appends a registered op
-to the current program and returns its output Variables, and
-:func:`generate_layer_fn` makes a layer function of an op."""
+to the current program and returns its output Variables, or under a
+``dygraph.guard`` runs it eagerly, and :func:`generate_layer_fn` makes a
+layer function of an op."""
 from __future__ import annotations
 
-from ..framework import Variable
+from ..framework import Variable, in_dygraph_mode
 from ..layer_helper import LayerHelper
 from ..ops.registry import get_op
 
@@ -19,7 +20,12 @@ def apply_op_layer(op_type, inputs, attrs=None, name=None, n_outputs=None,
                    dtype=None):
     """Append ``op_type`` to the current program; ``inputs`` maps slots to
     a Variable or a list of them. Returns the output Variable, or a tuple of
-    them, one a slot (a list where ``n_outputs`` asks a slot for several)."""
+    them, one a slot (a list where ``n_outputs`` asks a slot for several).
+    Under a ``dygraph.guard`` the op runs at once through ``dispatch_op``
+    on tensors, which it returns."""
+    if in_dygraph_mode():
+        from ..dygraph.tape import dispatch_op
+        return dispatch_op(op_type, inputs, attrs or {})
     opdef = get_op(op_type)
     helper = LayerHelper(op_type, name=name)
     in_names = {}

@@ -11,9 +11,9 @@ Attention has three paths, as in the JAX model:
 - otherwise the unfused matmul -> additive mask -> softmax -> matmul path.
 
 Linear, LayerNorm and Dropout come from dygraph/nn.py, where the reference
-keeps them too. Linear layers keep torch's (out, in) weight layout;
-paddle_tpu_torch/convert.py transposes Paddle's (in, out) weights into it.
-Submodule names give exactly the JAX model's ``named_parameters()`` names.
+keeps them too; Linear weights are Paddle's (in, out), so the JAX model's
+weights load as they are (convert.py). Submodule names give exactly the JAX
+model's ``named_parameters()`` names.
 Types promote as
 in JAX where an f32 tensor meets bf16 weights under AMP (a (B, 1, 1, S)
 attention bias is f32), so such a mix computes in f32 rather than failing.
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.random import default_generator
 from ..device import resolve_device
 from ..dygraph.nn import Dropout, LayerNorm, Linear, _promote
 from ..ops.loss_ops import softmax_with_cross_entropy
@@ -81,6 +82,13 @@ class BertConfig:
                           intermediate_size=128, max_position_embeddings=128)
 
 
+def _dropout(p, generator):
+    """``upscale_in_train`` dropout drawing from ``generator``."""
+    drop = Dropout(p, dropout_implementation='upscale_in_train')
+    drop.generator = generator
+    return drop
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
@@ -89,7 +97,7 @@ class MultiHeadAttention(nn.Module):
         self.k = Linear(h, h, device=device)
         self.v = Linear(h, h, device=device)
         self.out = Linear(h, h, device=device)
-        self.drop = Dropout(cfg.attention_probs_dropout_prob, generator)
+        self.drop = _dropout(cfg.attention_probs_dropout_prob, generator)
         self.n_heads = cfg.num_attention_heads
         self.d_head = h // cfg.num_attention_heads
         self._fused = cfg.use_fused_attention
@@ -148,7 +156,7 @@ class TransformerLayer(nn.Module):
                            device=device)
         self.ffn2 = Linear(cfg.intermediate_size, h, device=device)
         self.ffn_ln = LayerNorm(h, device=device)
-        self.drop = Dropout(cfg.hidden_dropout_prob, generator)
+        self.drop = _dropout(cfg.hidden_dropout_prob, generator)
 
     def forward(self, x, attn_bias=None, causal=False, cache=None):
         a = self.attn(x, attn_bias, causal=causal, cache=cache)
@@ -167,7 +175,7 @@ class BertModel(nn.Module):
                                     device=device)
         self.type_emb = nn.Embedding(cfg.type_vocab_size, h, device=device)
         self.emb_ln = LayerNorm(h, device=device)
-        self.emb_drop = Dropout(cfg.hidden_dropout_prob, generator)
+        self.emb_drop = _dropout(cfg.hidden_dropout_prob, generator)
         self.encoder = nn.ModuleList(
             [TransformerLayer(cfg, device=device, generator=generator)
              for _ in range(cfg.num_hidden_layers)])
@@ -218,9 +226,10 @@ class BertPretrainHeads(nn.Module):
 class BertForPretraining(nn.Module):
     """``BertForPretraining(cfg, device=None, seed=0)``: parameters live on
     ``device`` (the card unless ``'cpu'`` is asked for; see device.py) and
-    start from torch's default initialisation; load real ones with
+    start from the layers' own initialisers, drawn from a generator seeded
+    with ``seed``; load real ones with
     ``load_state_dict(convert.bert_state_dict_from_paddle(...))``.
-    ``seed`` seeds the model's own dropout generator."""
+    ``seed`` also seeds the model's own dropout generator."""
 
     def __init__(self, cfg=None, device=None, seed=0):
         super().__init__()
@@ -228,9 +237,12 @@ class BertForPretraining(nn.Module):
         self.cfg = cfg or BertConfig.base()
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(seed))
-        self.bert = BertModel(self.cfg, device=device,
-                              generator=self.generator)
-        self.heads = BertPretrainHeads(self.cfg, device=device)
+        init = torch.Generator(device=device)
+        init.manual_seed(int(seed))
+        with default_generator.drawing_from(init):
+            self.bert = BertModel(self.cfg, device=device,
+                                  generator=self.generator)
+            self.heads = BertPretrainHeads(self.cfg, device=device)
 
     def forward(self, input_ids, token_type_ids, attention_mask=None):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.random import default_generator
 from ..device import resolve_device
 from .bert import TransformerLayer
 
@@ -66,9 +67,10 @@ class CausalLMConfig:
 class TransformerLM(nn.Module):
     """``TransformerLM(cfg, device=None)``: parameters live on ``device``
     (the card unless ``'cpu'`` is asked for; see device.py). They start from
-    torch's default initialisation; load real ones with ``load_state_dict``
-    (convert.py builds the state dict from Paddle-layout numpy arrays, e.g.
-    the JAX model's, or from a seed)."""
+    the layers' own initialisers, drawn from a generator of the model's own
+    (seed 0); load real ones with ``load_state_dict`` (convert.py builds
+    the state dict from Paddle-layout numpy arrays, e.g. the JAX model's,
+    or from a seed)."""
 
     def __init__(self, cfg: CausalLMConfig, device=None):
         super().__init__()
@@ -80,8 +82,12 @@ class TransformerLM(nn.Module):
                                     device=device)
         self.emb_ln = nn.LayerNorm(h, eps=1e-5, device=device)
         self.emb_drop = nn.Dropout(cfg.hidden_dropout_prob)
-        self.blocks = nn.ModuleList([TransformerLayer(cfg, device=device)
-                                     for _ in range(cfg.num_hidden_layers)])
+        init = torch.Generator(device=device)
+        init.manual_seed(0)
+        with default_generator.drawing_from(init):
+            self.blocks = nn.ModuleList(
+                [TransformerLayer(cfg, device=device)
+                 for _ in range(cfg.num_hidden_layers)])
 
     @property
     def device(self):

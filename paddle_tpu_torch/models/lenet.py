@@ -7,6 +7,7 @@ from __future__ import annotations
 from torch import nn
 
 from .. import layers, nets
+from ..core.random import default_generator
 from ..device import resolve_device
 from ..dygraph.nn import Conv2D, Linear, Pool2D
 
@@ -30,19 +31,19 @@ def build_static_lenet(img, label):
 
 class LeNet(nn.Module):
     """Dygraph LeNet: (N, 1, 28, 28) -> (N, 10) logits, on the card
-    unless ``device='cpu'``."""
+    unless ``device='cpu'``; its parameters are drawn from ``generator``
+    when one is given, else from the device's (core/random.py)."""
 
     def __init__(self, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        self.conv1 = Conv2D(1, 20, 5, act='relu', device=device,
-                            generator=generator)
-        self.pool1 = Pool2D(2, 'max', 2)
-        self.conv2 = Conv2D(20, 50, 5, act='relu', device=device,
-                            generator=generator)
-        self.pool2 = Pool2D(2, 'max', 2)
-        self.fc1 = Linear(50 * 4 * 4, 500, act='relu', device=device)
-        self.fc2 = Linear(500, 10, device=device)
+        with default_generator.drawing_from(generator):
+            self.conv1 = Conv2D(1, 20, 5, act='relu', device=device)
+            self.pool1 = Pool2D(2, 'max', 2)
+            self.conv2 = Conv2D(20, 50, 5, act='relu', device=device)
+            self.pool2 = Pool2D(2, 'max', 2)
+            self.fc1 = Linear(50 * 4 * 4, 500, act='relu', device=device)
+            self.fc2 = Linear(500, 10, device=device)
 
     def forward(self, x):
         x = self.pool1(self.conv1(x))

@@ -26,6 +26,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..dygraph.nn import BatchNorm, Conv2D, Linear, Pool2D
+from ..initializer import Uniform
+from ..core.random import default_generator
 from ..ops.nn_ops import relu
 from ..ops.pallas_conv import stem_space_to_depth
 
@@ -39,7 +41,7 @@ class ConvBNLayer(nn.Module):
 
     def __init__(self, num_channels, num_filters, filter_size, stride=1,
                  groups=1, act=None, data_format='NCHW',
-                 space_to_depth=False, device=None, generator=None):
+                 space_to_depth=False, device=None):
         super().__init__()
         if act not in (None, 'relu'):
             raise NotImplementedError(f'act={act!r}: only relu is ported')
@@ -50,8 +52,7 @@ class ConvBNLayer(nn.Module):
         self._conv = Conv2D(num_channels, num_filters, filter_size,
                             stride=stride, padding=(filter_size - 1) // 2,
                             groups=groups, bias_attr=False,
-                            data_format=data_format, device=device,
-                            generator=generator)
+                            data_format=data_format, device=device)
         self._bn = BatchNorm(num_filters, data_layout=data_format,
                              device=device)
         self._act = act
@@ -68,10 +69,9 @@ class ConvBNLayer(nn.Module):
 
 class BottleneckBlock(nn.Module):
     def __init__(self, num_channels, num_filters, stride, shortcut=True,
-                 data_format='NCHW', device=None, generator=None):
+                 data_format='NCHW', device=None):
         super().__init__()
-        kw = {'data_format': data_format, 'device': device,
-              'generator': generator}
+        kw = {'data_format': data_format, 'device': device}
         self.conv0 = ConvBNLayer(num_channels, num_filters, 1, act='relu',
                                  **kw)
         self.conv1 = ConvBNLayer(num_filters, num_filters, 3, stride=stride,
@@ -91,10 +91,9 @@ class BottleneckBlock(nn.Module):
 
 class BasicBlock(nn.Module):
     def __init__(self, num_channels, num_filters, stride, shortcut=True,
-                 data_format='NCHW', device=None, generator=None):
+                 data_format='NCHW', device=None):
         super().__init__()
-        kw = {'data_format': data_format, 'device': device,
-              'generator': generator}
+        kw = {'data_format': data_format, 'device': device}
         self.conv0 = ConvBNLayer(num_channels, num_filters, 3, stride=stride,
                                  act='relu', **kw)
         self.conv1 = ConvBNLayer(num_filters, num_filters, 3, act=None, **kw)
@@ -137,28 +136,28 @@ class ResNet(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
-        depth, block_cls, expansion = _DEPTH_CFG[layers_depth]
-        num_filters = [64, 128, 256, 512]
-        kw = {'data_format': data_format, 'device': device, 'generator': gen}
-        self.conv = ConvBNLayer(3, 64, 7, stride=2, act='relu',
-                                space_to_depth=stem_space_to_depth, **kw)
-        self.pool = Pool2D(3, 'max', 2, 1, data_format=data_format)
-        self.blocks = nn.ModuleList()
-        num_channels = 64
-        for i, n in enumerate(depth):
-            for b in range(n):
-                stride = 2 if b == 0 and i != 0 else 1
-                self.blocks.append(block_cls(num_channels, num_filters[i],
-                                             stride, b != 0, **kw))
-                num_channels = num_filters[i] * expansion
-        self.global_pool = Pool2D(pool_type='avg', global_pooling=True,
-                                  data_format=data_format)
-        self.out = Linear(num_channels, class_dim, device=device)
-        stdv = 1.0 / math.sqrt(num_channels)
-        with torch.no_grad():
-            self.out.weight.uniform_(-stdv, stdv, generator=gen)
-            self.out.bias.zero_()
-        self._feat_dim = num_channels
+        # parameters drawn from the model's own generator, not the pool
+        with default_generator.drawing_from(gen):
+            depth, block_cls, expansion = _DEPTH_CFG[layers_depth]
+            num_filters = [64, 128, 256, 512]
+            kw = {'data_format': data_format, 'device': device}
+            self.conv = ConvBNLayer(3, 64, 7, stride=2, act='relu',
+                                    space_to_depth=stem_space_to_depth, **kw)
+            self.pool = Pool2D(3, 'max', 2, 1, data_format=data_format)
+            self.blocks = nn.ModuleList()
+            num_channels = 64
+            for i, n in enumerate(depth):
+                for b in range(n):
+                    stride = 2 if b == 0 and i != 0 else 1
+                    self.blocks.append(block_cls(num_channels, num_filters[i],
+                                                 stride, b != 0, **kw))
+                    num_channels = num_filters[i] * expansion
+            self.global_pool = Pool2D(pool_type='avg', global_pooling=True,
+                                      data_format=data_format)
+            stdv = 1.0 / math.sqrt(num_channels)
+            self.out = Linear(num_channels, class_dim,
+                              param_attr=Uniform(-stdv, stdv), device=device)
+            self._feat_dim = num_channels
 
     def forward(self, x):
         y = self.pool(self.conv(x))

@@ -1,7 +1,8 @@
 """Elementwise math, products and reductions of the static graph
-(counterpart of paddle_tpu/ops/math_ops.py): the ops the LeNet programs and
-the optimizers emit. Each is a few torch calls; the JAX package computes
-them in XLA, outside any Pallas kernel, so they stay torch's own ops."""
+(counterpart of paddle_tpu/ops/math_ops.py): the ops the LeNet programs,
+the optimizers and the dygraph Transformer emit. Each is a few torch
+calls; the JAX package computes them in XLA, outside any Pallas kernel, so
+they stay torch's own ops."""
 from __future__ import annotations
 
 import math
@@ -12,7 +13,7 @@ from .registry import register_op
 
 __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_div', 'scale', 'matmul', 'mul', 'mean',
-           'reduce_sum', 'reduce_mean']
+           'reduce_sum', 'reduce_mean', 'not_equal']
 
 
 def _align_y(x, y, axis=-1):
@@ -103,3 +104,9 @@ def _reduce(name, fn):
 
 reduce_sum = _reduce('reduce_sum', torch.sum)
 reduce_mean = _reduce('reduce_mean', torch.mean)
+
+
+@register_op('not_equal')
+def not_equal(x, y):
+    """``x != y``, broadcast, as a bool tensor."""
+    return torch.ne(x, y)

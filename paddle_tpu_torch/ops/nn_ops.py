@@ -11,7 +11,9 @@ paddle_tpu/ops/nn_ops.py).
   (``flash_attention_fwd``, ``flash_attention_bwd_dkv``,
   ``flash_attention_bwd_dq``).
 - ``conv2d``, ``pool2d``, ``batch_norm`` and ``relu``: the ops ResNet runs;
-  ``softmax`` and ``dropout`` with them on the static graph's path.
+  ``softmax`` and ``dropout`` with them on the static graph's path;
+  ``lookup_table``, ``layer_norm`` and ``log_softmax``, which the dygraph
+  Transformer adds.
   The reference computes them in XLA, outside any Pallas kernel, so here
   they are torch's own ops (``F.conv2d``, ``F.max_pool2d``, ...) with
   Paddle's semantics and the reference's types.
@@ -42,7 +44,8 @@ __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
            'flash_kernel_info', 'FLASH_KINDS', 'prefill_kernel_info',
-           'conv2d', 'pool2d', 'batch_norm', 'relu', 'softmax', 'dropout',
+           'conv2d', 'pool2d', 'batch_norm', 'relu', 'softmax',
+           'log_softmax', 'layer_norm', 'dropout', 'lookup_table',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
 # head dims the kernels are compiled for (csrc/*.cu)
@@ -790,6 +793,51 @@ def relu(x):
 @register_op('softmax')
 def softmax(x, *, axis=-1):
     return torch.softmax(x, dim=axis)
+
+
+@register_op('log_softmax')
+def log_softmax(x, *, axis=-1):
+    return torch.log_softmax(x, dim=axis)
+
+
+@register_op('layer_norm')
+def layer_norm(x, scale=None, bias=None, *, begin_norm_axis=1, epsilon=1e-5):
+    """Normalise over the dims from ``begin_norm_axis`` on, then scale and
+    shift (each (prod of those dims,), or None). Statistics are f32 for a
+    bf16 ``x``, as in the reference; the result is in the common type of
+    ``x``, ``scale`` and ``bias`` (JAX's promotion), one fused
+    ``F.layer_norm``."""
+    norm_shape = tuple(x.shape[begin_norm_axis:])
+    dt = x.dtype
+    for t in (scale, bias):
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    x, scale, bias = (None if t is None else t.to(dt)
+                      for t in (x, scale, bias))
+    return F.layer_norm(
+        x, norm_shape, None if scale is None else scale.reshape(norm_shape),
+        None if bias is None else bias.reshape(norm_shape), epsilon)
+
+
+@register_op('lookup_table')
+def lookup_table(w, ids, *, padding_idx=-1, is_sparse=False,
+                 is_distributed=False, _sparse_site=None):
+    """Rows of ``w`` for ``ids`` (clamped into the table, as the reference
+    clips them); a trailing id dim of 1 is squeezed (LoD convention), and
+    rows of ``padding_idx`` (>= 0) read as zeros. ``is_sparse`` (rows-only
+    gradients, ``_sparse_site``) is not ported and raises (ROADMAP A.10)."""
+    if is_sparse or _sparse_site is not None:
+        raise NotImplementedError('lookup_table(is_sparse=True): rows-only '
+                                  'gradients (ops/sparse_ops.py) are not '
+                                  'ported yet (ROADMAP A.10)')
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    out = F.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((ids == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out
 
 
 @register_op('dropout', needs_rng=True)

@@ -2,18 +2,24 @@
 Momentum (the ResNet-50 slice) and Adam (the BERT pretraining slice), in
 both modes.
 
-- Dygraph: :meth:`step` (or ``minimize`` of a torch tensor) updates the
-  parameters that have a ``.grad`` in place, through the multi-tensor
-  updates of ops/optimizer_ops.py.
+- Dygraph: ``minimize(loss)`` (or :meth:`step`, or ``TrainStep``) updates
+  the trainable parameters that have a ``.grad`` in place, through the
+  multi-tensor updates of ops/optimizer_ops.py; slots are kept per
+  parameter. ``learning_rate`` is a number or a dygraph schedule
+  (dygraph/learning_rate_scheduler.py), read once an update and stepped
+  after it; a schedule's rate reaches the update as a 0-d f32 tensor on
+  the parameters' device, written with ``fill_`` (no host sync).
+  ``state_dict``/``set_dict`` carry the slots by parameter name.
 - Static graph: ``minimize`` of a framework ``Variable`` appends the
   backward marker (backward.append_backward), then one update op per
   parameter (``sgd``, ``momentum``, ``adam``) with its slot variables and
   the learning-rate variable, named as the JAX package names them
   (``<param>_moment1_0``, ``learning_rate_0``, ...), each with a Constant
-  init op in the startup program.
+  init op in the startup program. It takes a number as the rate.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .backward import append_backward
@@ -21,6 +27,7 @@ from .core import unique_name
 from .framework import (Variable, default_main_program,
                         default_startup_program)
 from .initializer import ConstantInitializer
+from .dygraph.learning_rate_scheduler import LearningRateDecay
 from .layers.tensor import create_global_var
 from .ops.optimizer_ops import multi_tensor_adam, multi_tensor_momentum
 from .ops.registry import get_op
@@ -29,13 +36,22 @@ __all__ = ['SGDOptimizer', 'SGD', 'MomentumOptimizer', 'Momentum',
            'AdamOptimizer', 'Adam']
 
 
+def _zeros_like(param):
+    """An f32 slot of ``param``'s shape and strides (a transposed Linear
+    weight, a channels_last conv weight), so the multi-tensor updates see
+    one layout across parameter, gradient and slot and take their fused
+    path."""
+    return torch.zeros_like(param, dtype=torch.float32,
+                            memory_format=torch.preserve_format)
+
+
 class _Optimizer:
     """What the ported optimizers share: the constructor's checks, the
     slots (made at a parameter's first update, f32 on its device), and
-    :meth:`step` / :meth:`apply_gradients`, which update the parameters
-    that have a ``.grad`` in groups of one device and one type through the
-    subclass's multi-tensor update. ``regularization``, ``grad_clip`` and
-    learning-rate schedules are not ported and raise."""
+    :meth:`apply_gradients`, which updates the parameters that have a
+    ``.grad`` in groups of one device and one type through the subclass's
+    multi-tensor update. ``regularization`` and ``grad_clip`` are not
+    ported and raise."""
 
     _op_type = None           # the static graph's update op
     _slot_names = ()
@@ -47,22 +63,31 @@ class _Optimizer:
             if value is not None:
                 raise NotImplementedError(f'{what}= is not ported yet '
                                           f'(ROADMAP A.4)')
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError('learning-rate schedules are not '
-                                      'ported yet; pass a number')
-        self._learning_rate = float(learning_rate)
+        if isinstance(learning_rate, LearningRateDecay):
+            self._learning_rate = learning_rate
+        elif isinstance(learning_rate, (int, float)):
+            self._learning_rate = float(learning_rate)
+        else:
+            raise NotImplementedError(
+                f'learning_rate must be a number or one of the dygraph '
+                f'learning-rate schedules; a '
+                f'{type(learning_rate).__name__} is not ported yet '
+                f'(ROADMAP A.4)')
         self._parameter_list = (list(parameter_list) if parameter_list
                                 is not None else None)
         self._slots = {}          # id(param) -> {slot name: tensor}
         self._updates = {}        # id(param) -> updates applied so far
+        self._lr_tensors = {}     # device -> 0-d f32 rate of a schedule
+        self._global_step = 0
         self._lr_var = None       # the static graph's learning_rate_n
 
     def _new_slots(self, param):
         raise NotImplementedError
 
-    def _update(self, params, slots):
+    def _update(self, params, slots, lr):
         """One update of ``params`` (one device, one type, as many updates
-        behind each) with their ``slots`` ({name: [tensor per param]})."""
+        behind each) with their ``slots`` ({name: [tensor per param]}) at
+        rate ``lr`` (a float, or a 0-d tensor on their device)."""
         raise NotImplementedError
 
     def slots(self, param):
@@ -72,20 +97,46 @@ class _Optimizer:
             s = self._slots[id(param)] = self._new_slots(param)
         return s
 
+    @property
+    def current_step_lr(self):
+        """The rate the next update takes, as a float."""
+        lr = self._learning_rate
+        return float(lr()) if isinstance(lr, LearningRateDecay) else lr
+
+    def _lr(self, device):
+        if not isinstance(self._learning_rate, LearningRateDecay):
+            return self._learning_rate
+        t = self._lr_tensors.get(device)
+        if t is None:
+            t = self._lr_tensors[device] = torch.zeros(
+                (), dtype=torch.float32, device=device)
+        return t.fill_(self.current_step_lr)
+
     def apply_gradients(self, params):
-        """One update of every parameter in ``params`` that has a
-        gradient, in place."""
+        """One update of every parameter in ``params`` that has a gradient
+        and is trainable, in place; then a schedule steps."""
         groups = {}
         for p in params:
-            if p.grad is not None:
-                key = (p.device, p.dtype, self._updates.get(id(p), 0))
-                groups.setdefault(key, []).append(p)
-        for group in groups.values():
-            slots = [self.slots(p) for p in group]
-            self._update(group, {n: [s[n] for s in slots]
-                                 for n in self._slot_names})
-            for p in group:
-                self._updates[id(p)] = self._updates.get(id(p), 0) + 1
+            if p.grad is None or not p.requires_grad:
+                continue
+            if getattr(p, 'regularizer', None) is not None or getattr(
+                    p, 'optimize_attr', {}).get('learning_rate', 1.0) != 1.0:
+                raise NotImplementedError(
+                    f'{p.name}: a ParamAttr regularizer or learning rate is '
+                    f'not ported yet (ROADMAP A.4)')
+            key = (p.device, p.dtype, self._updates.get(id(p), 0))
+            groups.setdefault(key, []).append(p)
+        with torch.no_grad():
+            for (device, _, _), group in groups.items():
+                slots = [self.slots(p) for p in group]
+                self._update(group, {n: [s[n] for s in slots]
+                                     for n in self._slot_names},
+                             self._lr(device))
+                for p in group:
+                    self._updates[id(p)] = self._updates.get(id(p), 0) + 1
+        self._global_step += 1
+        if isinstance(self._learning_rate, LearningRateDecay):
+            self._learning_rate.step()
 
     def step(self):
         if self._parameter_list is None:
@@ -97,7 +148,7 @@ class _Optimizer:
                  no_grad_set=None):
         """Static graph (``loss`` a framework Variable): append the
         backward marker and the update ops; returns ``(None,
-        [(param, grad_var)])``. Dygraph (``loss`` a torch tensor whose
+        [(param, grad_var)])``. Dygraph (``loss`` a tensor whose
         ``backward()`` has run): one update of ``parameter_list`` (the
         constructor's if None); returns ``(None, [(param, grad)])``."""
         if isinstance(loss, Variable):
@@ -106,9 +157,46 @@ class _Optimizer:
                   else self._parameter_list)
         if params is None:
             raise ValueError('no parameter_list: pass one to the '
-                             'constructor or to minimize')
+                             'constructor or to minimize (dygraph '
+                             'optimizers take model.parameters())')
         self.apply_gradients(params)
         return None, [(p, p.grad) for p in params if p.grad is not None]
+
+    def clear_gradients(self):
+        for p in self._parameter_list or ():
+            p.grad = None
+
+    def _named_params(self):
+        """(name, param) of the parameter list, a parameter's ``name`` or
+        its position."""
+        return [(getattr(p, 'name', None) or f'param_{i}', p)
+                for i, p in enumerate(self._parameter_list or ())]
+
+    def state_dict(self):
+        """``{<param name>_<slot>: tensor}`` of every parameter with slots,
+        and ``global_step`` (a (1,) int64 tensor)."""
+        state = {}
+        for name, p in self._named_params():
+            for slot, t in self._slots.get(id(p), {}).items():
+                state[f'{name}_{slot}'] = t
+        state['global_step'] = torch.tensor([self._global_step])
+        return state
+
+    def set_dict(self, state):
+        """Load slots (tensors or arrays) by ``state_dict``'s names."""
+        step = int(np.asarray(state.get('global_step', [0])).reshape(-1)[0])
+        self._global_step = step
+        for name, p in self._named_params():
+            keys = [f'{name}_{s}' for s in self._slot_names]
+            if self._slot_names and all(k in state for k in keys):
+                slots = self._new_slots(p)
+                for s, k in zip(self._slot_names, keys):
+                    slots[s].copy_(torch.as_tensor(state[k]).reshape(
+                        slots[s].shape))
+                self._slots[id(p)] = slots
+                self._updates[id(p)] = step
+
+    set_state_dict = set_dict
 
     # ---------------------------------------------------------- static graph
     def _hypers(self):
@@ -135,6 +223,10 @@ class _Optimizer:
         return None, params_grads
 
     def _get_lr_var(self):
+        if isinstance(self._learning_rate, LearningRateDecay):
+            raise NotImplementedError('a dygraph learning-rate schedule in '
+                                      'the static graph is not ported yet '
+                                      '(ROADMAP A.4)')
         if self._lr_var is None:
             self._lr_var = create_global_var(
                 [1], self._learning_rate, 'float32', persistable=True,
@@ -183,9 +275,9 @@ class SGDOptimizer(_Optimizer):
     def _new_slots(self, param):
         return {}
 
-    def _update(self, params, slots):
+    def _update(self, params, slots, lr):
         torch._foreach_sub_(params, torch._foreach_mul(
-            [p.grad for p in params], self._learning_rate))
+            [p.grad for p in params], lr))
 
 
 class MomentumOptimizer(_Optimizer):
@@ -210,12 +302,11 @@ class MomentumOptimizer(_Optimizer):
         return {'mu': self._momentum, 'use_nesterov': self._use_nesterov}
 
     def _new_slots(self, param):
-        return {'velocity': torch.zeros(param.shape, dtype=torch.float32,
-                                        device=param.device)}
+        return {'velocity': _zeros_like(param)}
 
-    def _update(self, params, slots):
+    def _update(self, params, slots, lr):
         multi_tensor_momentum(params, [p.grad for p in params],
-                              slots['velocity'], self._learning_rate,
+                              slots['velocity'], lr,
                               mu=self._momentum,
                               use_nesterov=self._use_nesterov)
 
@@ -254,15 +345,15 @@ class AdamOptimizer(_Optimizer):
 
     def _new_slots(self, param):
         f32 = {'dtype': torch.float32, 'device': param.device}
-        return {'moment1': torch.zeros(param.shape, **f32),
-                'moment2': torch.zeros(param.shape, **f32),
+        return {'moment1': _zeros_like(param),
+                'moment2': _zeros_like(param),
                 'beta1_pow': torch.full((1,), self._beta1, **f32),
                 'beta2_pow': torch.full((1,), self._beta2, **f32)}
 
-    def _update(self, params, slots):
+    def _update(self, params, slots, lr):
         multi_tensor_adam(params, [p.grad for p in params],
                           *(slots[n] for n in self._slot_names),
-                          self._learning_rate, beta1=self._beta1,
+                          lr, beta1=self._beta1,
                           beta2=self._beta2, epsilon=self._epsilon)
 
 

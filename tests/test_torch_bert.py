@@ -98,7 +98,7 @@ def test_weight_transfer_names_shapes_and_tied_decoder(jax_pair):
     for name in ('bert.encoder.0.attn.q.weight', 'bert.encoder.1.ffn1.weight',
                  'bert.pooler.weight', 'heads.transform.weight',
                  'heads.nsp.weight'):
-        np.testing.assert_array_equal(sd[name].numpy(), named[name].T)
+        np.testing.assert_array_equal(sd[name].numpy(), named[name])
     for name in ('bert.word_emb.weight', 'bert.type_emb.weight',
                  'heads.decoder_bias', 'heads.transform_ln.bias'):
         np.testing.assert_array_equal(sd[name].numpy(), named[name])
@@ -192,14 +192,9 @@ def test_loss_and_every_gradient_match_jax(jax_pair, fused):
     loss = port_bert.pretrain_loss(model, t(ids), t(tt), t(mlm), t(nsp))
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
     loss.backward()
-    linears = ('q.weight', 'k.weight', 'v.weight', 'out.weight',
-               'ffn1.weight', 'ffn2.weight', 'pooler.weight',
-               'transform.weight', 'nsp.weight')
     for n, p in model.named_parameters():
         w = np.asarray(want_grads[f'model.{n}'])
         g = p.grad.numpy()
-        if n.endswith(linears):
-            g = g.T
         np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-4, err_msg=n)
 
 
@@ -253,14 +248,9 @@ def test_f32_train_steps_match_jax():
         apply_fn, params, buffers = functionalize(_JaxLoss(jm))
         grads = jax.grad(lambda pv: jnp.sum(
             apply_fn(pv, buffers, *steps[0])[0]))(params)
-    linears = ('q.weight', 'k.weight', 'v.weight', 'out.weight',
-               'ffn1.weight', 'ffn2.weight', 'pooler.weight',
-               'transform.weight', 'nsp.weight')
     left_out = total = 0
     for n, w in want.items():
         g = got[n].numpy()
-        if n.endswith(linears):
-            g = g.T
         keep = np.abs(np.asarray(grads[f'model.{n}'])) >= 1e-6
         left_out += int((~keep).sum())
         total += keep.size
@@ -279,7 +269,7 @@ def test_bf16_amp_train_steps_match_jax():
     # the f32 masters took the update; none was left in bf16
     assert all(p.dtype == torch.float32 for p in got.values())
     assert not np.array_equal(got['bert.encoder.0.attn.q.weight'].numpy(),
-                              named['bert.encoder.0.attn.q.weight'].T)
+                              named['bert.encoder.0.attn.q.weight'])
 
 
 def test_dropout_draws_from_the_models_generator():

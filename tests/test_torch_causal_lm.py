@@ -54,12 +54,14 @@ def test_weight_transfer_whole_sequence_logits(jax_model):
 
 
 def test_linear_weights_are_transposed(jax_model):
+    """The port's Linear keeps Paddle's (in, out) weight, so no Linear
+    weight is transposed on the way in."""
     named = jax_params(jax_model)
     sd = state_dict_from_paddle(named)
     w = named['blocks.0.ffn1.weight']                  # Paddle (in, out)
     assert w.shape == (32, 64)
-    assert tuple(sd['blocks.0.ffn1.weight'].shape) == (64, 32)
-    np.testing.assert_array_equal(sd['blocks.0.ffn1.weight'].numpy(), w.T)
+    assert tuple(sd['blocks.0.ffn1.weight'].shape) == (32, 64)
+    np.testing.assert_array_equal(sd['blocks.0.ffn1.weight'].numpy(), w)
     np.testing.assert_array_equal(sd['word_emb.weight'].numpy(),
                                   named['word_emb.weight'])
 

@@ -951,3 +951,57 @@ def test_static_lenet_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-4)
     assert gpu.lowering_count(main) == 1
     assert gscope.find('fc_0.w_0').device.type == 'cuda'
+
+
+def test_transformer_tiny_card_matches_cpu(cuda):
+    """The tiny NMT Transformer on the dygraph API, the same numpy weights
+    under guard(CUDAPlace(0)) and guard(CPUPlace()), f32, TF32 off:
+    logits within atol 1e-5 (sums in another order), the loss within rtol
+    1e-4, greedy tokens equal, no kernel of the port launched. One
+    Adam(NoamDecay(32, 4)) step moves each entry by about lr whatever its
+    gradient's size, so a gradient at round-off level (the attention key
+    biases, which softmax ignores) takes a step of round-off sign: the
+    parameters after it are held, per tensor, within 4 times the CPU's own
+    spread (the CPU run again from weights one f32 ulp away) plus 1e-4 of
+    the tensor's largest value, as tests/test_torch_transformer.py holds
+    the port against the JAX package."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.convert import transformer_init_params
+    from paddle_tpu_torch.models import transformer as pt
+    cfg = pt.TransformerConfig.tiny(dropout=0.0)
+    named = transformer_init_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    nudged = {n: (a * (1 + rng.choice([-1.0, 1.0], a.shape) * 2.0 ** -23)
+                  ).astype(np.float32) for n, a in named.items()}
+    rs = np.random.RandomState(0)
+    src, trg, lbl = (rs.randint(1, 64, (3, 16)) for _ in range(3))
+    out = {}
+    nn_ops.reset_launch_counts()
+    for key, place, weights in (('card', fluid.CUDAPlace(0), named),
+                                ('cpu', fluid.CPUPlace(), named),
+                                ('spread', fluid.CPUPlace(), nudged)):
+        with dygraph.guard(place):
+            m = pt.Transformer(cfg)
+            m.set_dict(weights)
+            opt = fluid.optimizer.Adam(
+                learning_rate=dygraph.NoamDecay(32, 4),
+                parameter_list=m.parameters())
+            logits = m(dygraph.to_variable(src), dygraph.to_variable(trg))
+            loss = pt.transformer_loss(logits, dygraph.to_variable(lbl))
+            loss.backward()
+            opt.minimize(loss)
+            m.clear_gradients()
+            m.eval()
+            out[key] = (logits.numpy(), float(loss.numpy()),
+                        {n: t.numpy() for n, t in m.state_dict().items()},
+                        pt.greedy_decode(m, src, 1, 2, max_len=8))
+    assert set(nn_ops.launch_counts().values()) == {0}
+    got, want, spread = out['card'], out['cpu'], out['spread']
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4)
+    for n, w in want[2].items():
+        err = np.abs(got[2][n] - w).max()
+        own = np.abs(spread[2][n] - w).max()
+        assert err <= 4 * own + 1e-4 * np.abs(w).max(), (n, err, own)
+    np.testing.assert_array_equal(got[3], want[3])

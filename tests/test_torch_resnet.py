@@ -145,7 +145,7 @@ def test_names_and_shapes_equal_the_jax_models(fmt):
         sd['blocks.3.conv1._conv.weight'].numpy(),
         w.transpose(3, 2, 0, 1) if fmt == 'NHWC' else w)
     np.testing.assert_array_equal(sd['out.weight'].numpy(),
-                                  named['out.weight'].T)
+                                  named['out.weight'])
     for n in ('conv._bn.weight', 'blocks.0.short._bn._variance_buf'):
         np.testing.assert_array_equal(sd[n].numpy(), named[n])
     if fmt == 'NHWC':       # the convs run NHWC kernels end to end
@@ -321,7 +321,7 @@ def test_bf16_amp_train_steps_match_jax():
     _, got = check_trajectory('NHWC', named, batches, True, 2 ** -8, 2e-2)
     assert not np.array_equal(got[2]['blocks.0.conv0._bn._mean_buf'],
                               named['blocks.0.conv0._bn._mean_buf'])
-    assert not np.array_equal(got[2]['out.weight'], named['out.weight'].T)
+    assert not np.array_equal(got[2]['out.weight'], named['out.weight'])
 
 
 def test_bf16_amp_activations_stay_bf16():

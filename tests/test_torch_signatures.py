@@ -8,7 +8,12 @@ took over in doing so behave as the reference's do (on the CPU).
   the reference binds the same way in the port. So are the static graph's
   entry points that a Fluid script calls (``program_guard``, the layers
   LeNet uses, ``simple_img_conv_pool``, ``append_backward``,
-  ``Executor.run`` and ``Optimizer.minimize``).
+  ``Executor.run`` and ``Optimizer.minimize``). So are the dygraph API's
+  layer constructors, ``Layer``'s methods, the learning-rate schedules,
+  ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``; the
+  port may add a keyword-only ``device``, and the Layer methods torch
+  itself calls keep torch's arguments through ``*torch_args`` /
+  ``**torch_kwargs``.
 - ``softmax_with_cross_entropy`` with ``soft_label`` and on another
   ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
   same formula).
@@ -40,6 +45,8 @@ SHARED_OPS = [
     ('nn_ops', 'fused_attention'), ('nn_ops', 'conv2d'),
     ('nn_ops', 'pool2d'), ('nn_ops', 'batch_norm'),
     ('nn_ops', 'softmax'), ('nn_ops', 'dropout'),
+    ('nn_ops', 'log_softmax'), ('nn_ops', 'layer_norm'),
+    ('nn_ops', 'lookup_table'),
     ('loss_ops', 'softmax_with_cross_entropy'), ('loss_ops', 'accuracy'),
     ('optimizer_ops', 'sgd'), ('optimizer_ops', 'momentum'),
     ('optimizer_ops', 'adam'),
@@ -49,9 +56,10 @@ SHARED_OPS = [
     ('math_ops', 'elementwise_mul'), ('math_ops', 'elementwise_div'),
     ('math_ops', 'scale'), ('math_ops', 'matmul'), ('math_ops', 'mul'),
     ('math_ops', 'mean'), ('math_ops', 'reduce_sum'),
-    ('math_ops', 'reduce_mean'),
+    ('math_ops', 'reduce_mean'), ('math_ops', 'not_equal'),
     ('tensor_ops', 'cast'), ('tensor_ops', 'reshape'),
-    ('tensor_ops', 'fill_constant')]
+    ('tensor_ops', 'fill_constant'), ('tensor_ops', 'transpose'),
+    ('tensor_ops', 'one_hot')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -107,6 +115,79 @@ def test_fluid_entry_point_takes_the_reference_parameters(module, path):
                 for p in inspect.signature(obj).parameters.values()]
 
     assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
+
+
+# ------------------------------------------------------------- dygraph API
+
+# Layer methods that torch itself calls with its own arguments
+# (functional_call's ``remove_duplicate``, ``state_dict``'s ``keep_vars``,
+# ``train(mode)``, ``register_buffer``'s ``persistent``): these may take
+# them through ``*torch_args`` / ``**torch_kwargs`` after Paddle's
+TORCH_CALLED = {'parameters', 'named_parameters', 'buffers', 'named_buffers',
+                'state_dict', 'train', 'register_buffer'}
+
+
+def _params(fn, torch_called=False):
+    """(name, kind, default) of ``fn``'s parameters, without the port's
+    keyword-only ``device`` and, where torch calls the method, its
+    ``*torch_args`` / ``**torch_kwargs``."""
+    out = []
+    for p in inspect.signature(fn).parameters.values():
+        if p.name == 'device' and p.kind == p.KEYWORD_ONLY:
+            continue
+        if torch_called and p.name in ('torch_args', 'torch_kwargs'):
+            continue
+        out.append((p.name, p.kind, p.default))
+    return out
+
+
+DYGRAPH_LAYERS = ['Conv2D', 'Pool2D', 'BatchNorm', 'Linear', 'Embedding',
+                  'LayerNorm', 'Dropout']
+
+
+@pytest.mark.parametrize('name', DYGRAPH_LAYERS)
+def test_dygraph_layer_takes_the_reference_parameters(name):
+    from paddle_tpu.dygraph import nn as jnn
+    from paddle_tpu_torch.dygraph import nn as pnn
+    assert _params(getattr(pnn, name)) == _params(getattr(jnn, name))
+
+
+def _layer_methods():
+    from paddle_tpu.dygraph.layers import Layer
+    return sorted(n for n, f in vars(Layer).items()
+                  if callable(f) and (not n.startswith('_')
+                                      or n == '__init__'))
+
+
+@pytest.mark.parametrize('name', _layer_methods())
+def test_layer_method_takes_the_reference_parameters(name):
+    from paddle_tpu.dygraph.layers import Layer as JLayer
+    from paddle_tpu_torch.dygraph.layers import Layer
+    got = _params(getattr(Layer, name), name in TORCH_CALLED)
+    assert got == _params(getattr(JLayer, name))
+
+
+SCHEDULE_CLASSES = ['LearningRateDecay', 'PiecewiseDecay', 'NaturalExpDecay',
+                    'ExponentialDecay', 'InverseTimeDecay', 'PolynomialDecay',
+                    'CosineDecay', 'LinearLrWarmup', 'NoamDecay']
+
+
+@pytest.mark.parametrize('name', SCHEDULE_CLASSES)
+def test_schedule_takes_the_reference_parameters(name):
+    from paddle_tpu.dygraph import learning_rate_scheduler as jsched
+    from paddle_tpu_torch.dygraph import learning_rate_scheduler as psched
+    assert _params(getattr(psched, name)) == _params(getattr(jsched, name))
+
+
+@pytest.mark.parametrize('module,name', [
+    ('checkpoint', 'save_dygraph'), ('checkpoint', 'load_dygraph'),
+    ('base', 'to_variable'), ('base', 'guard'),
+    ('base', 'enable_dygraph'), ('tape', 'grad')],
+    ids=lambda v: v)
+def test_dygraph_function_takes_the_reference_parameters(module, name):
+    port = importlib.import_module(f'paddle_tpu_torch.dygraph.{module}')
+    ref = importlib.import_module(f'paddle_tpu.dygraph.{module}')
+    assert _params(getattr(port, name)) == _params(getattr(ref, name))
 
 
 # ------------------------------------------------ softmax_with_cross_entropy

@@ -223,7 +223,7 @@ def test_gradients_wrt_a_fed_input_match_jax():
 
 def test_dygraph_lenet_matches_the_static_program():
     """The dygraph module on the static program's weights (fc weights
-    transposed to torch's (out, in)) gives the same logits."""
+    (in, out) in both) gives the same logits."""
     main, startup, loss, acc, logits = build(fluid, build_static_lenet)
     exe = fluid.Executor(fluid.CPUPlace())
     exe.run(startup)
@@ -238,7 +238,7 @@ def test_dygraph_lenet_matches_the_static_program():
                           (model.fc1, 'fc_0.w_0', 'fc_0.b_0'),
                           (model.fc2, 'fc_1.w_0', 'fc_1.b_0')):
             wt = s.find(w)
-            mod.weight.copy_(wt.t() if wt.dim() == 2 else wt)
+            mod.weight.copy_(wt)
             mod.bias.copy_(s.find(b))
         got = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
