@@ -131,7 +131,24 @@ Phases:
    and on the CPU from the trained weights, equal or parting only at a
    near tie; the host cost of the dygraph API per call. None of the
    port's kernels is on this path: every launch count stays 0;
-10. a ``{"kernels": [...]}`` line (all six kernels) and, last,
+10. ERNIE-base finetuning (``ErnieConfig.base``, dropouts 0, 128
+   positions, 99.6 M parameters) from ``ernie_init_params(cfg, seed)``
+   under ``guard(CUDAPlace(0))``: at batch 2 x 128 the f32 logits, loss
+   and five parameters' gradients against the same weights under
+   ``guard(CPUPlace())``, then one ``finetune_optimizer`` step (Adam with
+   L2Decay 0.01, LinearLrWarmup over 100 steps, ``decorate``) on both,
+   the parameters compared; an overflow step on the card (one gradient
+   set to inf), which ``decorate`` skips and counts; then bench.py's loop
+   at batch 64 x 128: bf16 ``TrainStep(accum_steps=4)``, 2 warm-up and 16
+   timed calls, each synchronised: seq/s by bench.py's count, call p50,
+   min and max, peak device memory and the model-FLOP share (bench.py's
+   count over 989 TFLOP/s), no kernel of the port launched; one profiled
+   merge of 4 calls (device busy ms, idle share, the top kernels); then
+   ``use_fused_attention=True``: the f32 loss at batch 2 against the
+   unfused model's (relative 1e-4), and the same loop for 2 warm-up and 4
+   timed calls, K3, K3b-dkv and K3b-dq launched exactly 12 x the calls
+   (their ``launches_ernie`` in the kernels line);
+11. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -190,6 +207,22 @@ K4_PER_PASS = 33                # stride-1 1x1 ConvBNLayers of ResNet-50
 # 1e-3 of their tensor's largest entry; decode at 16 new tokens
 NMT_BATCH, NMT_SEQ, NMT_DECODE_LEN = 64, 64, 16
 NMT_ATOL, NMT_RTOL, NMT_GRAD_RTOL = 1e-4, 1e-4, 1e-3
+# ERNIE-base finetuning: bench.py bench_ernie's on-chip batch (64 x 128)
+# and gradient merge (4), its 16 timed calls; the fused-attention run's
+# calls; the card against the CPU at batch 2 in f32, TF32 off, sums in
+# another order: logits at atol/rtol 1e-4, gradients within 1e-3 of their
+# tensor's largest entry; one finetune step's update (the parameters after
+# it less those before) within 0.1 of the rate (5e-7: the warm-up's first)
+# of the CPU's in every entry, beyond one f32 spacing of the parameter
+# (the rounding of the stored sum). Adam's first step moves an entry by
+# about the rate wherever its gradient is well above round-off, so a
+# skipped or halved update is off by 1 or 0.5 of it; where a gradient is
+# round-off (the attention key biases, which softmax cancels), Adam's
+# step is lr·g/(|g| + eps/sqrt(1 - beta2)), far under the rate.
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_ACCUM, ERNIE_CALLS = 64, 128, 4, 16
+ERNIE_FUSED_CALLS, ERNIE_CHECK_BATCH = 4, 2
+ERNIE_ATOL, ERNIE_RTOL, ERNIE_GRAD_RTOL, ERNIE_STEP_TOL = (1e-4, 1e-4,
+                                                         1e-3, 0.1)
 
 
 def log(*parts):
@@ -788,12 +821,13 @@ def train(seed, dev, card):
 
 
 def profile_train_step(step, feeds, step_ms, card, groups,
-                       what='train step'):
+                       what='train step', calls=1):
     """Where a training step's time goes: the device's busy ms in one
-    profiled step against the step's p50 on the host clock, the kernels
-    that take it, and for each ``label: match`` of ``groups`` the share of
-    the kernels whose name ``match``es."""
-    prof = profiled(lambda: step(*feeds))
+    profiled step (``calls`` calls of ``step``) against the step's p50 on
+    the host clock, the kernels that take it, and for each ``label:
+    match`` of ``groups`` the share of the kernels whose name
+    ``match``es."""
+    prof = profiled(lambda: [step(*feeds) for _ in range(calls)])
     busy_ms = device_us(prof) / 1e3
     if busy_ms <= 0:
         log(f'{what} [{card}]: device busy share not measured (the '
@@ -859,7 +893,7 @@ def check_resnet_f32(named, model, x, dev, seed):
     model.load_state_dict(resnet_state_dict_from_paddle(named, 'NHWC'))
     s2d = ConvBNLayer(3, 64, 7, stride=2, act='relu', data_format='NHWC',
                       space_to_depth=True, device=dev)
-    s2d.load_state_dict(model.conv.state_dict())
+    s2d.set_dict(model.conv.state_dict())
     with torch.no_grad():
         want = model.conv.eval()(x)
         got = s2d.eval()(x)
@@ -1437,6 +1471,304 @@ def train_dygraph_transformer(seed, card):
     return nn_ops.launch_counts()
 
 
+def ernie_config(fused=False):
+    """bench.py bench_ernie's on-chip configuration: ERNIE-base, dropouts
+    0, 128 positions."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+    return ErnieConfig.base(attention_probs_dropout_prob=0.0,
+                            hidden_dropout_prob=0.0,
+                            max_position_embeddings=ERNIE_SEQ,
+                            use_fused_attention=fused)
+
+
+def ernie_loss(m, ids, tt, y):
+    """bench.py bench_ernie's loss: the logits cast to f32, softmax cross
+    entropy, the batch mean."""
+    from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
+    loss, _ = softmax_with_cross_entropy(m(ids, tt).float(), y)
+    return loss.mean()
+
+
+def ernie_calls(step, feeds, calls):
+    """(losses, seconds) of ``calls`` calls of ``step``, each
+    synchronised."""
+    import torch
+    losses, secs = [], []
+    for _ in range(calls):
+        t = time.perf_counter()
+        loss = step(*feeds)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    return losses, secs
+
+
+def update_errors(before, card, cpu):
+    """Per parameter, the largest entry of |card update - CPU update| less
+    one f32 spacing of the CPU's parameter (in f64), and the largest entry
+    each side's update moved by: ``before``, ``card`` and ``cpu`` are
+    {name: array} of the parameters before and after one step."""
+    errs, card_moved, cpu_moved = {}, 0.0, 0.0
+    for n, b in before.items():
+        b = np.asarray(b, np.float64)
+        dg = np.asarray(card[n], np.float64) - b
+        dc = np.asarray(cpu[n], np.float64) - b
+        room = np.spacing(np.abs(cpu[n]).astype(np.float32))
+        errs[n] = float((np.abs(dg - dc) - room).max())
+        card_moved = max(card_moved, float(np.abs(dg).max()))
+        cpu_moved = max(cpu_moved, float(np.abs(dc).max()))
+    return errs, card_moved, cpu_moved
+
+
+def check_ernie_card_against_cpu(named, feeds, card):
+    """Phase 10, part 1: ERNIE-base at batch 2 on the card and on the CPU
+    from the same weights: f32 logits and gradients, then one
+    ``finetune_optimizer`` step (L2Decay 0.01, LinearLrWarmup over 100
+    steps, ``decorate``) through the user loop; then an overflow step on
+    the card, which ``decorate`` skips and counts."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.models.ernie import (
+        ErnieForSequenceClassification, finetune_optimizer)
+    cfg = ernie_config()
+    names = ('backbone.word_emb.weight', 'backbone.encoder.0.attn.q.weight',
+             f'backbone.encoder.{cfg.num_hidden_layers - 1}.ffn2.weight',
+             'backbone.pooler.weight',
+             'classifier.weight')
+    out = {}
+    for where, place in (('card', fluid.CUDAPlace(0)),
+                         ('cpu', fluid.CPUPlace())):
+        with dygraph.guard(place):
+            m = ErnieForSequenceClassification(cfg, dropout=0.0)
+            m.set_dict(named)
+            opt = finetune_optimizer(m, 5e-5, warmup_steps=100,
+                                     weight_decay=0.01, use_amp=True)
+            ids, tt, y = (dygraph.to_variable(a) for a in feeds)
+            logits = m(ids, tt)
+            loss = ernie_loss(m, ids, tt, y)
+            loss.backward()
+            params = dict(m.named_parameters())
+            grads = {n: params[n].grad.cpu().numpy() for n in names}
+            rate = opt.current_step_lr
+            opt.minimize(loss)
+            m.clear_gradients()
+            out[where] = (logits.numpy(), loss.item(), grads,
+                          {n: p.detach().cpu().numpy()
+                           for n, p in params.items()}, rate)
+            if where == 'card':
+                card_model, card_opt = m, opt
+    (gl, gloss, gg, gp, grate), (cl, closs, cg, cp, crate) = (out['card'],
+                                                               out['cpu'])
+    err = float(np.abs(gl - cl).max())
+    lerr = abs(gloss - closs) / abs(closs)
+    gerr = {n: float(np.abs(gg[n] - cg[n]).max() / np.abs(cg[n]).max())
+            for n in names}
+    uerr, gmoved, cmoved = update_errors(named, gp, cp)
+    worst = max(uerr, key=uerr.get)
+    log(f'ERNIE-base card vs CPU [{card}], f32, batch {ERNIE_CHECK_BATCH} '
+        f'x {ERNIE_SEQ}: logits max|diff| {err:.3e} (atol {ERNIE_ATOL} + rtol '
+        f'{ERNIE_RTOL}), loss {gloss!r} vs {closs!r} (relative {lerr:.3e}, '
+        f'limit {ERNIE_RTOL}); gradients max|diff| / max|grad|: '
+        + ', '.join(f'{n} {e:.3e}' for n, e in gerr.items())
+        + f' (limit {ERNIE_GRAD_RTOL}); one finetune step at rate '
+        f'{grate:.3e} (CPU {crate:.3e}): update max|card - CPU| beyond '
+        f'one f32 spacing {uerr[worst]:.3e} ({worst}; limit '
+        f'{ERNIE_STEP_TOL} of the rate, {ERNIE_STEP_TOL * crate:.3e}) over '
+        f'{len(uerr)} parameters; largest entry moved {gmoved:.3e} on the '
+        f'card, {cmoved:.3e} on the CPU (at least half the rate on each)')
+    if not np.allclose(gl, cl, atol=ERNIE_ATOL, rtol=ERNIE_RTOL) \
+            or not lerr <= ERNIE_RTOL \
+            or not max(gerr.values()) <= ERNIE_GRAD_RTOL \
+            or not uerr[worst] <= ERNIE_STEP_TOL * crate or grate != crate \
+            or not min(gmoved, cmoved) >= 0.5 * crate:
+        raise AssertionError('ERNIE-base on the card differs from the CPU')
+
+    # an overflow step: one gradient set to inf; decorate skips the update
+    # and counts it
+    with dygraph.guard(fluid.CUDAPlace(0)):
+        ids, tt, y = (dygraph.to_variable(a) for a in feeds)
+        loss = ernie_loss(card_model, ids, tt, y)
+        loss.backward()
+        before = {n: p.detach().clone()
+                  for n, p in card_model.named_parameters()}
+        card_model.classifier.weight.grad[0, 0] = float('inf')
+        skips = card_opt.overflow_steps()
+        card_opt.minimize(loss)
+        kept = all(torch.equal(p, before[n])
+                   for n, p in card_model.named_parameters())
+        cleared = all(p.grad is None for p in card_model.parameters())
+    log(f'overflow step [{card}]: an inf gradient; skipped {kept}, '
+        f'gradients cleared {cleared}, overflow_steps {skips} -> '
+        f'{card_opt.overflow_steps()}, loss scale '
+        f'{card_opt.get_loss_scaling()}')
+    if not (kept and cleared and card_opt.overflow_steps() == skips + 1):
+        raise AssertionError('decorate did not skip the overflow step')
+    del card_model, card_opt, before
+    torch.cuda.empty_cache()
+
+
+def train_ernie(seed, card):
+    """Phase 10: ERNIE-base finetuning through the dygraph API under
+    ``guard(CUDAPlace(0))`` at bench.py's on-chip configuration, unfused
+    (the config's default; no kernel of the port) and with
+    ``use_fused_attention=True`` (K3 and K3b). Returns the kernels' launch
+    counts over the fused run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.convert import ernie_init_params
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models.ernie import (
+        ErnieForSequenceClassification, finetune_optimizer)
+    from paddle_tpu_torch.ops import nn_ops
+
+    t0 = time.perf_counter()
+    cfg = ernie_config()
+    named = ernie_init_params(cfg, seed)
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size,
+                      (ERNIE_BATCH, ERNIE_SEQ)).astype(np.int64)
+    tt = np.zeros((ERNIE_BATCH, ERNIE_SEQ), np.int64)
+    y = rng.randint(0, 2, (ERNIE_BATCH, 1)).astype(np.int64)
+    log(f'ERNIE-base: ErnieConfig.base(vocab {cfg.vocab_size}, hidden '
+        f'{cfg.hidden_size}, {cfg.num_hidden_layers} layers, '
+        f'{cfg.num_attention_heads} heads, FFN {cfg.intermediate_size}, '
+        f'{cfg.max_position_embeddings} positions, dropouts 0), '
+        f'{sum(a.size for a in named.values())} parameters; batch '
+        f'{ERNIE_BATCH} x {ERNIE_SEQ}, accum_steps {ERNIE_ACCUM}; weights '
+        f'made in {time.perf_counter() - t0:.1f} s')
+
+    # 1. the card against the CPU, and an overflow step
+    check_ernie_card_against_cpu(
+        named, [a[:ERNIE_CHECK_BATCH] for a in (ids, tt, y)], card)
+
+    # 2. bench.py's loop: bf16 TrainStep(accum_steps=4) with the finetune
+    # optimizer, 2 warm-up and 16 timed calls, unfused attention
+    gpu = fluid.CUDAPlace(0)
+    feeds = [torch.from_numpy(a).cuda() for a in (ids, tt, y)]
+    with dygraph.guard(gpu):
+        model = ErnieForSequenceClassification(cfg, dropout=0.0)
+        model.set_dict(named)
+        opt = finetune_optimizer(model, 5e-5, warmup_steps=100,
+                                 weight_decay=0.01, use_amp=True)
+        step = TrainStep(model, ernie_loss, opt, amp_dtype=torch.bfloat16,
+                         accum_steps=ERNIE_ACCUM)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nn_ops.reset_launch_counts()
+        losses, secs = ernie_calls(step, feeds, WARMUP_STEPS + ERNIE_CALLS)
+        unfused_launches = nn_ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    log('ERNIE-base bf16 AMP losses: ' + ' '.join(repr(v) for v in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'ERNIE losses not finite: {losses}')
+    if any(unfused_launches.values()):
+        raise AssertionError(f'kernels launched on the unfused ERNIE path: '
+                             f'{unfused_launches}')
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError('a master parameter is not f32 after the AMP '
+                             'calls')
+    timed_s = secs[WARMUP_STEPS:]
+    seq_s = ERNIE_BATCH * ERNIE_CALLS / sum(timed_s)
+    p50 = statistics.median(timed_s) * 1e3
+    h, layers = cfg.hidden_size, cfg.num_hidden_layers
+    # bench.py bench_ernie's analytic train FLOPs per sequence
+    flops_per_seq = ERNIE_SEQ * (72.0 * layers * h * h
+                                 + 12.0 * layers * h * ERNIE_SEQ)
+    log(f'ERNIE-base finetuned [{card}]: {len(losses)} calls '
+        f'({WARMUP_STEPS} warm-up), {seq_s:.1f} seq/s (bench.py\'s '
+        f'count, batch x calls / time) over the {ERNIE_CALLS} timed calls, '
+        f'call '
+        f'p50 {p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}); an update every {ERNIE_ACCUM} calls; '
+        f'rate after them {opt.current_step_lr:.4e}; peak device memory '
+        f'{peak} bytes; model FLOPs {flops_per_seq / 1e9:.2f} G per '
+        f'sequence, {flops_per_seq * seq_s / 1e12:.1f} TFLOP/s = '
+        f'{flops_per_seq * seq_s / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s '
+        f'bf16; kernel launches {unfused_launches}')
+    merge_ms = sorted(sum(timed_s[i:i + ERNIE_ACCUM]) * 1e3
+                      for i in range(0, ERNIE_CALLS, ERNIE_ACCUM))
+    profile_train_step(
+        step, feeds, statistics.median(merge_ms), card, {
+            'all kernels': lambda key: not key.startswith(('Memcpy',
+                                                           'Memset')),
+            'gemm': lambda key: any(s in key.lower() for s in (
+                'gemm', 'nvjet', 'sm90_', 'cutlass', 'xmma')),
+            'multi-tensor (optimizer, regularizer, clip, casts)':
+                lambda key: 'multi_tensor' in key or 'foreach' in key.lower(),
+            'softmax': lambda key: 'softmax' in key.lower(),
+            'layer norm': lambda key: 'layer_norm' in key.lower(),
+            'elementwise': lambda key: 'elementwise' in key,
+            'reductions': lambda key: 'reduce_kernel' in key,
+            'copies and fills': lambda key: key.startswith(('Memcpy',
+                                                            'Memset'))},
+        what=f'ERNIE-base bf16 merge of {ERNIE_ACCUM} calls (host clock: '
+             f'the p50 of the timed merges)', calls=ERNIE_ACCUM)
+    del step, opt, model
+    torch.cuda.empty_cache()
+
+    # 3. the fused path: the same loop through the flash kernels; f32 loss
+    # against the unfused model first, from the same weights
+    with dygraph.guard(gpu):
+        fused = ErnieForSequenceClassification(ernie_config(True),
+                                               dropout=0.0)
+        fused.set_dict(named)
+        unfused = ErnieForSequenceClassification(cfg, dropout=0.0)
+        unfused.set_dict(named)
+        small = [f[:ERNIE_CHECK_BATCH] for f in feeds]
+        nn_ops.reset_launch_counts()
+        with torch.no_grad():
+            yf, yu = fused(*small[:2]), unfused(*small[:2])
+            lf = float(ernie_loss(fused, *small))
+            lu = float(ernie_loss(unfused, *small))
+        f32_fwd = nn_ops.launch_counts()['flash_attention_fwd']
+        del unfused
+        torch.cuda.empty_cache()
+        rel = abs(lf - lu) / abs(lu)
+        log(f'ERNIE-base f32 at batch {ERNIE_CHECK_BATCH} [{card}]: fused '
+            f'loss '
+            f'{lf!r} unfused {lu!r}, relative difference {rel:.3e} (limit '
+            f'1e-4); logits max|diff| {float((yf - yu).abs().max()):.3e}; '
+            f'{f32_fwd} flash forward launches (2 passes x {layers} '
+            f'layers)')
+        if not rel <= 1e-4 or f32_fwd != 2 * layers:
+            raise AssertionError(f'fused and unfused ERNIE losses differ by '
+                                 f'{rel}, or the fused model ran {f32_fwd} '
+                                 f'flash forward launches')
+        opt = finetune_optimizer(fused, 5e-5, warmup_steps=100,
+                                 weight_decay=0.01, use_amp=True)
+        step = TrainStep(fused, ernie_loss, opt, amp_dtype=torch.bfloat16,
+                         accum_steps=ERNIE_ACCUM)
+        torch.cuda.synchronize()
+        nn_ops.reset_launch_counts()
+        losses, secs = ernie_calls(step, feeds,
+                                   WARMUP_STEPS + ERNIE_FUSED_CALLS)
+        launches = nn_ops.launch_counts()
+    calls = WARMUP_STEPS + ERNIE_FUSED_CALLS
+    want = cfg.num_hidden_layers * calls
+    log('ERNIE-base fused bf16 AMP losses: ' + ' '.join(repr(v)
+                                                        for v in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'fused ERNIE losses not finite: {losses}')
+    for name in FLASH_STOCK:
+        if launches[name] != want:
+            raise AssertionError(f'{name}: {launches[name]} launches for '
+                                 f'{calls} calls x {layers} layers')
+    timed_s = secs[WARMUP_STEPS:]
+    fseq_s = ERNIE_BATCH * ERNIE_FUSED_CALLS / sum(timed_s)
+    log(f'ERNIE-base fused attention [{card}]: {calls} calls '
+        f'({WARMUP_STEPS} warm-up), {fseq_s:.1f} seq/s over the '
+        f'{ERNIE_FUSED_CALLS} timed calls (unfused {seq_s:.1f}), call p50 '
+        f'{statistics.median(timed_s) * 1e3:.3f} ms (min '
+        f'{min(timed_s) * 1e3:.3f}, max {max(timed_s) * 1e3:.3f}); '
+        f'launches {launches} ({calls} calls x {layers} layers = {want} '
+        f'each)')
+    del step, opt, fused
+    torch.cuda.empty_cache()
+    return launches
+
+
 def k4_layers(model):
     """(name, ConvBNLayer) of the model's stride-1 1x1 ConvBNLayers, the
     layers K4 takes: every bottleneck's conv0 (relu) and conv2 (no act),
@@ -1934,14 +2266,21 @@ def main(argv=None):
     log(f'dygraph path kernel launches: {nmt}')
     dygraph_host_costs(dev, smi)
 
-    # 10. result lines
+    # 10. ERNIE-base finetuning under guard(CUDAPlace(0)): unfused (no
+    # kernel of the port), then through the flash kernels
+    torch.cuda.empty_cache()
+    ernie = train_ernie(args.seed, smi)
+    for kern in flash:
+        kern['launches_ernie'] = ernie[kern['name']]
+
+    # 11. result lines
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
-            x for x in ('body', 'launches_wgmma', 'stock', 'build',
-                        'served_shape') if x in kern)}
+            x for x in ('body', 'launches_wgmma', 'launches_ernie', 'stock',
+                        'build', 'served_shape') if x in kern)}
         for kern in (k1, k2, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))

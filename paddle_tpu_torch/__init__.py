@@ -18,8 +18,11 @@ pretraining (``models/bert.py``, ``optimizer.py``, ``dygraph/jit.py``
 ``executor.py``), so that a Fluid script runs with
 ``import paddle_tpu_torch as fluid``; the fifth is the dygraph API
 (``dygraph/``: ``guard``, ``to_variable``, ``Layer``, schedules,
-checkpoints) with the NMT Transformer (``models/transformer.py``). A static
-script::
+checkpoints) with the NMT Transformer (``models/transformer.py``); the
+sixth is ERNIE finetuning (``models/ernie.py``) with the optimizers'
+regularizers (``regularizer.py``), gradient clips (``clip.py``), AMP's
+``contrib.mixed_precision.decorate`` and ``TrainStep``'s gradient merge. A
+static script::
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -47,6 +50,8 @@ from .framework import (Program, Variable, default_main_program,
 from . import ops
 from . import initializer
 from .param_attr import ParamAttr
+from . import regularizer
+from . import clip
 from . import layers
 from .layers.io import fluid_data as data
 from . import backward
@@ -57,6 +62,7 @@ from . import nets
 from . import dygraph
 from .dygraph import (disable_dygraph, enable_dygraph, load_dygraph,
                       save_dygraph)
+from . import contrib
 
 __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'XLAPlace', 'cpu_places', 'cuda_places', 'is_compiled_with_cuda',
@@ -64,7 +70,8 @@ __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'scope_guard', 'unique_name', 'seed', 'framework', 'Program',
            'Variable', 'default_main_program', 'default_startup_program',
            'in_dygraph_mode', 'manual_seed', 'name_scope', 'program_guard',
-           'ops', 'initializer', 'ParamAttr', 'layers', 'data', 'backward',
+           'ops', 'initializer', 'ParamAttr', 'regularizer', 'clip',
+           'layers', 'data', 'backward',
            'append_backward', 'gradients', 'optimizer', 'Executor', 'nets',
            'dygraph', 'enable_dygraph', 'disable_dygraph', 'save_dygraph',
-           'load_dygraph']
+           'load_dygraph', 'contrib']

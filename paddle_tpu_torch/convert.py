@@ -13,12 +13,18 @@ they are, checked by name and shape and made f32.
   :func:`bert_state_dict_from_paddle`, :func:`bert_init_params`. The MLM
   decoder is tied to ``bert.word_emb.weight``, so one tensor is loaded for
   both.
+- ``ErnieForSequenceClassification``: :func:`ernie_expected_shapes`,
+  :func:`ernie_state_dict_from_paddle`, :func:`ernie_init_params`: BERT's
+  backbone under ``backbone.`` and the ``classifier`` Linear.
 - ``ResNet``: :func:`resnet_expected_shapes`,
   :func:`resnet_state_dict_from_paddle`, :func:`resnet_init_params`. The
   names cover the parameters and BatchNorm's running-statistics buffers.
   The port's conv weights are OIHW whatever the data format: an NHWC
   checkpoint's HWIO weights are transposed, an NCHW one's are OIHW
-  already; BatchNorm's parameters and buffers keep their layout.
+  already; BatchNorm's parameters and buffers keep their layout. These
+  are torch state dicts, for ``load_state_dict``; the model's own
+  ``set_dict`` takes the reference's arrays as they are (dygraph/nn.py
+  ``Conv2D``).
 - The NMT ``Transformer``: :func:`transformer_expected_shapes`,
   :func:`transformer_state_dict_from_paddle`,
   :func:`transformer_init_params`. With ``weight_sharing`` the one table
@@ -36,7 +42,9 @@ import torch
 
 __all__ = ['expected_shapes', 'state_dict_from_paddle', 'init_params',
            'bert_expected_shapes', 'bert_state_dict_from_paddle',
-           'bert_init_params', 'resnet_expected_shapes',
+           'bert_init_params', 'ernie_expected_shapes',
+           'ernie_state_dict_from_paddle', 'ernie_init_params',
+           'resnet_expected_shapes',
            'resnet_state_dict_from_paddle', 'resnet_init_params',
            'transformer_expected_shapes',
            'transformer_state_dict_from_paddle', 'transformer_init_params',
@@ -197,6 +205,44 @@ def bert_init_params(cfg, seed):
     normal with std ``cfg.initializer_range``, Linear biases and
     ``heads.decoder_bias`` 0, LayerNorm scale 1 and bias 0."""
     return _init(bert_expected_shapes(cfg), cfg.initializer_range, seed)
+
+
+def ernie_expected_shapes(cfg, num_labels=2):
+    """{name: shape} of an ``ErnieForSequenceClassification(cfg,
+    num_labels)``'s parameters in Paddle layout, in the JAX model's
+    ``named_parameters()`` order."""
+    shapes = {'backbone.' + n[len('bert.'):]: shp
+              for n, shp in bert_expected_shapes(cfg).items()
+              if n.startswith('bert.')}
+    shapes.update({'classifier.weight': (cfg.hidden_size, num_labels),
+                   'classifier.bias': (num_labels,)})
+    return shapes
+
+
+def ernie_state_dict_from_paddle(named_numpy):
+    """Paddle-layout ``{name: ndarray}`` (the JAX
+    ``ErnieForSequenceClassification``'s ``named_parameters()`` as numpy)
+    -> a state dict for the port's, all f32 (``load_state_dict`` or
+    ``set_dict``). Raises on an unknown or missing name and on a shape
+    that does not match the model the embeddings, block 0 and the
+    classifier describe."""
+    from .models.ernie import ErnieConfig
+    for name in ('backbone.type_emb.weight', 'classifier.bias'):
+        if name not in named_numpy:
+            raise KeyError(f'missing parameter(s): {name}')
+    cfg = ErnieConfig(
+        **_infer_dims(named_numpy, 'backbone.'),
+        type_vocab_size=np.shape(named_numpy['backbone.type_emb.weight'])[0])
+    labels = np.shape(named_numpy['classifier.bias'])[0]
+    return _to_state_dict(named_numpy, ernie_expected_shapes(cfg, labels))
+
+
+def ernie_init_params(cfg, seed, num_labels=2):
+    """Seeded Paddle-layout parameters for
+    ``ErnieForSequenceClassification(cfg, num_labels)``, drawn as
+    :func:`bert_init_params` draws BERT's."""
+    return _init(ernie_expected_shapes(cfg, num_labels),
+                 cfg.initializer_range, seed)
 
 
 # depth -> blocks per stage, bottleneck (expansion 4) or basic blocks

@@ -102,14 +102,19 @@ def eager_kernel_cache_guard(enabled):
 def to_variable(value, name=None, zero_copy=None):
     """``value`` (an ndarray, a number or a list of them, or a tensor) as a
     :class:`Tensor` on the dygraph device, with ``stop_gradient=True`` (a
-    Tensor is returned as it is). Integer arrays stay int64: the JAX
-    package checks int64 ids against int32's range because JAX computes
-    them in int32, torch does not."""
+    Tensor is returned as it is). A float64 array becomes float32, as the
+    reference computes it with JAX's 64-bit types off; a torch tensor keeps
+    its type. Integer arrays stay int64: the JAX package checks int64 ids
+    against int32's range because JAX computes them in int32, torch does
+    not (ROADMAP C.5)."""
     if isinstance(value, Tensor):
         return value
     if isinstance(value, torch.Tensor):
         return value.to(_current_device()).as_subclass(Tensor)
-    data = torch.from_numpy(np.array(value)).to(_current_device())
+    value = np.array(value)
+    if value.dtype == np.float64:
+        value = value.astype(np.float32)
+    data = torch.from_numpy(value).to(_current_device())
     t = _new(Tensor, data, False)
     t.name = name or unique_name.generate('tensor')
     return t

@@ -65,24 +65,38 @@ class TrainStep:
 
     The optimizer's learning rate may be a dygraph schedule: it is read
     each call, reaches the update as a device scalar (optimizer.py) and
-    steps after it, as in the JAX step.
+    steps after it, as in the JAX step. The optimizer's regularizer and
+    gradient clip act on the step's gradients.
+
+    ``accum_steps=k > 1`` is gradient merge, as the JAX step does it:
+    each call's gradients add into the parameters' ``.grad`` (the
+    accumulators, in the gradient's type: f32 masters under AMP), and
+    every k-th call the optimizer runs once on their mean, regularizer and
+    clip acting on the merged gradient; then the accumulators are cleared.
+    The schedule steps on every call. The call count is a host integer, so
+    no call waits on the card.
+
+    An optimizer that ``contrib.mixed_precision.decorate`` wrapped runs its
+    inner optimizer here, with no overflow gate, as in the JAX step.
 
     ``donate`` is accepted for the reference's signature: the update is in
-    place either way. ``accum_steps > 1``, ``remat``, ``async_fetch``,
-    ``supervisor`` and ``data_sharding`` are not ported and raise."""
+    place either way. ``remat``, ``async_fetch``, ``supervisor`` and
+    ``data_sharding`` are not ported and raise (ROADMAP A.4b)."""
 
     def __init__(self, layer, loss_fn, optimizer, data_sharding=None,
                  remat=False, donate=True, amp_dtype=None, accum_steps=1,
                  async_fetch=False, num_inflight_steps=None, supervisor=None):
         unported = {'data_sharding': data_sharding is not None,
-                    'remat': bool(remat), 'accum_steps': int(accum_steps) > 1,
-                    'async_fetch': bool(async_fetch),
+                    'remat': bool(remat), 'async_fetch': bool(async_fetch),
                     'num_inflight_steps': num_inflight_steps is not None,
                     'supervisor': supervisor is not None}
         for name, asked in unported.items():
             if asked:
                 raise NotImplementedError(f'TrainStep({name}=...) is not '
-                                          f'ported yet (ROADMAP A.4)')
+                                          f'ported yet (ROADMAP A.4b)')
+        if int(accum_steps) < 1:
+            raise ValueError(f'accum_steps must be at least 1, got '
+                             f'{accum_steps}')
         if amp_dtype is not None and not amp_dtype.is_floating_point:
             raise ValueError(f'amp_dtype must be a floating type, got '
                              f'{amp_dtype}')
@@ -90,6 +104,8 @@ class TrainStep:
         self._loss_fn = loss_fn
         self._opt = optimizer
         self._amp_dtype = amp_dtype
+        self._accum_steps = int(accum_steps)
+        self._count = 0           # calls so far
 
     def _device(self):
         for p in self._layer.parameters():
@@ -110,18 +126,28 @@ class TrainStep:
     def __call__(self, *batch):
         batch = self._tensorize(batch)
         params = [p for p in self._layer.parameters() if p.requires_grad]
-        for p in params:
-            p.grad = None
+        k = self._accum_steps
+        if self._count % k == 0:
+            for p in params:
+                p.grad = None
         if self._amp_dtype is None:
             loss = self._loss_fn(self._layer, *batch)
         else:
             with _cast_parameters(self._layer, self._amp_dtype):
                 loss = self._loss_fn(self._layer, *batch)
         loss = loss.sum()
-        loss.backward()
-        self._opt.apply_gradients(params)
-        for p in params:
-            p.grad = None
+        loss.backward()        # adds into .grad within a merge
+        self._count += 1
+        if self._count % k == 0:
+            if k > 1:
+                with torch.no_grad():
+                    torch._foreach_div_(
+                        [p.grad for p in params if p.grad is not None], k)
+            self._opt.apply_gradients(params)
+            for p in params:
+                p.grad = None
+        else:
+            self._opt._step_schedule()
         return loss.detach()
 
     def state(self):

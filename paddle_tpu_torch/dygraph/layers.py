@@ -147,32 +147,70 @@ class Layer(nn.Module):
         return self.train(False)
 
     # ---------------------------------------------------------------- state
+    def _paddle_layouts(self):
+        """{own parameter name: permutation} of the parameters whose shape
+        ``set_dict`` holds exactly: each is stored permuted from Paddle's
+        layout (None where it is not), and ``state_dict``/``set_dict``
+        speak Paddle's through that permutation (Conv2D's NHWC weight)."""
+        return {}
+
+    def _strict_names(self, include_sublayers):
+        """The state-dict names of the parameters that a sublayer's
+        :meth:`_paddle_layouts` names, under each of its names."""
+        mods = (self.named_modules(remove_duplicate=False)
+                if include_sublayers else [('', self)])
+        return {(f'{mname}.{pname}' if mname else pname)
+                for mname, m in mods if isinstance(m, Layer)
+                for pname in m._paddle_layouts()}
+
     def state_dict(self, destination=None, include_sublayers=True,
                    prefix='', **torch_kwargs):
-        """{structured name: tensor} of the parameters and persistable
-        buffers, every name of a shared one included."""
+        """{structured name: :class:`~.tape.Tensor`} of the parameters and
+        persistable buffers, every name of a shared one included, each in
+        Paddle's layout: an NHWC Conv2D's weight is a (fh, fw, C, O) view
+        of its (O, C, fh, fw) parameter, as the reference keeps it.
+        (torch's ``load_state_dict`` takes torch's layout; give this dict
+        to ``set_dict``.)"""
+        keep_vars = torch_kwargs.get('keep_vars', False)
         if include_sublayers:
-            return super().state_dict(destination=destination,
+            # torch calls each sublayer's state_dict, which lays out its own
+            dest = super().state_dict(destination=destination,
                                       prefix=prefix, **torch_kwargs)
-        dest = {} if destination is None else destination
-        self._save_to_state_dict(dest, prefix,
-                                 torch_kwargs.get('keep_vars', False))
+        else:
+            dest = {} if destination is None else destination
+            self._save_to_state_dict(dest, prefix, keep_vars)
+        for pname, perm in self._paddle_layouts().items():
+            name = prefix + pname
+            if perm is not None and name in dest:
+                dest[name] = torch.Tensor.permute(dest[name], perm)
+        if not keep_vars:       # plain nn.Module sublayers' values too
+            for name, v in dest.items():
+                if name.startswith(prefix):
+                    dest[name] = _wrap(v)
         return dest
 
     def set_dict(self, state, include_sublayers=True,
                  use_structured_name=True):
         """Copy the values of ``state`` (tensors or arrays, by structured
-        name) into the parameters and buffers of the same name, in their
-        types and shapes; names that are missing on either side are
-        skipped, as the reference skips them."""
+        name, in Paddle's layout: see :meth:`state_dict`) into the
+        parameters and buffers of the same name, in their types and shapes;
+        names that are missing on either side are skipped, as the
+        reference skips them. Other values are reshaped to the parameter's
+        shape, as the reference reshapes them; a conv weight is not, and
+        one of another shape raises."""
         own = self.state_dict(include_sublayers=include_sublayers,
                               keep_vars=True)
+        strict = self._strict_names(include_sublayers)
         with torch.no_grad():
             for name, t in own.items():
                 if name in state:
                     src = state[name]
                     src = (src if isinstance(src, torch.Tensor)
                            else torch.as_tensor(src))
+                    if name in strict and tuple(src.shape) != tuple(t.shape):
+                        raise ValueError(
+                            f'{name}: a {tuple(src.shape)} value for a '
+                            f'{tuple(t.shape)} weight (Paddle\'s layout)')
                     t.copy_(src.reshape(t.shape).to(t.device, t.dtype))
 
     load_dict = set_dict

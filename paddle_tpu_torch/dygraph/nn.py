@@ -8,8 +8,10 @@ Parameters come from ``Layer.create_parameter`` with the reference's
 initializers and names; ``param_attr`` / ``bias_attr`` work as there.
 ``Linear.weight`` has Paddle's (in, out) shape, so state dicts and
 checkpoints need no transposes. Conv weights are OIHW whatever
-``data_format`` (torch's layout; the reference keeps HWIO for NHWC, and
-convert.py transposes). An
+``data_format`` (torch's layout); the reference keeps HWIO for NHWC, so an
+NHWC Conv2D's ``state_dict`` gives its weight as an HWIO view and
+``set_dict`` copies through that view (dygraph/layers.py), and checkpoints
+carry across both ways (convert.py's torch state dicts stay OIHW). An
 NHWC conv takes and returns (B, H, W, C) tensors, as the reference's does;
 it stores its weight in ``torch.channels_last``, and its ops run torch's
 kernels on the channels_last NCHW view of the activation, so nothing is
@@ -92,6 +94,10 @@ class Conv2D(Layer):
         self._attrs = dict(stride=stride, padding=padding, dilation=dilation,
                            groups=groups, data_format=data_format)
         self._act = act
+
+    def _paddle_layouts(self):
+        nhwc = self._attrs['data_format'] == 'NHWC'
+        return {'weight': (2, 3, 1, 0) if nhwc else None}
 
     def forward(self, x):
         out = conv2d(x, self.weight, **self._attrs)

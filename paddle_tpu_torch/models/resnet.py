@@ -9,7 +9,11 @@ Submodule names give exactly the JAX model's ``named_parameters()`` and
 ``data_format='NHWC'`` takes (B, H, W, C) input, as the JAX model does, and
 runs every layer on NHWC tensors whose NCHW views are ``channels_last``,
 with the conv weights stored ``channels_last``: torch's convolutions then
-run NHWC kernels end to end, with no layout transposes. ``'NCHW'`` is
+run NHWC kernels end to end, with no layout transposes. The blocks are
+dygraph Layers, as the reference's are, so ``state_dict``/``set_dict`` and
+``save_dygraph``/``load_dygraph`` carry the reference's checkpoints (an
+NHWC conv weight in Paddle's HWIO), while ``load_state_dict`` takes
+convert.py's torch state dicts (OIHW). ``'NCHW'`` is
 plain NCHW. ``stem_space_to_depth=True`` runs the NHWC stem through
 ops/pallas_conv.py:stem_space_to_depth on the same 7x7 weight.
 
@@ -25,6 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..dygraph.layers import Layer
 from ..dygraph.nn import BatchNorm, Conv2D, Linear, Pool2D
 from ..initializer import Uniform
 from ..core.random import default_generator
@@ -35,7 +40,7 @@ __all__ = ['ConvBNLayer', 'BottleneckBlock', 'BasicBlock', 'ResNet',
            'ResNet18', 'ResNet34', 'ResNet50', 'ResNet101', 'ResNet152']
 
 
-class ConvBNLayer(nn.Module):
+class ConvBNLayer(Layer):
     """conv (no bias, 'same' padding for odd kernels) -> BatchNorm -> act
     (None or ``'relu'``)."""
 
@@ -67,7 +72,7 @@ class ConvBNLayer(nn.Module):
         return relu(y) if self._act == 'relu' else y
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     def __init__(self, num_channels, num_filters, stride, shortcut=True,
                  data_format='NCHW', device=None):
         super().__init__()
@@ -89,7 +94,7 @@ class BottleneckBlock(nn.Module):
         return relu(short + y)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     def __init__(self, num_channels, num_filters, stride, shortcut=True,
                  data_format='NCHW', device=None):
         super().__init__()
@@ -118,7 +123,7 @@ _DEPTH_CFG = {
 }
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """``ResNet(layers_depth=50, class_dim=1000, data_format='NCHW',
     stem_space_to_depth=False, device=None, seed=0)``: parameters live on
     ``device`` (the card unless ``'cpu'`` is asked for; see device.py),

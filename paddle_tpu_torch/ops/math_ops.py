@@ -2,7 +2,9 @@
 (counterpart of paddle_tpu/ops/math_ops.py): the ops the LeNet programs,
 the optimizers and the dygraph Transformer emit. Each is a few torch
 calls; the JAX package computes them in XLA, outside any Pallas kernel, so
-they stay torch's own ops."""
+they stay torch's own ops (so do ``sign``, ``square``, ``sqrt``, ``sum``,
+``clip``, ``clip_by_norm`` and ``elementwise_max``, which the regularizers
+and gradient clips of regularizer.py and clip.py append)."""
 from __future__ import annotations
 
 import math
@@ -13,7 +15,8 @@ from .registry import register_op
 
 __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_div', 'scale', 'matmul', 'mul', 'mean',
-           'reduce_sum', 'reduce_mean', 'not_equal']
+           'reduce_sum', 'reduce_mean', 'not_equal', 'elementwise_max',
+           'sum_op', 'clip', 'clip_by_norm', 'sqrt', 'square', 'sign']
 
 
 def _align_y(x, y, axis=-1):
@@ -43,6 +46,7 @@ elementwise_add = _ew('elementwise_add', torch.add)
 elementwise_sub = _ew('elementwise_sub', torch.sub)
 elementwise_mul = _ew('elementwise_mul', torch.mul)
 elementwise_div = _ew('elementwise_div', torch.div)
+elementwise_max = _ew('elementwise_max', torch.maximum)
 
 
 @register_op('scale')
@@ -110,3 +114,41 @@ reduce_mean = _reduce('reduce_mean', torch.mean)
 def not_equal(x, y):
     """``x != y``, broadcast, as a bool tensor."""
     return torch.ne(x, y)
+
+
+@register_op('sum', variadic=['xs'])
+def sum_op(xs):
+    """The sum of the tensors of the list ``xs``, added in order."""
+    if not isinstance(xs, (list, tuple)):
+        return xs
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@register_op('clip')
+def clip(x, *, min, max):
+    return torch.clamp(x, min, max)
+
+
+@register_op('clip_by_norm')
+def clip_by_norm(x, *, max_norm):
+    """``x * (max_norm / ‖x‖)`` where the norm is above ``max_norm``, else
+    ``x``."""
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)
+
+
+def _unary(name, fn):
+    @register_op(name)
+    def op(x):
+        return fn(x)
+    op.__name__ = op.__qualname__ = name
+    op.__doc__ = f'``{fn.__name__}(x)``, elementwise.'
+    return op
+
+
+sqrt = _unary('sqrt', torch.sqrt)
+square = _unary('square', torch.square)
+sign = _unary('sign', torch.sign)

@@ -9,13 +9,23 @@ both modes.
   (dygraph/learning_rate_scheduler.py), read once an update and stepped
   after it; a schedule's rate reaches the update as a 0-d f32 tensor on
   the parameters' device, written with ``fill_`` (no host sync).
-  ``state_dict``/``set_dict`` carry the slots by parameter name.
+  ``regularization=`` (regularizer.py; a parameter's own
+  ``ParamAttr(regularizer=)`` wins) and ``grad_clip=`` (clip.py) act on
+  the gradients first, in the reference's order: regularize, clip, update
+  (``paddle_tpu/optimizer.py`` ``_dygraph_minimize``), leaving ``p.grad``
+  as it was. ``state_dict``/``set_dict`` carry the slots by parameter name.
 - Static graph: ``minimize`` of a framework ``Variable`` appends the
   backward marker (backward.append_backward), then one update op per
   parameter (``sgd``, ``momentum``, ``adam``) with its slot variables and
   the learning-rate variable, named as the JAX package names them
   (``<param>_moment1_0``, ``learning_rate_0``, ...), each with a Constant
-  init op in the startup program. It takes a number as the rate.
+  init op in the startup program. It takes a number as the rate. The
+  regularizers' and clips' ops go between the backward marker and the
+  updates, as the reference appends them; without ``grad_clip=``, a clip
+  that ``clip.set_gradient_clip`` recorded on the program applies.
+
+A ParamAttr ``learning_rate`` other than 1.0 raises (ROADMAP A.4b): the
+reference stores it and never applies it (ROADMAP C.4).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 
 from .backward import append_backward
+from .clip import append_gradient_clip_ops
 from .core import unique_name
 from .framework import (Variable, default_main_program,
                         default_startup_program)
@@ -31,6 +42,7 @@ from .dygraph.learning_rate_scheduler import LearningRateDecay
 from .layers.tensor import create_global_var
 from .ops.optimizer_ops import multi_tensor_adam, multi_tensor_momentum
 from .ops.registry import get_op
+from .regularizer import append_regularization_ops
 
 __all__ = ['SGDOptimizer', 'SGD', 'MomentumOptimizer', 'Momentum',
            'AdamOptimizer', 'Adam']
@@ -48,21 +60,15 @@ def _zeros_like(param):
 class _Optimizer:
     """What the ported optimizers share: the constructor's checks, the
     slots (made at a parameter's first update, f32 on its device), and
-    :meth:`apply_gradients`, which updates the parameters that have a
-    ``.grad`` in groups of one device and one type through the subclass's
-    multi-tensor update. ``regularization`` and ``grad_clip`` are not
-    ported and raise."""
+    :meth:`apply_gradients`, which regularizes and clips the gradients of
+    the parameters that have a ``.grad`` and updates them in groups of one
+    device and one type through the subclass's multi-tensor update."""
 
     _op_type = None           # the static graph's update op
     _slot_names = ()
 
     def __init__(self, learning_rate, parameter_list=None,
                  regularization=None, grad_clip=None):
-        for what, value in (('regularization', regularization),
-                            ('grad_clip', grad_clip)):
-            if value is not None:
-                raise NotImplementedError(f'{what}= is not ported yet '
-                                          f'(ROADMAP A.4)')
         if isinstance(learning_rate, LearningRateDecay):
             self._learning_rate = learning_rate
         elif isinstance(learning_rate, (int, float)):
@@ -75,6 +81,8 @@ class _Optimizer:
                 f'(ROADMAP A.4)')
         self._parameter_list = (list(parameter_list) if parameter_list
                                 is not None else None)
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._slots = {}          # id(param) -> {slot name: tensor}
         self._updates = {}        # id(param) -> updates applied so far
         self._lr_tensors = {}     # device -> 0-d f32 rate of a schedule
@@ -84,10 +92,11 @@ class _Optimizer:
     def _new_slots(self, param):
         raise NotImplementedError
 
-    def _update(self, params, slots, lr):
+    def _update(self, params, grads, slots, lr):
         """One update of ``params`` (one device, one type, as many updates
-        behind each) with their ``slots`` ({name: [tensor per param]}) at
-        rate ``lr`` (a float, or a 0-d tensor on their device)."""
+        behind each) by ``grads`` with their ``slots`` ({name: [tensor per
+        param]}) at rate ``lr`` (a float, or a 0-d tensor on their
+        device)."""
         raise NotImplementedError
 
     def slots(self, param):
@@ -114,29 +123,60 @@ class _Optimizer:
 
     def apply_gradients(self, params):
         """One update of every parameter in ``params`` that has a gradient
-        and is trainable, in place; then a schedule steps."""
-        groups = {}
+        and is trainable, in place; then a schedule steps. The gradients
+        are regularized and clipped on the way, ``p.grad`` left as it
+        was."""
+        params = [p for p in params
+                  if p.grad is not None and p.requires_grad]
         for p in params:
-            if p.grad is None or not p.requires_grad:
-                continue
-            if getattr(p, 'regularizer', None) is not None or getattr(
-                    p, 'optimize_attr', {}).get('learning_rate', 1.0) != 1.0:
+            if getattr(p, 'optimize_attr', {}).get('learning_rate',
+                                                   1.0) != 1.0:
                 raise NotImplementedError(
-                    f'{p.name}: a ParamAttr regularizer or learning rate is '
-                    f'not ported yet (ROADMAP A.4)')
-            key = (p.device, p.dtype, self._updates.get(id(p), 0))
-            groups.setdefault(key, []).append(p)
+                    f'{p.name}: a ParamAttr learning rate is not ported '
+                    f'yet (ROADMAP A.4b)')
         with torch.no_grad():
+            grads = self._regularize(params, [p.grad for p in params])
+            if self._grad_clip is not None and grads:
+                grads = self._grad_clip.apply_group(grads)
+            groups = {}
+            for p, g in zip(params, grads):
+                key = (p.device, p.dtype, self._updates.get(id(p), 0))
+                groups.setdefault(key, []).append((p, g))
             for (device, _, _), group in groups.items():
-                slots = [self.slots(p) for p in group]
-                self._update(group, {n: [s[n] for s in slots]
-                                     for n in self._slot_names},
+                ps = [p for p, _ in group]
+                slots = [self.slots(p) for p in ps]
+                self._update(ps, [g for _, g in group],
+                             {n: [s[n] for s in slots]
+                              for n in self._slot_names},
                              self._lr(device))
-                for p in group:
+                for p in ps:
                     self._updates[id(p)] = self._updates.get(id(p), 0) + 1
         self._global_step += 1
+        self._step_schedule()
+
+    def _step_schedule(self):
+        """Step the learning-rate schedule, if the rate is one: after every
+        update, and on each call of a gradient merge that makes none
+        (``TrainStep``)."""
         if isinstance(self._learning_rate, LearningRateDecay):
             self._learning_rate.step()
+
+    def _regularize(self, params, grads):
+        """``grads`` with each parameter's regularizer (its own, else
+        ``regularization``) applied, a group of one regularizer at a
+        time."""
+        groups = {}
+        for i, p in enumerate(params):
+            reg = getattr(p, 'regularizer', None) or self.regularization
+            if reg is not None:
+                groups.setdefault(id(reg), (reg, []))[1].append(i)
+        grads = list(grads)
+        for reg, idx in groups.values():
+            out = reg.apply_group([params[i] for i in idx],
+                                  [grads[i] for i in idx])
+            for i, g in zip(idx, out):
+                grads[i] = g
+        return grads
 
     def step(self):
         if self._parameter_list is None:
@@ -212,13 +252,14 @@ class _Optimizer:
         if names is not None:
             names = [p if isinstance(p, str) else p.name for p in names]
         params_grads = append_backward(loss, names, no_grad_set)
-        for p, _ in params_grads:
-            if p.regularizer is not None:
-                raise NotImplementedError(f'{p.name}: a ParamAttr '
-                                          f'regularizer is not ported yet '
-                                          f'(ROADMAP A.4)')
+        updates = append_regularization_ops(params_grads,
+                                            self.regularization)
+        if self._grad_clip is not None:
+            updates = self._grad_clip.process(updates)
+        else:
+            updates = append_gradient_clip_ops(updates)
         lr = self._get_lr_var()
-        for p, g in params_grads:
+        for p, g in updates:
             self._append_optimize_op(p, g, lr)
         return None, params_grads
 
@@ -275,9 +316,8 @@ class SGDOptimizer(_Optimizer):
     def _new_slots(self, param):
         return {}
 
-    def _update(self, params, slots, lr):
-        torch._foreach_sub_(params, torch._foreach_mul(
-            [p.grad for p in params], lr))
+    def _update(self, params, grads, slots, lr):
+        torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
 
 
 class MomentumOptimizer(_Optimizer):
@@ -304,8 +344,8 @@ class MomentumOptimizer(_Optimizer):
     def _new_slots(self, param):
         return {'velocity': _zeros_like(param)}
 
-    def _update(self, params, slots, lr):
-        multi_tensor_momentum(params, [p.grad for p in params],
+    def _update(self, params, grads, slots, lr):
+        multi_tensor_momentum(params, grads,
                               slots['velocity'], lr,
                               mu=self._momentum,
                               use_nesterov=self._use_nesterov)
@@ -330,7 +370,7 @@ class AdamOptimizer(_Optimizer):
                          grad_clip)
         if lazy_mode:
             raise NotImplementedError('lazy_mode=True is not ported yet '
-                                      '(ROADMAP A.4)')
+                                      '(ROADMAP A.4b)')
         self._beta1, self._beta2 = float(beta1), float(beta2)
         self._epsilon = float(epsilon)
 
@@ -350,8 +390,8 @@ class AdamOptimizer(_Optimizer):
                 'beta1_pow': torch.full((1,), self._beta1, **f32),
                 'beta2_pow': torch.full((1,), self._beta2, **f32)}
 
-    def _update(self, params, slots, lr):
-        multi_tensor_adam(params, [p.grad for p in params],
+    def _update(self, params, grads, slots, lr):
+        multi_tensor_adam(params, grads,
                           *(slots[n] for n in self._slot_names),
                           lr, beta1=self._beta1,
                           beta2=self._beta2, epsilon=self._epsilon)

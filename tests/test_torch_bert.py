@@ -299,7 +299,7 @@ def test_train_step_rejects_unported_options():
     cfg = config(True, port_bert.BertConfig)
     model = port_bert.BertForPretraining(cfg, device='cpu')
     opt = Adam(1e-3, parameter_list=list(model.parameters()))
-    for kw in ({'accum_steps': 2}, {'remat': True}, {'async_fetch': True},
+    for kw in ({'remat': True}, {'async_fetch': True},
                {'supervisor': object()}, {'data_sharding': object()}):
         with pytest.raises(NotImplementedError):
             TrainStep(model, port_bert.pretrain_loss, opt, **kw)

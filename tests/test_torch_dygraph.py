@@ -509,12 +509,37 @@ def test_optimizer_state_dict_round_trips():
 
 
 @pytest.mark.parametrize('kw,item', [
-    ({'regularization': object()}, 'A.4'), ({'grad_clip': object()}, 'A.4'),
+    ({'regularization': ('regularizer', 'L2Decay', 0.01)}, None),
+    ({'grad_clip': ('clip', 'GradientClipByGlobalNorm', 1.0)}, None),
     ({'lazy_mode': True}, 'A.4')], ids=['regularization', 'grad_clip',
                                         'lazy_mode'])
 def test_unported_optimizer_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        fluid.optimizer.Adam(0.1, **kw)
+    """``lazy_mode`` is not ported and raises naming its ROADMAP item;
+    ``regularization`` and ``grad_clip`` are: one ``minimize`` of a Linear
+    with ``Adam(0.1, ...)`` equals the JAX package's, atol 1e-6."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            fluid.optimizer.Adam(0.1, **kw)
+        return
+    (name, (module, cls, arg)), = kw.items()
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((3, 2)).astype(np.float32)
+    x = rng.standard_normal((4, 3)).astype(np.float32) * 10
+    out = []
+    for pkg, dy, lay in ((fluid, dygraph, layers), (jfluid, jdy, jlayers)):
+        with dy.guard(CPU if pkg is fluid else None):
+            fc = dy.Linear(3, 2)
+            fc.weight.set_value(w)
+            opt = pkg.optimizer.Adam(
+                0.1, parameter_list=fc.parameters(),
+                **{name: getattr(getattr(pkg, module), cls)(arg)})
+            loss = lay.reduce_sum(fc(dy.to_variable(x)))
+            loss.backward()
+            opt.minimize(loss)
+            out.append((fc.weight.numpy(), fc.bias.numpy()))
+    for got, want in zip(*out):
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    assert not np.allclose(out[0][0], w, atol=0.05)
 
 
 # --------------------------------------------------------- checkpoints

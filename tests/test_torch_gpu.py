@@ -1005,3 +1005,64 @@ def test_transformer_tiny_card_matches_cpu(cuda):
         own = np.abs(spread[2][n] - w).max()
         assert err <= 4 * own + 1e-4 * np.abs(w).max(), (n, err, own)
     np.testing.assert_array_equal(got[3], want[3])
+
+
+def test_ernie_tiny_card_matches_cpu(cuda):
+    """ERNIE finetuning at bench.py's CPU config of ``bench_ernie`` (vocab
+    128, hidden 32, 2 layers), batch 4 x 16: the same numpy weights under
+    guard(CUDAPlace(0)) and guard(CPUPlace()), four f32
+    ``TrainStep(accum_steps=4)`` calls of ``finetune_optimizer`` (Adam 1e-3
+    with L2Decay 0.01 and a linear warm-up, ``decorate``), that is one
+    update: every call's loss within rtol 1e-4 (TF32 off, sums in another
+    order), no kernel of the port launched (the default unfused
+    attention). The parameters after the update are held, per tensor,
+    within 4 times the CPU's own spread (the CPU run again from weights
+    one f32 ulp away) plus 1e-4 of the tensor's largest value, as
+    ``test_transformer_tiny_card_matches_cpu`` holds them: Adam steps a
+    round-off gradient (the attention key biases) by round-off sign."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.convert import ernie_init_params
+    from paddle_tpu_torch.dygraph.jit import TrainStep
+    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
+    cfg = ernie.ErnieConfig(vocab_size=128, hidden_size=32,
+                            num_hidden_layers=2, num_attention_heads=2,
+                            intermediate_size=64, max_position_embeddings=32,
+                            hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    named = ernie_init_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    nudged = {n: (a * (1 + rng.choice([-1.0, 1.0], a.shape) * 2.0 ** -23)
+                  ).astype(np.float32) for n, a in named.items()}
+    rs = np.random.RandomState(0)
+    feeds = [(rs.randint(0, 128, (4, 16)), rs.randint(0, 2, (4, 16)),
+              rs.randint(0, 2, (4, 1))) for _ in range(4)]
+
+    def loss_fn(m, ids, tt, y):
+        loss, _ = softmax_with_cross_entropy(m(ids, tt).float(), y)
+        return loss.mean()
+
+    out = {}
+    nn_ops.reset_launch_counts()
+    for key, place, weights in (('card', fluid.CUDAPlace(0), named),
+                                ('cpu', fluid.CPUPlace(), named),
+                                ('spread', fluid.CPUPlace(), nudged)):
+        with dygraph.guard(place):
+            m = ernie.ErnieForSequenceClassification(cfg, dropout=0.0)
+            m.set_dict(weights)
+            opt = ernie.finetune_optimizer(m, 1e-3, warmup_steps=2,
+                                           weight_decay=0.01, use_amp=True)
+            step = TrainStep(m, loss_fn, opt, accum_steps=4)
+            losses = [float(step(*f)) for f in feeds]
+            out[key] = (losses, {n: t.numpy()
+                                 for n, t in m.state_dict().items()})
+    assert set(nn_ops.launch_counts().values()) == {0}
+    got, want, spread = out['card'], out['cpu'], out['spread']
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for n, w in want[1].items():
+        err = np.abs(got[1][n] - w).max()
+        own = np.abs(spread[1][n] - w).max()
+        assert err <= 4 * own + 1e-4 * np.abs(w).max(), (n, err, own)
+    moved = np.abs(got[1]['classifier.weight'] - named['classifier.weight'])
+    assert moved.max() > 1e-4

@@ -10,7 +10,9 @@ from paddle_tpu.ops import loss_ops as jax_loss
 from paddle_tpu.ops import optimizer_ops as jax_opt
 from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
 from paddle_tpu_torch.ops.optimizer_ops import adam, multi_tensor_adam
+from paddle_tpu_torch.clip import GradientClipByGlobalNorm
 from paddle_tpu_torch.optimizer import Adam, AdamOptimizer
+from paddle_tpu_torch.regularizer import L2Decay
 
 
 @pytest.mark.parametrize('scale', [0.02, 1.0])
@@ -69,10 +71,23 @@ def test_adam_optimizer_slots_and_unported_options():
     np.testing.assert_allclose(s['beta2_pow'].numpy(), [0.999 ** 2],
                                rtol=1e-6)
     assert (w.detach() < 1).all()
-    for kw in ({'regularization': object()}, {'grad_clip': object()},
-               {'lazy_mode': True}):
-        with pytest.raises(NotImplementedError):
-            AdamOptimizer(0.1, parameter_list=[w], **kw)
+    # regularization and grad_clip are ported: L2 decay 0.5 on p = 1
+    # turns g = 3 into 3.5, the global-norm clip at 1.0 scales it to
+    # 1/sqrt(6) per entry; Adam's first step is then lr * sign(g) (up to
+    # epsilon), and p.grad stays as it was
+    for kw in ({'regularization': L2Decay(0.5)},
+               {'grad_clip': GradientClipByGlobalNorm(1.0)}):
+        v = torch.nn.Parameter(torch.ones(3, 2))
+        opt = AdamOptimizer(0.1, parameter_list=[v], **kw)
+        v.grad = torch.full((3, 2), 3.0)
+        opt.step()
+        np.testing.assert_allclose(v.detach().numpy(), 0.9, rtol=1e-6)
+        np.testing.assert_allclose(opt.slots(v)['moment1'].numpy(),
+                                   0.1 * (3.5 if 'regularization' in kw
+                                          else 6 ** -0.5), rtol=1e-6)
+        assert torch.equal(v.grad, torch.full((3, 2), 3.0))
+    with pytest.raises(NotImplementedError, match='A.4'):
+        AdamOptimizer(0.1, parameter_list=[w], lazy_mode=True)
 
 
 @pytest.mark.parametrize('label_shape', ['n1', 'n'])

@@ -45,6 +45,7 @@ from paddle_tpu.dygraph import guard
 from paddle_tpu.dygraph.jit import TrainStep as JaxTrainStep
 from paddle_tpu.dygraph.tape import Tensor, dispatch_op, no_grad_guard
 from paddle_tpu.models import resnet as jax_resnet
+from paddle_tpu_torch.clip import GradientClipByValue
 from paddle_tpu_torch.convert import (resnet_expected_shapes,
                                       resnet_init_params,
                                       resnet_state_dict_from_paddle)
@@ -52,6 +53,7 @@ from paddle_tpu_torch.dygraph import TrainStep
 from paddle_tpu_torch.models import resnet as port_resnet
 from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
 from paddle_tpu_torch.optimizer import Momentum
+from paddle_tpu_torch.regularizer import L1Decay
 
 B, IMG, CLASSES = 8, 32, 10
 FORMATS = ['NHWC', 'NCHW']
@@ -349,10 +351,18 @@ def test_bf16_amp_activations_stay_bf16():
 
 
 def test_momentum_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match='regularization'):
-        Momentum(0.1, regularization=object())
-    with pytest.raises(NotImplementedError, match='grad_clip'):
-        Momentum(0.1, grad_clip=object())
+    """regularization= and grad_clip= are ported: one update by hand, with
+    L1 decay 0.25 on p = (1, -2) and gradients clipped to [-1, 1];
+    a rate that is neither a number nor a schedule still raises."""
+    p = torch.nn.Parameter(torch.tensor([1.0, -2.0]))
+    opt = Momentum(0.1, momentum=0.9, parameter_list=[p],
+                   regularization=L1Decay(0.25),
+                   grad_clip=GradientClipByValue(1.0))
+    p.grad = torch.tensor([0.5, 3.0])
+    opt.step()
+    # g = clip((0.5 + 0.25, 3.0 - 0.25), -1, 1) = (0.75, 1.0)
+    np.testing.assert_allclose(p.detach().numpy(), [1.0 - 0.075, -2.1],
+                               rtol=1e-6)
     with pytest.raises(NotImplementedError, match='schedules'):
         Momentum(object())
 

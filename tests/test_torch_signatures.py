@@ -10,10 +10,12 @@ took over in doing so behave as the reference's do (on the CPU).
   LeNet uses, ``simple_img_conv_pool``, ``append_backward``,
   ``Executor.run`` and ``Optimizer.minimize``). So are the dygraph API's
   layer constructors, ``Layer``'s methods, the learning-rate schedules,
-  ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``; the
-  port may add a keyword-only ``device``, and the Layer methods torch
-  itself calls keep torch's arguments through ``*torch_args`` /
-  ``**torch_kwargs``.
+  ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
+  so are the ERNIE finetune slice's names (regularizers, clips,
+  ``decorate``, the ERNIE model and ``finetune_optimizer``,
+  ``TrainStep``); the port may add a
+  keyword-only ``device``, and the Layer methods torch itself calls keep
+  torch's arguments through ``*torch_args`` / ``**torch_kwargs``.
 - ``softmax_with_cross_entropy`` with ``soft_label`` and on another
   ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
   same formula).
@@ -57,6 +59,9 @@ SHARED_OPS = [
     ('math_ops', 'scale'), ('math_ops', 'matmul'), ('math_ops', 'mul'),
     ('math_ops', 'mean'), ('math_ops', 'reduce_sum'),
     ('math_ops', 'reduce_mean'), ('math_ops', 'not_equal'),
+    ('math_ops', 'elementwise_max'), ('math_ops', 'sum_op'),
+    ('math_ops', 'clip'), ('math_ops', 'clip_by_norm'),
+    ('math_ops', 'sqrt'), ('math_ops', 'square'), ('math_ops', 'sign'),
     ('tensor_ops', 'cast'), ('tensor_ops', 'reshape'),
     ('tensor_ops', 'fill_constant'), ('tensor_ops', 'transpose'),
     ('tensor_ops', 'one_hot')]
@@ -177,6 +182,42 @@ def test_schedule_takes_the_reference_parameters(name):
     from paddle_tpu.dygraph import learning_rate_scheduler as jsched
     from paddle_tpu_torch.dygraph import learning_rate_scheduler as psched
     assert _params(getattr(psched, name)) == _params(getattr(jsched, name))
+
+
+# (module of both packages, attribute path) of what the ERNIE finetune
+# slice ported: regularizers, clips, AMP's decorate, the ERNIE model and
+# recipe, and TrainStep (gradient merge)
+FINETUNE_NAMES = [
+    ('regularizer', 'L1Decay'), ('regularizer', 'L2Decay'),
+    ('regularizer', 'append_regularization_ops'),
+    ('clip', 'GradientClipByValue'), ('clip', 'GradientClipByNorm'),
+    ('clip', 'GradientClipByGlobalNorm'), ('clip', 'ErrorClipByValue'),
+    ('clip', 'set_gradient_clip'), ('clip', 'append_gradient_clip_ops'),
+    ('contrib.mixed_precision', 'decorate'),
+    ('contrib.mixed_precision', 'AutoMixedPrecisionLists'),
+    ('contrib.mixed_precision', 'OptimizerWithMixedPrecision'),
+    ('contrib.mixed_precision', 'OptimizerWithMixedPrecision.minimize'),
+    ('contrib.mixed_precision', 'OptimizerWithMixedPrecision.'
+                                'get_loss_scaling'),
+    ('contrib.mixed_precision', 'OptimizerWithMixedPrecision.'
+                                'overflow_steps'),
+    ('contrib.mixed_precision', 'cast_model_to_bf16'),
+    ('models.ernie', 'ErnieConfig.base'),
+    ('models.ernie', 'ErnieForSequenceClassification'),
+    ('models.ernie', 'ErnieForSequenceClassification.forward'),
+    ('models.ernie', 'finetune_optimizer'), ('dygraph.jit', 'TrainStep')]
+
+
+@pytest.mark.parametrize('module,path', FINETUNE_NAMES,
+                         ids=[f'{m}.{p}' for m, p in FINETUNE_NAMES])
+def test_finetune_name_takes_the_reference_parameters(module, path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return _params(obj)
+
+    assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
 
 
 @pytest.mark.parametrize('module,name', [

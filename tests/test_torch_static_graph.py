@@ -510,6 +510,6 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
     with pytest.raises(NotImplementedError, match='A.8a'):
         cpu_exe().run(main, feed={'np_x': np.ones((2, 3), 'float32')})
     with pytest.raises(NotImplementedError, match='A.4'):
-        fluid.optimizer.Adam(0.001, regularization=object())
+        fluid.optimizer.Adam(0.001, lazy_mode=True)
     with pytest.raises(NotImplementedError, match='A.11'):
         cpu_exe().train_from_dataset(main)
