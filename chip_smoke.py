@@ -148,7 +148,29 @@ Phases:
    unfused model's (relative 1e-4), and the same loop for 2 warm-up and 4
    timed calls, K3, K3b-dkv and K3b-dq launched exactly 12 x the calls
    (their ``launches_ernie`` in the kernels line);
-11. a ``{"kernels": [...]}`` line (all six kernels) and, last,
+11. the static graph at scale: PaddleCV's ResNet-50 image-classification
+   recipe (``tools/static_resnet.py``: 25.6 M parameters, 1000 classes,
+   224^2, ``cross_entropy`` of the softmax, top-1/top-5 ``accuracy``,
+   ``Momentum(piecewise_decay(...), 0.9, L2Decay(1e-4))``) through
+   ``Executor(CUDAPlace(0))``: the first step at batch 8 against
+   ``Executor(CPUPlace())`` from the card's startup values (f32, TF32
+   off; loss, top-1, top-5, and five gradients within 4x the CPU's own
+   spread at images moved by 1e-7); then 2 warm-up and 20
+   timed steps at batch 128 through
+   ``CompiledProgram(main).with_data_parallel(loss_name=...)``, each
+   synchronised: every loss finite, the last below the first, the fetched
+   rate ``piecewise_decay``'s, one lowering; images/s, step p50, min and
+   max, host dispatch, peak device memory, the model-FLOP share
+   (bench.py's count over 989 TFLOP/s, of an f32 step) and one profiled
+   step; ``io.save_persistables`` and ``save_inference_model`` into a
+   temporary directory, ``load_persistables`` back bit for bit; the saved
+   model through ``load_inference_model`` + ``Executor`` and through
+   ``inference.create_paddle_predictor`` on 20 batches of 128: within
+   1e-5 of the in-memory test program, the Predictor equal to the loaded
+   program bit for bit, one lowering each; eval images/s, batch p50 and
+   one profiled batch. None of the port's kernels is on this path: every
+   launch count stays 0;
+12. a ``{"kernels": [...]}`` line (all six kernels) and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -223,6 +245,23 @@ ERNIE_BATCH, ERNIE_SEQ, ERNIE_ACCUM, ERNIE_CALLS = 64, 128, 4, 16
 ERNIE_FUSED_CALLS, ERNIE_CHECK_BATCH = 4, 2
 ERNIE_ATOL, ERNIE_RTOL, ERNIE_GRAD_RTOL, ERNIE_STEP_TOL = (1e-4, 1e-4,
                                                          1e-3, 0.1)
+# PaddleCV's static ResNet-50 recipe (tools/static_resnet.py) at full width
+# and depth: bench.py's batch of 128 at 224^2, 20 eval batches of 128; the
+# card against the CPU at batch 8, every parameter's gradient in L2 norm
+# relative to a float64 CPU run of the same step (the witness). In float64
+# (the program made f64 on both sides) the card's within 1e-6 of it, and
+# its loss within 1e-10; in f32 (resolve_device turns TF32 off) the loss at
+# rtol 1e-4 of the f32 CPU run's, top-1 and top-5 equal, and each gradient
+# within 2x the f32 CPU run's own distance from the witness plus 1e-4
+# (f32 gradients of this net at batch 8 lie about 2% from the witness on
+# either side, ROADMAP C.4 item 4). A gradient scaled by 0.9 must fail
+# both. The saved model's output against the in-memory test program's
+# within 1e-5 of its largest entry
+SRESNET_PARAMS, SRESNET_CHECK_BATCH, SRESNET_EVAL_BATCHES = 25557032, 8, 20
+SRESNET_RTOL, SRESNET_SERVE_RTOL, SRESNET_GRAD_FLOOR = 1e-4, 1e-5, 1e-4
+SRESNET_F64_RTOL, SRESNET_F64_LOSS_RTOL = 1e-6, 1e-10
+SRESNET_GRADS = ('conv1_weights', 'res2a_branch2a_weights',
+                 'res4c_branch2b_weights', 'bn5c_branch2c_scale', 'fc_0.w_0')
 
 
 def log(*parts):
@@ -1091,19 +1130,7 @@ def train_static_lenet(seed, card):
         f'lowerings of the main program {lowered}')
     profile_train_step(
         lambda: gpu.run(main, feed=feed, fetch_list=[loss], scope=gscope),
-        (), p50, card, {
-            'kernels': lambda key: not key.startswith(('Memcpy', 'Memset')),
-            'copies and fills': lambda key: key.startswith(('Memcpy',
-                                                            'Memset')),
-            'convolutions': lambda key: any(
-                t in key.lower() for t in ('conv', 'xmma', 'cudnn', 'dgrad',
-                                           'wgrad', 'implicit_gemm')),
-            'gemm': lambda key: any(t in key.lower() for t in (
-                'gemm', 'nvjet', 'sm90_', 'cutlass')),
-            'elementwise': lambda key: 'elementwise' in key,
-            'reductions': lambda key: 'reduce_kernel' in key,
-            'pooling': lambda key: 'pool' in key.lower()},
-        what='LeNet static-graph step')
+        (), p50, card, STATIC_STEP_GROUPS, what='LeNet static-graph step')
 
     small = {k: v[:LENET_SMALL_BATCH] for k, v in feed.items()}
     out = gpu.run(main, feed=small, fetch_list=[loss], scope=gscope)
@@ -2175,11 +2202,303 @@ def profile_decode_steps(engine, rng, card, steps=20):
             f' ms/step  {e.count // steps} calls/step  {e.key[:90]}')
 
 
+STATIC_STEP_GROUPS = {
+    'kernels': lambda key: not key.startswith(('Memcpy', 'Memset')),
+    'copies and fills': lambda key: key.startswith(('Memcpy', 'Memset')),
+    'convolutions': lambda key: any(
+        t in key.lower() for t in ('conv', 'xmma', 'cudnn', 'dgrad', 'wgrad',
+                                   'implicit_gemm')),
+    'gemm': lambda key: any(t in key.lower() for t in (
+        'gemm', 'nvjet', 'sm90_', 'cutlass')),
+    'elementwise': lambda key: 'elementwise' in key,
+    'reductions': lambda key: 'reduce_kernel' in key,
+    'batch-norm statistics': lambda key: 'welford' in key.lower()
+    or 'var_mean' in key.lower(),
+    'pooling': lambda key: 'pool' in key.lower(),
+    'multi-tensor updates': lambda key: 'multi_tensor' in key.lower()
+    or 'foreach' in key.lower()}
+
+
+def as_float64(program):
+    """A clone of ``program`` that computes in float64: every float32
+    variable, dtype attr and constant table made float64."""
+    p = program.clone()
+    for block in p.blocks:
+        for var in block.vars.values():
+            if var.dtype == 'float32':
+                var.dtype = 'float64'
+        for op in block.ops:
+            for k, a in op.attrs.items():
+                if 'dtype' in k and a == 'float32':
+                    op.attrs[k] = 'float64'
+                elif isinstance(a, np.ndarray) and a.dtype == np.float32:
+                    op.attrs[k] = a.astype(np.float64)
+    return p
+
+
+def rel_l2(got, ref):
+    """|got - ref| / |ref| in L2 norm, in f64."""
+    return float(np.linalg.norm(got.astype(np.float64) - ref)
+                 / np.linalg.norm(ref))
+
+
+def static_resnet_card_against_cpu(fluid, main, v, gscope, seed, card):
+    """The first step at batch 8 from the card's startup values
+    (``gscope``) four times: on the card and on ``Executor(CPUPlace())``,
+    each in f32 and in float64 (``as_float64``); the CPU's f64 run is the
+    witness the other three are held to."""
+    from paddle_tpu_torch.convert import scope_from_paddle
+    persist = [x.name for x in main.list_vars() if x.persistable]
+    host = {n: gscope.find(n).cpu().numpy() for n in persist}
+    rng = np.random.default_rng(seed + 11)
+    feed = {'image': rng.standard_normal(
+        (SRESNET_CHECK_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (SRESNET_CHECK_BATCH, 1))}
+    params = [p.name for p in main.all_parameters()]
+    fetch = [v['loss'].name, v['acc1'].name, v['acc5'].name] + [
+        n + '@GRAD' for n in params]
+    main64 = as_float64(main)
+    runs, secs = {}, {}
+    for place in ('card', 'cpu'):
+        exe = fluid.Executor(fluid.CUDAPlace(0) if place == 'card'
+                             else fluid.CPUPlace())
+        for prog, cast in ((main, np.float32), (main64, np.float64)):
+            t0 = time.perf_counter()
+            scope = fluid.Scope()
+            scope_from_paddle(
+                {n: a.astype(cast) if a.dtype == np.float32 else a
+                 for n, a in host.items()}, scope, exe.place, program=prog)
+            key = (place, cast.__name__)
+            runs[key] = exe.run(
+                fluid.CompiledProgram(prog).with_data_parallel(
+                    loss_name=v['loss'].name),
+                feed=feed, fetch_list=fetch, scope=scope)
+            secs[key] = time.perf_counter() - t0
+    got, want = runs['card', 'float32'], runs['cpu', 'float32']
+    got64, wit = runs['card', 'float64'], runs['cpu', 'float64']
+    if got64[3].dtype != np.float64 or wit[3].dtype != np.float64:
+        raise AssertionError('the float64 runs computed in '
+                             f'{got64[3].dtype}, {wit[3].dtype}')
+    loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    loss64 = abs(float(got64[0]) - float(wit[0])) / abs(float(wit[0]))
+    f64 = {n: rel_l2(g, x) for n, g, x in zip(params, got64[3:], wit[3:])}
+    f32 = {n: (rel_l2(g, x), 2 * rel_l2(w, x) + SRESNET_GRAD_FLOOR)
+           for n, g, w, x in zip(params, got[3:], want[3:], wit[3:])}
+    # a card whose gradients were 10% off, through both checks
+    s64 = min(rel_l2(np.float64(0.9) * g, x) / SRESNET_F64_RTOL
+              for g, x in zip(got64[3:], wit[3:]))
+    s32 = min(rel_l2(np.float32(0.9) * g, x) / f32[n][1]
+              for n, g, x in zip(params, got[3:], wit[3:]))
+    w64 = max(f64, key=f64.get)
+    w32 = max(f32, key=lambda n: f32[n][0] / f32[n][1])
+    log(f'static ResNet-50, batch {SRESNET_CHECK_BATCH}, card against the '
+        f'CPU executor, gradients as |x - witness| / |witness| (L2; the '
+        f'witness the CPU\'s f64 run) [{card}]. float64: loss '
+        f'{float(got64[0])!r} (witness {float(wit[0])!r}, relative '
+        f'{loss64:.3e}), worst of {len(params)} gradients {w64} '
+        f'{f64[w64]:.3e} (bound {SRESNET_F64_RTOL}). f32, TF32 off: loss '
+        f'{float(got[0])!r} (cpu {float(want[0])!r}, relative '
+        f'{loss_err:.3e}), top-1 {float(got[1])!r} ({float(want[1])!r}), '
+        f'top-5 {float(got[2])!r} ({float(want[2])!r}); card / bound (2x '
+        f'the f32 cpu\'s + {SRESNET_GRAD_FLOOR}): ' + ', '.join(
+            f'{n} {f32[n][0]:.3e} / {f32[n][1]:.3e}' for n in SRESNET_GRADS)
+        + f'; worst {w32} {f32[w32][0]:.3e} of {f32[w32][1]:.3e}. The '
+        f'card\'s gradients scaled by 0.9 read at least {s64:.3e}x (f64) and '
+        f'{s32:.2f}x (f32) their bounds. Steps took ' + ', '.join(
+            f'{p} {c} {t:.1f} s' for (p, c), t in secs.items()))
+    if s64 <= 1 or s32 <= 1:
+        raise AssertionError('the gradient check passes a gradient scaled '
+                             'by 0.9')
+    if (loss64 > SRESNET_F64_LOSS_RTOL or f64[w64] > SRESNET_F64_RTOL
+            or float(got64[1]) != float(wit[1])
+            or float(got64[2]) != float(wit[2])):
+        raise AssertionError('static ResNet-50 in float64 on the card '
+                             'differs from the CPU beyond the stated '
+                             'tolerance')
+    if (loss_err > SRESNET_RTOL or float(got[1]) != float(want[1])
+            or float(got[2]) != float(want[2])
+            or any(e > b for e, b in f32.values())):
+        raise AssertionError('static ResNet-50 on the card differs from the '
+                             'CPU executor beyond the stated tolerance')
+
+
+def train_static_resnet(seed, card):
+    """Phase 11: PaddleCV's static ResNet-50 recipe through
+    ``CompiledProgram`` on ``Executor(CUDAPlace(0))``: card against CPU,
+    training, saving and serving the inference model. Returns the
+    kernels' launch counts over the phase (none of the port's kernels is
+    on this path)."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.tools import static_resnet
+    nn_ops.reset_launch_counts()
+    fluid.seed(seed)
+    t0 = time.perf_counter()
+    with fluid.unique_name.guard():     # the names of a fresh script
+        main, startup, test, v = static_resnet.build(fluid)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    if n_params != SRESNET_PARAMS:
+        raise AssertionError(f'static ResNet-50 has {n_params} parameters')
+    log(f'static ResNet-50 (PaddleCV recipe): {n_params} parameters, '
+        f'{len(main.global_block().ops)} ops in the train program, '
+        f'{len(test.global_block().ops)} in the test program; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+
+    # 1. the card against the CPU at batch 8
+    static_resnet_card_against_cpu(fluid, main, v, gscope, seed, card)
+
+    # 2. training through CompiledProgram, batch 128, the same batch
+    rng = np.random.default_rng(seed)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    step = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=v['loss'].name)
+    losses, rates, secs = [], [], []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = gpu.run(step, feed=feed, fetch_list=[v['loss'], v['lr']],
+                      scope=gscope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+        rates.append(float(out[1][0]))
+    peak = torch.cuda.max_memory_allocated()
+    want_rates = [static_resnet.VALUES[int(np.searchsorted(
+        static_resnet.BOUNDARIES, i, side='right'))]
+        for i in range(len(rates))]
+    log('static ResNet-50 losses: ' + ' '.join(repr(x) for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'static ResNet-50 losses {losses}: not '
+                             f'finite or not falling')
+    if not np.allclose(rates, want_rates, rtol=1e-7, atol=0):
+        raise AssertionError(f'rates {rates} are not piecewise_decay\'s '
+                             f'{want_rates}')
+    lowered = gpu.lowering_count(main)
+    if lowered != 1:
+        raise AssertionError(f'train program lowered {lowered} times')
+    counter = int(gscope.find('lr_decay_counter_0')[0])
+    timed_s = secs[WARMUP_STEPS:]
+    p50 = statistics.median(timed_s) * 1e3
+    images_s = RESNET_BATCH * TRAIN_STEPS / sum(timed_s)
+    dispatch = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        gpu.run(step, feed=feed, fetch_list=[v['loss']], scope=gscope,
+                return_numpy=False)
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    share = images_s * RESNET_GFLOP_PER_IMAGE * 1e9 / BF16_FLOPS_PER_S
+    log(f'static ResNet-50 trained through CompiledProgram [{card}]: '
+        f'{len(losses)} steps ({WARMUP_STEPS} warm-up, {TRAIN_STEPS} timed) '
+        f'at batch {RESNET_BATCH}, f32 (TF32 off: matmul '
+        f'{torch.backends.cuda.matmul.allow_tf32}, cuDNN '
+        f'{torch.backends.cudnn.allow_tf32}): {images_s:.1f} images/s, '
+        f'step p50 {p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}); host dispatch p50 '
+        f'{statistics.median(dispatch) * 1e3:.3f} ms (run returning device '
+        f'tensors, before the sync); peak device memory {peak} bytes; '
+        f'model-FLOP share {share:.4f} (bench.py\'s '
+        f'{RESNET_GFLOP_PER_IMAGE} GFLOP an image over 989 TFLOP/s, of an '
+        f'f32 step); rates {rates[0]!r}..{rates[-1]!r} = piecewise_decay\'s '
+        f'(boundaries {static_resnet.BOUNDARIES}); step counter {counter}; '
+        f'lowerings of the train program {lowered}')
+    profile_train_step(
+        lambda: gpu.run(step, feed=feed, fetch_list=[v['loss']],
+                        scope=gscope),
+        (), p50, card, STATIC_STEP_GROUPS, what='static ResNet-50 step')
+
+    # 3. saving, and the persistables back into a fresh scope
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with fluid.scope_guard(gscope):
+            fluid.io.save_persistables(gpu, tmp + '/persist', main)
+            fluid.io.save_inference_model(tmp + '/model', ['image'],
+                                          [v['prob']], gpu,
+                                          main_program=main)
+        save_s = time.perf_counter() - t0
+        persist = [x.name for x in main.list_vars() if x.persistable]
+        rscope = fluid.Scope()
+        with fluid.scope_guard(rscope):
+            fluid.io.load_persistables(gpu, tmp + '/persist', main)
+        differ = [n for n in persist
+                  if rscope.find(n).device != gscope.find(n).device
+                  or not torch.equal(rscope.find(n), gscope.find(n))]
+        if differ:
+            raise AssertionError(f'load_persistables differs in {differ}')
+        log(f'saved {len(persist)} persistables and the inference model in '
+            f'{save_s:.1f} s; load_persistables into a fresh scope: every '
+            f'persistable equal bit for bit, on '
+            f'{gscope.find(persist[0]).device}')
+
+        # 4. serving the saved model: the loaded program and the Predictor
+        sexe, lscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        with fluid.scope_guard(lscope):
+            prog, feeds, fetches = fluid.io.load_inference_model(
+                tmp + '/model', sexe)
+        pred = inference.create_paddle_predictor(
+            inference.Config(tmp + '/model'))
+    erng = np.random.default_rng(seed + 1)
+    batches = [erng.standard_normal((RESNET_BATCH, 3, RESNET_IMG,
+                                     RESNET_IMG), dtype=np.float32)
+               for _ in range(SRESNET_EVAL_BATCHES)]
+    label = np.zeros((RESNET_BATCH, 1), np.int64)
+    worst = 0.0
+    run_s, pred_s = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        got = sexe.run(prog, feed={'image': x}, fetch_list=fetches,
+                       scope=lscope)[0]
+        run_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        served = pred.run([x])[0]
+        pred_s.append(time.perf_counter() - t0)
+        want = gpu.run(test, feed={'image': x, 'label': label},
+                       fetch_list=[v['prob']], scope=gscope)[0]
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+        if not np.array_equal(served, got):
+            raise AssertionError('the Predictor differs from the loaded '
+                                 'program on the same card')
+    if worst > SRESNET_SERVE_RTOL:
+        raise AssertionError(f'the loaded model is {worst:.3e} from the '
+                             f'in-memory test program')
+    lowerings = (sexe.lowering_count(prog),
+                 pred.executor.lowering_count(pred.program))
+    if lowerings != (1, 1):
+        raise AssertionError(f'serving lowerings {lowerings}')
+    eval_p50 = statistics.median(run_s[1:]) * 1e3
+    log(f'static ResNet-50 served from its saved inference model [{card}]: '
+        f'{SRESNET_EVAL_BATCHES} batches of {RESNET_BATCH}; Executor '
+        f'{RESNET_BATCH * (len(run_s) - 1) / sum(run_s[1:]):.1f} images/s, '
+        f'batch p50 {eval_p50:.3f} ms; Predictor '
+        f'{RESNET_BATCH * (len(pred_s) - 1) / sum(pred_s[1:]):.1f} images/s, '
+        f'batch p50 {statistics.median(pred_s[1:]) * 1e3:.3f} ms (after the '
+        f'first batch, which lowers); against the in-memory test program '
+        f'max|diff| {worst:.3e} of the largest entry; Predictor equal to the '
+        f'loaded program bit for bit; lowerings (loaded, Predictor) '
+        f'{lowerings}')
+    profile_train_step(
+        lambda: sexe.run(prog, feed={'image': batches[0]},
+                         fetch_list=fetches, scope=lscope),
+        (), eval_p50, card, STATIC_STEP_GROUPS,
+        what='static ResNet-50 eval batch')
+    return nn_ops.launch_counts()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on the card')
@@ -2273,7 +2592,19 @@ def main(argv=None):
     for kern in flash:
         kern['launches_ernie'] = ernie[kern['name']]
 
-    # 11. result lines
+    # 11. the static graph at scale: PaddleCV's ResNet-50 recipe through
+    # CompiledProgram on Executor(CUDAPlace(0)), saved and served; no
+    # kernel of the port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    sresnet = train_static_resnet(args.seed, smi)
+    if any(sresnet.values()):
+        raise AssertionError(f'kernels launched on the static ResNet path: '
+                             f'{sresnet}')
+    log(f'static ResNet path kernel launches: {sresnet}')
+
+    # 12. result lines
+    log(f'chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s '
+        f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
             'shape')

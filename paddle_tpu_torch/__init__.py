@@ -21,8 +21,11 @@ pretraining (``models/bert.py``, ``optimizer.py``, ``dygraph/jit.py``
 checkpoints) with the NMT Transformer (``models/transformer.py``); the
 sixth is ERNIE finetuning (``models/ernie.py``) with the optimizers'
 regularizers (``regularizer.py``), gradient clips (``clip.py``), AMP's
-``contrib.mixed_precision.decorate`` and ``TrainStep``'s gradient merge. A
-static script::
+``contrib.mixed_precision.decorate`` and ``TrainStep``'s gradient merge;
+the seventh is the rest of a static script's surface (the static layers'
+schedules, losses and tensor layers, ``compiler.CompiledProgram``,
+``io``'s save and load, ``inference.Predictor``) around PaddleCV's static
+ResNet-50 recipe (``tools/static_resnet.py``). A static script::
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -58,11 +61,17 @@ from . import backward
 from .backward import append_backward, gradients
 from . import optimizer
 from .executor import Executor
+from . import compiler
+from .compiler import CompiledProgram
 from . import nets
 from . import dygraph
 from .dygraph import (disable_dygraph, enable_dygraph, load_dygraph,
                       save_dygraph)
 from . import contrib
+from . import io
+from .io import (load, load_inference_model, load_params, load_persistables,
+                 load_program_state, save, save_inference_model, save_params,
+                 save_persistables, set_program_state)
 
 __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'XLAPlace', 'cpu_places', 'cuda_places', 'is_compiled_with_cuda',
@@ -72,6 +81,10 @@ __all__ = ['resolve_device', 'core', 'CPUPlace', 'CUDAPlace', 'TPUPlace',
            'in_dygraph_mode', 'manual_seed', 'name_scope', 'program_guard',
            'ops', 'initializer', 'ParamAttr', 'regularizer', 'clip',
            'layers', 'data', 'backward',
-           'append_backward', 'gradients', 'optimizer', 'Executor', 'nets',
-           'dygraph', 'enable_dygraph', 'disable_dygraph', 'save_dygraph',
-           'load_dygraph', 'contrib']
+           'append_backward', 'gradients', 'optimizer', 'Executor',
+           'compiler', 'CompiledProgram', 'nets', 'dygraph',
+           'enable_dygraph', 'disable_dygraph', 'save_dygraph',
+           'load_dygraph', 'contrib', 'io', 'save_params',
+           'save_persistables', 'load_params', 'load_persistables',
+           'save_inference_model', 'load_inference_model', 'save', 'load',
+           'load_program_state', 'set_program_state']

@@ -27,6 +27,15 @@ Running a plan:
 A program holding ``__init__`` ops is a startup program: it runs op by op,
 unlowered, and writes every persistable it made.
 
+A ``__constant__`` op (``layers.assign`` of a numpy array) is made on the
+device once a lowering and read from there on every run. An op that
+writes a persistable under its own input's name (``increment`` of a
+schedule's step counter) updates the scope through the plan's new state,
+so one lowering serves every step. ``run`` takes a
+:class:`~paddle_tpu_torch.compiler.CompiledProgram` and runs its program
+on this executor's one device, after refusing the strategy knobs the port
+does not act on (compiler.py).
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
 item: the control-flow ops (A.8a), an AMP program config and
 rematerialisation (A.8e), in-place state updates in place of the JAX
@@ -41,6 +50,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .compiler import CompiledProgram
 from .core.dtypes import to_numpy_dtype, to_torch_dtype
 from .core.places import get_device
 from .core.random import default_generator
@@ -152,6 +162,28 @@ class _Step:
                     env[n] = r
 
 
+class _Constant:
+    """A ``__constant__`` op, resolved: its value, made on the device at
+    its first run and kept."""
+
+    __slots__ = ('out', 'value', 'tensor')
+
+    def __init__(self, op):
+        self.out = op.outputs['Out'][0]
+        self.value = np.asarray(op.attrs['value'])
+        self.tensor = None
+
+    def run(self, read, env, device, generator):
+        if self.tensor is None:
+            self.tensor = torch.from_numpy(
+                np.ascontiguousarray(self.value)).to(device)
+        env[self.out] = self.tensor
+
+
+def _step(op):
+    return _Constant(op) if op.type == '__constant__' else _Step(op)
+
+
 class _Plan:
     """A lowered program: the ops before the backward marker, the marker's
     loss, targets and gradient names, and the ops after it."""
@@ -162,15 +194,15 @@ class _Plan:
                     if op.type == BACKWARD_OP_TYPE), None)
         self.state_names = list(state_names)
         if bwd is None:
-            self.fwd = [_Step(op) for op in ops]
+            self.fwd = [_step(op) for op in ops]
             self.marker = None
             self.post = []
         else:
             marker = ops[bwd]
-            self.fwd = [_Step(op) for op in ops[:bwd]]
+            self.fwd = [_step(op) for op in ops[:bwd]]
             self.marker = (marker.attrs['loss'], list(marker.attrs['params']),
                            list(marker.outputs['Grads']))
-            self.post = [_Step(op) for op in ops[bwd + 1:]]
+            self.post = [_step(op) for op in ops[bwd + 1:]]
 
     def run(self, state, feeds, fetch_names, device, generator):
         """-> (new state {name: tensor}, [fetched tensor])."""
@@ -248,20 +280,22 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True, feed_var_name='feed',
             fetch_var_name='fetch'):
-        """Run ``program`` (the default main program if None) once on
-        ``feed`` ({name: array}); returns the values of ``fetch_list``
-        (Variables or names), numpy arrays by default. With
-        ``return_numpy=False`` they are the tensors on the device, detached
-        (the JAX package returns ``FetchHandle`` s there).
-        ``use_program_cache``, ``feed_var_name`` and ``fetch_var_name`` are
-        accepted and ignored, as the JAX package ignores them: lowered
-        plans are always cached."""
+        """Run ``program`` (a Program or a ``CompiledProgram``; the
+        default main program if None) once on ``feed`` ({name: array});
+        returns the values of ``fetch_list`` (Variables or names), numpy
+        arrays by default. With ``return_numpy=False`` they are the tensors
+        on the device, detached (the JAX package returns ``FetchHandle`` s
+        there). ``use_program_cache``, ``feed_var_name`` and
+        ``fetch_var_name`` are accepted and ignored, as the JAX package
+        ignores them: lowered plans are always cached."""
         _check_env()
+        if isinstance(program, CompiledProgram):
+            program = program._program_to_run()
         program = program if program is not None else default_main_program()
         if not hasattr(program, 'global_block'):
-            raise NotImplementedError(
-                f'{type(program).__name__} is not ported yet (ROADMAP '
-                f'A.8c): pass a Program')
+            raise TypeError(f'Executor.run takes a Program or a '
+                            f'CompiledProgram, not a '
+                            f'{type(program).__name__}')
         scope = scope if scope is not None else global_scope()
         _check_ported(program)
         block = program.global_block()
@@ -343,7 +377,7 @@ class Executor:
                     env[op.outputs['Out'][0]] = a['initializer'].compute(
                         a['shape'], a['dtype'], self._device, gen)
                 else:
-                    _Step(op).run(read, env, self._device, gen)
+                    _step(op).run(read, env, self._device, gen)
         for v in program.list_vars():
             if v.persistable and v.name in env:
                 scope.set(v.name, env[v.name])

@@ -172,6 +172,12 @@ class Block:
         self.program._bump_version()
         return op
 
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        return op
+
     def __repr__(self):
         lines = [f'Block[{self.idx}]']
         lines += ['  ' + repr(v) for v in self.vars.values()]

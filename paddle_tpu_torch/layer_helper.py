@@ -38,7 +38,10 @@ def _meta(var):
 def infer_shapes(op):
     """Fill in the shapes and types of ``op``'s outputs that are still
     unknown, from its function run on meta tensors; leave them unknown
-    where that cannot run."""
+    where that cannot run. ``__constant__`` is no registered op: the layer
+    that appends it sets its output itself."""
+    if op.type == '__constant__':
+        return
     opdef = get_op(op.type)
     block = op.block
     args = []

@@ -1,21 +1,25 @@
 """Neural-network layers of the static graph (counterpart of
-paddle_tpu/layers/nn.py): ``fc``, ``conv2d``, ``pool2d``, ``batch_norm``,
-``softmax``, ``matmul``, ``mul``, ``dropout``, and the generated one-op
-layers of the JAX package's list. A generated layer whose op the port has
-not registered yet raises ``NotImplementedError`` when called (ROADMAP
-A.10), never at import."""
+paddle_tpu/layers/nn.py): ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
+``batch_norm``, ``layer_norm``, ``softmax``, ``matmul``, ``mul``,
+``dropout``, ``topk``, ``one_hot``, ``split``, ``stack``, ``unstack``,
+``sum``, ``autoincreased_step_counter``, and the generated one-op layers
+of the JAX package's list. A generated layer whose op the port has not
+registered yet raises ``NotImplementedError`` when called (ROADMAP A.10),
+never at import."""
 from __future__ import annotations
 
 import math
 
 from ..core import unique_name
-from ..initializer import ConstantInitializer, NormalInitializer
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer)
 from ..layer_helper import LayerHelper
 from ..ops.registry import has_op
 from .common import apply_op_layer, generate_layer_fn
 
-__all__ = ['fc', 'conv2d', 'pool2d', 'batch_norm', 'dropout', 'softmax',
-           'matmul', 'mul']
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
+           'dropout', 'softmax', 'matmul', 'mul', 'topk', 'one_hot',
+           'autoincreased_step_counter', 'split', 'stack', 'sum']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -43,6 +47,25 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     if act:
         out = apply_op_layer(act, {'x': out})
     return out
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype='float32'):
+    """A ``lookup_table`` op over a (vocab, dim) = ``size`` weight (Xavier
+    by default); a negative ``padding_idx`` counts from the end.
+    ``is_sparse=True`` (rows-only gradients) is not ported and raises."""
+    if is_sparse:
+        raise NotImplementedError('embedding(is_sparse=True): rows-only '
+                                  'gradients are not ported yet (ROADMAP '
+                                  'A.10)')
+    helper = LayerHelper('embedding', param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, list(size), dtype,
+                                default_initializer=XavierInitializer())
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    return apply_op_layer('lookup_table', {'w': w, 'ids': input},
+                          {'padding_idx': pad, 'is_sparse': is_sparse,
+                           'is_distributed': is_distributed})
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -137,6 +160,27 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return out
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """A layer_norm op over the dims from ``begin_norm_axis`` on, with its
+    scale (ones) and shift (zeros) parameters of their flattened size."""
+    helper = LayerHelper('layer_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    nshape = [math.prod(input.shape[begin_norm_axis:])]
+    s = helper.create_parameter(
+        helper.param_attr, nshape, input.dtype,
+        default_initializer=ConstantInitializer(1.0)) if scale else None
+    b = helper.create_parameter(helper.bias_attr, nshape, input.dtype,
+                                is_bias=True) if shift else None
+    out = apply_op_layer('layer_norm', {'x': input, 'scale': s, 'bias': b},
+                         {'begin_norm_axis': begin_norm_axis,
+                          'epsilon': epsilon})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation='downgrade_in_infer'):
     return apply_op_layer('dropout', {'x': x},
@@ -160,6 +204,57 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
     return apply_op_layer('mul', {'x': x, 'y': y},
                           {'x_num_col_dims': x_num_col_dims,
                            'y_num_col_dims': y_num_col_dims}, name=name)
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the ``k`` largest of each last-dim
+    row."""
+    return apply_op_layer('top_k', {'x': input}, {'k': k}, name=name)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    return apply_op_layer('one_hot', {'x': input},
+                          {'depth': depth,
+                           'allow_out_of_range': allow_out_of_range})
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 (1,) counter (``@STEP_COUNTER@`` by default)
+    that starts at ``begin - step`` and that an ``increment`` op, first in
+    the main program, moves by ``step`` every run."""
+    helper = LayerHelper('global_step_counter')
+    name = counter_name or '@STEP_COUNTER@'
+    block = helper.main_program.global_block()
+    if block.has_var(name):
+        return block.var(name)
+    counter = block.create_var(name=name, shape=[1], dtype='int64',
+                               persistable=True, stop_gradient=True)
+    sb = helper.startup_program.global_block()
+    sv = sb.create_var(name=name, shape=[1], dtype='int64', persistable=True,
+                       stop_gradient=True)
+    ConstantInitializer(begin - step)(sv, sb)
+    block.prepend_op(type='increment', inputs={'x': name},
+                     outputs={'Out': name}, attrs={'value': float(step)})
+    return counter
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """The parts of ``input`` along ``dim``, a list of Variables."""
+    n = (num_or_sections if isinstance(num_or_sections, int)
+         else len(num_or_sections))
+    out = apply_op_layer('split', {'x': input},
+                         {'num_or_sections': num_or_sections, 'dim': dim},
+                         name=name, n_outputs={'Out': n})
+    return out if isinstance(out, list) else [out]
+
+
+def stack(x, axis=0):
+    return apply_op_layer('stack', {'xs': list(x)}, {'axis': axis})
+
+
+def sum(x):
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    return apply_op_layer('sum', {'xs': list(xs)})
 
 
 def _not_ported(op_type, fname):
@@ -217,3 +312,11 @@ _gen('fsp', fname='fsp_matrix')
 _gen('arg_min', fname='argmin')
 _gen('arg_max', fname='argmax')
 _gen('argsort')
+
+
+def unstack(x, axis=0, num=None):
+    """The slices of ``x`` along ``axis``, a list of Variables."""
+    n = num if num is not None else x.shape[axis]
+    out = apply_op_layer('unstack', {'x': x}, {'axis': axis, 'num': num},
+                         n_outputs={'Y': n})
+    return out if isinstance(out, list) else [out]

@@ -1,12 +1,16 @@
 """Losses and metrics of the training paths (counterpart of
-paddle_tpu/ops/loss_ops.py)."""
+paddle_tpu/ops/loss_ops.py): ``softmax_with_cross_entropy``, ``accuracy``,
+and the losses of the Fluid recipes, ``cross_entropy`` (of probabilities,
+as PaddleCV's image classification computes it after a softmax),
+``sigmoid_cross_entropy_with_logits`` and ``square_error_cost``."""
 from __future__ import annotations
 
 import torch
 
 from .registry import register_op
 
-__all__ = ['softmax_with_cross_entropy', 'accuracy']
+__all__ = ['softmax_with_cross_entropy', 'accuracy', 'cross_entropy',
+           'sigmoid_cross_entropy_with_logits', 'square_error_cost']
 
 
 @register_op('softmax_with_cross_entropy', outputs=['Loss', 'Softmax'])
@@ -61,3 +65,42 @@ def accuracy(pred, label, *, k=1):
     total = torch.full((), pred.shape[0], dtype=torch.int32,
                        device=pred.device)
     return ncorrect.float() / total.float(), ncorrect, total
+
+
+@register_op('cross_entropy')
+def cross_entropy(x, label, *, soft_label=False, ignore_index=-100):
+    """``-log(x[label] + 1e-8)`` of probabilities ``x`` (N, ..., C), kept
+    at 1 along the last dim; with ``soft_label``,
+    ``-sum(label * log(x + 1e-8))``. Rows whose label equals
+    ``ignore_index`` give exactly 0. The 1e-8 is the reference's."""
+    eps = 1e-8
+    if soft_label:
+        return -(label * torch.log(x + eps)).sum(-1, keepdim=True)
+    label = _squeeze_label(label)
+    idx = label.clamp(0, x.shape[-1] - 1).long()[..., None]
+    loss = -torch.log(torch.gather(x, -1, idx) + eps)
+    return torch.where((label == ignore_index)[..., None],
+                       torch.zeros((), dtype=loss.dtype, device=loss.device),
+                       loss)
+
+
+@register_op('sigmoid_cross_entropy_with_logits')
+def sigmoid_cross_entropy_with_logits(x, label, *, ignore_index=-100,
+                                      normalize=False):
+    """The stable ``max(x, 0) - x * label + log1p(exp(-|x|))``, 0 where
+    ``label`` equals ``ignore_index``; ``normalize`` divides by the count
+    of the others (at least 1)."""
+    label = label.to(x.dtype)
+    loss = (torch.clamp(x, min=0) - x * label
+            + torch.log1p(torch.exp(-x.abs())))
+    mask = label != ignore_index
+    loss = torch.where(mask, loss,
+                       torch.zeros((), dtype=loss.dtype, device=loss.device))
+    if normalize:
+        loss = loss / mask.sum().clamp(min=1)
+    return loss
+
+
+@register_op('square_error_cost')
+def square_error_cost(x, label):
+    return torch.square(x - label)

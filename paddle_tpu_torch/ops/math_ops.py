@@ -1,10 +1,13 @@
-"""Elementwise math, products and reductions of the static graph
-(counterpart of paddle_tpu/ops/math_ops.py): the ops the LeNet programs,
-the optimizers and the dygraph Transformer emit. Each is a few torch
-calls; the JAX package computes them in XLA, outside any Pallas kernel, so
-they stay torch's own ops (so do ``sign``, ``square``, ``sqrt``, ``sum``,
-``clip``, ``clip_by_norm`` and ``elementwise_max``, which the regularizers
-and gradient clips of regularizer.py and clip.py append)."""
+"""Elementwise math, products, reductions and comparisons of the static
+graph (counterpart of paddle_tpu/ops/math_ops.py): the ops the LeNet
+programs, the optimizers and the dygraph Transformer emit. Each is a few
+torch calls; the JAX package computes them in XLA, outside any Pallas
+kernel, so they stay torch's own ops (so do ``sign``, ``square``,
+``sqrt``, ``sum``, ``clip``, ``clip_by_norm`` and ``elementwise_max``,
+which the regularizers and gradient clips of regularizer.py and clip.py
+append, and the ops the static learning-rate schedules are written in:
+``elementwise_min``/``_pow``, ``exp``, ``log``, ``floor``, ``ceil``,
+``cos``, ``pow``, the comparisons and ``increment``)."""
 from __future__ import annotations
 
 import math
@@ -16,7 +19,11 @@ from .registry import register_op
 __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_div', 'scale', 'matmul', 'mul', 'mean',
            'reduce_sum', 'reduce_mean', 'not_equal', 'elementwise_max',
-           'sum_op', 'clip', 'clip_by_norm', 'sqrt', 'square', 'sign']
+           'sum_op', 'clip', 'clip_by_norm', 'sqrt', 'square', 'sign',
+           'elementwise_min', 'elementwise_pow', 'exp', 'log_', 'floor',
+           'ceil', 'cos', 'pow_op', 'reduce_max', 'reduce_min', 'equal',
+           'less_than', 'less_equal', 'greater_than', 'greater_equal',
+           'increment']
 
 
 def _align_y(x, y, axis=-1):
@@ -47,6 +54,8 @@ elementwise_sub = _ew('elementwise_sub', torch.sub)
 elementwise_mul = _ew('elementwise_mul', torch.mul)
 elementwise_div = _ew('elementwise_div', torch.div)
 elementwise_max = _ew('elementwise_max', torch.maximum)
+elementwise_min = _ew('elementwise_min', torch.minimum)
+elementwise_pow = _ew('elementwise_pow', torch.pow)
 
 
 @register_op('scale')
@@ -108,12 +117,26 @@ def _reduce(name, fn):
 
 reduce_sum = _reduce('reduce_sum', torch.sum)
 reduce_mean = _reduce('reduce_mean', torch.mean)
+reduce_max = _reduce('reduce_max', torch.amax)
+reduce_min = _reduce('reduce_min', torch.amin)
 
 
-@register_op('not_equal')
-def not_equal(x, y):
-    """``x != y``, broadcast, as a bool tensor."""
-    return torch.ne(x, y)
+def _cmp(name, fn):
+    @register_op(name)
+    def op(x, y):
+        return fn(x, y)
+    op.__name__ = op.__qualname__ = name
+    op.__doc__ = (f'``{fn.__name__}(x, y)``, broadcast, as a bool '
+                  f'tensor.')
+    return op
+
+
+not_equal = _cmp('not_equal', torch.ne)
+equal = _cmp('equal', torch.eq)
+less_than = _cmp('less_than', torch.lt)
+less_equal = _cmp('less_equal', torch.le)
+greater_than = _cmp('greater_than', torch.gt)
+greater_equal = _cmp('greater_equal', torch.ge)
 
 
 @register_op('sum', variadic=['xs'])
@@ -152,3 +175,20 @@ def _unary(name, fn):
 sqrt = _unary('sqrt', torch.sqrt)
 square = _unary('square', torch.square)
 sign = _unary('sign', torch.sign)
+exp = _unary('exp', torch.exp)
+log_ = _unary('log', torch.log)
+floor = _unary('floor', torch.floor)
+ceil = _unary('ceil', torch.ceil)
+cos = _unary('cos', torch.cos)
+
+
+@register_op('pow')
+def pow_op(x, *, factor=1.0):
+    return torch.pow(x, factor)
+
+
+@register_op('increment')
+def increment(x, *, value=1.0):
+    """``x + value`` in ``x``'s type (an int64 step counter stays
+    int64)."""
+    return x + torch.tensor(value, dtype=x.dtype)

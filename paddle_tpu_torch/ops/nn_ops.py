@@ -749,11 +749,12 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
                data_layout='NCHW', sync_stats=False):
     """Paddle's batch_norm: returns ``(y, new_mean, new_var)``.
 
-    In training the statistics are the f32 batch mean and the BIASED batch
-    variance over every axis but the channel's, and the running ones move
-    as ``momentum * running + (1 - momentum) * batch`` (Paddle's rule, the
-    mirror of torch's ``momentum``; ``F.batch_norm`` would also update with
-    the unbiased variance). ``new_mean``/``new_var`` carry no gradient.
+    In training the statistics are the batch mean and the BIASED batch
+    variance over every axis but the channel's, in f32 (in f64 for an f64
+    ``x``), and the running ones move as ``momentum * running + (1 -
+    momentum) * batch`` (Paddle's rule, the mirror of torch's
+    ``momentum``; ``F.batch_norm`` would also update with the unbiased
+    variance). ``new_mean``/``new_var`` carry no gradient.
     With ``is_test`` or ``use_global_stats`` the running statistics
     normalise and come back unchanged.
 
@@ -771,16 +772,17 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
     else:
         axes = tuple(range(x.dim() - 1))
         shape = (1,) * (x.dim() - 1) + (-1,)
+    stat = torch.promote_types(x.dtype, torch.float32)    # f64 stays f64
     if is_test or use_global_stats:
         m, v = mean, variance
         new_mean, new_var = mean, variance
     else:
-        v, m = torch.var_mean(x.float(), dim=axes, correction=0)
+        v, m = torch.var_mean(x.to(stat), dim=axes, correction=0)
         with torch.no_grad():
             new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
             new_var = (momentum * variance
                        + (1 - momentum) * v.to(variance.dtype))
-    inv = torch.rsqrt(v.float() + epsilon).to(x.dtype)
+    inv = torch.rsqrt(v.to(stat) + epsilon).to(x.dtype)
     return ((x - m.to(x.dtype).reshape(shape)) * inv.reshape(shape)
             * scale.reshape(shape) + bias.reshape(shape)), new_mean, new_var
 

@@ -1,5 +1,11 @@
 """Tensor ops (counterpart of paddle_tpu/ops/tensor_ops.py): ``cast``,
-``reshape``, ``transpose``, ``fill_constant`` and ``one_hot``."""
+``reshape``, ``transpose``, ``fill_constant``, ``one_hot``, and the ops of
+the static layers a Fluid script calls around a net (``concat``,
+``split``, ``stack``, ``unstack``, ``squeeze``, ``unsqueeze``,
+``gather``, ``expand``, ``assign``, the ``fill_*`` ops, ``top_k``,
+``range``). ``assign`` of a numpy array emits the ``__constant__`` op,
+which is no registered op in either package: the executors make its value
+themselves (executor.py)."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +13,10 @@ import torch
 from ..core.dtypes import to_torch_dtype
 from .registry import register_op
 
-__all__ = ['cast', 'reshape', 'transpose', 'fill_constant', 'one_hot']
+__all__ = ['cast', 'reshape', 'transpose', 'fill_constant', 'one_hot',
+           'concat', 'split', 'stack', 'unstack', 'squeeze', 'unsqueeze',
+           'gather', 'expand', 'assign', 'fill_constant_batch_size_like',
+           'fill_zeros_like', 'fill_any_like', 'top_k', 'arange']
 
 
 @register_op('cast')
@@ -47,3 +56,108 @@ def one_hot(x, *, depth, allow_out_of_range=False):
         x = x[..., 0]
     return (x[..., None] == torch.arange(depth, device=x.device)).to(
         torch.float32)
+
+
+@register_op('concat', variadic=['xs'])
+def concat(xs, *, axis=0):
+    xs = xs if isinstance(xs, (list, tuple)) else [xs]
+    return torch.cat(list(xs), dim=axis)
+
+
+@register_op('split', outputs=['Out'], variadic=[])
+def split(x, *, num_or_sections, dim=-1):
+    """``x`` cut along ``dim`` into ``num_or_sections`` equal parts, or
+    into parts of the listed sizes (one -1 or None takes the rest); a
+    list of tensors."""
+    dim = dim % x.dim()
+    if isinstance(num_or_sections, int):
+        sizes = x.shape[dim] // num_or_sections
+    else:
+        sizes = list(num_or_sections)
+        known = sum(s for s in sizes if s not in (-1, None))
+        sizes = [x.shape[dim] - known if s in (-1, None) else s
+                 for s in sizes]
+    return list(torch.split(x, sizes, dim=dim))
+
+
+@register_op('stack', variadic=['xs'])
+def stack(xs, *, axis=0):
+    xs = xs if isinstance(xs, (list, tuple)) else [xs]
+    return torch.stack(list(xs), dim=axis)
+
+
+@register_op('unstack', outputs=['Y'])
+def unstack(x, *, axis=0, num=None):
+    """The slices of ``x`` along ``axis``, a list (``num`` is their count,
+    as the reference takes it)."""
+    return list(torch.unbind(x, dim=axis))
+
+
+@register_op('squeeze')
+def squeeze(x, *, axes=None):
+    if not axes:
+        return x.squeeze()
+    return x.squeeze(tuple(a % x.dim() for a in axes))
+
+
+@register_op('unsqueeze')
+def unsqueeze(x, *, axes):
+    axes = [axes] if isinstance(axes, int) else list(axes)
+    for a in sorted(axes):
+        x = x.unsqueeze(a)
+    return x
+
+
+@register_op('gather')
+def gather(x, index, *, overwrite=True):
+    """Rows of ``x`` at ``index`` (a trailing index dim of 1 squeezed)."""
+    if index.dim() == 2 and index.shape[1] == 1:
+        index = index[:, 0]
+    return torch.index_select(x, 0, index.long())
+
+
+@register_op('expand')
+def expand(x, *, expand_times):
+    """``x`` tiled ``expand_times`` along each dim (``jnp.tile``'s rule)."""
+    return torch.tile(x, tuple(expand_times))
+
+
+@register_op('fill_constant_batch_size_like')
+def fill_constant_batch_size_like(ref, *, shape, value, dtype='float32',
+                                  input_dim_idx=0, output_dim_idx=0):
+    shape = list(shape)
+    shape[output_dim_idx] = ref.shape[input_dim_idx]
+    return torch.full(tuple(shape), value, dtype=to_torch_dtype(dtype),
+                      device=ref.device)
+
+
+@register_op('fill_zeros_like')
+def fill_zeros_like(x):
+    return torch.zeros_like(x)
+
+
+@register_op('fill_any_like')
+def fill_any_like(x, *, value, dtype=None):
+    return torch.full_like(x, value, dtype=(None if dtype is None
+                                            else to_torch_dtype(dtype)))
+
+
+@register_op('assign')
+def assign(x):
+    return x.clone()
+
+
+@register_op('top_k', outputs=['Out', 'Indices'])
+def top_k(x, *, k):
+    """The ``k`` largest entries of each last-dim row, largest first, and
+    their int64 indices (the JAX package computes them in int32 unless x64
+    is on)."""
+    vals, idx = torch.topk(x, k, dim=-1)
+    return vals, idx
+
+
+@register_op('range')
+def arange(*, start, end, step, dtype='float32'):
+    """``[start, end)`` by ``step``, made on torch's default device, which
+    the executor sets to its own around an op with no input."""
+    return torch.arange(start, end, step, dtype=to_torch_dtype(dtype))

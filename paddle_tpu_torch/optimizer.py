@@ -19,7 +19,8 @@ both modes.
   parameter (``sgd``, ``momentum``, ``adam``) with its slot variables and
   the learning-rate variable, named as the JAX package names them
   (``<param>_moment1_0``, ``learning_rate_0``, ...), each with a Constant
-  init op in the startup program. It takes a number as the rate. The
+  init op in the startup program. It takes a number as the rate, or a
+  static schedule's Variable (layers/learning_rate_scheduler.py). The
   regularizers' and clips' ops go between the backward marker and the
   updates, as the reference appends them; without ``grad_clip=``, a clip
   that ``clip.set_gradient_clip`` recorded on the program applies.
@@ -69,15 +70,15 @@ class _Optimizer:
 
     def __init__(self, learning_rate, parameter_list=None,
                  regularization=None, grad_clip=None):
-        if isinstance(learning_rate, LearningRateDecay):
+        if isinstance(learning_rate, (LearningRateDecay, Variable)):
             self._learning_rate = learning_rate
         elif isinstance(learning_rate, (int, float)):
             self._learning_rate = float(learning_rate)
         else:
             raise NotImplementedError(
-                f'learning_rate must be a number or one of the dygraph '
-                f'learning-rate schedules; a '
-                f'{type(learning_rate).__name__} is not ported yet '
+                f'learning_rate must be a number, a static schedule '
+                f'Variable or one of the dygraph learning-rate schedules; '
+                f'a {type(learning_rate).__name__} is not ported yet '
                 f'(ROADMAP A.4)')
         self._parameter_list = (list(parameter_list) if parameter_list
                                 is not None else None)
@@ -113,6 +114,11 @@ class _Optimizer:
         return float(lr()) if isinstance(lr, LearningRateDecay) else lr
 
     def _lr(self, device):
+        if isinstance(self._learning_rate, Variable):
+            raise TypeError(
+                f'the learning rate is the static-graph Variable '
+                f'{self._learning_rate.name!r}: a dygraph update takes a '
+                f'number or a dygraph schedule')
         if not isinstance(self._learning_rate, LearningRateDecay):
             return self._learning_rate
         t = self._lr_tensors.get(device)
@@ -264,6 +270,11 @@ class _Optimizer:
         return None, params_grads
 
     def _get_lr_var(self):
+        """The static graph's rate: the schedule Variable given as
+        ``learning_rate``, else a persistable ``learning_rate_n`` holding
+        the number."""
+        if isinstance(self._learning_rate, Variable):
+            return self._learning_rate
         if isinstance(self._learning_rate, LearningRateDecay):
             raise NotImplementedError('a dygraph learning-rate schedule in '
                                       'the static graph is not ported yet '
@@ -272,7 +283,10 @@ class _Optimizer:
             self._lr_var = create_global_var(
                 [1], self._learning_rate, 'float32', persistable=True,
                 name=unique_name.generate('learning_rate'))
+            self._lr_var.belong_to_optimizer = True
         return self._lr_var
+
+    get_lr_var = _get_lr_var
 
     def _make_slot_var(self, param, slot, shape, fill):
         name = unique_name.generate(f'{param.name}_{slot}')
@@ -282,6 +296,7 @@ class _Optimizer:
         sb = default_startup_program().global_block()
         sv = sb.create_var(name=name, shape=list(shape), dtype='float32',
                            persistable=True, stop_gradient=True)
+        v.belong_to_optimizer = sv.belong_to_optimizer = True
         ConstantInitializer(fill)(sv, sb)
         return v
 

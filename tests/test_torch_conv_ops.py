@@ -194,6 +194,28 @@ def test_batch_norm_computes_in_xs_type_from_f32_statistics():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
+def test_batch_norm_keeps_float64_statistics_in_float64():
+    """An f64 x (a static program declared in float64) keeps f64
+    statistics: values about 1e3 that differ by 1e-2, where f32's spacing
+    (6e-5 at 1e3) would move y by about 1e-2 relative, against numpy in
+    f64 at rtol 1e-9 (the JAX package has no f64 without x64)."""
+    rng = np.random.default_rng(5)
+    x = 1e3 + 1e-2 * rng.standard_normal((8, 3, 4, 4))
+    scale, bias = rng.standard_normal(3) + 2, rng.standard_normal(3)
+    mean, var = np.zeros(3), np.ones(3)
+    y, new_mean, new_var = nn_ops.batch_norm(
+        *(torch.from_numpy(a) for a in (x, scale, bias, mean, var)),
+        momentum=0.9, epsilon=1e-12)
+    m, v = x.mean(axis=(0, 2, 3)), x.var(axis=(0, 2, 3))
+    want = ((x - m[None, :, None, None]) / np.sqrt(v + 1e-12)[
+        None, :, None, None] * scale[None, :, None, None]
+        + bias[None, :, None, None])
+    assert y.dtype == new_mean.dtype == new_var.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(new_mean.numpy(), 0.1 * m, rtol=1e-9)
+    np.testing.assert_allclose(new_var.numpy(), 0.9 + 0.1 * v, rtol=1e-9)
+
+
 def test_batch_norm_sync_stats_is_not_ported():
     x = torch.zeros(2, 3)
     with pytest.raises(NotImplementedError, match='sync_stats'):

@@ -1066,3 +1066,98 @@ def test_ernie_tiny_card_matches_cpu(cuda):
         assert err <= 4 * own + 1e-4 * np.abs(w).max(), (n, err, own)
     moved = np.abs(got[1]['classifier.weight'] - named['classifier.weight'])
     assert moved.max() > 1e-4
+
+
+@pytest.fixture
+def no_tf32():
+    """cuDNN convolutions in full f32 for a card-against-CPU check."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = old
+
+
+def _small_static_resnet(fluid):
+    from paddle_tpu_torch.tools import static_resnet
+    with fluid.unique_name.guard():
+        return static_resnet.build(fluid, class_dim=10,
+                                   image_shape=(3, 32, 32),
+                                   blocks=[1, 1, 1, 1], width_div=16)
+
+
+def test_static_resnet_first_step_on_the_card_matches_the_cpu(cuda,
+                                                              no_tf32):
+    """PaddleCV's static ResNet recipe at test size (one bottleneck a
+    stage, width / 16, 10 classes, 32x32, batch 8) through
+    CompiledProgram on Executor(CUDAPlace(0)) against Executor(CPUPlace())
+    from the card's startup values, TF32 off: the first step's loss within
+    rtol 1e-4, top-1 and top-5 equal, every @GRAD within 1e-3 of its
+    tensor's largest entry (f32 sums in another order through 13 BN
+    layers); no kernel of the port launched; one lowering."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.convert import scope_from_paddle
+    main, startup, _, v = _small_static_resnet(fluid)
+    rng = np.random.default_rng(5)
+    feed = {'image': rng.standard_normal((8, 3, 32, 32), dtype=np.float32),
+            'label': rng.integers(0, 10, (8, 1))}
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    persist = [x.name for x in main.list_vars() if x.persistable]
+    scope_from_paddle({n: gscope.find(n).cpu().numpy() for n in persist},
+                      cscope, fluid.CPUPlace(), program=main)
+    grads = [p.name + '@GRAD' for p in main.all_parameters()]
+    fetch = [v['loss'], v['acc1'], v['acc5']] + grads
+    nn_ops.reset_launch_counts()
+    step = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=v['loss'].name)
+    got = gpu.run(step, feed=feed, fetch_list=fetch, scope=gscope)
+    want = cpu.run(step, feed=feed, fetch_list=fetch, scope=cscope)
+    assert set(nn_ops.launch_counts().values()) == {0}
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    assert float(got[1]) == float(want[1])
+    assert float(got[2]) == float(want[2])
+    for name, g, w in zip(grads, got[3:], want[3:]):
+        assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max(), name
+    assert gpu.lowering_count(main) == 1
+
+
+def test_load_inference_model_puts_every_persistable_on_the_card(cuda,
+                                                                 tmp_path):
+    import paddle_tpu_torch as fluid
+    main, startup, _, v = _small_static_resnet(fluid)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path), ['image'], [v['prob']],
+                                      exe, main_program=main)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        prog, _, fetches = fluid.io.load_inference_model(str(tmp_path), exe)
+    persist = [x.name for x in prog.list_vars() if x.persistable]
+    assert persist
+    for n in persist:
+        assert scope.find(n).device.type == 'cuda', n
+    x = np.random.default_rng(6).standard_normal((4, 3, 32, 32),
+                                                 dtype=np.float32)
+    out = exe.run(prog, feed={'image': x}, fetch_list=fetches, scope=scope)
+    np.testing.assert_allclose(out[0].sum(-1), 1.0, rtol=1e-5)
+
+
+def test_predictor_runs_on_the_card_by_default(cuda, tmp_path):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    main, startup, _, v = _small_static_resnet(fluid)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path), ['image'], [v['prob']],
+                                      exe, main_program=main)
+    pred = inference.create_paddle_predictor(
+        inference.Config(str(tmp_path)))
+    assert pred.executor.device.type == 'cuda'
+    x = np.random.default_rng(7).standard_normal((4, 3, 32, 32),
+                                                 dtype=np.float32)
+    a, b = pred.run([x])[0], pred.run({'image': x})[0]
+    assert np.array_equal(a, b)
+    assert pred.executor.lowering_count(pred.program) == 1

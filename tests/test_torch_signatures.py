@@ -8,7 +8,10 @@ took over in doing so behave as the reference's do (on the CPU).
   the reference binds the same way in the port. So are the static graph's
   entry points that a Fluid script calls (``program_guard``, the layers
   LeNet uses, ``simple_img_conv_pool``, ``append_backward``,
-  ``Executor.run`` and ``Optimizer.minimize``). So are the dygraph API's
+  ``Executor.run`` and ``Optimizer.minimize``), and those of the static
+  ResNet recipe's surface (the new layers and schedules,
+  ``CompiledProgram``, ``io``'s save and load, the Predictor). So are the
+  dygraph API's
   layer constructors, ``Layer``'s methods, the learning-rate schedules,
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
@@ -64,7 +67,25 @@ SHARED_OPS = [
     ('math_ops', 'sqrt'), ('math_ops', 'square'), ('math_ops', 'sign'),
     ('tensor_ops', 'cast'), ('tensor_ops', 'reshape'),
     ('tensor_ops', 'fill_constant'), ('tensor_ops', 'transpose'),
-    ('tensor_ops', 'one_hot')]
+    ('tensor_ops', 'one_hot'),
+    # the static script surface around PaddleCV's ResNet recipe
+    ('math_ops', 'elementwise_min'), ('math_ops', 'elementwise_pow'),
+    ('math_ops', 'exp'), ('math_ops', 'log_'), ('math_ops', 'floor'),
+    ('math_ops', 'ceil'), ('math_ops', 'cos'), ('math_ops', 'pow_op'),
+    ('math_ops', 'reduce_max'), ('math_ops', 'reduce_min'),
+    ('math_ops', 'equal'), ('math_ops', 'less_than'),
+    ('math_ops', 'less_equal'), ('math_ops', 'greater_than'),
+    ('math_ops', 'greater_equal'), ('math_ops', 'increment'),
+    ('tensor_ops', 'concat'), ('tensor_ops', 'split'),
+    ('tensor_ops', 'stack'), ('tensor_ops', 'unstack'),
+    ('tensor_ops', 'squeeze'), ('tensor_ops', 'unsqueeze'),
+    ('tensor_ops', 'gather'), ('tensor_ops', 'expand'),
+    ('tensor_ops', 'assign'), ('tensor_ops', 'fill_constant_batch_size_like'),
+    ('tensor_ops', 'fill_zeros_like'), ('tensor_ops', 'fill_any_like'),
+    ('tensor_ops', 'top_k'), ('tensor_ops', 'arange'),
+    ('loss_ops', 'cross_entropy'),
+    ('loss_ops', 'sigmoid_cross_entropy_with_logits'),
+    ('loss_ops', 'square_error_cost')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -106,7 +127,18 @@ FLUID_ENTRY_POINTS = [
     ('layers', 'pool2d'), ('layers', 'data'), ('layers', 'softmax'),
     ('layers', 'accuracy'), ('nets', 'simple_img_conv_pool'),
     ('backward', 'append_backward'), ('executor', 'Executor.run'),
-    ('optimizer', 'Adam.minimize')]
+    ('optimizer', 'Adam.minimize'),
+    # the static script surface around PaddleCV's ResNet recipe
+    ('layers', 'cross_entropy'), ('layers', 'piecewise_decay'),
+    ('layers', 'cosine_decay'), ('layers', 'embedding'),
+    ('layers', 'layer_norm'), ('layers', 'concat'), ('layers', 'topk'),
+    ('layers', 'split'), ('layers', 'assign'), ('layers', 'increment'),
+    ('layers', 'less_than'), ('compiler', 'CompiledProgram'),
+    ('compiler', 'CompiledProgram.with_data_parallel'),
+    ('io', 'save_persistables'), ('io', 'load_persistables'),
+    ('io', 'save_inference_model'), ('io', 'load_inference_model'),
+    ('io', 'save'), ('io', 'load'), ('inference', 'Predictor'),
+    ('inference', 'Config')]
 
 
 @pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,
