@@ -24,6 +24,32 @@ Running a plan:
   (core/random.py);
 - every persistable an op wrote goes back to the scope.
 
+The control-flow ops run their sub-blocks in Python (counterparts of the
+JAX package's ``lax.cond``/``switch``/``while_loop``/``scan`` lowerings,
+``paddle_tpu/executor.py:166-358``). Each sub-block's ops are resolved
+once a lowering, as the plan's own are, and run over a local env chained
+onto the outer one, so a branch or a step reads the outer variables
+undeclared:
+
+- ``__cond__`` and ``__switch__`` read the predicate or the index on the
+  host (one sync each on the card) and run one branch; the ``writes`` it
+  made to outer variables merge out of it, an outer value passing
+  through where the branch left it alone;
+- ``__while__`` and ``__while_legacy__`` read their condition on the host
+  each trip. With ``max_trip_count`` a ``__while__`` stops at the first
+  false or at the bound and autograd records its trips, which equals the
+  JAX package's masked scan in values and gradients; without one, a loop
+  whose carry requires grad raises, as ``jax.grad`` of a ``while_loop``
+  does;
+- ``__scan__`` (``StaticRNN``) is a Python loop over the leading dim of
+  its sequence inputs: the memories are carried, each step's outputs
+  collected and stacked once at the end, and autograd records the loop,
+  so a weight the step reads accumulates its gradient across steps;
+- every loop carry keeps its shape and type or raises ``TypeError``;
+- an op that draws random numbers draws anew each trip from the plan's
+  generator (a dropout mask a step);
+- a tensor array (``__create_array__``) is a Python list in the env.
+
 A program holding ``__init__`` ops is a startup program: it runs op by op,
 unlowered, and writes every persistable it made.
 
@@ -37,7 +63,7 @@ on this executor's one device, after refusing the strategy knobs the port
 does not act on (compiler.py).
 
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: the control-flow ops (A.8a), an AMP program config and
+item: an AMP program config and
 rematerialisation (A.8e), in-place state updates in place of the JAX
 package's buffer donation (A.8f), pipeline plans and the fleet mesh (A.9),
 the dataset runs and asynchronous fetches (A.11).
@@ -60,19 +86,11 @@ from .ops.registry import NON_KERNEL_ATTRS, get_op
 
 __all__ = ['Executor']
 
-_CONTROL_FLOW_OPS = frozenset({'__create_array__', '__cond__', '__switch__',
-                               '__while__', '__while_legacy__', '__scan__'})
-
-
 def _check_ported(program):
     """Raise on what a program may ask of the JAX package's executor that
     the port does not do yet."""
     for b in program.blocks:
         for op in b.ops:
-            if op.type in _CONTROL_FLOW_OPS:
-                raise NotImplementedError(
-                    f'control-flow op {op.type!r} is not ported yet '
-                    f'(ROADMAP A.8a)')
             if op.type == BACKWARD_OP_TYPE:
                 if op.attrs.get('checkpoints'):
                     raise NotImplementedError(
@@ -181,7 +199,225 @@ class _Constant:
 
 
 def _step(op):
-    return _Constant(op) if op.type == '__constant__' else _Step(op)
+    if op.type == '__constant__':
+        return _Constant(op)
+    cf = _CONTROL_FLOW.get(op.type)
+    return _Step(op) if cf is None else cf(op)
+
+
+def _block_steps(op, idx):
+    """The ops of ``op``'s sub-block ``idx``, resolved."""
+    return [_step(o) for o in op.block.program.block(idx).ops]
+
+
+def _run_block(steps, overrides, read, device, generator):
+    """Run resolved ops over a local env that starts from ``overrides``
+    and reads on into the outer ``read``; returns the chained read."""
+    local = dict(overrides)
+
+    def read2(name):
+        v = local.get(name)
+        return read(name) if v is None else v
+
+    for s in steps:
+        s.run(read2, local, device, generator)
+    return read2
+
+
+def _run_branch(branch, outs, read, env, device, generator):
+    """Run a branch, ``(resolved ops, the names it gives out)``, and
+    write what it gives out under ``outs``: its outputs, then the outer
+    variables it may have written (their outer values where it did
+    not)."""
+    steps, names = branch
+    read2 = _run_block(steps, {}, read, device, generator)
+    for n, src in zip(outs, names):
+        env[n] = read2(src)
+
+
+def _as_bool(x):
+    return bool(x.reshape(()).item())
+
+
+def _check_carry(new, init, name):
+    """Loop carries keep their shape and type: raise rather than cast
+    (a silent cast would floor a float update into an int carry)."""
+    if new.shape != init.shape or new.dtype != init.dtype:
+        raise TypeError(
+            f"while loop carry '{name}' changed from "
+            f"{tuple(init.shape)}/{init.dtype} to "
+            f"{tuple(new.shape)}/{new.dtype}; loop variables must keep a "
+            f"fixed shape and dtype across iterations")
+    return new
+
+
+def _check_differentiable(carry, names):
+    """An unbounded loop has no reverse pass: refuse a carry that
+    requires grad, as ``jax.grad`` of a ``lax.while_loop`` does."""
+    if torch.is_grad_enabled():
+        for n, c in zip(names, carry):
+            if c.requires_grad:
+                raise ValueError(
+                    f"reverse-mode differentiation through a while loop "
+                    f"without a trip bound: carry '{n}' requires grad; "
+                    f"give while_loop a maximum_trip_count")
+
+
+class _Cond:
+    """``__cond__``: one of two branches, chosen on the host."""
+
+    __slots__ = ('pred', 'branches', 'outs')
+
+    def __init__(self, op):
+        a = op.attrs
+        writes = list(a.get('writes', []))
+        self.pred = op.inputs['Cond'][0]
+        self.branches = {
+            True: (_block_steps(op, a['true_block']),
+                   list(a['true_outs']) + writes),
+            False: (_block_steps(op, a['false_block']),
+                    list(a['false_outs']) + writes)}
+        self.outs = op.outputs['Out']
+
+    def run(self, read, env, device, generator):
+        _run_branch(self.branches[_as_bool(read(self.pred))], self.outs,
+                    read, env, device, generator)
+
+
+class _Switch:
+    """``__switch__``: the branch whose key equals the index, else the
+    default (the last branch)."""
+
+    __slots__ = ('index', 'position', 'branches', 'outs')
+
+    def __init__(self, op):
+        a = op.attrs
+        writes = list(a.get('writes', []))
+        self.index = op.inputs['Index'][0]
+        self.position = {int(k): i for i, k in enumerate(a['keys'])}
+        self.branches = [(_block_steps(op, b), list(outs) + writes)
+                         for b, outs in zip(a['blocks'], a['branch_outs'])]
+        self.outs = op.outputs['Out']
+
+    def run(self, read, env, device, generator):
+        i = int(read(self.index).reshape(()).item())
+        _run_branch(self.branches[self.position.get(i, len(self.position))],
+                    self.outs, read, env, device, generator)
+
+
+class _While:
+    """``__while__`` (``while_loop``): the condition block and the body
+    block, each over the carry, until the condition reads false or the
+    trip bound is reached."""
+
+    __slots__ = ('carry', 'cond', 'cond_out', 'body', 'body_outs',
+                 'max_trips', 'outs')
+
+    def __init__(self, op):
+        a = op.attrs
+        writes = list(a.get('writes', []))
+        self.carry = list(a['loop_vars']) + writes
+        self.cond = _block_steps(op, a['cond_block'])
+        self.cond_out = a['cond_out']
+        self.body = _block_steps(op, a['body_block'])
+        self.body_outs = list(a['body_outs']) + writes
+        self.max_trips = a.get('max_trip_count')
+        self.outs = op.outputs['Out']
+
+    def run(self, read, env, device, generator):
+        carry = [read(n) for n in self.carry]
+        bounded = self.max_trips is not None
+        if not bounded:
+            _check_differentiable(carry, self.carry)
+        trips = 0
+        while not bounded or trips < self.max_trips:
+            mems = dict(zip(self.carry, carry))
+            if not _as_bool(_run_block(self.cond, mems, read, device,
+                                       generator)(self.cond_out)):
+                break
+            read2 = _run_block(self.body, mems, read, device, generator)
+            carry = [_check_carry(read2(src), c, n) for src, c, n in
+                     zip(self.body_outs, carry, self.carry)]
+            if not bounded:
+                _check_differentiable(carry, self.carry)
+            trips += 1
+        for n, v in zip(self.outs, carry):
+            env[n] = v
+
+
+class _WhileLegacy:
+    """``__while_legacy__`` (``While``): the body over the carry while
+    its first entry, the condition variable, reads true."""
+
+    __slots__ = ('carry', 'body')
+
+    def __init__(self, op):
+        self.carry = list(op.attrs['carry'])
+        self.body = _block_steps(op, op.attrs['body_block'])
+
+    def run(self, read, env, device, generator):
+        carry = [read(n) for n in self.carry]
+        _check_differentiable(carry, self.carry)
+        while _as_bool(carry[0]):
+            read2 = _run_block(self.body, dict(zip(self.carry, carry)),
+                               read, device, generator)
+            carry = [_check_carry(read2(n), c, n)
+                     for n, c in zip(self.carry, carry)]
+            _check_differentiable(carry, self.carry)
+        for n, v in zip(self.carry, carry):
+            env[n] = v
+
+
+class _Scan:
+    """``__scan__`` (``StaticRNN``): the step block once per slice of the
+    sequence inputs' leading dim, carrying the memories; each step output
+    stacked along a new leading dim."""
+
+    __slots__ = ('xs', 'init', 'step', 'slice_names', 'pre_names',
+                 'new_names', 'out_names', 'outs')
+
+    def __init__(self, op):
+        a = op.attrs
+        self.xs = op.inputs.get('X', [])
+        self.init = op.inputs.get('Init', [])
+        self.step = _block_steps(op, a['block'])
+        self.slice_names = list(a['slice_names'])
+        self.pre_names = list(a['pre_names'])
+        self.new_names = list(a['new_names'])
+        self.out_names = list(a['out_names'])
+        self.outs = op.outputs['Out']
+
+    def run(self, read, env, device, generator):
+        xs = [torch.unbind(read(n), 0) for n in self.xs]
+        mems = [read(n) for n in self.init]
+        ys = [[] for _ in self.out_names]
+        for t in range(len(xs[0])):
+            overrides = dict(zip(self.pre_names, mems))
+            overrides.update((n, x[t]) for n, x in zip(self.slice_names, xs))
+            read2 = _run_block(self.step, overrides, read, device, generator)
+            mems = [_check_carry(read2(n), m, p) for n, m, p in
+                    zip(self.new_names, mems, self.pre_names)]
+            for y, n in zip(ys, self.out_names):
+                y.append(read2(n))
+        for n, y in zip(self.outs, ys):
+            env[n] = torch.stack(y)
+
+
+class _CreateArray:
+    """``__create_array__``: an empty tensor array."""
+
+    __slots__ = ('out',)
+
+    def __init__(self, op):
+        self.out = op.outputs['Out'][0]
+
+    def run(self, read, env, device, generator):
+        env[self.out] = []
+
+
+_CONTROL_FLOW = {'__cond__': _Cond, '__switch__': _Switch,
+                 '__while__': _While, '__while_legacy__': _WhileLegacy,
+                 '__scan__': _Scan, '__create_array__': _CreateArray}
 
 
 class _Plan:

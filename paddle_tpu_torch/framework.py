@@ -1,12 +1,15 @@
 """Static-graph IR of the port: Program / Block / Operator / Variable
 (counterpart of paddle_tpu/framework.py).
 
-A Program is a list of ops over named variables. Each op names a function
-registered in ops/registry.py; the Executor (executor.py) resolves a
-program's ops into a plan once per program version and feed shapes and runs
-the plan with torch, autograd taking the place of the JAX package's
-``jax.value_and_grad`` at the one backward marker (``BACKWARD_OP_TYPE``)
-that backward.append_backward inserts.
+A Program is a list of blocks of ops over named variables. Each op names
+a function registered in ops/registry.py, or is a control-flow op whose
+attrs name the sub-blocks it runs (a branch, a loop body, a recurrence's
+step; ``Program._create_block`` makes one under the current block). The
+Executor (executor.py) resolves a program's ops into a plan once per
+program version and feed shapes and runs the plan with torch, autograd
+taking the place of the JAX package's ``jax.value_and_grad`` at the one
+backward marker (``BACKWARD_OP_TYPE``) that backward.append_backward
+inserts.
 """
 from __future__ import annotations
 
@@ -122,6 +125,38 @@ class Operator:
         return f'{{{self.type}: {self.inputs} -> {self.outputs}}}'
 
 
+# the attrs of an op that name variables: the backward marker's, and the
+# control-flow ops' names of loop variables, carries, merged writes and
+# the variables of their sub-blocks
+_NAME_ATTRS = ('loss', 'params', 'checkpoints', 'loop_vars', 'writes',
+               'carry', 'slice_names', 'pre_names', 'new_names', 'out_names',
+               'cond_out', 'body_outs')
+_SUB_BLOCK_ATTRS = ('true_block', 'false_block', 'cond_block', 'body_block',
+                    'block')
+
+
+def sub_blocks(op):
+    """The indices of the sub-blocks a control-flow op runs."""
+    idx = [op.attrs[a] for a in _SUB_BLOCK_ATTRS if a in op.attrs]
+    return idx + list(op.attrs.get('blocks', []))
+
+
+def op_read_names(op):
+    """Every name ``op`` may read: its declared inputs, what its
+    sub-blocks read (they read the outer variables through a chained env,
+    undeclared), and what the control-flow op itself reads: the outer
+    value of a merged write a branch leaves alone, and a loop's initial
+    carry."""
+    names = set(op.input_names())
+    for a in ('writes', 'loop_vars', 'carry'):
+        names.update(op.attrs.get(a) or ())
+    program = op.block.program
+    for bi in sub_blocks(op):
+        for o in program.block(bi).ops:
+            names |= op_read_names(o)
+    return names
+
+
 class Block:
     """A list of ops and a dict of vars."""
 
@@ -211,6 +246,20 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None):
+        """A new sub-block of the current block (or of ``parent_idx``),
+        made the current one: the control-flow layers build a branch or a
+        loop body into it."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def _bump_version(self):
         self._version += 1
 
@@ -250,7 +299,7 @@ class Program:
                 for op in b.ops:
                     referenced |= set(op.input_names())
                     referenced |= set(op.output_names())
-                    for a in ('loss', 'params'):
+                    for a in _NAME_ATTRS:
                         v = op.attrs.get(a)
                         if isinstance(v, str):
                             referenced.add(v)
@@ -264,7 +313,9 @@ class Program:
 
     def _prune(self, targets):
         """A clone that keeps only the ops needed to compute ``targets``
-        (Variables or names)."""
+        (Variables or names), following what sub-blocks read
+        (:func:`op_read_names`), where the JAX package follows declared
+        inputs only."""
         target_names = {t.name if isinstance(t, Variable) else t
                         for t in targets}
         blk = self.global_block()
@@ -276,14 +327,14 @@ class Program:
                 continue
             if set(op.output_names()) & needed:
                 kept_idx.add(i)
-                needed |= set(op.input_names())
+                needed |= op_read_names(op)
         p = self.clone()
         nb = p.global_block()
         # clone() keeps op order 1:1, so positions name the kept ops
         nb.ops = [op for i, op in enumerate(nb.ops) if i in kept_idx]
         used = set(target_names)
         for op in nb.ops:
-            used |= set(op.input_names()) | set(op.output_names())
+            used |= op_read_names(op) | set(op.output_names())
         nb.vars = {k: v for k, v in nb.vars.items()
                    if k in used or v.is_data}
         return p

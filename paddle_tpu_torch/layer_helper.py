@@ -27,6 +27,11 @@ from .param_attr import ParamAttr
 
 __all__ = ['LayerHelper', 'infer_shapes']
 
+# the op types the executor runs itself: constants and control flow
+_UNREGISTERED_OPS = frozenset({'__constant__', '__create_array__',
+                               '__cond__', '__switch__', '__while__',
+                               '__while_legacy__', '__scan__'})
+
 
 def _meta(var):
     if var.shape is None:
@@ -38,9 +43,10 @@ def _meta(var):
 def infer_shapes(op):
     """Fill in the shapes and types of ``op``'s outputs that are still
     unknown, from its function run on meta tensors; leave them unknown
-    where that cannot run. ``__constant__`` is no registered op: the layer
-    that appends it sets its output itself."""
-    if op.type == '__constant__':
+    where that cannot run. ``__constant__`` and the control-flow ops are no
+    registered ops: the layers that append them set their outputs
+    themselves."""
+    if op.type in _UNREGISTERED_OPS:
         return
     opdef = get_op(op.type)
     block = op.block

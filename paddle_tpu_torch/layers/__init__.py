@@ -1,16 +1,16 @@
 """fluid.layers of the port (counterpart of paddle_tpu/layers/): the layer
-functions of nn.py, tensor.py, loss.py, io.py, control_flow.py and
+functions of nn.py, tensor.py, loss.py, io.py, control_flow.py, rnn.py and
 learning_rate_scheduler.py, ``accuracy``, and the Variable operators of
 math_op_patch.py (applied at import, as in the JAX package).
 
-Every public name of the JAX package's ``layers`` exists here. Those the
-port does not run yet are callables that raise ``NotImplementedError``
-naming their ROADMAP item, from the one table :data:`NOT_PORTED`: A.8a
-the control flow, A.11 the readers and host callbacks, A.10 the
-sequence/LoD, detection, rnn and distribution layers and every layer over
-an op the port has not registered. The modules ``detection``,
-``distributions`` and ``sequence_lod`` raise the same way on any
-attribute."""
+Every public name of the JAX package's ``layers`` exists here: 122 of its
+340 callables run. Those the port does not run yet are callables that
+raise ``NotImplementedError`` naming their ROADMAP item, 142 from the one
+table :data:`NOT_PORTED` (A.11 the readers and host callbacks, A.10 the
+sequence/LoD, detection, decoder and distribution layers and the layers
+over ops the port has not registered) and 76 generated layers over such
+ops (layers/nn.py). The modules ``detection``, ``distributions`` and
+``sequence_lod`` raise the same way on any attribute."""
 import functools
 import types
 import warnings
@@ -26,6 +26,7 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .math_op_patch import monkey_patch_variable
 from .nn import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403  (the rnn() function over the module)
 from .tensor import *  # noqa: F401,F403
 from .utils import (assert_same_structure, convert_to_list, is_sequence,
                     map_structure, pack_sequence_as)
@@ -71,31 +72,24 @@ def deprecated(since='', instead='', extra_message=''):
 
 
 _WHY = {
-    'A.8a': 'the static control flow (sub-blocks, loops, tensor arrays)',
-    'A.10': ('the sequence/LoD, detection, rnn and distribution layers and '
-             'the layers over ops the port has not registered'),
+    'A.10': ('the sequence/LoD, detection, decoder and distribution layers '
+             'and the layers over ops the port has not registered'),
     'A.11': 'the readers and host callbacks',
 }
 
 # name -> ROADMAP item, for every public name of the JAX package's layers
 # that the port does not run yet
 NOT_PORTED = dict.fromkeys([
-    'While', 'Switch', 'IfElse', 'StaticRNN', 'DynamicRNN', 'cond', 'case',
-    'switch_case', 'while_loop', 'create_array', 'array_read',
-    'array_write', 'array_length', 'is_empty', 'tensor_array_to_tensor',
-], 'A.8a')
-NOT_PORTED.update(dict.fromkeys([
     'py_reader', 'double_buffer', 'read_file', 'create_py_reader_by_data',
     'py_func', 'Print', 'load',
-], 'A.11'))
+], 'A.11')
 NOT_PORTED.update(dict.fromkeys([
-    # rnn cells, decoders and recurrent layers
+    # decoders and the LoD recurrent layers
     'BasicDecoder', 'BasicDecoderOutput', 'BeamSearchDecoder', 'DecodeHelper',
-    'Decoder', 'GRUCell', 'GreedyEmbeddingHelper', 'LSTMCell', 'RNNCell',
-    'SampleEmbeddingHelper', 'TrainingHelper', 'beam_search',
-    'beam_search_decode', 'birnn', 'dynamic_decode', 'dynamic_gru',
-    'dynamic_lstm', 'dynamic_lstmp', 'gather_tree', 'gru_unit', 'lstm',
-    'lstm_unit', 'rnn',
+    'Decoder', 'GreedyEmbeddingHelper', 'SampleEmbeddingHelper',
+    'TrainingHelper', 'beam_search', 'beam_search_decode', 'dynamic_decode',
+    'dynamic_gru', 'dynamic_lstm', 'dynamic_lstmp', 'gather_tree',
+    'gru_unit', 'lstm_unit',
     # distributions
     'Categorical', 'MultivariateNormalDiag', 'Normal', 'Uniform',
     # detection
@@ -128,8 +122,8 @@ NOT_PORTED.update(dict.fromkeys([
     'kldiv_loss', 'l2_normalize', 'linspace', 'lrn', 'margin_rank_loss',
     'merge_selected_rows', 'multiplex', 'nce', 'npair_loss', 'pool3d',
     'prelu', 'prroi_pool', 'psroi_pool', 'rank', 'rank_loss',
-    'resize_bilinear', 'resize_nearest', 'resize_trilinear', 'reverse',
-    'roi_align', 'roi_pool', 'sampled_softmax_with_cross_entropy',
+    'resize_bilinear', 'resize_nearest', 'resize_trilinear', 'roi_align',
+    'roi_pool', 'sampled_softmax_with_cross_entropy',
     'scatter_nd', 'shape', 'similarity_focus', 'size', 'smooth_l1',
     'spectral_norm', 'teacher_student_sigmoid_loss', 'unique',
     'unique_with_counts',
@@ -161,11 +155,7 @@ def _not_ported_module(name):
 
 # the names the JAX package's layers/control_flow.py exports and the port
 # does not run: they are set on the port's control_flow module too
-_IN_CONTROL_FLOW = ('cond', 'case', 'switch_case', 'while_loop', 'While',
-                    'StaticRNN', 'array_write', 'array_read', 'array_length',
-                    'create_array', 'Print', 'is_empty', 'Switch', 'IfElse',
-                    'DynamicRNN', 'lod_rank_table',
-                    'reorder_lod_tensor_by_rank')
+_IN_CONTROL_FLOW = ('Print', 'lod_rank_table', 'reorder_lod_tensor_by_rank')
 
 for _name, _item in NOT_PORTED.items():
     globals()[_name] = _not_ported(_name, _item)

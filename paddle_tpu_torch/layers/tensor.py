@@ -2,7 +2,8 @@
 paddle_tpu/layers/tensor.py): ``create_tensor``, ``create_parameter``,
 ``create_global_var``, ``cast``, ``concat``, ``sums``, ``assign``,
 ``fill_constant``, ``fill_constant_batch_size_like``, ``zeros``, ``ones``,
-``zeros_like``, ``ones_like`` and ``range``. ``reshape`` is the generated
+``zeros_like``, ``ones_like``, ``range``, ``reverse`` and
+``tensor_array_to_tensor``. ``reshape`` is the generated
 layer of layers/nn.py, as in the JAX package. ``assign`` of a numpy array
 (or list or number) appends a ``__constant__`` op holding the array, which
 the executor makes on its device once a lowering."""
@@ -22,7 +23,7 @@ from .common import apply_op_layer
 __all__ = ['create_tensor', 'create_parameter', 'create_global_var', 'cast',
            'concat', 'sums', 'assign', 'fill_constant',
            'fill_constant_batch_size_like', 'ones', 'zeros', 'range',
-           'zeros_like', 'ones_like']
+           'zeros_like', 'ones_like', 'reverse', 'tensor_array_to_tensor']
 
 
 def create_tensor(dtype, name=None, persistable=False):
@@ -145,3 +146,15 @@ def zeros_like(x, out=None):
 
 def ones_like(x, out=None):
     return apply_op_layer('fill_any_like', {'x': x}, {'value': 1.0})
+
+
+def reverse(x, axis):
+    return apply_op_layer('reverse', {'x': x}, {'axis': axis})
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """The tensors of ``input`` (a list, or a dygraph tensor array)
+    stacked along ``axis``; returns ``(tensor, None)``, as the JAX package
+    does."""
+    out = apply_op_layer('stack', {'xs': list(input)}, {'axis': axis})
+    return out, None

@@ -7,7 +7,8 @@ kernel, so they stay torch's own ops (so do ``sign``, ``square``,
 which the regularizers and gradient clips of regularizer.py and clip.py
 append, and the ops the static learning-rate schedules are written in:
 ``elementwise_min``/``_pow``, ``exp``, ``log``, ``floor``, ``ceil``,
-``cos``, ``pow``, the comparisons and ``increment``)."""
+``cos``, ``pow``, the comparisons and ``increment``; and ``sigmoid`` and
+``tanh``, which every recurrent cell is written in)."""
 from __future__ import annotations
 
 import math
@@ -23,7 +24,7 @@ __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_min', 'elementwise_pow', 'exp', 'log_', 'floor',
            'ceil', 'cos', 'pow_op', 'reduce_max', 'reduce_min', 'equal',
            'less_than', 'less_equal', 'greater_than', 'greater_equal',
-           'increment']
+           'increment', 'sigmoid', 'tanh']
 
 
 def _align_y(x, y, axis=-1):
@@ -180,6 +181,8 @@ log_ = _unary('log', torch.log)
 floor = _unary('floor', torch.floor)
 ceil = _unary('ceil', torch.ceil)
 cos = _unary('cos', torch.cos)
+sigmoid = _unary('sigmoid', torch.sigmoid)
+tanh = _unary('tanh', torch.tanh)
 
 
 @register_op('pow')

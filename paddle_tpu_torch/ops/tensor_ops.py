@@ -3,9 +3,15 @@
 the static layers a Fluid script calls around a net (``concat``,
 ``split``, ``stack``, ``unstack``, ``squeeze``, ``unsqueeze``,
 ``gather``, ``expand``, ``assign``, the ``fill_*`` ops, ``top_k``,
-``range``). ``assign`` of a numpy array emits the ``__constant__`` op,
-which is no registered op in either package: the executors make its value
-themselves (executor.py)."""
+``range``), the ``slice``, ``reverse`` and ``where`` that the recurrent
+layers use, and ``is_empty`` and the tensor-array ops. ``assign`` of a
+numpy array emits the ``__constant__`` op, which is no registered op in
+either package: the executors make its value themselves (executor.py).
+
+A tensor array is a Python list in the executor's env, as the JAX package
+keeps it in its traced env; ``__array_write__`` and ``__array_read__`` read
+their index on the host (one sync each on the card), where the JAX package
+needs a trace-time constant."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +22,8 @@ from .registry import register_op
 __all__ = ['cast', 'reshape', 'transpose', 'fill_constant', 'one_hot',
            'concat', 'split', 'stack', 'unstack', 'squeeze', 'unsqueeze',
            'gather', 'expand', 'assign', 'fill_constant_batch_size_like',
-           'fill_zeros_like', 'fill_any_like', 'top_k', 'arange']
+           'fill_zeros_like', 'fill_any_like', 'top_k', 'arange', 'slice_op',
+           'reverse', 'where']
 
 
 @register_op('cast')
@@ -161,3 +168,60 @@ def arange(*, start, end, step, dtype='float32'):
     """``[start, end)`` by ``step``, made on torch's default device, which
     the executor sets to its own around an op with no input."""
     return torch.arange(start, end, step, dtype=to_torch_dtype(dtype))
+
+
+@register_op('slice')
+def slice_op(x, *, axes, starts, ends):
+    """``x[starts:ends]`` on each of ``axes`` (Python's slice rules), a
+    view."""
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(axes, starts, ends):
+        idx[ax] = slice(st, en)
+    return x[tuple(idx)]
+
+
+@register_op('reverse')
+def reverse(x, *, axis):
+    axis = [axis] if isinstance(axis, int) else axis
+    return torch.flip(x, tuple(a % x.dim() for a in axis))
+
+
+@register_op('where')
+def where(cond, x, y):
+    """``x`` where ``cond`` (nonzero) holds, else ``y``."""
+    return torch.where(cond if cond.dtype == torch.bool else cond != 0,
+                       x, y)
+
+
+@register_op('is_empty')
+def _is_empty(x):
+    return torch.tensor(x.numel() == 0, device=x.device)
+
+
+def _index(i):
+    return int(i.reshape(()).item()) if isinstance(i, torch.Tensor) \
+        else int(i)
+
+
+@register_op('__array_write__', atomic_output=True)
+def _array_write(array, x, i):
+    """The list ``array`` with ``x`` at ``i`` (None in any gap before
+    it)."""
+    idx = _index(i)
+    new = list(array) if array is not None else []
+    while len(new) <= idx:
+        new.append(None)
+    new[idx] = x
+    return new
+
+
+@register_op('__array_read__')
+def _array_read(array, i):
+    return array[_index(i)]
+
+
+@register_op('__array_length__')
+def _array_length(array):
+    """The length of ``array``, an int32 scalar on its tensors' device."""
+    dev = next((a.device for a in array if a is not None), None)
+    return torch.tensor(len(array), dtype=torch.int32, device=dev)

@@ -1161,3 +1161,81 @@ def test_predictor_runs_on_the_card_by_default(cuda, tmp_path):
     a, b = pred.run([x])[0], pred.run({'image': x})[0]
     assert np.array_equal(a, b)
     assert pred.executor.lowering_count(pred.program) == 1
+
+
+# --------------------------------- static control flow and the PTB LM
+
+def test_control_flow_constructs_on_the_card_match_the_cpu(cuda):
+    """Each construct of chip_smoke.py's phase 12 (cond, case,
+    switch_case, Switch, IfElse, While, while_loop bounded with its
+    gradient and unbounded, DynamicRNN with lengths, tensor arrays) on
+    Executor(CUDAPlace(0)) against Executor(CPUPlace()): f32 atol and rtol
+    1e-6, integers and booleans equal, same shapes and types."""
+    import chip_smoke
+    chip_smoke.check_control_flow_on_card('test')
+
+
+@pytest.mark.parametrize('route', ['padding', 'static'])
+def test_static_ptb_lm_steps_on_the_card_match_the_cpu(cuda, route):
+    """PaddleNLP's PTB LM at test size (vocabulary 50, hidden 16, 2
+    layers, 5 steps, batch 4, dropout off) through CompiledProgram on the
+    card against the CPU executor from the card's startup values, three
+    steps feeding the fetched last states back: losses within rtol 1e-5,
+    the states and every @GRAD of the first step within 1e-5 of their
+    largest entry; no kernel of the port launched; one lowering. Then with
+    dropout 0.65 on the card: finite losses and masks that keep 0.35 of
+    the step outputs within 0.1."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.convert import scope_from_paddle
+    from paddle_tpu_torch.tools import static_ptb_lm
+    kw = dict(vocab_size=50, hidden_size=16, num_layers=2, num_steps=5,
+              batch_size=4)
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_ptb_lm.build(fluid, route, dropout=0.0,
+                                                  **kw)
+    rng = np.random.default_rng(8)
+    feeds = [{'x': rng.integers(0, 50, (4, 5, 1)),
+              'y': rng.integers(0, 50, (20, 1))} for _ in range(3)]
+    state = 0.1 * rng.standard_normal((2, 2, 4, 16), np.float32)
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    persist = [x.name for x in main.list_vars() if x.persistable]
+    scope_from_paddle({n: gscope.find(n).cpu().numpy() for n in persist},
+                      cscope, fluid.CPUPlace(), program=main)
+    grads = [p.name + '@GRAD' for p in main.all_parameters()]
+    step = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=v['loss'].name)
+    nn_ops.reset_launch_counts()
+    runs = {}
+    for name, exe, scope in (('card', gpu, gscope), ('cpu', cpu, cscope)):
+        h, c, out = state[0], state[1], []
+        for i, f in enumerate(feeds):
+            fetch = [v['loss'], v['last_hidden'], v['last_cell']] + (
+                grads if i == 0 else [])
+            got = exe.run(step, feed={**f, 'init_hidden': h,
+                                      'init_cell': c},
+                          fetch_list=fetch, scope=scope)
+            h, c = got[1], got[2]
+            out.append(got)
+        runs[name] = out
+    assert set(nn_ops.launch_counts().values()) == {0}
+    for got, want in zip(runs['card'], runs['cpu']):
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+        for g, w in zip(got[1:], want[1:]):
+            assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    assert gpu.lowering_count(main) == 1
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_ptb_lm.build(fluid, route, dropout=0.65,
+                                                  **kw)
+    with fluid.scope_guard(fluid.Scope()):
+        gpu.run(startup)
+        scan = next(op for op in main.global_block().ops
+                    if op.type == '__scan__')
+        fetch = [v['loss']] + ([scan.outputs['Out'][-1]]
+                               if route == 'padding' else [])
+        out = gpu.run(main, feed={**feeds[0], 'init_hidden': state[0],
+                                  'init_cell': state[1]}, fetch_list=fetch)
+    assert np.isfinite(out[0])
+    if route == 'padding':
+        assert abs((out[1] != 0).mean() - 0.35) < 0.1

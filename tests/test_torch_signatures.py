@@ -10,9 +10,9 @@ took over in doing so behave as the reference's do (on the CPU).
   LeNet uses, ``simple_img_conv_pool``, ``append_backward``,
   ``Executor.run`` and ``Optimizer.minimize``), and those of the static
   ResNet recipe's surface (the new layers and schedules,
-  ``CompiledProgram``, ``io``'s save and load, the Predictor). So are the
-  dygraph API's
-  layer constructors, ``Layer``'s methods, the learning-rate schedules,
+  ``CompiledProgram``, ``io``'s save and load, the Predictor), and the
+  control-flow layers and recurrent cells the PTB LM slice ported. So are
+  the dygraph API's layer constructors, ``Layer``'s methods, the learning-rate schedules,
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
   ``decorate``, the ERNIE model and ``finetune_optimizer``,
@@ -85,7 +85,11 @@ SHARED_OPS = [
     ('tensor_ops', 'top_k'), ('tensor_ops', 'arange'),
     ('loss_ops', 'cross_entropy'),
     ('loss_ops', 'sigmoid_cross_entropy_with_logits'),
-    ('loss_ops', 'square_error_cost')]
+    ('loss_ops', 'square_error_cost'),
+    # the static control flow and the recurrent cells
+    ('math_ops', 'sigmoid'), ('math_ops', 'tanh'),
+    ('tensor_ops', 'slice_op'), ('tensor_ops', 'reverse'),
+    ('tensor_ops', 'where')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -138,7 +142,22 @@ FLUID_ENTRY_POINTS = [
     ('io', 'save_persistables'), ('io', 'load_persistables'),
     ('io', 'save_inference_model'), ('io', 'load_inference_model'),
     ('io', 'save'), ('io', 'load'), ('inference', 'Predictor'),
-    ('inference', 'Config')]
+    ('inference', 'Config'),
+    # the static control flow and the recurrent cells of the PTB LM slice
+    ('layers', 'cond'), ('layers', 'case'), ('layers', 'switch_case'),
+    ('layers', 'while_loop'), ('layers', 'While'), ('layers', 'While.block'),
+    ('layers', 'StaticRNN'), ('layers', 'StaticRNN.step_input'),
+    ('layers', 'StaticRNN.memory'), ('layers', 'StaticRNN.update_memory'),
+    ('layers', 'StaticRNN.step_output'), ('layers', 'Switch'),
+    ('layers', 'Switch.case'), ('layers', 'IfElse'),
+    ('layers', 'DynamicRNN'), ('layers', 'DynamicRNN.step_input'),
+    ('layers', 'DynamicRNN.memory'), ('layers', 'DynamicRNN.update_memory'),
+    ('layers', 'create_array'), ('layers', 'array_write'),
+    ('layers', 'array_read'), ('layers', 'array_length'),
+    ('layers', 'is_empty'), ('layers', 'tensor_array_to_tensor'),
+    ('layers', 'reverse'), ('layers', 'RNNCell.get_initial_states'),
+    ('layers', 'GRUCell'), ('layers', 'LSTMCell'), ('layers', 'rnn'),
+    ('layers', 'birnn'), ('layers', 'lstm')]
 
 
 @pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,

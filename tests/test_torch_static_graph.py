@@ -503,11 +503,12 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
     with fluid.program_guard(main, startup):
         x = fluid.data('np_x', [2, 3], 'float32')
         with pytest.raises(NotImplementedError, match='A.10'):
-            fluid.layers.sigmoid(x)
+            fluid.layers.logsigmoid(x)
         with pytest.raises(NotImplementedError, match='A.10'):
             fluid.layers.common.apply_op_layer('lstm', {'x': x})
-        main.global_block().append_op('__while__', attrs={})
-    with pytest.raises(NotImplementedError, match='A.8a'):
+        main.global_block().append_op('__backward__',
+                                      attrs={'checkpoints': ['np_x']})
+    with pytest.raises(NotImplementedError, match='A.8e'):
         cpu_exe().run(main, feed={'np_x': np.ones((2, 3), 'float32')})
     with pytest.raises(NotImplementedError, match='A.4'):
         fluid.optimizer.Adam(0.001, lazy_mode=True)
