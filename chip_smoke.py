@@ -193,12 +193,31 @@ Phases:
    profiled step (busy, idle share, launches and the top kernels by
    kind). None of the port's kernels is on this path: every launch count
    stays 0;
-13. a ``{"kernels": [...]}`` line (all six kernels, each with its
-   ``launches_ptb``) and, last, ``{"ok": true, "device": {...}}``.
+13. PaddleNLP's attention seq2seq (``tools/static_seq2seq.py``, IWSLT'15
+   en-vi: vocabularies 17,191 and 7,709, hidden 512, 2 + 2 LSTM layers,
+   26,927,616 parameters) through ``Executor(CUDAPlace(0))``: its first
+   step at batch 8, dropout off, against the CPU in f32 and float64 (loss
+   and the 13 gradients in L2 norm against the CPU's f64 run, as phase
+   11; 0.9x the card's gradients must fail); then batch 128 of one seeded
+   batch of sentence pairs (lengths 10-50, the recipe's </s> padding to
+   50 and 49 positions), dropout 0.2, ``Adam(0.001)`` with the global-norm
+   clip at 5: 3 warm-up and 20 timed steps, then untimed ones to 40, each
+   synchronised; every loss finite, the last below the first, one
+   lowering; target tokens/s, step p50, min and max, host dispatch and
+   its cost an op, peak device memory and one profiled step; then
+   ``infer.py``'s beam search (beam 10, 100 steps) over the trained
+   parameters: the card's ids against the CPU's at batch 2 (equal, or
+   parted at a near tie of the step scores), and batch 128 timed:
+   sentences/s, ms a decode step and one profiled decode. None of the
+   port's kernels is on this path: every launch count stays 0;
+14. a ``{"kernels": [...]}`` line (all six kernels, each with its
+   ``launches_ptb`` and ``launches_s2s``) and, last, ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -2242,29 +2261,6 @@ STATIC_STEP_GROUPS = {
     or 'foreach' in key.lower()}
 
 
-def as_float64(program):
-    """A clone of ``program`` that computes in float64: every float32
-    variable, dtype attr and constant table made float64."""
-    p = program.clone()
-    for block in p.blocks:
-        for var in block.vars.values():
-            if var.dtype == 'float32':
-                var.dtype = 'float64'
-        for op in block.ops:
-            for k, a in op.attrs.items():
-                if 'dtype' in k and a == 'float32':
-                    op.attrs[k] = 'float64'
-                elif isinstance(a, np.ndarray) and a.dtype == np.float32:
-                    op.attrs[k] = a.astype(np.float64)
-    return p
-
-
-def rel_l2(got, ref):
-    """|got - ref| / |ref| in L2 norm, in f64."""
-    return float(np.linalg.norm(got.astype(np.float64) - ref)
-                 / np.linalg.norm(ref))
-
-
 def four_step_runs(fluid, main, loss_name, host, feed, fetch):
     """One step of ``main`` through ``CompiledProgram`` from the values
     ``host`` (numpy, by name) four times: on the card and on
@@ -2272,6 +2268,7 @@ def four_step_runs(fluid, main, loss_name, host, feed, fetch):
     (``as_float64``). Returns ({(place, type): fetched}, {(place, type):
     seconds})."""
     from paddle_tpu_torch.convert import scope_from_paddle
+    from paddle_tpu_torch.tools.witness import as_float64
     main64 = as_float64(main)
     runs, secs = {}, {}
     for place in ('card', 'cpu'):
@@ -2297,6 +2294,7 @@ def static_resnet_card_against_cpu(fluid, main, v, gscope, seed, card):
     (``gscope``) four times: on the card and on ``Executor(CPUPlace())``,
     each in f32 and in float64 (``as_float64``); the CPU's f64 run is the
     witness the other three are held to."""
+    from paddle_tpu_torch.tools.witness import rel_l2
     persist = [x.name for x in main.list_vars() if x.persistable]
     host = {n: gscope.find(n).cpu().numpy() for n in persist}
     rng = np.random.default_rng(seed + 11)
@@ -2738,6 +2736,7 @@ def ptb_card_against_cpu(fluid, static_ptb_lm, seed, card):
     """The first step at ``large``'s widths, batch 4, dropout off, from the
     card's startup values four times (``four_step_runs``); the CPU's f64
     run is the witness."""
+    from paddle_tpu_torch.tools.witness import rel_l2
     with fluid.unique_name.guard():
         main, startup, _, v = static_ptb_lm.build(
             fluid, 'padding', batch_size=PTB_CHECK_BATCH, dropout=0.0)
@@ -2817,13 +2816,14 @@ def ptb_batch(seed, c):
     return {'x': ids[:, :n, None], 'y': ids[:, 1:].reshape(-1, 1)}
 
 
-def ptb_ops_run(program, num_steps):
+def ops_run(program, trips):
     """Ops a run of ``program`` executes: the global block's, and each
-    scan's step block once a time step."""
+    scan's step block once a trip (``trips``: one count a scan, in
+    program order)."""
     n = len(program.global_block().ops)
-    for op in program.global_block().ops:
-        if op.type == '__scan__':
-            n += num_steps * len(program.block(op.attrs['block']).ops)
+    scans = [op for op in program.global_block().ops if op.type == '__scan__']
+    for op, k in zip(scans, trips):
+        n += k * len(program.block(op.attrs['block']).ops)
     return n
 
 
@@ -2900,8 +2900,8 @@ def train_ptb_route(fluid, static_ptb_lm, route, seed, card):
                     return_numpy=False)
             out.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
-    ops_run = ptb_ops_run(main, c['num_steps'])
-    ops_fwd = ptb_ops_run(test, c['num_steps'])
+    n_ops = ops_run(main, itertools.repeat(c['num_steps']))
+    ops_fwd = ops_run(test, itertools.repeat(c['num_steps']))
     d50, f50 = (statistics.median(dispatch) * 1e3,
                 statistics.median(forward) * 1e3)
     share = tokens_s / PTB_TOKENS * PTB_GFLOP_PER_STEP * 1e9 \
@@ -2914,8 +2914,8 @@ def train_ptb_route(fluid, static_ptb_lm, route, seed, card):
         f'{tokens_s:.1f} tokens/s over the timed steps, step p50 '
         f'{p50:.3f} ms (min '
         f'{min(timed_s) * 1e3:.3f}, max {max(timed_s) * 1e3:.3f}); host '
-        f'dispatch p50 {d50:.3f} ms for {ops_run} ops '
-        f'({d50 / ops_run * 1e3:.2f} us an op; run returning device '
+        f'dispatch p50 {d50:.3f} ms for {n_ops} ops '
+        f'({d50 / n_ops * 1e3:.2f} us an op; run returning device '
         f'tensors, before the sync), '
         f'the forward alone (test program) {f50:.3f} ms for {ops_fwd} ops; '
         f'peak device memory {peak} bytes; model-FLOP share {share:.4f} '
@@ -2945,6 +2945,313 @@ def train_static_ptb_lm(seed, card):
     summary = [train_ptb_route(fluid, static_ptb_lm, route, seed, card)
                for route in ('padding', 'static')]
     log(f'static PTB LM [{card}]: ' + '; '.join(summary))
+    return nn_ops.launch_counts()
+
+
+
+# Phase 13: PaddleNLP's attention seq2seq (tools/static_seq2seq.py) at the
+# recipe's width (IWSLT'15 en-vi: vocabularies 17,191 and 7,709, hidden
+# 512, 2 + 2 LSTM layers, 26,927,616 parameters), nothing cut. One batch
+# of 128 seeded sentence pairs, lengths drawn in 10-50 with a Zipf skew of
+# the token ids, padded with </s> as the recipe's reader pads them (to 50
+# source and 49 target positions, the longest the lengths can be), trained
+# through Executor(CUDAPlace(0)) with Adam(0.001) and the global-norm clip
+# at 5: S2S_WARMUP warm-up and TRAIN_STEPS timed steps, each synchronised,
+# then untimed ones to S2S_STEPS; the loss must stay finite and end below
+# its start. The card against the CPU at batch S2S_CHECK_BATCH, dropout
+# off, as phases 11 and 12 (four_step_runs): the loss and the 13 gradients
+# in L2 norm against the CPU's float64 run. Then the beam search (beam 10,
+# up to 100 steps, infer.py's program) over the trained parameters: the
+# card's ids against the CPU's at batch S2S_BEAM_CHECK_BATCH (equal, or
+# parted where the two runs' step scores first differ by no more than
+# NEAR_TIE), then at batch 128, timed.
+S2S_PARAMS, S2S_CHECK_BATCH, S2S_BEAM_CHECK_BATCH = 26927616, 8, 2
+S2S_WARMUP, S2S_STEPS, S2S_DECODES = 3, 40, 3
+S2S_LENGTHS = (10, 50)          # sentence lengths drawn, </s> counted
+S2S_F64_RTOL, S2S_F64_LOSS_RTOL, S2S_GRAD_FLOOR = 1e-6, 1e-10, 1e-4
+S2S_LOSS_RTOL = 1e-4            # the f32 loss against the f32 CPU run's
+S2S_SCORE_RTOL = 1e-5           # beam step scores, card against CPU, f32
+S2S_STEP_GROUPS = {
+    'kernels': lambda key: not key.startswith(('Memcpy', 'Memset')),
+    'copies and fills': lambda key: key.startswith(('Memcpy', 'Memset')),
+    'gemm': STATIC_STEP_GROUPS['gemm'],
+    'elementwise': lambda key: 'elementwise' in key,
+    'reductions': lambda key: 'reduce_kernel' in key,
+    'softmax': lambda key: 'softmax' in key.lower(),
+    'top-k and sort': lambda key: any(t in key.lower()
+                                      for t in ('topk', 'sort', 'radix')),
+    'gather and index': lambda key: any(t in key.lower() for t in (
+        'gather', 'index', 'embedding')),
+    'concat': lambda key: 'CatArray' in key}
+
+
+def s2s_batch(seed, batch, c):
+    """The recipe's feeds for one batch of seeded sentence pairs: lengths
+    (</s> counted) drawn in ``S2S_LENGTHS``, ids with a Zipf skew over the
+    vocabulary past the three marks; the source ends with </s>, the
+    target runs <s> ... </s>; both padded with </s> to the recipe's
+    widths. ``tar`` is the target but its last position, ``label`` but
+    its first, ``tar_sequence_length`` the target's length less one."""
+    from paddle_tpu_torch.tools import static_seq2seq
+    rng = np.random.default_rng(seed)
+    end, start = static_seq2seq.END, static_seq2seq.START
+
+    def rows(n_rows, width, vocab, bos):
+        p = 1.0 / np.arange(1, vocab - 2)
+        lens = rng.integers(S2S_LENGTHS[0], S2S_LENGTHS[1] + 1, n_rows)
+        out = np.full((n_rows, width), end, np.int64)
+        for i, k in enumerate(lens):
+            body = 3 + rng.choice(vocab - 3, k - 1 - bos, p=p / p.sum())
+            out[i, bos:k - 1] = body
+            if bos:
+                out[i, 0] = start
+        return out, lens
+
+    src, src_lens = rows(batch, c['src_len'], c['src_vocab_size'], 0)
+    tar, tar_lens = rows(batch, c['tar_len'] + 1, c['tar_vocab_size'], 1)
+    return {'src': src, 'src_sequence_length': src_lens.astype(np.int32),
+            'tar': tar[:, :-1], 'label': tar[:, 1:, None],
+            'tar_sequence_length': (tar_lens - 1).astype(np.int32)}
+
+
+def s2s_card_against_cpu(fluid, static_seq2seq, seed, card):
+    """The first training step at the recipe's width, batch
+    ``S2S_CHECK_BATCH``, dropout off, from the card's startup values four
+    times (``four_step_runs``); the CPU's f64 run is the witness."""
+    from paddle_tpu_torch.tools.witness import rel_l2
+    with fluid.unique_name.guard():
+        main, startup, v = static_seq2seq.build(
+            fluid, batch_size=S2S_CHECK_BATCH, dropout=0.0)
+    gexe, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gexe.run(startup, scope=gscope)
+    host = {x.name: gscope.find(x.name).cpu().numpy()
+            for x in main.list_vars() if x.persistable}
+    feed = s2s_batch(seed + 13, S2S_CHECK_BATCH, static_seq2seq.RECIPE)
+    params = [p.name for p in main.all_parameters()]
+    fetch = [v['loss'].name] + [n + '@GRAD' for n in params]
+    runs, secs = four_step_runs(fluid, main, v['loss'].name, host, feed,
+                                fetch)
+    got, want = runs['card', 'float32'], runs['cpu', 'float32']
+    got64, wit = runs['card', 'float64'], runs['cpu', 'float64']
+    if got64[1].dtype != np.float64 or wit[1].dtype != np.float64:
+        raise AssertionError('the float64 runs computed in '
+                             f'{got64[1].dtype}, {wit[1].dtype}')
+    loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    loss64 = abs(float(got64[0]) - float(wit[0])) / abs(float(wit[0]))
+    f64 = {n: rel_l2(g, x) for n, g, x in zip(params, got64[1:], wit[1:])}
+    f32 = {n: (rel_l2(g, x), 2 * rel_l2(w, x) + S2S_GRAD_FLOOR)
+           for n, g, w, x in zip(params, got[1:], want[1:], wit[1:])}
+    s64 = min(rel_l2(np.float64(0.9) * g, x) / S2S_F64_RTOL
+              for g, x in zip(got64[1:], wit[1:]))
+    s32 = min(rel_l2(np.float32(0.9) * g, x) / f32[n][1]
+              for n, g, x in zip(params, got[1:], wit[1:]))
+    w64 = max(f64, key=f64.get)
+    log(f'static seq2seq, batch {S2S_CHECK_BATCH}, dropout off, card '
+        f'against the CPU executor, the {len(params)} gradients as |x - '
+        f'witness| / |witness| (L2; the witness the CPU\'s f64 run) '
+        f'[{card}]. float64: loss {float(got64[0])!r} (witness '
+        f'{float(wit[0])!r}, relative {loss64:.3e}); ' + ', '.join(
+            f'{n} {e:.3e}' for n, e in f64.items())
+        + f' (bound {S2S_F64_RTOL}). f32, TF32 off: loss {float(got[0])!r} '
+        f'(cpu {float(want[0])!r}, relative {loss_err:.3e}); card / bound '
+        f'(2x the f32 cpu\'s + {S2S_GRAD_FLOOR}): ' + ', '.join(
+            f'{n} {e:.3e} / {b:.3e}' for n, (e, b) in f32.items())
+        + f'. The card\'s gradients scaled by 0.9 read at least {s64:.3e}x '
+        f'(f64) and {s32:.2f}x (f32) their bounds. Steps took ' + ', '.join(
+            f'{p} {t} {x:.1f} s' for (p, t), x in secs.items()))
+    if s64 <= 1 or s32 <= 1:
+        raise AssertionError('the gradient check passes a gradient scaled '
+                             'by 0.9')
+    if loss64 > S2S_F64_LOSS_RTOL or f64[w64] > S2S_F64_RTOL:
+        raise AssertionError('the static seq2seq in float64 on the card '
+                             'differs from the CPU beyond the stated '
+                             'tolerance')
+    if loss_err > S2S_LOSS_RTOL or any(e > b for e, b in f32.values()):
+        raise AssertionError('the static seq2seq on the card differs from '
+                             'the CPU executor beyond the stated tolerance')
+
+
+def train_s2s(fluid, static_seq2seq, seed, card):
+    """The recipe's train program at full width and batch 128 on one
+    seeded batch: trained, timed and profiled. Returns (the card's scope,
+    the batch, a summary)."""
+    import torch
+    c = static_seq2seq.RECIPE
+    with fluid.unique_name.guard():
+        main, startup, v = static_seq2seq.build(fluid)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    if n_params != S2S_PARAMS:
+        raise AssertionError(f'seq2seq has {n_params} parameters')
+    batch = s2s_batch(seed, c['batch_size'], c)
+    tokens = int(batch['tar_sequence_length'].sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses, secs = [], []
+    for _ in range(S2S_STEPS):
+        t0 = time.perf_counter()
+        loss, = exe.run(main, feed=batch, fetch_list=[v['loss']],
+                        scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    log('static seq2seq losses: ' + ' '.join(repr(x) for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'seq2seq losses: not finite or not falling '
+                             f'over {len(losses)} steps')
+    lowered = exe.lowering_count(main)
+    if lowered != 1:
+        raise AssertionError(f'train program lowered {lowered} times')
+    timed_s = secs[S2S_WARMUP:S2S_WARMUP + TRAIN_STEPS]
+    p50 = statistics.median(timed_s) * 1e3
+    tokens_s = tokens * TRAIN_STEPS / sum(timed_s)
+    dispatch = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        exe.run(main, feed=batch, fetch_list=[v['loss']], scope=scope,
+                return_numpy=False)
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    n_ops = ops_run(main, (c['src_len'], c['tar_len']))
+    d50 = statistics.median(dispatch) * 1e3
+    log(f'static seq2seq trained [{card}]: {len(losses)} steps '
+        f'({S2S_WARMUP} warm-up, {TRAIN_STEPS} timed, '
+        f'{len(losses) - S2S_WARMUP - TRAIN_STEPS} more untimed) at batch '
+        f'{c["batch_size"]} x {c["src_len"]} source, {c["tar_len"]} target '
+        f'positions ({tokens} target tokens, the loss\'s), dropout '
+        f'{c["dropout"]}, f32 (TF32 off), Adam({static_seq2seq.LEARNING_RATE})'
+        f' with the global-norm clip at {static_seq2seq.MAX_GRAD_NORM}: '
+        f'{tokens_s:.1f} target tokens/s over the timed steps, step p50 '
+        f'{p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}); host dispatch p50 {d50:.3f} ms for '
+        f'{n_ops} ops ({d50 / n_ops * 1e3:.2f} us an op; run returning '
+        f'device tensors, before the sync); peak device memory {peak} '
+        f'bytes; loss {losses[0]!r} -> {losses[-1]!r}; lowerings of the '
+        f'train program {lowered}')
+    profile_train_step(
+        lambda: exe.run(main, feed=batch, fetch_list=[v['loss']],
+                        scope=scope),
+        (), p50, card, S2S_STEP_GROUPS, what='static seq2seq train step')
+    return scope, batch, (f'train {tokens_s:.1f} target tokens/s, p50 '
+                          f'{p50:.3f} ms')
+
+
+def s2s_beam_program(fluid, static_seq2seq, batch_size, trained, place):
+    """The recipe's beam-search program at ``batch_size`` and an executor
+    and scope on ``place`` holding the ``trained`` parameters (numpy, by
+    name)."""
+    from paddle_tpu_torch.convert import scope_from_paddle
+    with fluid.unique_name.guard():
+        prog, _, v = static_seq2seq.build(fluid, 'beam_search',
+                                          batch_size=batch_size)
+    scope = fluid.Scope()
+    scope_from_paddle(trained, scope, place, program=prog)
+    return fluid.Executor(place), prog, scope, v
+
+
+def s2s_beams_equal_or_near_tie(got, want, what):
+    """The card's beam ids and step scores (B, T, W) against the CPU's:
+    each row's ids equal, or the first step where the two runs' scores
+    part beyond f32 round-off parts them by at most ``NEAR_TIE`` (a near
+    tie chose another candidate there). Returns the rows that parted."""
+    (gi, gs), (wi, ws) = got, want
+    tol = S2S_SCORE_RTOL * np.maximum(np.abs(ws), 1.0)
+    parted = []
+    for r in range(gi.shape[0]):
+        if np.array_equal(gi[r], wi[r]):
+            continue
+        off = np.nonzero((np.abs(gs[r] - ws[r]) > tol[r]).any(-1))[0]
+        gap = (float(np.abs(gs[r, off[0]] - ws[r, off[0]]).max())
+               if off.size else 0.0)
+        log(f'{what}: row {r} differs; step scores first part at step '
+            f'{int(off[0]) if off.size else None} by {gap:.3e} (near-tie '
+            f'limit {NEAR_TIE})')
+        if gap > NEAR_TIE:
+            raise AssertionError(f'{what}: row {r} differs with a step score '
+                                 f'gap of {gap}')
+        parted.append(r)
+    return parted
+
+
+def beam_search_s2s(fluid, static_seq2seq, scope, batch, card):
+    """infer.py's beam search over the trained parameters: the card against
+    the CPU at a small batch, then batch 128 timed and profiled. Returns a
+    summary."""
+    import torch
+    c = static_seq2seq.RECIPE
+    with fluid.unique_name.guard():
+        names = [p.name for p in static_seq2seq.build(
+            fluid, 'beam_search')[0].all_parameters()]
+    trained = {n: scope.find(n).cpu().numpy() for n in names}
+    k = S2S_BEAM_CHECK_BATCH
+    small = {n: batch[n][:k] for n in ('src', 'src_sequence_length')}
+    runs = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        exe, prog, bscope, v = s2s_beam_program(fluid, static_seq2seq, k,
+                                                trained, place)
+        runs.append(exe.run(prog, feed=small,
+                            fetch_list=[v['ids'], v['scores']],
+                            scope=bscope))
+    (gi, gs), (wi, ws) = runs
+    parted = s2s_beams_equal_or_near_tie((gi, gs), (wi, ws),
+                                         'seq2seq beam search')
+    log(f'static seq2seq beam search, card against the CPU executor at '
+        f'batch {k}, beam {c["beam_size"]}, {c["max_decode_steps"]} steps '
+        f'[{card}]: ids {gi.shape} equal in {k - len(parted)} of {k} rows; '
+        f'step scores max |diff| {float(np.abs(gs - ws).max()):.3e}; best '
+        f'beam of row 0: {gi[0, :12, 0].tolist()}...')
+    exe, prog, bscope, v = s2s_beam_program(
+        fluid, static_seq2seq, c['batch_size'], trained, fluid.CUDAPlace(0))
+    feed = {n: batch[n] for n in ('src', 'src_sequence_length')}
+    secs = []
+    for _ in range(1 + S2S_DECODES):
+        t0 = time.perf_counter()
+        ids, scores = exe.run(prog, feed=feed,
+                              fetch_list=[v['ids'], v['scores']],
+                              scope=bscope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    steps = c['max_decode_steps']
+    want_shape = (c['batch_size'], steps, c['beam_size'])
+    if ids.shape != want_shape or not np.isfinite(scores).all():
+        raise AssertionError(f'beam ids {ids.shape} (want {want_shape}) or '
+                             f'scores not finite')
+    if not ((ids >= 0) & (ids < c['tar_vocab_size'])).all():
+        raise AssertionError('beam ids outside the target vocabulary')
+    if exe.lowering_count(prog) != 1:
+        raise AssertionError('beam-search program lowered more than once')
+    p50 = statistics.median(secs[1:]) * 1e3
+    sentences_s = c['batch_size'] / (p50 / 1e3)
+    finished = float((ids[:, -1, :] == static_seq2seq.END).mean())
+    log(f'static seq2seq beam search [{card}]: batch {c["batch_size"]} x '
+        f'beam {c["beam_size"]}, {steps} steps (the static decode runs all '
+        f'of them), {S2S_DECODES} timed decodes after one warm-up, each '
+        f'synchronised: p50 {p50:.3f} ms ({p50 / steps:.3f} ms a decode '
+        f'step), {sentences_s:.1f} sentences/s; '
+        f'{ops_run(prog, (c["src_len"], steps))} ops a decode; beams ending '
+        f'in </s> {finished:.3f}')
+    profile_train_step(
+        lambda: exe.run(prog, feed=feed, fetch_list=[v['ids']],
+                        scope=bscope),
+        (), p50, card, S2S_STEP_GROUPS, what='static seq2seq beam search')
+    return f'beam search {sentences_s:.1f} sentences/s, p50 {p50:.3f} ms'
+
+
+def train_static_seq2seq(seed, card):
+    """Phase 13: PaddleNLP's attention seq2seq at the recipe's width: card
+    against CPU, trained, then beam-searched. Returns the kernels' launch
+    counts over the phase (none of the port's kernels is on this path)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.tools import static_seq2seq
+    nn_ops.reset_launch_counts()
+    fluid.seed(seed)
+    s2s_card_against_cpu(fluid, static_seq2seq, seed, card)
+    scope, batch, trained = train_s2s(fluid, static_seq2seq, seed, card)
+    decoded = beam_search_s2s(fluid, static_seq2seq, scope, batch, card)
+    log(f'static seq2seq [{card}]: {trained}; {decoded}')
     return nn_ops.launch_counts()
 
 
@@ -3072,12 +3379,27 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_ptb'] = ptb[wrapper]
 
-    # 13. result lines
-    log(f'chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s '
+    # 13. PaddleNLP's attention seq2seq trained and beam-searched through
+    # Executor(CUDAPlace(0)); no kernel of the port is on this path, and
+    # none may launch
+    torch.cuda.empty_cache()
+    s2s = train_static_seq2seq(args.seed, smi)
+    if any(s2s.values()):
+        raise AssertionError(f'kernels launched on the static seq2seq path: '
+                             f'{s2s}')
+    log(f'static seq2seq path kernel launches: {s2s}')
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_s2s'] = s2s[wrapper]
+
+    # 14. result lines
+    log(f'chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
-            'shape', 'launches_ptb')
+            'shape', 'launches_ptb', 'launches_s2s')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
             x for x in ('body', 'launches_wgmma', 'launches_ernie', 'stock',

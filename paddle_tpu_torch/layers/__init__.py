@@ -1,22 +1,24 @@
 """fluid.layers of the port (counterpart of paddle_tpu/layers/): the layer
-functions of nn.py, tensor.py, loss.py, io.py, control_flow.py, rnn.py and
-learning_rate_scheduler.py, ``accuracy``, and the Variable operators of
-math_op_patch.py (applied at import, as in the JAX package).
+functions of nn.py, tensor.py, loss.py, io.py, control_flow.py, rnn.py,
+sequence_lod.py and learning_rate_scheduler.py, ``accuracy``, and the
+Variable operators of math_op_patch.py (applied at import, as in the JAX
+package).
 
-Every public name of the JAX package's ``layers`` exists here: 122 of its
+Every public name of the JAX package's ``layers`` exists here: 139 of its
 340 callables run. Those the port does not run yet are callables that
-raise ``NotImplementedError`` naming their ROADMAP item, 142 from the one
+raise ``NotImplementedError`` naming their ROADMAP item, 129 from the one
 table :data:`NOT_PORTED` (A.11 the readers and host callbacks, A.10 the
-sequence/LoD, detection, decoder and distribution layers and the layers
-over ops the port has not registered) and 76 generated layers over such
-ops (layers/nn.py). The modules ``detection``, ``distributions`` and
-``sequence_lod`` raise the same way on any attribute."""
+sequence/LoD, detection and distribution layers and the layers over ops
+the port has not registered) and 72 generated layers over such ops
+(layers/nn.py). The modules ``detection`` and ``distributions`` raise the
+same way on any attribute, ``sequence_lod`` on any but
+``sequence_mask``."""
 import functools
 import types
 import warnings
 
 from . import (common, control_flow, io, learning_rate_scheduler, loss,
-               math_op_patch, nn, tensor, utils)
+               math_op_patch, nn, sequence_lod, tensor, utils)
 from .common import apply_op_layer as _apply
 from .common import generate_layer_fn
 from .common import generate_layer_fn as generate_activation_fn
@@ -27,6 +29,7 @@ from .loss import *  # noqa: F401,F403
 from .math_op_patch import monkey_patch_variable
 from .nn import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403  (the rnn() function over the module)
+from .sequence_lod import sequence_mask
 from .tensor import *  # noqa: F401,F403
 from .utils import (assert_same_structure, convert_to_list, is_sequence,
                     map_structure, pack_sequence_as)
@@ -72,8 +75,8 @@ def deprecated(since='', instead='', extra_message=''):
 
 
 _WHY = {
-    'A.10': ('the sequence/LoD, detection, decoder and distribution layers '
-             'and the layers over ops the port has not registered'),
+    'A.10': ('the sequence/LoD, detection and distribution layers and the '
+             'layers over ops the port has not registered'),
     'A.11': 'the readers and host callbacks',
 }
 
@@ -84,12 +87,8 @@ NOT_PORTED = dict.fromkeys([
     'py_func', 'Print', 'load',
 ], 'A.11')
 NOT_PORTED.update(dict.fromkeys([
-    # decoders and the LoD recurrent layers
-    'BasicDecoder', 'BasicDecoderOutput', 'BeamSearchDecoder', 'DecodeHelper',
-    'Decoder', 'GreedyEmbeddingHelper', 'SampleEmbeddingHelper',
-    'TrainingHelper', 'beam_search', 'beam_search_decode', 'dynamic_decode',
-    'dynamic_gru', 'dynamic_lstm', 'dynamic_lstmp', 'gather_tree',
-    'gru_unit', 'lstm_unit',
+    # the LoD recurrent layers
+    'dynamic_gru', 'dynamic_lstm', 'dynamic_lstmp', 'gru_unit', 'lstm_unit',
     # distributions
     'Categorical', 'MultivariateNormalDiag', 'Normal', 'Uniform',
     # detection
@@ -105,7 +104,7 @@ NOT_PORTED.update(dict.fromkeys([
     # sequences and LoD
     'sequence_concat', 'sequence_conv', 'sequence_enumerate',
     'sequence_expand', 'sequence_expand_as', 'sequence_first_step',
-    'sequence_last_step', 'sequence_mask', 'sequence_pad', 'sequence_pool',
+    'sequence_last_step', 'sequence_pad', 'sequence_pool',
     'sequence_reshape', 'sequence_reverse', 'sequence_scatter',
     'sequence_slice', 'sequence_softmax', 'sequence_unpad', 'lod_append',
     'lod_rank_table', 'lod_reset', 'reorder_lod_tensor_by_rank',
@@ -163,5 +162,4 @@ for _name, _item in NOT_PORTED.items():
         setattr(control_flow, _name, globals()[_name])
 detection = _not_ported_module('detection')
 distributions = _not_ported_module('distributions')
-sequence_lod = _not_ported_module('sequence_lod')
 del _name, _item

@@ -1,6 +1,10 @@
-"""Recurrent cells and layers (counterpart of the first part of
-paddle_tpu/layers/rnn.py and its ``lstm``): ``RNNCell``, ``GRUCell``,
-``LSTMCell``, ``rnn``, ``birnn`` and ``lstm``.
+"""Recurrent cells, layers and decoders (counterpart of
+paddle_tpu/layers/rnn.py but its LoD recurrences): ``RNNCell``,
+``GRUCell``, ``LSTMCell``, ``rnn``, ``birnn`` and ``lstm``; the beam search
+(``BeamSearchDecoder``, ``gather_tree``, the legacy ``beam_search`` and
+``beam_search_decode``) and the ``Decoder``/``DecodeHelper`` family
+(``BasicDecoder`` with ``TrainingHelper``, ``GreedyEmbeddingHelper`` or
+``SampleEmbeddingHelper``), both driven by ``dynamic_decode``.
 
 ``rnn(cell, inputs)`` builds the cell's step into a ``StaticRNN`` (one
 ``__scan__`` op) over the time-major inputs; with ``sequence_length`` a
@@ -13,13 +17,24 @@ stacked ``LSTMCell`` s over ``rnn``, the parity surface of the
 reference's cuDNN ``lstm`` op, with that op's ``default_initializer`` for
 the weights (the JAX package's ``lstm`` takes it and leaves it unused).
 
-The decoders, ``beam_search``, ``gather_tree``, the ``dynamic_*`` LoD
-recurrences, ``lstm_unit`` and ``gru_unit`` are not ported (ROADMAP A.10
-and A.8g): they are callables that raise, from layers/__init__.py's
-table.
+``dynamic_decode`` runs the decoder's ``step`` in one ``StaticRNN`` of
+``max_step_num`` steps in a static program (finished beams masked, the
+trip count fixed, as the JAX package); under a ``dygraph.guard`` it is a
+loop that stops once every beam has finished, so its outputs may have
+fewer steps. The beam search keeps a dense (batch, beam) layout: scores
+start at 0 for beam 0 and -1e9 for the others, and a finished beam
+continues only with ``end_token`` at its score. Where the JAX package
+departs from the reference's documented API (``beam_search``'s outputs,
+``beam_search_decode``'s parents, dygraph decoding), the port follows the
+reference (ROADMAP C.11).
+
+The ``dynamic_*`` LoD recurrences, ``lstm_unit`` and ``gru_unit`` are not
+ported (ROADMAP A.10): they are callables that raise, from
+layers/__init__.py's table.
 """
 from __future__ import annotations
 
+import collections
 import copy
 
 import numpy as np
@@ -31,13 +46,18 @@ from ..initializer import ConstantInitializer, XavierInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from . import nn as nn_layers
+from .common import apply_op_layer
 from . import tensor as tensor_layers
 from .control_flow import StaticRNN, less_than
 from .utils import flatten as _flatten
 from .utils import map_structure as _map_structure
 from .utils import pack_sequence_as as _pack
 
-__all__ = ['RNNCell', 'GRUCell', 'LSTMCell', 'rnn', 'birnn', 'lstm']
+__all__ = ['RNNCell', 'GRUCell', 'LSTMCell', 'rnn', 'birnn', 'lstm',
+           'BeamSearchDecoder', 'dynamic_decode', 'beam_search',
+           'beam_search_decode', 'gather_tree', 'Decoder', 'DecodeHelper',
+           'TrainingHelper', 'GreedyEmbeddingHelper',
+           'SampleEmbeddingHelper', 'BasicDecoderOutput', 'BasicDecoder']
 
 
 def _parameter(helper, attr, shape, dtype, is_bias=False):
@@ -336,3 +356,412 @@ def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
             x = nn_layers.dropout(x, dropout_prob)
     return x, nn_layers.stack(last_hs, axis=0), nn_layers.stack(last_cs,
                                                                 axis=0)
+
+
+# ------------------------------------------------------------ beam search
+
+
+def gather_tree(ids, parents):
+    """The beam-search backtrace of (T, B, W) ``ids`` along their
+    ``parents`` (each step's beam index in the step before)."""
+    return apply_op_layer('gather_tree', {'ids': ids, 'parents': parents})
+
+
+def expand_to_beam(x, beam_size):
+    """(B, ...) -> (B*W, ...), each row repeated W times in a row (the
+    reference's ``tile_beam_merge_with_batch``)."""
+    ex = nn_layers.unsqueeze(x, axes=[1])
+    ex = nn_layers.expand(
+        ex, expand_times=[1, beam_size] + [1] * (len(x.shape) - 1))
+    return nn_layers.reshape(ex, shape=[-1] + list(x.shape[1:]))
+
+
+class BeamSearchDecoder:
+    """Beam search over ``cell`` in a dense (batch, beam) layout with
+    static shapes: each step takes the top ``beam_size`` of each batch
+    row's W x V continuations, a finished beam continuing only with
+    ``end_token`` at its score. Beams start as beam 0 at score 0 and the
+    others at -1e9. ``step`` takes no keyword arguments, as the JAX
+    package's: a cell that reads more than its inputs and states carries
+    it itself (ROADMAP C.11)."""
+
+    def __init__(self, cell, start_token, end_token, beam_size,
+                 embedding_fn=None, output_fn=None):
+        self.cell = cell
+        self.start_token = int(start_token)
+        self.end_token = int(end_token)
+        self.beam_size = int(beam_size)
+        self.embedding_fn = embedding_fn
+        self.output_fn = output_fn
+
+    def _merge(self, x):
+        """(B, W, ...) -> (B*W, ...)"""
+        return nn_layers.reshape(x, shape=[-1] + list(x.shape[2:]))
+
+    def _split(self, x, B):
+        """(B*W, ...) -> (B, W, ...)"""
+        return nn_layers.reshape(
+            x, shape=[B, self.beam_size] + list(x.shape[1:]))
+
+    def _expand_to_beam(self, x):
+        return expand_to_beam(x, self.beam_size)
+
+    def initialize(self, initial_cell_states):
+        """The start tokens' inputs (B, W, ...) and the states ``[cell
+        states (B*W, ...), log probs (B, W), finished (B, W) float,
+        lengths (B, W) int64]``."""
+        flat = _flatten(initial_cell_states)
+        B = flat[0].shape[0]
+        self._batch_size = B
+        W = self.beam_size
+        cell_states = _pack(initial_cell_states,
+                            [self._expand_to_beam(s) for s in flat])
+        start_ids = tensor_layers.fill_constant_array(
+            np.full((B, W), self.start_token, np.int64))
+        inputs = self.embedding_fn(start_ids) if self.embedding_fn \
+            else tensor_layers.cast(start_ids, 'float32')
+        log_probs = tensor_layers.fill_constant_array(
+            np.tile(np.array([0.0] + [-1e9] * (W - 1), np.float32), (B, 1)))
+        finished = tensor_layers.fill_constant_array(
+            np.zeros((B, W), np.float32))
+        lengths = tensor_layers.fill_constant_array(
+            np.zeros((B, W), np.int64))
+        return inputs, [cell_states, log_probs, finished, lengths]
+
+    def step(self, time, inputs, states):
+        """One search step: returns ``([scores, token ids, parent beams]
+        (B, W) each, next states, next inputs, next finished)``."""
+        cell_states, log_probs, finished, lengths = states
+        B, W = self._batch_size, self.beam_size
+        flat_in = self._merge(inputs) if len(inputs.shape) > 2 else inputs
+        cell_out, next_cell_states = self.cell.call(flat_in, cell_states)
+        logits = self.output_fn(cell_out) if self.output_fn else cell_out
+        V = logits.shape[-1]
+        step_lp = self._split(
+            apply_op_layer('log_softmax', {'x': logits}), B)    # (B, W, V)
+        noend = np.full((V,), -1e9, np.float32)
+        noend[self.end_token] = 0.0
+        noend_t = tensor_layers.fill_constant_array(noend.reshape(1, 1, V))
+        fin3 = nn_layers.reshape(finished, shape=[B, W, 1])
+        step_lp = step_lp * (1.0 - fin3) + noend_t * fin3
+        total = nn_layers.reshape(log_probs, shape=[B, W, 1]) + step_lp
+        flat_lp = nn_layers.reshape(total, shape=[B, W * V])
+        top_scores, top_idx = nn_layers.topk(flat_lp, W)       # (B, W)
+        beam_idx = tensor_layers.cast(top_idx, 'int64') // np.int64(V)
+        token_ids = tensor_layers.cast(top_idx, 'int64') % np.int64(V)
+        offs = tensor_layers.fill_constant_array(
+            (np.arange(B) * W).reshape(B, 1).astype(np.int64))
+        flat_sel = nn_layers.reshape(beam_idx + offs, shape=[B * W])
+
+        def sel(x):
+            return nn_layers.gather(x, flat_sel)
+
+        next_cell_states = _pack(next_cell_states,
+                                 [sel(s) for s in _flatten(next_cell_states)])
+        fin_flat = nn_layers.reshape(finished, shape=[B * W])
+        len_flat = nn_layers.reshape(lengths, shape=[B * W])
+        prev_fin = nn_layers.reshape(sel(fin_flat), shape=[B, W])
+        prev_len = nn_layers.reshape(sel(len_flat), shape=[B, W])
+        now_end = tensor_layers.cast(
+            nn_layers.reshape(token_ids, shape=[B, W])
+            == np.int64(self.end_token), 'float32')
+        next_finished = nn_layers.elementwise_max(prev_fin, now_end)
+        next_lengths = prev_len + tensor_layers.cast(1.0 - prev_fin, 'int64')
+        next_inputs = self.embedding_fn(token_ids) if self.embedding_fn \
+            else tensor_layers.cast(token_ids, 'float32')
+        outputs = [top_scores, token_ids, beam_idx]
+        next_states = [next_cell_states, top_scores, next_finished,
+                       next_lengths]
+        return outputs, next_states, next_inputs, next_finished
+
+    def finalize(self, outputs, final_states, sequence_lengths=None):
+        """``[scores, token ids, parent beams]`` (T, B, W) -> (each final
+        beam's ids (T, B, W) by ``gather_tree``, the scores)."""
+        scores, token_ids, parent_ids = outputs
+        return gather_tree(token_ids, parent_ids), scores
+
+
+def dynamic_decode(decoder, inits=None, max_step_num=None,
+                   output_time_major=False, is_test=True, return_length=False,
+                   **kwargs):
+    """``decoder.step`` from ``decoder.initialize(inits)``, then
+    ``decoder.finalize``; returns ``(outputs, final states)`` (and None
+    for the lengths with ``return_length``), batch-major unless
+    ``output_time_major``. A static program runs ``max_step_num`` steps
+    (default 100) in one ``__scan__``, finished beams masked; under a
+    ``dygraph.guard`` it is a loop that stops once every beam has
+    finished (one host read a step), so the outputs' T may be shorter.
+    ``kwargs`` go to every ``step``."""
+    if max_step_num is None:
+        max_step_num = 100
+    initial_inputs, initial_states = decoder.initialize(inits)
+    if in_dygraph_mode():
+        return _dynamic_decode_dygraph(decoder, initial_inputs,
+                                       initial_states, max_step_num,
+                                       output_time_major, return_length,
+                                       **kwargs)
+    times = tensor_layers.fill_constant_array(
+        np.arange(max_step_num, dtype=np.int64))
+    srnn = StaticRNN()
+    flat_init = _flatten([initial_inputs, initial_states])
+    with srnn.step():
+        t = srnn.step_input(times)
+        pre = [srnn.memory(init=s) for s in flat_init]
+        inputs, states = _pack([initial_inputs, initial_states], pre)
+        outputs, next_states, next_inputs, next_finished = decoder.step(
+            t, inputs, states, **kwargs)
+        for pv, nw in zip(pre, _flatten([next_inputs, next_states])):
+            srnn.update_memory(pv, nw)
+        for o in _flatten(outputs):
+            srnn.step_output(o)
+    res = srnn()
+    res = res if isinstance(res, list) else [res]
+    return _finish(decoder, _pack(outputs, res), output_time_major,
+                   return_length)
+
+
+def _finish(decoder, stacked, output_time_major, return_length):
+    a, b = (decoder.finalize(stacked, None)
+            if hasattr(decoder, 'finalize') else (stacked, None))
+    if not output_time_major:
+        a = _map_structure(_transpose_batch_time, a)
+        b = _map_structure(_transpose_batch_time, b) if b is not None else b
+    return (a, b, None) if return_length else (a, b)
+
+
+def _transpose_batch_time(x):
+    """(T, B, ...) <-> (B, T, ...); anything of rank below 2 passes."""
+    if x is None or getattr(x, 'shape', None) is None:
+        return x
+    if len(x.shape) < 2:
+        return x
+    return apply_op_layer('transpose_batch_time', {'x': x})
+
+
+def _dynamic_decode_dygraph(decoder, inputs, states, max_step_num,
+                            output_time_major, return_length, **kwargs):
+    from ..dygraph.tape import Tensor
+    outs = []
+    for t in range(max_step_num):
+        outputs, states, inputs, finished = decoder.step(
+            Tensor(np.int64(t), stop_gradient=True), inputs, states,
+            **kwargs)
+        outs.append(outputs)
+        if bool((finished > 0.5).all()):
+            break
+    stacked = _map_structure(lambda *os: nn_layers.stack(list(os), axis=0),
+                             *outs)
+    return _finish(decoder, stacked, output_time_major, return_length)
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    """One step of beam search over dense candidates: ``pre_ids`` and
+    ``pre_scores`` (B*W, 1), ``ids`` and ``scores`` (B*W, K). Returns
+    ``(selected_ids, selected_scores)`` (B*W, 1), and the flat parent
+    index (B*W,) with ``return_parent_idx``, as the reference documents
+    (the JAX package returns all three always, ROADMAP C.11)."""
+    out = apply_op_layer(
+        'beam_search_step',
+        {'pre_ids': pre_ids, 'pre_scores': pre_scores, 'ids': ids,
+         'scores': scores},
+        {'beam_size': beam_size, 'end_id': end_id,
+         'is_accumulated': is_accumulated,
+         'return_parent_idx': return_parent_idx}, name=name)
+    return out if return_parent_idx else out[:2]
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None):
+    """The full sequences of a finished search and their accumulated
+    scores: ``ids`` (T, B, W) each step's selected ids, or a pair ``(ids,
+    parents)`` with each step's parent beam (its beam index within the
+    batch row, as ``beam_search``'s parent index mod W); ``scores`` (T, B,
+    W). Both are walked back along the parents (a beam is its own parent
+    where none are given). Returns ``(sentence ids, sentence scores)``,
+    (T, B, W) each. The JAX package backtraces ``ids`` along ``scores``
+    (ROADMAP C.11)."""
+    if isinstance(ids, (list, tuple)):
+        ids, parents = ids
+    else:
+        T, B, W = ids.shape
+        parents = tensor_layers.fill_constant_array(np.ascontiguousarray(
+            np.broadcast_to(np.arange(W, dtype=np.int64), (T, B, W))))
+    return gather_tree(ids, parents), gather_tree(scores, parents)
+
+
+# ------------------------------------------- the Decoder / DecodeHelper API
+
+
+class Decoder:
+    """A one-step decoder that ``dynamic_decode`` drives."""
+
+    def initialize(self, inits):
+        raise NotImplementedError
+
+    def step(self, time, inputs, states, **kwargs):
+        raise NotImplementedError
+
+    @property
+    def tracks_own_finished(self):
+        return False
+
+
+class DecodeHelper:
+    """Samples ids from a step's outputs and makes the next step's
+    inputs, for ``BasicDecoder``."""
+
+    def initialize(self):
+        raise NotImplementedError
+
+    def sample(self, time, outputs, states):
+        raise NotImplementedError
+
+    def next_inputs(self, time, outputs, states, sample_ids):
+        raise NotImplementedError
+
+
+def _gather_time(x_tm, time):
+    """(T, B, ...) at the int scalar ``time`` -> (B, ...), a gather on the
+    device (no host read)."""
+    idx = nn_layers.reshape(tensor_layers.cast(time, 'int64'), shape=[1])
+    step = nn_layers.gather(x_tm, idx)
+    return nn_layers.reshape(step, shape=list(x_tm.shape[1:]))
+
+
+class TrainingHelper(DecodeHelper):
+    """Teacher forcing: step t's input is the given sequence's step t; a
+    row finishes at its ``sequence_length`` (else at T)."""
+
+    def __init__(self, inputs, sequence_length=None, time_major=False):
+        self.inputs_tm = inputs if time_major \
+            else _transpose_batch_time(inputs)
+        self.T = self.inputs_tm.shape[0]
+        self.sequence_length = sequence_length
+
+    def initialize(self):
+        first = _gather_time(self.inputs_tm,
+                             tensor_layers.fill_constant([1], 'int64', 0))
+        if self.sequence_length is not None:
+            fin = tensor_layers.cast(
+                apply_op_layer('less_equal',
+                               {'x': self.sequence_length,
+                                'y': tensor_layers.fill_constant(
+                                    [1], 'int64', 0)}), 'float32')
+        else:
+            fin = tensor_layers.fill_constant_batch_size_like(
+                self.inputs_tm, [-1], 'float32', 0.0, input_dim_idx=1,
+                output_dim_idx=0)
+        return first, fin
+
+    def sample(self, time, outputs, states):
+        return nn_layers.reshape(
+            tensor_layers.cast(nn_layers.argmax(outputs, axis=-1), 'int64'),
+            shape=[-1])
+
+    def next_inputs(self, time, outputs, states, sample_ids):
+        next_time = tensor_layers.cast(time, 'int64') + np.int64(1)
+        last = tensor_layers.fill_constant([1], 'int64', self.T - 1)
+        clipped = nn_layers.elementwise_min(
+            nn_layers.reshape(next_time, shape=[1]), last)
+        nxt = _gather_time(self.inputs_tm, clipped)
+        if self.sequence_length is not None:
+            fin = tensor_layers.cast(
+                apply_op_layer(
+                    'greater_equal',
+                    {'x': nn_layers.reshape(next_time, shape=[1]),
+                     'y': tensor_layers.cast(self.sequence_length,
+                                             'int64')}), 'float32')
+        else:
+            fin = tensor_layers.cast(
+                apply_op_layer('greater_equal',
+                               {'x': nn_layers.reshape(next_time, shape=[1]),
+                                'y': tensor_layers.fill_constant(
+                                    [1], 'int64', self.T)}), 'float32')
+            ones = tensor_layers.fill_constant_batch_size_like(
+                self.inputs_tm, [-1], 'float32', 1.0, input_dim_idx=1,
+                output_dim_idx=0)
+            fin = ones * fin        # (B,) * (1,): one flag a row
+        return fin, nxt
+
+
+class GreedyEmbeddingHelper(DecodeHelper):
+    """Greedy generation: the argmax id, through ``embedding_fn``, is the
+    next input; a row finishes at ``end_token``."""
+
+    def __init__(self, embedding_fn, start_tokens, end_token):
+        self.embedding_fn = embedding_fn
+        self.start_tokens = start_tokens
+        self.end_token = int(end_token)
+
+    def initialize(self):
+        fin = tensor_layers.fill_constant_batch_size_like(
+            self.start_tokens, [-1], 'float32', 0.0)
+        return self.embedding_fn(self.start_tokens), fin
+
+    def sample(self, time, outputs, states):
+        return nn_layers.reshape(
+            tensor_layers.cast(nn_layers.argmax(outputs, axis=-1), 'int64'),
+            shape=[-1])
+
+    def next_inputs(self, time, outputs, states, sample_ids):
+        fin = tensor_layers.cast(
+            apply_op_layer('equal',
+                           {'x': sample_ids,
+                            'y': tensor_layers.fill_constant(
+                                [1], 'int64', self.end_token)}), 'float32')
+        return fin, self.embedding_fn(sample_ids)
+
+
+class SampleEmbeddingHelper(GreedyEmbeddingHelper):
+    """``GreedyEmbeddingHelper`` that draws each id from
+    ``softmax(outputs / softmax_temperature)`` (the ``sampling_id`` op,
+    from the port's generator, or from ``seed`` where given)."""
+
+    def __init__(self, embedding_fn, start_tokens, end_token,
+                 softmax_temperature=None, seed=None):
+        super().__init__(embedding_fn, start_tokens, end_token)
+        self.temperature = softmax_temperature
+        self.seed = seed
+
+    def sample(self, time, outputs, states):
+        logits = outputs if self.temperature is None \
+            else outputs / float(self.temperature)
+        probs = nn_layers.softmax(logits)
+        ids = apply_op_layer('sampling_id', {'x': probs},
+                             {'seed': self.seed or 0})
+        return nn_layers.reshape(tensor_layers.cast(ids, 'int64'),
+                                 shape=[-1])
+
+
+BasicDecoderOutput = collections.namedtuple('BasicDecoderOutput',
+                                            ('cell_outputs', 'sample_ids'))
+
+
+class BasicDecoder(Decoder):
+    """``cell`` and ``helper`` as one decoder step: the cell's outputs
+    (through ``output_fn``), the helper's sampled ids and next inputs;
+    rows finish where the helper says."""
+
+    def __init__(self, cell, helper, output_fn=None):
+        self.cell = cell
+        self.helper = helper
+        self.output_fn = output_fn
+
+    def initialize(self, initial_cell_states):
+        initial_inputs, initial_finished = self.helper.initialize()
+        return initial_inputs, [initial_cell_states, initial_finished]
+
+    def step(self, time, inputs, states, **kwargs):
+        cell_states, finished = states
+        cell_outputs, next_cell_states = self.cell.call(inputs, cell_states,
+                                                        **kwargs)
+        if self.output_fn is not None:
+            cell_outputs = self.output_fn(cell_outputs)
+        sample_ids = self.helper.sample(time, cell_outputs, cell_states)
+        helper_fin, next_inputs = self.helper.next_inputs(
+            time, cell_outputs, next_cell_states, sample_ids)
+        next_finished = nn_layers.elementwise_max(finished, helper_fin)
+        outputs = BasicDecoderOutput(cell_outputs, sample_ids)
+        return outputs, [next_cell_states, next_finished], next_inputs, \
+            next_finished

@@ -105,7 +105,12 @@ def assign(input, output=None):
 
 
 def fill_constant_array(arr):
-    """A ``__constant__`` op holding ``arr``; returns its output."""
+    """A ``__constant__`` op holding ``arr``; returns its output. Under a
+    ``dygraph.guard``, ``arr`` as a Tensor of its type on the guard's
+    device."""
+    if in_dygraph_mode():
+        from ..dygraph.tape import Tensor
+        return Tensor(np.asarray(arr), stop_gradient=True)
     helper = LayerHelper('constant')
     out = helper.create_variable_for_type_inference(str(arr.dtype))
     helper.append_op(type='__constant__', inputs={},

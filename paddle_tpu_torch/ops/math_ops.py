@@ -24,7 +24,8 @@ __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'elementwise_min', 'elementwise_pow', 'exp', 'log_', 'floor',
            'ceil', 'cos', 'pow_op', 'reduce_max', 'reduce_min', 'equal',
            'less_than', 'less_equal', 'greater_than', 'greater_equal',
-           'increment', 'sigmoid', 'tanh']
+           'increment', 'sigmoid', 'tanh', 'elementwise_mod',
+           'elementwise_floordiv']
 
 
 def _align_y(x, y, axis=-1):
@@ -57,6 +58,8 @@ elementwise_div = _ew('elementwise_div', torch.div)
 elementwise_max = _ew('elementwise_max', torch.maximum)
 elementwise_min = _ew('elementwise_min', torch.minimum)
 elementwise_pow = _ew('elementwise_pow', torch.pow)
+elementwise_mod = _ew('elementwise_mod', torch.remainder)
+elementwise_floordiv = _ew('elementwise_floordiv', torch.floor_divide)
 
 
 @register_op('scale')

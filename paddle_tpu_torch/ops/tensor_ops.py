@@ -4,7 +4,8 @@ the static layers a Fluid script calls around a net (``concat``,
 ``split``, ``stack``, ``unstack``, ``squeeze``, ``unsqueeze``,
 ``gather``, ``expand``, ``assign``, the ``fill_*`` ops, ``top_k``,
 ``range``), the ``slice``, ``reverse`` and ``where`` that the recurrent
-layers use, and ``is_empty`` and the tensor-array ops. ``assign`` of a
+layers use, ``arg_max`` and ``transpose_batch_time`` that the decoders
+use, and ``is_empty`` and the tensor-array ops. ``assign`` of a
 numpy array emits the ``__constant__`` op, which is no registered op in
 either package: the executors make its value themselves (executor.py).
 
@@ -23,7 +24,7 @@ __all__ = ['cast', 'reshape', 'transpose', 'fill_constant', 'one_hot',
            'concat', 'split', 'stack', 'unstack', 'squeeze', 'unsqueeze',
            'gather', 'expand', 'assign', 'fill_constant_batch_size_like',
            'fill_zeros_like', 'fill_any_like', 'top_k', 'arange', 'slice_op',
-           'reverse', 'where']
+           'reverse', 'where', 'arg_max', 'transpose_batch_time']
 
 
 @register_op('cast')
@@ -161,6 +162,21 @@ def top_k(x, *, k):
     is on)."""
     vals, idx = torch.topk(x, k, dim=-1)
     return vals, idx
+
+
+@register_op('arg_max')
+def arg_max(x, *, axis=0, dtype='int64', keepdims=False):
+    """The index of the largest entry along ``axis`` (the first of equal
+    ones), in ``dtype``."""
+    return torch.argmax(x, dim=axis, keepdim=keepdims).to(
+        to_torch_dtype(dtype))
+
+
+@register_op('transpose_batch_time')
+def transpose_batch_time(x):
+    """(T, B, ...) <-> (B, T, ...); a tensor of rank below 2 passes
+    through."""
+    return x.transpose(0, 1) if x.dim() >= 2 else x
 
 
 @register_op('range')

@@ -30,6 +30,7 @@ import pytest
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as fluid
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 ATOL = RTOL = 1e-6
 

@@ -31,6 +31,7 @@ from paddle_tpu.contrib import mixed_precision as jmp
 from paddle_tpu_torch import dygraph, layers
 from paddle_tpu_torch.contrib import mixed_precision as mp
 from paddle_tpu_torch.convert import scope_from_paddle
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 CPU = fluid.CPUPlace()
 

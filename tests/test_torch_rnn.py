@@ -33,6 +33,7 @@ import torch
 import paddle_tpu as jfluid
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.convert import scope_from_paddle
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 B, T, D, H = 3, 5, 4, 6
 ATOL = RTOL = 1e-5

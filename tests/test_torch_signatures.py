@@ -11,7 +11,9 @@ took over in doing so behave as the reference's do (on the CPU).
   ``Executor.run`` and ``Optimizer.minimize``), and those of the static
   ResNet recipe's surface (the new layers and schedules,
   ``CompiledProgram``, ``io``'s save and load, the Predictor), and the
-  control-flow layers and recurrent cells the PTB LM slice ported. So are
+  control-flow layers and recurrent cells the PTB LM slice ported, and
+  the decoders, beam-search layers and ops and ``sequence_mask`` of the
+  static seq2seq slice. So are
   the dygraph API's layer constructors, ``Layer``'s methods, the learning-rate schedules,
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
@@ -89,7 +91,12 @@ SHARED_OPS = [
     # the static control flow and the recurrent cells
     ('math_ops', 'sigmoid'), ('math_ops', 'tanh'),
     ('tensor_ops', 'slice_op'), ('tensor_ops', 'reverse'),
-    ('tensor_ops', 'where')]
+    ('tensor_ops', 'where'),
+    # the static seq2seq decoding slice
+    ('math_ops', 'elementwise_mod'), ('math_ops', 'elementwise_floordiv'),
+    ('tensor_ops', 'arg_max'), ('tensor_ops', 'transpose_batch_time'),
+    ('rnn_ops', 'beam_search_step'), ('rnn_ops', 'gather_tree'),
+    ('random_ops', 'sampling_id'), ('sequence_ops', 'sequence_mask')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -157,7 +164,15 @@ FLUID_ENTRY_POINTS = [
     ('layers', 'is_empty'), ('layers', 'tensor_array_to_tensor'),
     ('layers', 'reverse'), ('layers', 'RNNCell.get_initial_states'),
     ('layers', 'GRUCell'), ('layers', 'LSTMCell'), ('layers', 'rnn'),
-    ('layers', 'birnn'), ('layers', 'lstm')]
+    ('layers', 'birnn'), ('layers', 'lstm'),
+    # the static seq2seq decoding slice
+    ('layers', 'BeamSearchDecoder'), ('layers', 'BeamSearchDecoder.step'),
+    ('layers', 'BeamSearchDecoder.finalize'), ('layers', 'dynamic_decode'),
+    ('layers', 'gather_tree'), ('layers', 'beam_search'),
+    ('layers', 'beam_search_decode'), ('layers', 'BasicDecoder'),
+    ('layers', 'BasicDecoder.step'), ('layers', 'TrainingHelper'),
+    ('layers', 'GreedyEmbeddingHelper'), ('layers', 'SampleEmbeddingHelper'),
+    ('layers', 'sequence_mask'), ('layers', 'sequence_lod.sequence_mask')]
 
 
 @pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,

@@ -30,6 +30,7 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import inference
 from paddle_tpu_torch.tools import static_resnet
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 KW = dict(class_dim=10, image_shape=(3, 32, 32), blocks=[1, 1, 1, 1],
           width_div=16)

@@ -35,6 +35,7 @@ from paddle_tpu.ops import registry as jax_registry
 from paddle_tpu_torch import layers
 from paddle_tpu_torch.convert import scope_from_paddle
 from paddle_tpu_torch.ops import registry
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 ATOL, RTOL = 1e-6, 1e-5
 
@@ -337,6 +338,9 @@ def test_every_jax_layers_name_exists_in_the_port(name):
         if name in ('detection', 'distributions', 'sequence_lod'):
             with pytest.raises(NotImplementedError, match='A.10'):
                 getattr(obj, 'anything')
+        if name == 'sequence_lod':
+            # its one ported layer (tests/test_torch_seq2seq.py runs it)
+            assert obj.sequence_mask is layers.sequence_mask
         return
     assert callable(obj)
     if item is not None:
@@ -350,11 +354,11 @@ def test_the_not_ported_table_shadows_nothing_the_port_runs():
     each names one of the three items."""
     import importlib
     from paddle_tpu_torch.layers import (control_flow, learning_rate_scheduler,
-                                         loss, nn, tensor)
+                                         loss, nn, sequence_lod, tensor)
     rnn = importlib.import_module('paddle_tpu_torch.layers.rnn')
     defined = set()
     for mod in (control_flow, learning_rate_scheduler, loss, nn, rnn,
-                tensor):
+                sequence_lod, tensor):
         defined |= set(mod.__all__)
     assert not defined & set(layers.NOT_PORTED)
     assert set(layers.NOT_PORTED.values()) == {'A.10', 'A.11'}

@@ -17,8 +17,10 @@ startup values carried across by name.
   within 1e-5 of its largest entry; then 3 SGD steps with the global-norm
   clip and the schedule, each feeding the fetched ``last_hidden`` and
   ``last_cell`` back: losses within 1e-5 relative, fetched states and
-  every parameter after each step within 1e-5 of its largest entry. One
-  lowering of the train program.
+  every parameter after each step within 1e-5 of its largest entry; the
+  last loss below the first where the JAX package's is (three different
+  batches: at some JAX seeds, 1 and 6 of 0-9, the loss rises in both
+  packages). One lowering of the train program.
 - The rate: ``piecewise_decay``'s, also across boundaries moved to steps 2
   and 4.
 - Dropout on (0.65, ``upscale_in_train``): the mask of the step's last
@@ -37,6 +39,7 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.convert import scope_from_paddle
 from paddle_tpu_torch.tools import static_ptb_lm
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 KW = dict(vocab_size=50, hidden_size=16, num_layers=2, num_steps=5,
           batch_size=4, dropout=0.0)
@@ -182,7 +185,9 @@ def test_three_steps_match_jax(route):
         for n in params:
             assert not np.array_equal(w_state[n], start[n]), n
             close_to_largest(g_state[n], w_state[n], f'{n} {s}')
-    assert got[-1][0][0] < got[0][0][0]
+    # the loss moves the reference's way over the three batches
+    assert ((got[-1][0][0] < got[0][0][0])
+            == (want[-1][0][0] < want[0][0][0]))
 
 
 def test_the_rate_follows_the_schedule_across_moved_boundaries(monkeypatch):

@@ -17,22 +17,31 @@ devices that tests/conftest.py sets up.
   2.7e-5).
 - At lr 0.1 on 4 images the steps leave the linear regime (the loss moves
   by a unit) and the trajectory is chaotic in both packages, as
-  tests/test_torch_resnet.py documents for its ResNet-50. So after each
-  step, as that file holds its state, the loss (max |diff|) and each kind
-  of state taken whole (the L2 norm over the parameters, over the
-  velocities, over the BN running statistics) are held within 4x the
-  reference's own spread, measured here by running the reference again
-  on inputs moved by 1e-7 relative, plus 1e-4 of the loss or the kind's
-  norm. (A bound on each tensor alone failed under the 6-worker run: the
-  reference's moved run left one tensor, ``bn5a_branch1_offset``, within
-  2e-6 of itself by chance, and torch's CPU threads change the port's
-  sums with the worker count. Taken whole, the port reads at most 0.25
-  of the bound at 1 and at 6 threads.)
-  Top-1 and top-5 are compared as counts: equal, or apart only where the
-  reference's own perturbed run also moved.
+  tests/test_torch_resnet.py documents for its ResNet-50. So each f32 run
+  is measured against a float64 witness: the port's train and test
+  programs cloned to float64 (``tools/witness.as_float64``) and run from
+  the same startup values on the same batches. After each step the loss
+  and each kind of state taken whole (the L2 norm over the parameters,
+  over the velocities, over the BN running statistics) of the port lie
+  no further from the witness than twice the JAX package's distance from
+  it, plus a floor: 1e-6 of the witness's value after the first step;
+  after a later step, what the witness itself moved in that step, since
+  from the second step on either package's f32 run can cross a ReLU near
+  tie that the other does not (JAX seed 5: one pre-activation of 2.7e-5
+  at ``res4a``'s residual add changes sign in the port's f32 second step
+  and in neither other run; the port then lies 12x the JAX package's
+  distance from the witness; at seed 6 the JAX package is 8x the port's).
+  A first step whose update is 0.9x the port's reads 570-8377x its bound
+  (JAX seeds 0-9); the port reads at most 0.59 of its bounds there.
+  Top-1 and top-5 are compared as counts: equal to the JAX package's or
+  to the witness's.
 - The test program's logits (running statistics, no backward, no step
   counter) from the JAX startup values: atol 1e-5, rtol 1e-4; after the
-  three steps, within the same spread bound as the state.
+  three steps, max |diff| from the witness's within twice the JAX
+  package's plus what the witness's logits moved over the three steps.
+- The JAX package's seed is pinned to 0 for each test
+  (tests/torch_jax_seed.py): its startup values come from a process-wide
+  generator that other test files seed.
 - One lowering of the train program for the three steps; the rate
   fetched each step is ``piecewise_decay``'s. With the boundaries moved to
   steps 2, 4 and 6, eight steps fetch each of the four rates twice, the
@@ -47,10 +56,12 @@ import paddle_tpu as jfluid
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.convert import scope_from_paddle
 from paddle_tpu_torch.tools import static_resnet
+from paddle_tpu_torch.tools.witness import as_float64
+from torch_jax_seed import jax_seed_pinned  # noqa: F401
 
 KW = dict(class_dim=10, image_shape=(3, 32, 32), blocks=[1, 1, 1, 1],
           width_div=16)
-BATCH, STEPS, MOVE = 4, 3, 1e-7
+BATCH, STEPS = 4, 3
 
 
 @pytest.fixture(autouse=True)
@@ -69,14 +80,14 @@ def fresh_port_programs():
      scope_mod._global_scope, unique_name.generator) = old
 
 
-def batches(move=0.0):
+def batches():
     rng = np.random.RandomState(0)
     out = []
     for _ in range(STEPS + 1):
         x = rng.standard_normal((BATCH,) + KW['image_shape']).astype(
             np.float32)
         y = rng.randint(0, KW['class_dim'], (BATCH, 1)).astype(np.int64)
-        out.append({'image': x * np.float32(1 + move), 'label': y})
+        out.append({'image': x, 'label': y})
     return out
 
 
@@ -93,16 +104,15 @@ def persistables(program):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_run(move):
-    """The reference's startup values, and its three steps on inputs moved
-    by ``move`` relative: (start, [per step: fetches, state], test-program
-    logits before and after)."""
+def jax_run():
+    """The reference's startup values and its three steps: (start, [per
+    step: fetches, state], test-program logits before and after)."""
     main, startup, test, v = build(jfluid)
     exe, scope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
     exe.run(startup, scope=scope)
     names = persistables(main)
     start = {n: np.asarray(scope.find(n)) for n in names}
-    data = batches(move)
+    data = batches()
     fetch = [v['loss'], v['acc1'], v['acc5'], v['lr']]
     eval_before = np.asarray(exe.run(test, feed=data[-1],
                                      fetch_list=[v['logits']],
@@ -158,7 +168,7 @@ def port_run():
     """The port's three steps through CompiledProgram from the
     reference's startup values."""
     main, startup, test, v = build(fluid)
-    start = jax_run(0.0)[0]
+    start = jax_run()[0]
     exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
     scope_from_paddle({n: a.astype(main.global_block().var(n).dtype)
                        for n, a in start.items()}, scope, fluid.CPUPlace(),
@@ -178,11 +188,30 @@ def port_run():
     return exe, main, steps, eval_before, eval_after
 
 
-def within_spread(got, want, moved, what):
-    """max |got - want| <= 4 max |moved - want| + 1e-4 max |want|, as
-    tests/test_torch_resnet.py's check_within_spread."""
-    err, own = np.abs(got - want).max(), np.abs(moved - want).max()
-    assert err <= 4 * own + 1e-4 * np.abs(want).max(), (what, err, own)
+def witness_run(start):
+    """The witness: the port's train and test programs cloned to float64
+    (``as_float64``), run from the same startup values on the same three
+    batches on the CPU. Returns ([per step: fetches, state], test-program
+    logits before and after)."""
+    main, startup, test, v = build(fluid)
+    main64, test64 = as_float64(main), as_float64(test)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    scope_from_paddle({n: a.astype(main64.global_block().var(n).dtype)
+                       for n, a in start.items()}, scope, fluid.CPUPlace(),
+                      program=main64)
+    step = fluid.CompiledProgram(main64).with_data_parallel(
+        loss_name=v['loss'].name)
+    data = batches()
+    fetch = [v['loss'], v['acc1'], v['acc5'], v['lr']]
+    eval_before = exe.run(test64, feed=data[-1], fetch_list=[v['logits']],
+                          scope=scope)[0]
+    steps = []
+    for feed in data[:STEPS]:
+        out = exe.run(step, feed=feed, fetch_list=fetch, scope=scope)
+        steps.append((out, {n: scope.find(n).numpy() for n in start}))
+    eval_after = exe.run(test64, feed=data[-1], fetch_list=[v['logits']],
+                         scope=scope)[0]
+    return steps, eval_before, eval_after
 
 
 def norm(arrays):
@@ -206,10 +235,46 @@ def state_kinds(main, names):
     return kinds
 
 
+def witness_readings(kinds, start, got, want, wit, evals):
+    """(what, port's distance from the witness, bound) of every witness
+    check: after each step, the loss and each kind of state taken whole
+    (L2 over its tensors); after the three steps, the test program's
+    logits (max |diff|). The bound is twice the JAX package's distance
+    from the witness plus a floor: 1e-6 of the witness's value after the
+    first step; after a later one, what the witness itself moved in that
+    step, since from the second step on either f32 run can cross a ReLU
+    near tie that the other does not (ROADMAP C.11); for the logits, what
+    the witness's logits moved over the three steps."""
+    out = []
+    prev = start
+    for s in range(STEPS):
+        g, w, x = got[s][1], want[s][1], wit[s][1]
+        gl, wl, xl = (float(np.asarray(r[s][0][0]).reshape(-1)[0])
+                      for r in (got, want, wit))
+        if s == 0:
+            floor_loss = 1e-6 * abs(xl)
+        else:
+            floor_loss = abs(xl - float(np.asarray(wit[s - 1][0][0])
+                                        .reshape(-1)[0]))
+        out.append((f'loss {s}', abs(gl - xl),
+                    2 * abs(wl - xl) + floor_loss))
+        for kind, names in kinds.items():
+            floor = (1e-6 * norm({n: x[n] for n in names}) if s == 0 else
+                     norm({n: x[n] - prev[n] for n in names}))
+            out.append((f'{kind} {s}', norm({n: g[n] - x[n] for n in names}),
+                        2 * norm({n: w[n] - x[n] for n in names}) + floor))
+        prev = x
+    got_eval, jax_eval, wit_before, wit_after = evals
+    out.append(('eval logits', np.abs(got_eval - wit_after).max(),
+                2 * np.abs(jax_eval - wit_after).max()
+                + np.abs(wit_after - wit_before).max()))
+    return out
+
+
 def test_three_compiled_steps_match_jax():
-    start, want, jeval0, jeval1 = jax_run(0.0)
-    _, moved, _, jeval1_moved = jax_run(MOVE)
+    start, want, jeval0, jeval1 = jax_run()
     exe, main, got, eval0, eval1 = port_run()
+    wit, weval0, weval1 = witness_run(start)
     assert exe.lowering_count(main) == 1
     # the first step: tight
     (g_out, g_state), (w_out, w_state) = got[0], want[0]
@@ -223,26 +288,30 @@ def test_three_compiled_steps_match_jax():
         moved_by = np.linalg.norm(w_state[n] - start[n])
         if moved_by > 0:
             assert np.linalg.norm(du) <= 1e-3 * moved_by, n
-    # every step: the rate, and the state within the reference's spread
+    # every step: the rate, the counter, top-1 and top-5 counts
     for s in range(STEPS):
         (g_out, g_state), (w_out, w_state) = got[s], want[s]
-        m_out, m_state = moved[s]
         np.testing.assert_allclose(g_out[3], w_out[3], rtol=1e-7)
         np.testing.assert_allclose(g_out[3], 0.1, rtol=1e-7)
-        within_spread(np.asarray(g_out[0]), w_out[0], m_out[0], f'loss {s}')
         for k in (1, 2):
-            assert (float(g_out[k]) == float(w_out[k])
-                    or float(m_out[k]) != float(w_out[k])), (s, k)
+            assert float(g_out[k]) in (float(w_out[k]),
+                                       float(wit[s][0][k])), (s, k)
         for n in start:
             if n.startswith('lr_decay_counter'):
                 assert int(g_state[n][0]) == s
-        for kind, names in state_kinds(main, start).items():
-            d_port = norm({n: g_state[n] - w_state[n] for n in names})
-            d_own = norm({n: m_state[n] - w_state[n] for n in names})
-            assert d_port <= 4 * d_own + 1e-4 * norm(
-                {n: w_state[n] for n in names}), (kind, s, d_port, d_own)
     np.testing.assert_allclose(eval0, jeval0, atol=1e-5, rtol=1e-4)
-    within_spread(eval1, jeval1, jeval1_moved, 'eval logits')
+    # the state, the loss and the logits against the float64 witness
+    kinds = state_kinds(main, start)
+    evals = (eval1, jeval1, weval0, weval1)
+    for what, reading, bound in witness_readings(kinds, start, got, want,
+                                                 wit, evals):
+        assert reading <= bound, (what, reading, bound)
+    # a first step whose update is 0.9x the port's fails the check
+    wrong = [(got[0][0], {n: start[n] + 0.9 * (got[0][1][n] - start[n])
+                          for n in start})] + got[1:]
+    failed = {what for what, reading, bound in witness_readings(
+        kinds, start, wrong, want, wit, evals) if reading > bound}
+    assert {'parameters 0', 'velocities 0'} <= failed, failed
 
 
 def test_the_rate_follows_the_schedule_across_its_boundaries(monkeypatch):
