@@ -210,9 +210,40 @@ Phases:
    parted at a near tie of the step scores), and batch 128 timed:
    sentences/s, ms a decode step and one profiled decode. None of the
    port's kernels is on this path: every launch count stays 0;
-14. a ``{"kernels": [...]}`` line (all six kernels, each with its
-   ``launches_ptb`` and ``launches_s2s``) and, last, ``{"ok": true,
-   "device": {...}}``.
+14. static mixed precision and recompute: PaddleCV's ResNet-50 recipe as
+   phase 11 builds it (full width, batch 128 at 224^2, NCHW, through
+   ``CompiledProgram``, Momentum on ``piecewise_decay``, L2Decay(1e-4)):
+   (a) under ``decorate(dtype='bfloat16')``, its step at batch 8 on the
+   card against ``Executor(CPUPlace())`` from the same values, each held to
+   the CPU's float64 run without casts (the card's error within 3x the
+   CPU's plus 2u, u = 2**-8, at the loss and the head's gradients; the root
+   mean square over all gradients within 2x plus 2u and over a third; 0.9x
+   the card's gradients must fail), then 2 warm-up and 20 timed steps:
+   images/s, step p50, min and max, host dispatch, peak memory, a profiled
+   step (which must record device time) and the share of its convolution
+   time in bf16 kernels, every master parameter f32; (b) the recipe's
+   ``--use_fp16`` path (``--scale_loss=128.0
+   --use_dynamic_loss_scaling=True``), the same loop, then two steps fed
+   images of inf (the parameters and velocities bit for bit, the scale and
+   counts by the reference's rule, ``overflow_steps()`` 1 then 2) and a
+   finite step that moves them; (c) f32 with ``RecomputeOptimizer`` at the
+   16 bottleneck outputs: three steps' loss and gradients against two plain
+   runs from the same values (within twice their distance plus 1e-6), peak
+   memory against the plain run's and phase 11's, step p50; (d) (a)'s eval
+   clone on phase 11's 20 eval batches, and its saved model through
+   ``create_paddle_predictor(Config(dir).enable_bf16())``: the clone's
+   logits within 3u of their largest entry from the f32 eval program's (one
+   bottleneck's last convolution scaled by 0.9 must fail that), the bf16
+   Predictor bit for bit the f32 Predictor on bf16-rounded images, within
+   2**-5 of its largest entry on the raw ones, one lowering each; (e)
+   PaddleNLP's attention seq2seq as phase 13 trains it, under
+   ``decorate(dtype='bfloat16')`` (the casts inside ``__scan__``'s
+   sub-blocks): 3 warm-up and 20 timed steps, then untimed ones to 40,
+   target tokens/s, busy, idle and peak memory. None of the port's kernels
+   is on this path: every launch count stays 0;
+15. a ``{"kernels": [...]}`` line (all six kernels, each with its
+   ``launches_ptb``, ``launches_s2s`` and ``launches_amp``) and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -907,13 +938,14 @@ def profile_train_step(step, feeds, step_ms, card, groups,
     profiled step (``calls`` calls of ``step``) against the step's p50 on
     the host clock, the kernels that take it, and for each ``label:
     match`` of ``groups`` the share of the kernels whose name
-    ``match``es."""
+    ``match``es. Returns (busy ms, the profiler's events by device time),
+    or None where the profiler recorded no device time."""
     prof = profiled(lambda: [step(*feeds) for _ in range(calls)])
     busy_ms = device_us(prof) / 1e3
     if busy_ms <= 0:
         log(f'{what} [{card}]: device busy share not measured (the '
             f'profiler recorded no device time)')
-        return
+        return None
 
     def dev_ms(e):
         return getattr(e, 'self_device_time_total', 0.0) / 1e3
@@ -931,6 +963,7 @@ def profile_train_step(step, feeds, step_ms, card, groups,
     for e in events[:12]:
         log(f'  {dev_ms(e):.4f} ms  {dev_ms(e) / busy_ms:.3f}  '
             f'{e.count} calls  {e.key[:90]}')
+    return busy_ms, events
 
 
 def resnet_loss(model, x, y):
@@ -2359,7 +2392,7 @@ def train_static_resnet(seed, card):
     ``CompiledProgram`` on ``Executor(CUDAPlace(0))``: card against CPU,
     training, saving and serving the inference model. Returns the
     kernels' launch counts over the phase (none of the port's kernels is
-    on this path)."""
+    on this path) and the training's peak device memory."""
     import tempfile
     import torch
     import paddle_tpu_torch as fluid
@@ -2522,7 +2555,7 @@ def train_static_resnet(seed, card):
                          fetch_list=fetches, scope=lscope),
         (), eval_p50, card, STATIC_STEP_GROUPS,
         what='static ResNet-50 eval batch')
-    return nn_ops.launch_counts()
+    return nn_ops.launch_counts(), peak
 
 
 
@@ -3071,14 +3104,15 @@ def s2s_card_against_cpu(fluid, static_seq2seq, seed, card):
                              'the CPU executor beyond the stated tolerance')
 
 
-def train_s2s(fluid, static_seq2seq, seed, card):
+def train_s2s(fluid, static_seq2seq, seed, card, amp=None):
     """The recipe's train program at full width and batch 128 on one
-    seeded batch: trained, timed and profiled. Returns (the card's scope,
-    the batch, a summary)."""
+    seeded batch (under ``decorate(dtype=amp)`` where ``amp`` is given):
+    ``S2S_STEPS`` steps trained, timed and profiled. Returns (the card's
+    scope, the batch, a summary)."""
     import torch
     c = static_seq2seq.RECIPE
     with fluid.unique_name.guard():
-        main, startup, v = static_seq2seq.build(fluid)
+        main, startup, v = static_seq2seq.build(fluid, amp=amp)
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     if n_params != S2S_PARAMS:
         raise AssertionError(f'seq2seq has {n_params} parameters')
@@ -3097,7 +3131,8 @@ def train_s2s(fluid, static_seq2seq, seed, card):
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
-    log('static seq2seq losses: ' + ' '.join(repr(x) for x in losses))
+    what = 'static seq2seq' + (f' under {amp} AMP' if amp else '')
+    log(f'{what} losses: ' + ' '.join(repr(x) for x in losses))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f'seq2seq losses: not finite or not falling '
                              f'over {len(losses)} steps')
@@ -3116,12 +3151,13 @@ def train_s2s(fluid, static_seq2seq, seed, card):
         torch.cuda.synchronize()
     n_ops = ops_run(main, (c['src_len'], c['tar_len']))
     d50 = statistics.median(dispatch) * 1e3
-    log(f'static seq2seq trained [{card}]: {len(losses)} steps '
+    log(f'{what} trained [{card}]: {len(losses)} steps '
         f'({S2S_WARMUP} warm-up, {TRAIN_STEPS} timed, '
         f'{len(losses) - S2S_WARMUP - TRAIN_STEPS} more untimed) at batch '
         f'{c["batch_size"]} x {c["src_len"]} source, {c["tar_len"]} target '
         f'positions ({tokens} target tokens, the loss\'s), dropout '
-        f'{c["dropout"]}, f32 (TF32 off), Adam({static_seq2seq.LEARNING_RATE})'
+        f'{c["dropout"]}, {amp or "f32"} (TF32 off), '
+        f'Adam({static_seq2seq.LEARNING_RATE})'
         f' with the global-norm clip at {static_seq2seq.MAX_GRAD_NORM}: '
         f'{tokens_s:.1f} target tokens/s over the timed steps, step p50 '
         f'{p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
@@ -3130,12 +3166,14 @@ def train_s2s(fluid, static_seq2seq, seed, card):
         f'device tensors, before the sync); peak device memory {peak} '
         f'bytes; loss {losses[0]!r} -> {losses[-1]!r}; lowerings of the '
         f'train program {lowered}')
-    profile_train_step(
+    prof = profile_train_step(
         lambda: exe.run(main, feed=batch, fetch_list=[v['loss']],
                         scope=scope),
-        (), p50, card, S2S_STEP_GROUPS, what='static seq2seq train step')
+        (), p50, card, S2S_STEP_GROUPS, what=f'{what} train step')
+    busy = '' if prof is None else (f', busy {prof[0]:.3f} ms, idle '
+                                    f'{1 - prof[0] / p50:.3f}')
     return scope, batch, (f'train {tokens_s:.1f} target tokens/s, p50 '
-                          f'{p50:.3f} ms')
+                          f'{p50:.3f} ms{busy}, peak {peak} bytes')
 
 
 def s2s_beam_program(fluid, static_seq2seq, batch_size, trained, place):
@@ -3255,6 +3293,458 @@ def train_static_seq2seq(seed, card):
     return nn_ops.launch_counts()
 
 
+# PaddleCV's static ResNet-50 recipe (tools/static_resnet.py, as phase 11
+# builds it: full width, batch 128 at 224^2, NCHW, through CompiledProgram)
+# under static mixed precision and recompute, and PaddleNLP's seq2seq (as
+# phase 13) under bf16. bf16's unit round-off u = 2**-8. The bf16 step at
+# batch 8, card against the CPU executor from the same values, each held
+# to a float64 witness (the program without casts, run on the CPU): the
+# card's error at most 3x the CPU's plus 2u, for the loss (absolute, 2u of
+# the witness's loss) and each of the head's two gradients (relative L2),
+# and over all 161 gradients the root mean square of the per-gradient
+# errors at most 2x the CPU's plus 2u and at least a third of it (both
+# compute in bf16); below the head bf16 gradients of a batch-normalised
+# net are mostly rounding noise (tests/test_torch_static_amp.py), so a
+# 0.9x scale of the card's must fail at the head. fp16 is the recipe's
+# --use_fp16 path with the flags of PaddleCV's ResNet50_fp16.sh:
+# --scale_loss=128.0 --use_dynamic_loss_scaling=True (decorate's other
+# arguments its defaults: decr_every_n_nan_or_inf 2, incr_every_n_steps
+# 1000, ratios 0.8 and 2). Recompute: RecomputeOptimizer with the 16
+# bottleneck outputs as checkpoints, f32; three steps, each from a plain
+# run's state, against a second plain run from the same state: the loss
+# within twice the two plain runs' distance plus 1e-6 of it, the root mean
+# square over the gradients of their relative L2 distances within twice
+# the plain runs' plus 1e-6 (one state a step: from the second step on,
+# f32 runs of this net part chaotically, ROADMAP C.4 item 4, so three
+# trajectories would compare noise). The bf16 eval clone's logits within
+# 3u of their largest entry from the f32 eval program's on the same
+# trained values (measured 4.873e-3, 1.25u, NVIDIA H100 80GB HBM3 at 700 W;
+# the softmax is saturated, so its outputs would hide the body), and the
+# clone with one bottleneck's last convolution (CLONE_FAULT) scaled by 0.9
+# must fail that bound. The saved f32 model through
+# Predictor(Config(dir).enable_bf16()): equal bit for bit to the f32
+# Predictor fed the bf16-rounded images, and within 2**-5 of the largest
+# entry of the f32 Predictor's output on the raw ones
+AMP_U = 2.0 ** -8
+AMP_CLONE_RTOL = 3 * AMP_U
+CLONE_FAULT = 'res5c_branch2c_weights'
+AMP_SERVE_RTOL = 2.0 ** -5
+AMP_HEAD = ('fc_0.w_0', 'fc_0.b_0')
+RECOMPUTE_STEPS, RECOMPUTE_FLOOR = 3, 1e-6
+# the convolution kernels of a profiled step whose names say bf16
+BF16_KERNEL = ('bf16', 'bfloat16')
+
+
+def amp_resnet_card_against_cpu(fluid, main, v, gscope, seed, card):
+    """The bf16 step at batch 8 from the card's startup values on the card
+    and on the CPU executor, each held to the CPU's float64 run of the
+    program without casts."""
+    from paddle_tpu_torch.tools.witness import rel_l2
+    persist = [x.name for x in main.list_vars() if x.persistable]
+    host = {n: gscope.find(n).cpu().numpy() for n in persist}
+    rng = np.random.default_rng(seed + 11)
+    feed = {'image': rng.standard_normal(
+        (SRESNET_CHECK_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (SRESNET_CHECK_BATCH, 1))}
+    params = [p.name for p in main.all_parameters()]
+    fetch = [v['loss'].name] + [n + '@GRAD' for n in params]
+    runs, secs = four_step_runs(fluid, main, v['loss'].name, host, feed,
+                                fetch)
+    card_r, cpu_r, wit = (runs['card', 'float32'], runs['cpu', 'float32'],
+                          runs['cpu', 'float64'])
+    lc, lp, lw = float(card_r[0]), float(cpu_r[0]), float(wit[0])
+    errs = {n: (rel_l2(g, w), rel_l2(c, w),
+                rel_l2(np.float32(0.9) * g, w))
+            for n, g, c, w in zip(params, card_r[1:], cpu_r[1:], wit[1:])}
+    rms = np.sqrt(np.mean(np.square(list(errs.values())), axis=0))
+    head = {n: (errs[n][0], 3 * errs[n][1] + 2 * AMP_U) for n in AMP_HEAD}
+    log(f'static ResNet-50 bf16 AMP, batch {SRESNET_CHECK_BATCH}, card '
+        f'against the CPU executor, each against the CPU\'s float64 run '
+        f'without casts (the witness) [{card}]: loss card {lc!r}, cpu '
+        f'{lp!r}, witness {lw!r}; the head\'s gradients card / bound (3x '
+        f'the cpu\'s + 2u): ' + ', '.join(
+            f'{n} {e:.4e} / {b:.4e} (0.9x {errs[n][2]:.4e})'
+            for n, (e, b) in head.items())
+        + f'; over all {len(params)} gradients (rms) card {rms[0]:.4f}, cpu '
+        f'{rms[1]:.4f}; ' + ', '.join(
+            f'{n} card {errs[n][0]:.3e} cpu {errs[n][1]:.3e}'
+            for n in SRESNET_GRADS) + '. Steps took ' + ', '.join(
+            f'{p} {c} {t:.1f} s' for (p, c), t in secs.items()))
+    if abs(lc - lw) > 3 * abs(lp - lw) + 2 * AMP_U * abs(lw):
+        raise AssertionError('the bf16 loss on the card is off the CPU\'s')
+    if any(e > b for e, b in head.values()):
+        raise AssertionError('a head gradient on the card is off the CPU\'s')
+    if not rms[1] / 3 <= rms[0] <= 2 * rms[1] + 2 * AMP_U:
+        raise AssertionError(f'bf16 gradient errors card {rms[0]}, cpu '
+                             f'{rms[1]}')
+    if not any(errs[n][2] > head[n][1] for n in AMP_HEAD):
+        raise AssertionError('the check passes gradients scaled by 0.9')
+
+
+def time_static_resnet(fluid, exe, main, v, scope, feed, what, card):
+    """WARMUP_STEPS + TRAIN_STEPS steps of ``main`` through
+    ``CompiledProgram``, each synchronised, then the host dispatch and a
+    profiled step. Returns (losses, peak bytes, summary, profile)."""
+    import torch
+    step = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=v['loss'].name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(step, feed=feed, fetch_list=[v['loss']], scope=scope)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f'{what} losses: ' + ' '.join(repr(x) for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'{what} losses {losses}: not finite or not '
+                             f'falling')
+    lowered = exe.lowering_count(main)
+    if lowered != 1:
+        raise AssertionError(f'{what}: lowered {lowered} times')
+    timed_s = secs[WARMUP_STEPS:]
+    p50 = statistics.median(timed_s) * 1e3
+    images_s = RESNET_BATCH * TRAIN_STEPS / sum(timed_s)
+    dispatch = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        exe.run(step, feed=feed, fetch_list=[v['loss']], scope=scope,
+                return_numpy=False)
+        dispatch.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    log(f'{what} trained through CompiledProgram [{card}]: {len(losses)} '
+        f'steps ({WARMUP_STEPS} warm-up, {TRAIN_STEPS} timed) at batch '
+        f'{RESNET_BATCH}: {images_s:.1f} images/s, step p50 {p50:.3f} ms '
+        f'(min {min(timed_s) * 1e3:.3f}, max {max(timed_s) * 1e3:.3f}); '
+        f'host dispatch p50 {statistics.median(dispatch) * 1e3:.3f} ms (run '
+        f'returning device tensors, before the sync); peak device memory '
+        f'{peak} bytes; model-FLOP share '
+        f'{images_s * RESNET_GFLOP_PER_IMAGE * 1e9 / BF16_FLOPS_PER_S:.4f}; '
+        f'lowerings {lowered}')
+    prof = profile_train_step(
+        lambda: exe.run(step, feed=feed, fetch_list=[v['loss']],
+                        scope=scope),
+        (), p50, card, STATIC_STEP_GROUPS, what=f'{what} step')
+    summary = f'{images_s:.1f} images/s, p50 {p50:.3f} ms'
+    if prof is not None:
+        summary += f', busy {prof[0]:.3f} ms, idle {1 - prof[0] / p50:.3f}'
+    return losses, peak, summary, prof
+
+
+def check_bf16_convolutions(prof, card):
+    """The profiled bf16 step's convolution kernels: the share of their
+    time in kernels whose names say bf16 (cuDNN's and CUTLASS's name the
+    element type), which must be most of it."""
+    if prof is None:
+        raise AssertionError('the bf16 step\'s profile recorded no device '
+                             'time, so its convolutions\' types are unseen')
+    conv = [e for e in prof[1] if STATIC_STEP_GROUPS['convolutions'](e.key)]
+    ms = {e.key: getattr(e, 'self_device_time_total', 0.0) / 1e3
+          for e in conv}
+    bf16 = {k: t for k, t in ms.items()
+            if any(m in k.lower() for m in BF16_KERNEL)}
+    share = sum(bf16.values()) / max(sum(ms.values()), 1e-9)
+    log(f'bf16 convolution kernels [{card}]: {sum(bf16.values()):.3f} of '
+        f'{sum(ms.values()):.3f} ms of convolution in {len(bf16)} of '
+        f'{len(ms)} kernels whose names say bf16 (share {share:.3f}); ' +
+        '; '.join(f'{k[:70]} {t:.3f} ms' for k, t in sorted(
+            ms.items(), key=lambda kv: -kv[1])[:6]))
+    if share < 0.5:
+        raise AssertionError('the bf16 step\'s convolutions are not bf16 '
+                             'kernels')
+
+
+def amp_resnet_bf16(fluid, static_resnet, seed, card):
+    """(a) and (d): the recipe under decorate(dtype='bfloat16'), card
+    against CPU, trained, then its eval clone and the saved model through
+    the bf16 Predictor. Returns a summary."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import inference
+    with fluid.unique_name.guard():
+        main, startup, test, v = static_resnet.build(fluid, amp='bfloat16')
+    with fluid.unique_name.guard():     # the f32 eval program, same names
+        _, _, test32, v32 = static_resnet.build(fluid)
+    if test._amp_config is not main._amp_config:
+        raise AssertionError('the eval program lost the casts')
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    amp_resnet_card_against_cpu(fluid, main, v, gscope, seed, card)
+    rng = np.random.default_rng(seed)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    masters = {p.name: gscope.find(p.name).dtype
+               for p in main.all_parameters()}
+    _, _, trained, prof = time_static_resnet(
+        fluid, gpu, main, v, gscope, feed, 'static ResNet-50 bf16 AMP', card)
+    check_bf16_convolutions(prof, card)
+    if any(gscope.find(n).dtype != torch.float32 for n in masters):
+        raise AssertionError('a master parameter is not f32')
+
+    # (d) the eval clone, and the saved model through the Predictors
+    erng = np.random.default_rng(seed + 1)
+    batches = [erng.standard_normal((RESNET_BATCH, 3, RESNET_IMG,
+                                     RESNET_IMG), dtype=np.float32)
+               for _ in range(SRESNET_EVAL_BATCHES)]
+    label = np.zeros((RESNET_BATCH, 1), np.int64)
+    with tempfile.TemporaryDirectory() as tmp:
+        with fluid.scope_guard(gscope):
+            fluid.io.save_inference_model(tmp, ['image'], [v['prob']], gpu,
+                                          main_program=main)
+        f32 = inference.create_paddle_predictor(inference.Config(tmp))
+        bf16 = inference.create_paddle_predictor(
+            inference.Config(tmp).enable_bf16())
+
+    def logit_error(x, fault=1.0):
+        """The eval clone's logits from the f32 eval program's on ``x``,
+        relative to their largest entry, with CLONE_FAULT scaled by
+        ``fault`` in the clone's run alone; the prob the clone fetched and
+        the seconds its run took."""
+        feed = {'image': x, 'label': label}
+        logits32 = gpu.run(test32, feed=feed, fetch_list=[v32['logits']],
+                           scope=gscope)[0]
+        weight = gscope.find(CLONE_FAULT)
+        kept = weight.clone()
+        weight.mul_(fault)
+        t0 = time.perf_counter()
+        got, logits = gpu.run(test, feed=feed,
+                              fetch_list=[v['prob'], v['logits']],
+                              scope=gscope)
+        secs = time.perf_counter() - t0
+        weight.copy_(kept)
+        return float(np.abs(logits - logits32).max()
+                     / np.abs(logits32).max()), got, secs
+
+    clone_s, pred_s, worst_clone, worst_pred = [], [], 0.0, 0.0
+    worst_logits = 0.0
+    for x in batches:
+        err, got, secs = logit_error(x)
+        clone_s.append(secs)
+        worst_logits = max(worst_logits, err)
+        t0 = time.perf_counter()
+        served = bf16.run([x])[0]
+        pred_s.append(time.perf_counter() - t0)
+        want = f32.run([x])[0]
+        rounded = f32.run([torch.from_numpy(x).to(torch.bfloat16).float()
+                           .numpy()])[0]
+        if not (np.isfinite(got).all() and np.isfinite(served).all()):
+            raise AssertionError('a bf16 eval output is not finite')
+        if not np.array_equal(served, rounded):
+            raise AssertionError('the bf16 Predictor is not the f32 model '
+                                 'on bf16-rounded images')
+        scale = np.abs(want).max()
+        worst_clone = max(worst_clone, float(np.abs(got - want).max() / scale))
+        worst_pred = max(worst_pred, float(np.abs(served - want).max()
+                                           / scale))
+    planted = logit_error(batches[0], fault=0.9)[0]
+    lowerings = (gpu.lowering_count(test), f32.executor.lowering_count(
+        f32.program), bf16.executor.lowering_count(bf16.program))
+    eval_p50 = statistics.median(clone_s[1:]) * 1e3
+    log(f'static ResNet-50 bf16 eval [{card}]: {SRESNET_EVAL_BATCHES} '
+        f'batches of {RESNET_BATCH}; the eval clone under the casts '
+        f'{RESNET_BATCH * (len(clone_s) - 1) / sum(clone_s[1:]):.1f} '
+        f'images/s, batch p50 {eval_p50:.3f} ms, max|diff| from the f32 '
+        f'model {worst_clone:.3e} of its largest entry (the softmax), '
+        f'{worst_logits:.3e} (the logits, bound {AMP_CLONE_RTOL:.4e}; with '
+        f'{CLONE_FAULT} scaled by 0.9 {planted:.3e}); Predictor with '
+        f'enable_bf16 {RESNET_BATCH * (len(pred_s) - 1) / sum(pred_s[1:]):.1f}'
+        f' images/s, batch p50 {statistics.median(pred_s[1:]) * 1e3:.3f} ms, '
+        f'equal bit for bit to the f32 Predictor on the rounded images, '
+        f'{worst_pred:.3e} of the largest entry from it on the raw ones '
+        f'(bound {AMP_SERVE_RTOL}); lowerings (clone, f32 Predictor, bf16 '
+        f'Predictor) {lowerings}')
+    if lowerings != (1, 1, 1) or worst_pred > AMP_SERVE_RTOL:
+        raise AssertionError(f'bf16 serving: lowerings {lowerings}, '
+                             f'Predictor {worst_pred:.3e} from f32')
+    if worst_logits > AMP_CLONE_RTOL:
+        raise AssertionError(f'the bf16 eval clone\'s logits are '
+                             f'{worst_logits:.3e} from the f32 program\'s')
+    if not planted > AMP_CLONE_RTOL:
+        raise AssertionError(f'the eval check passes {CLONE_FAULT} scaled '
+                             f'by 0.9 ({planted:.3e})')
+    profile_train_step(
+        lambda: gpu.run(test, feed={'image': batches[0], 'label': label},
+                        fetch_list=[v['prob']], scope=gscope),
+        (), eval_p50, card, STATIC_STEP_GROUPS,
+        what='static ResNet-50 bf16 eval batch')
+    return f'bf16 {trained}; eval clone p50 {eval_p50:.3f} ms'
+
+
+def amp_resnet_fp16(fluid, static_resnet, seed, card):
+    """(b): the recipe's --use_fp16 path with dynamic loss scaling,
+    trained, then two steps fed an image of inf (skipped) and a finite
+    one. Returns a summary."""
+    import torch
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_resnet.build(fluid, amp='float16')
+    opt = v['optimizer']
+    gpu, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=scope)
+    rng = np.random.default_rng(seed)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    _, _, trained, _ = time_static_resnet(
+        fluid, gpu, main, v, scope, feed, 'static ResNet-50 fp16 AMP', card)
+    names = [opt._scale_var.name] + [
+        x.name for x in main.list_vars()
+        if x.name.startswith(('loss_scaling_good', 'loss_scaling_bad'))]
+
+    def loss_state():
+        return tuple(float(scope.find(n).reshape(()).item())
+                     for n in names) + (opt.overflow_steps(scope),)
+
+    kept = [p.name for p in main.all_parameters()] + [
+        x.name for x in main.list_vars()
+        if x.persistable and '_velocity_' in x.name]
+    before = {n: scope.find(n).clone() for n in kept}
+    state0 = loss_state()
+    if state0[-1] != 0:
+        raise AssertionError(f'fp16 training skipped steps: {state0}')
+    inf = dict(feed, image=np.full_like(feed['image'], np.inf))
+    states = []
+    for _ in range(2):
+        gpu.run(main, feed=inf, fetch_list=[v['loss']], scope=scope)
+        states.append(loss_state())
+        moved = [n for n in kept if not torch.equal(scope.find(n),
+                                                    before[n])]
+        if moved:
+            raise AssertionError(f'the inf step moved {moved[:3]}')
+    scale = state0[0]
+    want = [(scale, 0.0, 1.0, 1),
+            (float(max(np.float32(scale) * np.float32(0.8), 1.0)), 0.0, 0.0,
+             2)]
+    if states != want:
+        raise AssertionError(f'loss scaling after the inf steps {states}, '
+                             f'the rule gives {want}')
+    gpu.run(main, feed=feed, fetch_list=[v['loss']], scope=scope)
+    moved = sum(not torch.equal(scope.find(n), before[n]) for n in kept)
+    if not moved:
+        raise AssertionError('the finite step after the skips moved nothing')
+    log(f'static ResNet-50 fp16 loss scaling [{card}]: init_loss_scaling '
+        f'{static_resnet.SCALE_LOSS} (ResNet50_fp16.sh --scale_loss), '
+        f'dynamic, decr_every_n_nan_or_inf 2, incr_every_n_steps 1000; '
+        f'(scale, good, bad, overflow_steps()) after the timed loop '
+        f'{state0}, after a step of inf images {states[0]}, after a second '
+        f'{states[1]}; the '
+        f'{len(kept)} parameters and velocities bit for bit through both; '
+        f'a finite step then moved {moved} of them')
+    return f'fp16 {trained}'
+
+
+def recompute_resnet(fluid, static_resnet, seed, card, f32_peak):
+    """(c): RecomputeOptimizer at the 16 bottleneck outputs, f32: three
+    steps, each from plain run A's state, against a second plain run from
+    the same state; then timed. Returns a summary."""
+    import torch
+    from paddle_tpu_torch.convert import scope_from_paddle
+    from paddle_tpu_torch.tools.witness import rel_l2
+    progs = {}
+    for name, rc in (('plain', False), ('recompute', True)):
+        with fluid.unique_name.guard():
+            progs[name] = static_resnet.build(fluid, recompute=rc)
+    main, startup, _, v = progs['plain']
+    rmain, _, _, rv = progs['recompute']
+    if len(rv['checkpoints']) != 16:
+        raise AssertionError(f'{len(rv["checkpoints"])} checkpoints')
+    gpu = fluid.Executor(fluid.CUDAPlace(0))
+    persist = [x.name for x in main.list_vars() if x.persistable]
+    scopes = {k: fluid.Scope() for k in ('plain A', 'plain B', 'recompute')}
+    gpu.run(startup, scope=scopes['plain A'])
+    rng = np.random.default_rng(seed)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    params = [p.name for p in main.all_parameters()]
+    fetch = [v['loss'].name] + [n + '@GRAD' for n in params]
+    steps = {k: fluid.CompiledProgram(p).with_data_parallel(
+        loss_name=v['loss'].name) for k, p in (
+            ('plain A', main), ('plain B', main), ('recompute', rmain))}
+    peaks = dict.fromkeys(steps, 0)
+
+    def run(name, fetch_list):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = gpu.run(steps[name], feed=feed, fetch_list=fetch_list,
+                      scope=scopes[name])
+        torch.cuda.synchronize()
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+        return out, time.perf_counter() - t0
+
+    readings, losses = [], {k: [] for k in steps}
+    for s in range(RECOMPUTE_STEPS):
+        host = {n: scopes['plain A'].find(n).cpu().numpy() for n in persist}
+        for k in ('plain B', 'recompute'):
+            scope_from_paddle(host, scopes[k], fluid.CUDAPlace(0),
+                              program=main)
+        got = {k: run(k, fetch)[0] for k in steps}
+        for k in steps:
+            losses[k].append(float(got[k][0]))
+        a, b, r = (got[k] for k in ('plain A', 'plain B', 'recompute'))
+        loss_b, loss_r = abs(b[0] - a[0]).item(), abs(r[0] - a[0]).item()
+        errs = np.array([(rel_l2(np.asarray(y, np.float64), x),
+                          rel_l2(np.asarray(z, np.float64), x),
+                          rel_l2(0.9 * np.asarray(z, np.float64), x))
+                         for x, y, z in zip(a[1:], b[1:], r[1:])])
+        rms = np.sqrt(np.mean(np.square(errs), axis=0))
+        readings.append((loss_b, loss_r, *rms, errs[:, 0].max()))
+    secs = {k: [run(k, [v['loss']])[1] for _ in range(TRAIN_STEPS)]
+            for k in ('plain A', 'recompute')}
+    p50 = {k: statistics.median(t) * 1e3 for k, t in secs.items()}
+    log(f'static ResNet-50 with RecomputeOptimizer (16 checkpoints, the '
+        f'bottleneck outputs), f32, batch {RESNET_BATCH} [{card}]: '
+        f'{RECOMPUTE_STEPS} steps, each from plain run A\'s state, plain run '
+        f'B and recompute against A: losses {losses}; per step (loss '
+        f'|B - A|, |R - A|; over the {len(params)} gradients the rms of '
+        f'rel L2 B, R, 0.9R; B\'s largest) ' + ', '.join(
+            f'({lb:.3e}, {lr:.3e}; {gb:.3e}, {gr:.3e}, {g9:.3e}; {gm:.3e})'
+            for lb, lr, gb, gr, g9, gm in readings)
+        + f' (bounds twice B\'s + 1e-6 of the loss, + {RECOMPUTE_FLOOR} of '
+        f'the rms); peak device memory recompute {peaks["recompute"]} bytes '
+        f'against plain {peaks["plain A"]} in this phase and {f32_peak} in '
+        f'phase 11 ({peaks["recompute"] / f32_peak:.3f}x); step p50 '
+        f'recompute {p50["recompute"]:.3f} ms, plain {p50["plain A"]:.3f} ms '
+        f'({TRAIN_STEPS} steps each, synchronised)')
+    for s, (lb, lr, gb, gr, g9, _) in enumerate(readings):
+        if lr > 2 * lb + 1e-6 * abs(losses['plain A'][s]) \
+                or gr > 2 * gb + RECOMPUTE_FLOOR:
+            raise AssertionError(f'recompute differs from the plain runs '
+                                 f'beyond their spread at step {s + 1}')
+        if g9 <= 2 * gb + RECOMPUTE_FLOOR:
+            raise AssertionError('the check passes gradients scaled by 0.9')
+    if not peaks['recompute'] < peaks['plain A']:
+        raise AssertionError('recompute did not lower the peak memory')
+    return (f'recompute p50 {p50["recompute"]:.3f} ms, peak '
+            f'{peaks["recompute"]} bytes')
+
+
+def train_static_amp(seed, card, f32_peak):
+    """Phase 14: static mixed precision and recompute. Returns the
+    kernels' launch counts over the phase (none of the port's kernels is
+    on this path)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.tools import static_resnet, static_seq2seq
+    nn_ops.reset_launch_counts()
+    fluid.seed(seed)
+    done = [amp_resnet_bf16(fluid, static_resnet, seed, card)]
+    torch.cuda.empty_cache()
+    done.append(amp_resnet_fp16(fluid, static_resnet, seed, card))
+    torch.cuda.empty_cache()
+    done.append(recompute_resnet(fluid, static_resnet, seed, card, f32_peak))
+    torch.cuda.empty_cache()
+    _, _, s2s = train_s2s(fluid, static_seq2seq, seed, card, amp='bfloat16')
+    done.append(f'seq2seq bf16 {s2s}')
+    log(f'static mixed precision and recompute [{card}]: ' + '; '.join(done))
+    return nn_ops.launch_counts()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3358,7 +3848,7 @@ def main(argv=None):
     # CompiledProgram on Executor(CUDAPlace(0)), saved and served; no
     # kernel of the port is on this path, and none may launch
     torch.cuda.empty_cache()
-    sresnet = train_static_resnet(args.seed, smi)
+    sresnet, sresnet_peak = train_static_resnet(args.seed, smi)
     if any(sresnet.values()):
         raise AssertionError(f'kernels launched on the static ResNet path: '
                              f'{sresnet}')
@@ -3394,12 +3884,28 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_s2s'] = s2s[wrapper]
 
-    # 14. result lines
-    log(f'chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s '
+    # 14. static mixed precision and recompute: the static ResNet-50 recipe
+    # in bf16, in fp16 with dynamic loss scaling and with
+    # RecomputeOptimizer, its bf16 eval and Predictor, and the seq2seq in
+    # bf16; no kernel of the port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    amp = train_static_amp(args.seed, smi, sresnet_peak)
+    if any(amp.values()):
+        raise AssertionError(f'kernels launched on the static AMP path: '
+                             f'{amp}')
+    log(f'static AMP and recompute path kernel launches: {amp}')
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_amp'] = amp[wrapper]
+
+    # 15. result lines
+    log(f'chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
-            'shape', 'launches_ptb', 'launches_s2s')
+            'shape', 'launches_ptb', 'launches_s2s', 'launches_amp')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
             x for x in ('body', 'launches_wgmma', 'launches_ernie', 'stock',

@@ -7,6 +7,10 @@ declares their ``<name>@GRAD`` variables. The Executor runs the ops before
 the marker with the parameters as leaf tensors that require grad, and at
 the marker takes ``torch.autograd.grad`` of the loss (executor.py), where
 the JAX package wraps the forward in ``jax.value_and_grad``.
+``checkpoints`` go on the marker: the executor then runs the forward in
+segments that end at the ops producing them and recomputes each in the
+backward (``torch.utils.checkpoint``, where the JAX package uses
+``jax.checkpoint``).
 
 Rows-only (sparse) embedding gradients are not ported: they need
 ``lookup_table(is_sparse=True)``, which is not ported either (ROADMAP
@@ -28,10 +32,7 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     """Append the backward marker of ``loss``; returns
     ``[(param, grad_var)]`` for the trainable parameters (those in
     ``parameter_list`` if given, less ``no_grad_set``). ``checkpoints``
-    (rematerialisation) are not ported and raise."""
-    if checkpoints:
-        raise NotImplementedError('append_backward(checkpoints=) (remat) is '
-                                  'not ported yet (ROADMAP A.8e)')
+    (Variables or names) are recorded on the marker for recompute."""
     program = loss.block.program
     block = program.global_block()
     params = [p for p in program.all_parameters() if p.trainable]
@@ -52,7 +53,9 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     outputs={'Grads': [g.name for _, g in param_grads]},
                     attrs={'loss': loss.name,
                            'params': [p.name for p, _ in param_grads],
-                           'checkpoints': []})
+                           'checkpoints': [
+                               c.name if hasattr(c, 'name') else c
+                               for c in (checkpoints or [])]})
     return param_grads
 
 

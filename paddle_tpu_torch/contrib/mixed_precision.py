@@ -14,9 +14,22 @@ counted, and under dynamic scaling the scale decays after
 steps it grows. ``get_loss_scaling`` and ``overflow_steps`` read that
 state. The loss itself is not scaled in dygraph, as in the reference.
 
-The static graph's AMP (the cast-list rewrite and in-graph loss scaling)
-raises (ROADMAP A.8e). The reference's ``amp_loss_scale`` gauge and
-skip counter of its observability registry wait for ROADMAP A.11.
+In the static graph, ``minimize`` of a Variable records the cast lists on
+the program (``program._amp_config``: the AMP type, the white and the
+black list); the executor then casts a white-list op's floating inputs to
+that type and a black-list op's to f32 (executor.py), and the master
+parameters stay f32 in the scope. bf16 then runs the inner optimizer's
+``minimize``. fp16 follows the reference's recipe in the program: the loss
+times the persistable ``loss_scaling``, the backward, one
+``check_finite_and_unscale`` over every gradient, an in-graph skip counter
+(``loss_scaling_skips``), ``update_loss_scaling`` under dynamic scaling
+(``loss_scaling_good``/``_bad`` count the steps), and the update inside a
+``cond`` on ``logical_not`` of the overflow flag, all on the device; the
+``cond`` reads its predicate on the host, one sync a step. On that path
+``get_loss_scaling`` and ``overflow_steps`` read the scope.
+
+The reference's ``amp_loss_scale`` gauge and skip counter of its
+observability registry wait for ROADMAP A.11.
 """
 from __future__ import annotations
 
@@ -49,6 +62,16 @@ def _all_finite(grads):
         [a.to(dev, torch.float32) for a in amax])).all())
 
 
+def _scope_value(var, scope):
+    """The value of the static graph's ``var`` in ``scope`` (the global
+    one if None) as a Python number, or None."""
+    if var is None:
+        return None
+    from ..core.scope import global_scope
+    val = (scope if scope is not None else global_scope()).find(var.name)
+    return None if val is None else val.reshape(()).item()
+
+
 class OptimizerWithMixedPrecision:
     """Wraps an optimizer (the reference's decorator.py); every attribute
     it does not define is the inner optimizer's."""
@@ -69,6 +92,8 @@ class OptimizerWithMixedPrecision:
         self._good_steps = 0
         self._bad_steps = 0
         self._skip_count = 0
+        self._scale_var = None        # the static graph's loss_scaling
+        self._skip_var = None         # and its in-graph skip counter
 
     def __getattr__(self, item):
         if item == '_inner':      # not set yet (copy, unpickling)
@@ -76,20 +101,99 @@ class OptimizerWithMixedPrecision:
         return getattr(self._inner, item)
 
     def get_loss_scaling(self, scope=None):
-        return self._loss_scale
+        """The loss scale: the static graph's ``loss_scaling`` from the
+        scope (a host read) once ``minimize`` made it, else the dygraph
+        gate's."""
+        val = _scope_value(self._scale_var, scope)
+        return self._loss_scale if val is None else float(val)
 
     def overflow_steps(self, scope=None):
-        """Updates skipped on a non-finite gradient so far."""
-        return self._skip_count
+        """Updates skipped on a non-finite gradient so far: the static
+        graph's in-graph counter from the scope (a host read) once
+        ``minimize`` made it, else the dygraph gate's count."""
+        val = _scope_value(self._skip_var, scope)
+        return self._skip_count if val is None else int(val)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         from ..framework import Variable
-        if isinstance(loss, Variable):
-            raise NotImplementedError(
-                'static-graph mixed precision (decorate on a Program) is '
-                'not ported yet (ROADMAP A.8e)')
-        return self._dygraph_minimize(loss, parameter_list)
+        if not isinstance(loss, Variable):
+            return self._dygraph_minimize(loss, parameter_list)
+        program = loss.block.program
+        program._amp_config = {
+            'dtype': (torch.float16 if self._dtype == 'float16'
+                      else torch.bfloat16),
+            'white': frozenset(self._amp_lists.white_list),
+            'black': frozenset(self._amp_lists.black_list)}
+        program._bump_version()
+        if self._dtype == 'float16':
+            # fp16 always scales (a constant scale without dynamic scaling)
+            return self._static_minimize_with_loss_scaling(loss,
+                                                           parameter_list)
+        return self._inner.minimize(loss, startup_program, parameter_list,
+                                    no_grad_set)
+
+    def _static_minimize_with_loss_scaling(self, loss, parameter_list):
+        """The reference's fp16 program: scale the loss, the backward, one
+        ``check_finite_and_unscale`` over the gradients, the skip counter,
+        ``update_loss_scaling`` when dynamic, and the update under
+        ``cond(logical_not(found))``."""
+        from ..backward import append_backward
+        from ..core import unique_name as un
+        from ..layer_helper import LayerHelper
+        from ..layers import control_flow as cf
+        from ..layers import tensor as T
+        from ..layers.common import apply_op_layer
+
+        scale_var = T.create_global_var(
+            [1], float(self._loss_scale), 'float32', persistable=True,
+            name=un.generate('loss_scaling'))
+        good = T.create_global_var([1], 0, 'int32', persistable=True,
+                                   name=un.generate('loss_scaling_good'))
+        bad = T.create_global_var([1], 0, 'int32', persistable=True,
+                                  name=un.generate('loss_scaling_bad'))
+        self._scale_var = scale_var
+        scaled = apply_op_layer('elementwise_mul',
+                                {'x': loss, 'y': scale_var})
+        params_grads = append_backward(
+            scaled, parameter_list or self._inner._parameter_names())
+
+        helper = LayerHelper('amp')
+        found = helper.create_variable_for_type_inference('bool')
+        found.shape = (1,)
+        gnames = [g.name for _, g in params_grads]
+        helper.append_op(
+            type='check_finite_and_unscale',
+            inputs={'xs': gnames, 'scale': scale_var.name},
+            outputs={'Out': gnames, 'FoundInfinite': found.name})
+        skip_var = T.create_global_var(
+            [1], 0, 'int32', persistable=True,
+            name=un.generate('loss_scaling_skips'))
+        self._skip_var = skip_var
+        found_i32 = apply_op_layer('cast', {'x': found}, {'dtype': 'int32'})
+        helper.append_op(
+            type='elementwise_add',
+            inputs={'x': skip_var.name, 'y': found_i32.name},
+            outputs={'Out': skip_var.name})
+        if self._dynamic:
+            helper.append_op(
+                type='update_loss_scaling',
+                inputs={'found_inf': found.name,
+                        'prev_loss_scaling': scale_var.name,
+                        'in_good_steps': good.name, 'in_bad_steps': bad.name},
+                outputs={'LossScaling': scale_var.name,
+                         'OutGoodSteps': good.name, 'OutBadSteps': bad.name},
+                attrs={'incr_every_n_steps': self._incr_every,
+                       'decr_every_n_nan_or_inf': self._decr_every,
+                       'incr_ratio': self._incr_ratio,
+                       'decr_ratio': self._decr_ratio})
+        ok = apply_op_layer('logical_not', {'x': found})
+
+        def apply_block():
+            self._inner.apply_gradients(params_grads)
+
+        cf.cond(ok, apply_block, None)
+        return None, params_grads
 
     def _dygraph_minimize(self, loss, parameter_list):
         params = (list(parameter_list) if parameter_list is not None

@@ -62,26 +62,48 @@ so one lowering serves every step. ``run`` takes a
 on this executor's one device, after refusing the strategy knobs the port
 does not act on (compiler.py).
 
+A program that static AMP decorated (``program._amp_config``,
+contrib/mixed_precision.py) runs under the reference's casts
+(``_amp_cast_args``), each op's resolved once a lowering, in sub-blocks
+too: a white-list op's floating inputs are cast to the AMP type, a
+black-list op's to f32, and any other op whose floating inputs differ in
+type computes in their promoted type, as ``jnp`` promotes (torch keeps a
+bf16 tensor's type against an f32 0-d tensor, and its products refuse
+mixed types). Integer inputs are never cast; the master parameters stay
+f32 in the scope, and their gradients come back f32 through the casts.
+
+A backward marker with ``checkpoints`` (``RecomputeOptimizer``) splits
+the forward at the ops that produce them, as the JAX package's
+``_remat_segments`` does: each segment runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` over a local
+env, from a snapshot of the outer values it reads, and passes out only
+what later ops, the loss, the fetches, the state writes and the
+checkpoints read (the JAX package's ``live_after``). Its recompute in the
+backward restores the plan's generator to where the segment first drew,
+so it draws the same dropout masks, and puts it back afterwards.
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: an AMP program config and
-rematerialisation (A.8e), in-place state updates in place of the JAX
-package's buffer donation (A.8f), pipeline plans and the fleet mesh (A.9),
-the dataset runs and asynchronous fetches (A.11).
+item: in-place state updates in place of the JAX package's buffer
+donation (A.8f), pipeline plans and the fleet mesh (A.9), the dataset runs
+and asynchronous fetches (A.11).
 """
 from __future__ import annotations
 
+import functools
 import os
 from collections import Counter
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .compiler import CompiledProgram
 from .core.dtypes import to_numpy_dtype, to_torch_dtype
 from .core.places import get_device
 from .core.random import default_generator
 from .core.scope import global_scope
-from .framework import BACKWARD_OP_TYPE, Variable, default_main_program
+from .framework import (BACKWARD_OP_TYPE, Variable, default_main_program,
+                        op_read_names)
 from .ops.registry import NON_KERNEL_ATTRS, get_op
 
 __all__ = ['Executor']
@@ -92,10 +114,6 @@ def _check_ported(program):
     for b in program.blocks:
         for op in b.ops:
             if op.type == BACKWARD_OP_TYPE:
-                if op.attrs.get('checkpoints'):
-                    raise NotImplementedError(
-                        'rematerialisation (checkpoints) is not ported yet '
-                        '(ROADMAP A.8e)')
                 if op.attrs.get('pipeline'):
                     raise NotImplementedError(
                         'pipeline plans are not ported yet (ROADMAP A.9)')
@@ -103,9 +121,6 @@ def _check_ported(program):
                     raise NotImplementedError(
                         'rows-only embedding gradients are not ported yet '
                         '(ROADMAP A.10)')
-    if getattr(program, '_amp_config', None) is not None:
-        raise NotImplementedError('AMP in the static executor is not ported '
-                                  'yet (ROADMAP A.8e)')
     if (getattr(program, '_fsdp_axis', None) is not None
             or getattr(program, '_partition_params', False)):
         raise NotImplementedError('the fleet mesh (partitioned state) is '
@@ -123,13 +138,54 @@ def _check_env():
             'A.8f)')
 
 
+# the cast of an AMP program's op in neither list: its floating inputs to
+# their promoted type, where they differ
+_PROMOTE = 'promote'
+
+
+def _amp_target(op_type, amp):
+    """What an AMP program casts ``op_type``'s floating inputs to: the AMP
+    type (white list), f32 (black list) or their promoted type; None
+    without AMP."""
+    if amp is None:
+        return None
+    if op_type in amp['white']:
+        return amp['dtype']
+    if op_type in amp['black']:
+        return torch.float32
+    return _PROMOTE
+
+
+def _amp_cast_args(args, target):
+    """``args`` (tensors, lists of them, None) with every floating tensor
+    cast to ``target``; for ``_PROMOTE``, to the promoted type of the
+    floating tensors, where they differ."""
+    if target is _PROMOTE:
+        types = {t.dtype for a in args
+                 for t in (a if isinstance(a, list) else (a,))
+                 if isinstance(t, torch.Tensor) and t.is_floating_point()}
+        if len(types) < 2:
+            return args
+        target = functools.reduce(torch.promote_types, types)
+
+    def cast(a):
+        if isinstance(a, list):
+            return [cast(x) for x in a]
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.to(target)
+        return a
+
+    return [cast(a) for a in args]
+
+
 class _Step:
     """One op, resolved: its function, the names it reads (one entry an
-    input slot: None, a name, or a list for a variadic slot), its attrs
-    and the names it writes (one list an output slot)."""
+    input slot: None, a name, or a list for a variadic slot), its attrs,
+    the names it writes (one list an output slot) and, in an AMP program,
+    what its floating inputs are cast to."""
 
     __slots__ = ('type', 'fn', 'args', 'attrs', 'outs', 'needs_rng',
-                 'no_inputs', 'single', 'atomic')
+                 'no_inputs', 'single', 'atomic', 'amp')
 
     def __init__(self, op):
         opdef = get_op(op.type)
@@ -151,11 +207,15 @@ class _Step:
         self.no_inputs = not opdef.input_slots
         self.single = len(opdef.output_slots) == 1
         self.atomic = opdef.atomic_output
+        self.amp = _amp_target(op.type,
+                               getattr(op.block.program, '_amp_config', None))
 
     def run(self, read, env, device, generator):
         args = [None if a is None else
                 [read(n) for n in a] if isinstance(a, list) else read(a)
                 for a in self.args]
+        if self.amp is not None:
+            args = _amp_cast_args(args, self.amp)
         attrs = ({**self.attrs, 'key': generator} if self.needs_rng
                  else self.attrs)
         try:
@@ -420,15 +480,87 @@ _CONTROL_FLOW = {'__cond__': _Cond, '__switch__': _Switch,
                  '__scan__': _Scan, '__create_array__': _CreateArray}
 
 
+def _remat_segments(fwd_ops, checkpoints):
+    """The forward's ``(lo, hi)`` op ranges, each ending at an op that
+    produces a checkpoint (the JAX package's ``_remat_segments``)."""
+    ckpt = set(checkpoints)
+    bounds = sorted({i + 1 for i, o in enumerate(fwd_ops)
+                     if set(o.output_names()) & ckpt})
+    segs, prev = [], 0
+    for b in bounds:
+        if b > prev:
+            segs.append((prev, b))
+            prev = b
+    if prev < len(fwd_ops):
+        segs.append((prev, len(fwd_ops)))
+    return segs
+
+
+class _Segment:
+    """A recomputed range of the forward: its ops, the names they read
+    (snapshotted at entry from the env and the state, so the recompute
+    reads what the first run read even where a later op overwrites a
+    name), and the names live after it (without the fetches)."""
+
+    __slots__ = ('steps', 'reads', 'live')
+
+    def __init__(self, steps, reads, live):
+        self.steps, self.reads, self.live = steps, reads, live
+
+    def run(self, read, env, state, keep, device, generator):
+        """Run under ``checkpoint`` and leave in ``env`` only the names of
+        ``keep``; the recompute restores ``generator`` to where the first
+        run started and puts it back afterwards."""
+        inputs = {}
+        for n in self.reads:
+            v = env.get(n)
+            if v is None:
+                v = state.get(n)
+            if v is not None:
+                inputs[n] = v
+        first_state = []
+
+        def body():
+            local = {}
+
+            def read2(name):
+                v = local.get(name)
+                if v is None:
+                    v = inputs.get(name)
+                return read(name) if v is None else v
+
+            for s in self.steps:
+                s.run(read2, local, device, generator)
+            return {n: v for n, v in local.items() if n in keep}
+
+        def seg():
+            if not first_state:
+                first_state.append(generator.get_state())
+                return body()
+            now = generator.get_state()
+            generator.set_state(first_state[0])
+            try:
+                return body()
+            finally:
+                generator.set_state(now)
+
+        out = checkpoint(seg, use_reentrant=False, preserve_rng_state=False)
+        for n in [n for n in env if n not in keep]:
+            del env[n]
+        env.update(out)
+
+
 class _Plan:
-    """A lowered program: the ops before the backward marker, the marker's
-    loss, targets and gradient names, and the ops after it."""
+    """A lowered program: the ops before the backward marker (with
+    checkpoints, as recomputed segments), the marker's loss, targets and
+    gradient names, and the ops after it."""
 
     def __init__(self, program, state_names):
         ops = list(program.global_block().ops)
         bwd = next((i for i, op in enumerate(ops)
                     if op.type == BACKWARD_OP_TYPE), None)
         self.state_names = list(state_names)
+        self.segments = None
         if bwd is None:
             self.fwd = [_step(op) for op in ops]
             self.marker = None
@@ -439,6 +571,22 @@ class _Plan:
             self.marker = (marker.attrs['loss'], list(marker.attrs['params']),
                            list(marker.outputs['Grads']))
             self.post = [_step(op) for op in ops[bwd + 1:]]
+            checkpoints = list(marker.attrs.get('checkpoints') or [])
+            if checkpoints:
+                self.segments = self._segments(ops[:bwd], ops[bwd + 1:],
+                                               checkpoints)
+
+    def _segments(self, fwd_ops, post_ops, checkpoints):
+        downstream = set().union(*(op_read_names(o) for o in post_ops))
+        downstream |= {self.marker[0], *self.state_names, *checkpoints}
+        segments = []
+        for lo, hi in _remat_segments(fwd_ops, checkpoints):
+            live = set(downstream)
+            for o in fwd_ops[hi:]:
+                live |= op_read_names(o)
+            reads = set().union(*(op_read_names(o) for o in fwd_ops[lo:hi]))
+            segments.append(_Segment(self.fwd[lo:hi], reads, live))
+        return segments
 
     def run(self, state, feeds, fetch_names, device, generator):
         """-> (new state {name: tensor}, [fetched tensor])."""
@@ -473,8 +621,14 @@ class _Plan:
                 env[n] = leaf
                 leaves.append(leaf)
             with torch.enable_grad():
-                for s in self.fwd:
-                    s.run(read, env, device, generator)
+                if self.segments is None:
+                    for s in self.fwd:
+                        s.run(read, env, device, generator)
+                else:
+                    pinned = set(feeds) | set(targets) | set(fetch_names)
+                    for seg in self.segments:
+                        seg.run(read, env, state, seg.live | pinned,
+                                device, generator)
                 grads = torch.autograd.grad(env[loss_name].sum(), leaves,
                                             allow_unused=True)
             for n, leaf in zip(targets, leaves):
@@ -519,7 +673,8 @@ class Executor:
         """Run ``program`` (a Program or a ``CompiledProgram``; the
         default main program if None) once on ``feed`` ({name: array});
         returns the values of ``fetch_list`` (Variables or names), numpy
-        arrays by default. With ``return_numpy=False`` they are the tensors
+        arrays by default (a bf16 value as f32, exactly: numpy has no
+        bf16). With ``return_numpy=False`` they are the tensors
         on the device, detached (the JAX package returns ``FetchHandle`` s
         there). ``use_program_cache``, ``feed_var_name`` and
         ``fetch_var_name`` are accepted and ignored, as the JAX package
@@ -558,7 +713,9 @@ class Executor:
         for n, v in new_state.items():
             scope.set(n, v)
         if return_numpy:
-            return [f.cpu().numpy() for f in fetches]
+            # numpy has no bf16: such a value comes back as f32, exactly
+            return [(f.float() if f.dtype == torch.bfloat16 else f)
+                    .cpu().numpy() for f in fetches]
         return fetches
 
     def _state_value(self, scope, name):

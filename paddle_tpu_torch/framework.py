@@ -225,7 +225,8 @@ class Program:
 
     ``_version`` moves on every edit, so the Executor's cache of lowered
     plans never serves a stale one. ``clone(for_test=True)`` drops the
-    backward marker and every op after it and sets ``is_test`` attrs."""
+    backward marker and every op after it and sets ``is_test`` attrs; a
+    clone keeps static AMP's cast lists (``_amp_config``)."""
 
     _COUNTER = 0
 
@@ -292,6 +293,9 @@ class Program:
             p.blocks.append(nb)
         p.current_block_idx = 0
         p.random_seed = self.random_seed
+        amp = getattr(self, '_amp_config', None)
+        if amp is not None:
+            p._amp_config = amp     # an eval clone runs under the casts
         if for_test:
             # the dropped tail's vars (@GRAD, optimizer temporaries) go too
             referenced = set()

@@ -2,18 +2,24 @@
 ``Config``, ``Predictor`` and ``create_paddle_predictor``.
 
 A Predictor loads a saved inference model (io.load_inference_model) into
-a Scope of its own and runs it in f32 through an Executor, the card's by
-default or the one passed in (``Executor(CPUPlace())`` on the CPU). The
-executor lowers the program once per set of feed shapes and reuses the
-plan.
+a Scope of its own and runs it through an Executor, the card's by default
+or the one passed in (``Executor(CPUPlace())`` on the CPU). The executor
+lowers the program once per set of feed shapes and reuses the plan.
+
+``Config.enable_bf16`` does what the JAX package's does and no more: each
+f32 feed is rounded to bf16 (on the executor's device), and the executor
+then casts it to its variable's type, so the saved model computes as it
+was saved (f32) on bf16-rounded inputs.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``Config.enable_bf16`` (A.8e: the static executor has no AMP yet),
-``Config.enable_int8`` (A.10: weight-only int8 rides on the
+item: ``Config.enable_int8`` (A.10: weight-only int8 rides on the
 ``dequantize_linear`` quant op) and the StableHLO exports
 ``export_stablehlo``/``export_program_stablehlo`` (A.11).
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from .core.scope import Scope, scope_guard
 
@@ -22,17 +28,20 @@ __all__ = ['Config', 'Predictor', 'create_paddle_predictor',
 
 
 class Config:
-    """The model's directory and file names (the model runs in f32)."""
+    """The model's directory and file names, and ``precision``: 'float32',
+    or 'bfloat16' after :meth:`enable_bf16`."""
 
     def __init__(self, model_dir=None, model_filename=None,
                  params_filename=None):
         self.model_dir = model_dir
         self.model_filename = model_filename
         self.params_filename = params_filename
+        self.precision = 'float32'
 
     def enable_bf16(self):
-        raise NotImplementedError('Config.enable_bf16: the static executor '
-                                  'has no AMP yet (ROADMAP A.8e)')
+        """Round the f32 feeds to bf16; returns the Config."""
+        self.precision = 'bfloat16'
+        return self
 
     def enable_int8(self, quant_scales=None, weight_bits=8):
         raise NotImplementedError('Config.enable_int8: weight-only int8 '
@@ -85,8 +94,23 @@ class Predictor:
         """``inputs``: arrays in feed order, or {name: array}."""
         feed = (inputs if isinstance(inputs, dict)
                 else dict(zip(self.feed_names, inputs)))
+        if self.config.precision == 'bfloat16':
+            feed = {k: self._to_bf16(v) for k, v in feed.items()}
         return self._exe.run(self.program, feed=feed,
                              fetch_list=self.fetch_vars, scope=self._scope)
+
+
+    def _to_bf16(self, value):
+        """An f32 feed as a bf16 tensor on the executor's device; any other
+        feed as it is."""
+        if isinstance(value, torch.Tensor):
+            return (value.to(torch.bfloat16)
+                    if value.dtype == torch.float32 else value)
+        arr = np.asarray(value)
+        if arr.dtype != np.float32:
+            return value
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self._exe.device).to(torch.bfloat16)
 
 
 def create_paddle_predictor(config):

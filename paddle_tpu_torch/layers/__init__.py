@@ -4,13 +4,15 @@ sequence_lod.py and learning_rate_scheduler.py, ``accuracy``, and the
 Variable operators of math_op_patch.py (applied at import, as in the JAX
 package).
 
-Every public name of the JAX package's ``layers`` exists here: 139 of its
+Every public name of the JAX package's ``layers`` exists here: 143 of its
 340 callables run. Those the port does not run yet are callables that
 raise ``NotImplementedError`` naming their ROADMAP item, 129 from the one
 table :data:`NOT_PORTED` (A.11 the readers and host callbacks, A.10 the
 sequence/LoD, detection and distribution layers and the layers over ops
-the port has not registered) and 72 generated layers over such ops
-(layers/nn.py). The modules ``detection`` and ``distributions`` raise the
+the port has not registered) and 68 generated layers over such ops
+(layers/nn.py). A generated layer that runs takes its attributes by
+position after its input slots, in Paddle's documented order
+(layers/nn.py ``_POSITIONAL``). The modules ``detection`` and ``distributions`` raise the
 same way on any attribute, ``sequence_lod`` on any but
 ``sequence_mask``."""
 import functools

@@ -54,13 +54,33 @@ def apply_op_layer(op_type, inputs, attrs=None, name=None, n_outputs=None,
     return out_vars[0] if len(out_vars) == 1 else tuple(out_vars)
 
 
-def generate_layer_fn(op_type, in_slots=None, doc=''):
-    """A ``fn(x, ..., name=None, **attrs) -> Variable`` layer of an op."""
+def generate_layer_fn(op_type, in_slots=None, doc='', attr_order=()):
+    """A ``fn(x, ..., *attr_order, name=None, **attrs) -> Variable`` layer
+    of an op. Positional arguments fill the input slots, then the names of
+    ``attr_order`` in turn (Paddle's documented order of the layer's
+    parameters: the op's attrs, and ``name`` where Paddle takes it there);
+    one that has no place raises ``TypeError`` naming the layer."""
     opdef = get_op(op_type)
-    slots = in_slots or opdef.input_slots
+    slots = list(in_slots or opdef.input_slots)
+    order = slots + list(attr_order)
 
     def layer(*args, name=None, **kwargs):
-        inputs = dict(zip(slots, args))
+        if len(args) > len(order):
+            raise TypeError(
+                f'layers.{layer.__name__}() takes at most {len(order)} '
+                f'positional arguments ({", ".join(order)}), '
+                f'{len(args)} given')
+        inputs = {}
+        for key, v in zip(order, args):
+            if key in kwargs or (key == 'name' and name is not None):
+                raise TypeError(f'layers.{layer.__name__}() got multiple '
+                                f'values for {key!r}')
+            if key == 'name':
+                name = v
+            elif key in slots:
+                inputs[key] = v
+            else:
+                kwargs[key] = v
         for slot in slots[len(args):]:
             if slot in kwargs:
                 inputs[slot] = kwargs.pop(slot)

@@ -267,10 +267,36 @@ def _not_ported(op_type, fname):
     return layer
 
 
+# the parameters each generated layer that runs takes by position after its
+# input slots, in Paddle 1.7's documented order, up to the first one the
+# port's op does not take (``act``, ``out``, ...)
+_UNARY = ('name',)
+_REDUCE = ('dim', 'keep_dim', 'name')
+_POSITIONAL = {
+    **dict.fromkeys(['sigmoid', 'exp', 'tanh', 'sqrt', 'ceil', 'floor',
+                     'cos', 'square', 'relu', 'log', 'sign', 'mean'],
+                    _UNARY),
+    **dict.fromkeys(['reduce_sum', 'reduce_mean', 'reduce_max',
+                     'reduce_min'], _REDUCE),
+    **dict.fromkeys(['elementwise_add', 'elementwise_sub',
+                     'elementwise_mul', 'elementwise_div',
+                     'elementwise_max', 'elementwise_min',
+                     'elementwise_pow', 'elementwise_mod',
+                     'elementwise_floordiv'], ('axis',)),
+    'log_softmax': ('axis', 'name'), 'pow': ('factor', 'name'),
+    'scale': ('scale', 'bias', 'bias_after_scale'),
+    'clip': ('min', 'max', 'name'), 'clip_by_norm': ('max_norm', 'name'),
+    'transpose': ('perm', 'name'), 'squeeze': ('axes', 'name'),
+    'unsqueeze': ('axes', 'name'), 'reshape': ('shape',),
+    'gather': ('overwrite',), 'expand': ('expand_times', 'name'),
+    'slice': ('axes', 'starts', 'ends'), 'argmax': ('axis',),
+}
+
+
 def _gen(op_type, *, fname=None):
     fname = fname or op_type
-    fn = (generate_layer_fn(op_type) if has_op(op_type)
-          else _not_ported(op_type, fname))
+    fn = (generate_layer_fn(op_type, attr_order=_POSITIONAL.get(fname, ()))
+          if has_op(op_type) else _not_ported(op_type, fname))
     fn.__name__ = fname
     globals()[fname] = fn
     __all__.append(fname)

@@ -7,8 +7,9 @@ kernel, so they stay torch's own ops (so do ``sign``, ``square``,
 which the regularizers and gradient clips of regularizer.py and clip.py
 append, and the ops the static learning-rate schedules are written in:
 ``elementwise_min``/``_pow``, ``exp``, ``log``, ``floor``, ``ceil``,
-``cos``, ``pow``, the comparisons and ``increment``; and ``sigmoid`` and
-``tanh``, which every recurrent cell is written in)."""
+``cos``, ``pow``, the comparisons and ``increment``; ``sigmoid`` and
+``tanh``, which every recurrent cell is written in; and the logical ops,
+``logical_not`` of which gates the fp16 update of static AMP)."""
 from __future__ import annotations
 
 import math
@@ -25,7 +26,8 @@ __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'ceil', 'cos', 'pow_op', 'reduce_max', 'reduce_min', 'equal',
            'less_than', 'less_equal', 'greater_than', 'greater_equal',
            'increment', 'sigmoid', 'tanh', 'elementwise_mod',
-           'elementwise_floordiv']
+           'elementwise_floordiv', 'logical_and', 'logical_or',
+           'logical_xor', 'logical_not']
 
 
 def _align_y(x, y, axis=-1):
@@ -141,6 +143,9 @@ less_than = _cmp('less_than', torch.lt)
 less_equal = _cmp('less_equal', torch.le)
 greater_than = _cmp('greater_than', torch.gt)
 greater_equal = _cmp('greater_equal', torch.ge)
+logical_and = _cmp('logical_and', torch.logical_and)
+logical_or = _cmp('logical_or', torch.logical_or)
+logical_xor = _cmp('logical_xor', torch.logical_xor)
 
 
 @register_op('sum', variadic=['xs'])
@@ -186,6 +191,7 @@ ceil = _unary('ceil', torch.ceil)
 cos = _unary('cos', torch.cos)
 sigmoid = _unary('sigmoid', torch.sigmoid)
 tanh = _unary('tanh', torch.tanh)
+logical_not = _unary('logical_not', torch.logical_not)
 
 
 @register_op('pow')

@@ -12,6 +12,10 @@ The static graph's ops are the functional forms the JAX package registers:
 writes back to the scope. The registry binds ``momentum`` and ``adam`` to
 :func:`_momentum_out` and :func:`_adam_out`, the same arithmetic with the
 JAX ops' outputs.
+
+Static AMP's dynamic loss scaling (contrib/mixed_precision.py) adds
+``check_finite_and_unscale`` and ``update_loss_scaling``, which keep the
+scale and its step counts on the device: no host read.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 from .registry import register_op
 
 __all__ = ['sgd', 'momentum', 'multi_tensor_momentum', 'adam',
-           'multi_tensor_adam']
+           'multi_tensor_adam', 'check_finite_and_unscale',
+           'update_loss_scaling']
 
 
 @register_op('sgd', outputs=['ParamOut'])
@@ -134,3 +139,46 @@ def multi_tensor_adam(params, grads, moment1s, moment2s, beta1_pows,
     torch._foreach_sub_(params, step)
     torch._foreach_mul_(beta1_pows, beta1)
     torch._foreach_mul_(beta2_pows, beta2)
+
+
+@register_op('check_finite_and_unscale', outputs=['Out', 'FoundInfinite'],
+             variadic=['xs'])
+def check_finite_and_unscale(xs, scale):
+    """Every tensor of ``xs`` times ``1 / scale``, and a (1,) bool: whether
+    any entry of them is not finite (the largest magnitude of each in one
+    ``_foreach_norm(inf)``, which is inf or NaN wherever an entry is)."""
+    inv = 1.0 / scale.reshape(())
+    outs = [x * inv for x in xs]
+    amax = torch._foreach_norm(outs, float('inf'))
+    found = torch.logical_not(torch.isfinite(torch.stack(
+        [a.to(torch.float32) for a in amax])).all())
+    return outs, found.reshape(1)
+
+
+@register_op('update_loss_scaling',
+             outputs=['LossScaling', 'OutGoodSteps', 'OutBadSteps'])
+def update_loss_scaling(found_inf, prev_loss_scaling, in_good_steps,
+                        in_bad_steps, *, incr_every_n_steps=1000,
+                        decr_every_n_nan_or_inf=2, incr_ratio=2.0,
+                        decr_ratio=0.8):
+    """The dynamic loss scale's update, branchless: a bad step counts up
+    the bad steps and zeroes the good ones, a good step the other way; at
+    ``decr_every_n_nan_or_inf`` bad steps the scale becomes
+    ``max(scale * decr_ratio, 1)``, at ``incr_every_n_steps`` good steps
+    ``scale * incr_ratio``, and each resets its own count. Returns the
+    scale (f32) and the counts (int32), each of shape (1,)."""
+    found = found_inf.reshape(()).to(torch.bool)
+    scale = prev_loss_scaling.reshape(()).to(torch.float32)
+    good = in_good_steps.reshape(()).to(torch.int32)
+    bad = in_bad_steps.reshape(()).to(torch.int32)
+    zero = torch.zeros_like(bad)
+    bad_n = torch.where(found, bad + 1, zero)
+    good_n = torch.where(found, zero, good + 1)
+    decr = bad_n >= decr_every_n_nan_or_inf
+    incr = good_n >= incr_every_n_steps
+    scale_n = torch.where(
+        decr, torch.clamp(scale * decr_ratio, min=1.0),
+        torch.where(incr, scale * incr_ratio, scale))
+    bad_n = torch.where(decr, zero, bad_n)
+    good_n = torch.where(incr, zero, good_n)
+    return scale_n.reshape(1), good_n.reshape(1), bad_n.reshape(1)

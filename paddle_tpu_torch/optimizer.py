@@ -25,6 +25,10 @@ both modes.
   updates, as the reference appends them; without ``grad_clip=``, a clip
   that ``clip.set_gradient_clip`` recorded on the program applies.
 
+``RecomputeOptimizer`` wraps a static optimizer: its checkpoints go on the
+backward marker, and the executor recomputes the forward between them in
+the backward.
+
 A ParamAttr ``learning_rate`` other than 1.0 raises (ROADMAP A.4b): the
 reference stores it and never applies it (ROADMAP C.4).
 """
@@ -46,7 +50,7 @@ from .ops.registry import get_op
 from .regularizer import append_regularization_ops
 
 __all__ = ['SGDOptimizer', 'SGD', 'MomentumOptimizer', 'Momentum',
-           'AdamOptimizer', 'Adam']
+           'AdamOptimizer', 'Adam', 'RecomputeOptimizer']
 
 
 def _zeros_like(param):
@@ -131,7 +135,12 @@ class _Optimizer:
         """One update of every parameter in ``params`` that has a gradient
         and is trainable, in place; then a schedule steps. The gradients
         are regularized and clipped on the way, ``p.grad`` left as it
-        was."""
+        was. In the static graph ``params`` is ``append_backward``'s
+        ``[(param, grad_var)]``, and the regularizers', clips' and update
+        ops are appended to the current block instead."""
+        if params and isinstance(params[0], tuple) \
+                and isinstance(params[0][0], Variable):
+            return self._append_static_updates(params)
         params = [p for p in params
                   if p.grad is not None and p.requires_grad]
         for p in params:
@@ -253,11 +262,23 @@ class _Optimizer:
         """{slot name: (shape, fill value)}: zeros like the parameter."""
         return {s: (param_shape, 0.0) for s in self._slot_names}
 
+    def _parameter_names(self):
+        if self._parameter_list is None:
+            return None
+        return [p if isinstance(p, str) else p.name
+                for p in self._parameter_list]
+
     def _static_minimize(self, loss, parameter_list, no_grad_set):
         names = parameter_list or self._parameter_list
         if names is not None:
             names = [p if isinstance(p, str) else p.name for p in names]
         params_grads = append_backward(loss, names, no_grad_set)
+        self._append_static_updates(params_grads)
+        return None, params_grads
+
+    def _append_static_updates(self, params_grads):
+        """The regularizers' and clips' ops, then one update op a
+        parameter, appended to the current block."""
         updates = append_regularization_ops(params_grads,
                                             self.regularization)
         if self._grad_clip is not None:
@@ -267,7 +288,7 @@ class _Optimizer:
         lr = self._get_lr_var()
         for p, g in updates:
             self._append_optimize_op(p, g, lr)
-        return None, params_grads
+        return []
 
     def _get_lr_var(self):
         """The static graph's rate: the schedule Variable given as
@@ -410,6 +431,74 @@ class AdamOptimizer(_Optimizer):
                           *(slots[n] for n in self._slot_names),
                           lr, beta1=self._beta1,
                           beta2=self._beta2, epsilon=self._epsilon)
+
+
+class RecomputeOptimizer:
+    """``RecomputeOptimizer(optimizer)`` of the static graph: after
+    ``_set_checkpoints(names)``, ``minimize`` records the checkpoints on
+    the backward marker, and the executor runs the forward in segments
+    that end at the ops producing them, each recomputed in the backward
+    (executor.py), then appends ``optimizer``'s updates. Every attribute it
+    does not define is the inner optimizer's."""
+
+    def __init__(self, optimizer):
+        self._inner = optimizer
+        self._checkpoints = None
+
+    def __getattr__(self, item):
+        if item == '_inner':      # not set yet (copy, unpickling)
+            raise AttributeError(item)
+        return getattr(self._inner, item)
+
+    def _set_checkpoints(self, checkpoints):
+        """Checkpoints as a list or tuple of Variables or names, each name
+        once; None clears them."""
+        if checkpoints is None:
+            self._checkpoints = None
+            return
+        if not isinstance(checkpoints, (list, tuple)):
+            raise ValueError(
+                f'RecomputeOptimizer checkpoints must be a list/tuple of '
+                f'Variables or var names, got '
+                f'{type(checkpoints).__name__}')
+        names = []
+        for c in checkpoints:
+            n = c.name if hasattr(c, 'name') else c
+            if not isinstance(n, str):
+                raise ValueError(
+                    f'RecomputeOptimizer checkpoint entries must be '
+                    f'Variables or var names, got {type(c).__name__}: '
+                    f'{c!r}')
+            names.append(n)
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        if dupes:
+            raise ValueError(
+                f'RecomputeOptimizer checkpoints contain duplicate '
+                f'name(s): {dupes}')
+        self._checkpoints = list(checkpoints)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """The backward marker with the checkpoints (each must be a
+        variable the program declares), then the inner optimizer's
+        updates; returns ``(None, [(param, grad_var)])``."""
+        if self._checkpoints:
+            names = [c.name if hasattr(c, 'name') else c
+                     for c in self._checkpoints]
+            program = loss.block.program
+            unknown = sorted(
+                n for n in names
+                if not any(n in b.vars for b in program.blocks))
+            if unknown:
+                raise ValueError(
+                    f'RecomputeOptimizer checkpoints name var(s) the '
+                    f'program does not declare: {unknown} (typo, or a '
+                    f'var from a different Program?)')
+        params_grads = append_backward(
+            loss, parameter_list or self._inner._parameter_names(),
+            no_grad_set, checkpoints=self._checkpoints)
+        self._inner.apply_gradients(params_grads)
+        return None, params_grads
 
 
 SGD = SGDOptimizer

@@ -32,12 +32,21 @@ values 0.1 x 0.1^i), 0.9, regularization=L2Decay(1e-4))``. Parameter
 names are the recipe's (``res2a_branch2a_weights``, ``bn2a_branch2a_scale``,
 ...). ``blocks`` and ``width_div`` exist only to cut depth and width for
 tests.
+
+Mixed precision is the recipe's ``--use_fp16`` path, the optimizer wrapped
+in ``fluid.contrib.mixed_precision.decorate(optimizer,
+init_loss_scaling=SCALE_LOSS, use_dynamic_loss_scaling=True)``
+(``build_model.py``, with ``ResNet50_fp16.sh``'s ``--scale_loss`` and
+the recipe's default dynamic scaling; bf16 ignores the scale), with
+``dtype`` ``amp`` ('float16' as the recipe, or 'bfloat16');
+``recompute=True`` wraps it in ``fluid.optimizer.RecomputeOptimizer`` with
+the 16 bottleneck blocks' outputs as checkpoints.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ['BOUNDARIES', 'VALUES', 'build']
+__all__ = ['BOUNDARIES', 'SCALE_LOSS', 'VALUES', 'build']
 
 DEPTHS = {50: [3, 4, 6, 3]}     # the recipe's other depths name blocks
                                 # otherwise (res4b1, ...) and are not here
@@ -47,6 +56,8 @@ MOMENTUM, L2_DECAY = 0.9, 1e-4
 STEP_EACH_EPOCH = math.ceil(1281167 / 256)
 BOUNDARIES = [STEP_EACH_EPOCH * e for e in (30, 60, 90)]
 VALUES = [0.1 * (0.1 ** i) for i in range(len(BOUNDARIES) + 1)]
+# the --use_fp16 recipe's initial loss scale (ResNet50_fp16.sh --scale_loss)
+SCALE_LOSS = 128.0
 
 
 def _conv_bn_layer(fluid, x, num_filters, filter_size, stride=1, act=None,
@@ -81,7 +92,7 @@ def _bottleneck_block(fluid, x, num_filters, stride, name):
         x=short, y=conv2, name=name + '.add.output.5'))
 
 
-def _net(fluid, image, class_dim, blocks, width_div):
+def _net(fluid, image, class_dim, blocks, width_div, block_outs):
     filters = [f // width_div for f in (64, 128, 256, 512)]
     conv = _conv_bn_layer(fluid, image, 64 // width_div, 7, stride=2,
                           act='relu', name='conv1')
@@ -93,6 +104,7 @@ def _net(fluid, image, class_dim, blocks, width_div):
                 fluid, conv, filters[block],
                 stride=2 if i == 0 and block != 0 else 1,
                 name='res' + str(block + 2) + chr(97 + i))
+            block_outs.append(conv)
     pool = fluid.layers.pool2d(input=conv, pool_type='avg',
                                global_pooling=True)
     stdv = 1.0 / math.sqrt(pool.shape[1] * 1.0)
@@ -103,22 +115,26 @@ def _net(fluid, image, class_dim, blocks, width_div):
 
 
 def build(fluid, depth=50, class_dim=1000, image_shape=(3, 224, 224),
-          blocks=None, width_div=1):
+          blocks=None, width_div=1, amp=None, recompute=False):
     """The recipe's programs, built with ``fluid`` (either package).
 
     Returns ``(train program, startup program, test program, vars)``:
     the test program is the train program's ``clone(for_test=True)``
-    taken before the optimizer (no backward, no step counter); ``vars``
-    holds ``image``, ``label``, ``logits``, ``prob`` (the softmax),
-    ``loss``, ``acc1``, ``acc5`` and ``lr`` (the schedule's rate, from
-    ``BOUNDARIES`` and ``VALUES``)."""
+    taken before the optimizer (no backward, no step counter), given the
+    train program's casts under ``amp``; ``vars`` holds ``image``,
+    ``label``, ``logits``, ``prob`` (the softmax), ``loss``, ``acc1``,
+    ``acc5``, ``lr`` (the schedule's rate, from ``BOUNDARIES`` and
+    ``VALUES``), ``optimizer`` (what ``minimize`` ran) and ``checkpoints``
+    (the bottleneck outputs)."""
     blocks = list(blocks) if blocks is not None else DEPTHS[depth]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         image = fluid.data(name='image', shape=[None] + list(image_shape),
                            dtype='float32')
         label = fluid.data(name='label', shape=[None, 1], dtype='int64')
-        logits = _net(fluid, image, class_dim, blocks, width_div)
+        block_outs = []
+        logits = _net(fluid, image, class_dim, blocks, width_div,
+                      block_outs)
         prob = fluid.layers.softmax(logits, use_cudnn=False)
         cost = fluid.layers.cross_entropy(input=prob, label=label)
         loss = fluid.layers.mean(cost)
@@ -127,9 +143,22 @@ def build(fluid, depth=50, class_dim=1000, image_shape=(3, 224, 224),
         test = main.clone(for_test=True)
         lr = fluid.layers.piecewise_decay(boundaries=BOUNDARIES,
                                           values=VALUES)
-        fluid.optimizer.Momentum(
+        opt = fluid.optimizer.Momentum(
             learning_rate=lr, momentum=MOMENTUM,
-            regularization=fluid.regularizer.L2Decay(L2_DECAY)).minimize(loss)
+            regularization=fluid.regularizer.L2Decay(L2_DECAY))
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(block_outs)
+        if amp is not None:
+            opt = fluid.contrib.mixed_precision.decorate(
+                opt, init_loss_scaling=SCALE_LOSS,
+                use_dynamic_loss_scaling=True, dtype=amp)
+        opt.minimize(loss)
+    if amp is not None:
+        # evaluation under the train program's casts, as a clone taken
+        # after decorate's minimize would have them
+        test._amp_config = main._amp_config
     return main, startup, test, {
         'image': image, 'label': label, 'logits': logits, 'prob': prob,
-        'loss': loss, 'acc1': acc1, 'acc5': acc5, 'lr': lr}
+        'loss': loss, 'acc1': acc1, 'acc5': acc5, 'lr': lr,
+        'optimizer': opt, 'checkpoints': block_outs}

@@ -54,10 +54,13 @@ Where the program differs from the script, and why:
   So is the batch in the beam-search program (``BeamSearchDecoder`` tiles
   by it).
 - The cross entropy of (B, T, 1) is squeezed to (B, T) before the mask.
+- Under ``amp`` the decoder cell casts its new output to f32 before it
+  feeds it back: the ``mul`` of its ``fc`` is on the cast white list, so
+  the scan's carry would turn bf16 after the first step, and both
+  packages refuse a carry that changes type (ROADMAP C.4 item 8).
 - ``unsqueeze``, ``squeeze``, ``transpose`` and ``elementwise_add`` take
-  their attributes as keywords: both packages generate these layers from
-  their ops, and a generated layer reads its positional arguments as
-  inputs.
+  their attributes as keywords: the JAX package's generated layers drop
+  positional attributes (ROADMAP C.12; the port's place them).
 - The beam search: the script passes the beam-tiled encoder output to
   ``dynamic_decode`` as keyword arguments for the cell, and tiles with
   ``tile_beam_merge_with_batch``. The JAX package's
@@ -139,6 +142,7 @@ class AttentionDecoderCell(_StackedCell):
         self.init_scale = init_scale
         self.enc_output = None
         self.enc_padding_mask = None
+        self.feed_f32 = False     # cast the fed-back output to f32 (AMP)
 
     def _fc(self, which, x, num_flatten_dims):
         """``layers.fc`` of ``x`` to ``hidden_size``, no bias: ``which``
@@ -176,10 +180,12 @@ class AttentionDecoderCell(_StackedCell):
                                                 enc_padding_mask),
                                  axes=[1])
         new_h = self._fc('output', layers.concat([dec_att, out], 1), 1)
+        if self.feed_f32:
+            new_h = layers.cast(new_h, 'float32')
         return new_h, [new_lstm_states, new_h]
 
 
-def build(fluid, mode='train', **cut):
+def build(fluid, mode='train', amp=None, **cut):
     """The recipe's program in ``mode`` (``'train'`` or
     ``'beam_search'``), built with ``fluid`` (either package), at
     ``RECIPE`` with the sizes in ``cut`` replaced. Programs of both modes
@@ -187,7 +193,9 @@ def build(fluid, mode='train', **cut):
 
     Returns ``(program, startup program, vars)``. Training: the feeds
     ``src``, ``src_sequence_length``, ``tar``, ``tar_sequence_length``,
-    ``label`` and ``loss``, the program minimised by Adam with the clip.
+    ``label`` and ``loss``, the program minimised by Adam with the clip,
+    wrapped in ``fluid.contrib.mixed_precision.decorate(dtype=amp)``
+    where ``amp`` is given.
     Beam search: the feeds ``src`` and ``src_sequence_length``, and
     ``ids`` (B, steps, beam), each final beam's tokens, and ``scores``
     (B, steps, beam), the beams' scores at each step."""
@@ -227,6 +235,7 @@ def build(fluid, mode='train', **cut):
             cell=enc_cell, inputs=src_emb, sequence_length=src_len)
         dec_cell = AttentionDecoderCell(fluid, c['num_layers'], hidden,
                                         dropout, c['init_scale'])
+        dec_cell.feed_f32 = amp is not None
         dec_initial_states = [
             enc_final_state,
             dec_cell.get_initial_states(batch_ref=enc_output,
@@ -276,10 +285,13 @@ def build(fluid, mode='train', **cut):
         loss = loss * tar_mask
         loss = layers.reduce_mean(loss, dim=[0])
         loss = layers.reduce_sum(loss)
-        fluid.optimizer.Adam(
+        opt = fluid.optimizer.Adam(
             learning_rate=LEARNING_RATE,
             grad_clip=fluid.clip.GradientClipByGlobalNorm(
-                clip_norm=MAX_GRAD_NORM)).minimize(loss)
+                clip_norm=MAX_GRAD_NORM))
+        if amp is not None:
+            opt = fluid.contrib.mixed_precision.decorate(opt, dtype=amp)
+        opt.minimize(loss)
     return main, startup, {'src': src, 'src_sequence_length': src_len,
                            'tar': tar, 'tar_sequence_length': tar_len,
                            'label': label, 'loss': loss}

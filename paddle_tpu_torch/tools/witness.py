@@ -11,8 +11,10 @@ __all__ = ['as_float64', 'rel_l2']
 
 def as_float64(program):
     """A clone of ``program`` that computes in float64: every float32
-    variable, dtype attr and constant table made float64."""
+    variable, dtype attr and constant table made float64, and no AMP
+    casts."""
     p = program.clone()
+    p.__dict__.pop('_amp_config', None)
     for block in p.blocks:
         for var in block.vars.values():
             if var.dtype == 'float32':

@@ -269,12 +269,20 @@ def test_decorate_forwards_to_the_inner_optimizer_and_static_raises():
     assert opt._parameter_list is inner._parameter_list
     assert isinstance(opt._amp_lists, mp.AutoMixedPrecisionLists)
     assert 'matmul' in opt._amp_lists.white_list
+    # the static graph (A.8e): minimize records the cast lists on the
+    # program and appends the inner optimizer's update
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         x = fluid.layers.data('x', [3], dtype='float32')
         loss = fluid.layers.reduce_mean(fluid.layers.fc(x, 2))
-        with pytest.raises(NotImplementedError, match='A.8e'):
-            mp.decorate(fluid.optimizer.SGD(0.1)).minimize(loss)
+        version = main._version
+        mp.decorate(fluid.optimizer.SGD(0.1)).minimize(loss)
+    amp = main._amp_config
+    assert amp['dtype'] == torch.bfloat16
+    assert amp['white'] == frozenset(opt._amp_lists.white_list)
+    assert amp['black'] == frozenset(opt._amp_lists.black_list)
+    assert main._version > version
+    assert [op.type for op in main.global_block().ops].count('sgd') == 2
 
 
 def test_cast_model_to_bf16():

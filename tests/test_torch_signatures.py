@@ -13,7 +13,9 @@ took over in doing so behave as the reference's do (on the CPU).
   ``CompiledProgram``, ``io``'s save and load, the Predictor), and the
   control-flow layers and recurrent cells the PTB LM slice ported, and
   the decoders, beam-search layers and ops and ``sequence_mask`` of the
-  static seq2seq slice. So are
+  static seq2seq slice, and static AMP's ops (the logical ops, the loss
+  scaling's two), ``RecomputeOptimizer`` and ``Config.enable_bf16``. So
+  are
   the dygraph API's layer constructors, ``Layer``'s methods, the learning-rate schedules,
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
@@ -96,7 +98,12 @@ SHARED_OPS = [
     ('math_ops', 'elementwise_mod'), ('math_ops', 'elementwise_floordiv'),
     ('tensor_ops', 'arg_max'), ('tensor_ops', 'transpose_batch_time'),
     ('rnn_ops', 'beam_search_step'), ('rnn_ops', 'gather_tree'),
-    ('random_ops', 'sampling_id'), ('sequence_ops', 'sequence_mask')]
+    ('random_ops', 'sampling_id'), ('sequence_ops', 'sequence_mask'),
+    # static mixed precision
+    ('math_ops', 'logical_and'), ('math_ops', 'logical_or'),
+    ('math_ops', 'logical_xor'), ('math_ops', 'logical_not'),
+    ('optimizer_ops', 'check_finite_and_unscale'),
+    ('optimizer_ops', 'update_loss_scaling')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -172,7 +179,12 @@ FLUID_ENTRY_POINTS = [
     ('layers', 'beam_search_decode'), ('layers', 'BasicDecoder'),
     ('layers', 'BasicDecoder.step'), ('layers', 'TrainingHelper'),
     ('layers', 'GreedyEmbeddingHelper'), ('layers', 'SampleEmbeddingHelper'),
-    ('layers', 'sequence_mask'), ('layers', 'sequence_lod.sequence_mask')]
+    ('layers', 'sequence_mask'), ('layers', 'sequence_lod.sequence_mask'),
+    # static mixed precision and recompute
+    ('optimizer', 'RecomputeOptimizer'),
+    ('optimizer', 'RecomputeOptimizer._set_checkpoints'),
+    ('optimizer', 'RecomputeOptimizer.minimize'),
+    ('inference', 'Config.enable_bf16')]
 
 
 @pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,

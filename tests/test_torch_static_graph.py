@@ -565,8 +565,8 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
         with pytest.raises(NotImplementedError, match='A.10'):
             fluid.layers.common.apply_op_layer('lstm', {'x': x})
         main.global_block().append_op('__backward__',
-                                      attrs={'checkpoints': ['np_x']})
-    with pytest.raises(NotImplementedError, match='A.8e'):
+                                      attrs={'pipeline': {'stages': 2}})
+    with pytest.raises(NotImplementedError, match='A.9'):
         cpu_exe().run(main, feed={'np_x': np.ones((2, 3), 'float32')})
     with pytest.raises(NotImplementedError, match='A.4'):
         fluid.optimizer.Adam(0.001, lazy_mode=True)
