@@ -20,6 +20,12 @@ Phases:
    memory and the CTAs an SM holds; then the same for K2's key-split body
    (every head dim) and K4's bodies (bf16 wgmma at 64 and 128 tile
    columns, bf16 WMMA, f32);
+2b. ROADMAP C.14, bounded: K1's first launch and its check against the
+   plain version in 8 fresh processes (four at a time), each under
+   ``CUDA_LAUNCH_BLOCKING=1``, four at phase 3's seeded contexts and four
+   at random ragged ones, every table entry up to ceil(context / 16)
+   checked on the host to lie in [0, 256) first; the count of faulted
+   launches printed, a fault fails the smoke;
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence): K1 at ragged contexts up to the full 384 and
@@ -241,9 +247,25 @@ Phases:
    sub-blocks): 3 warm-up and 20 timed steps, then untimed ones to 40,
    target tokens/s, busy, idle and peak memory. None of the port's kernels
    is on this path: every launch count stays 0;
-15. a ``{"kernels": [...]}`` line (all six kernels, each with its
-   ``launches_ptb``, ``launches_s2s`` and ``launches_amp``) and, last,
-   ``{"ok": true, "device": {...}}``.
+15. the IR passes (ROADMAP A.8d) and in-place state with early freeing
+   (A.8f): PaddleCV's ResNet-50 recipe as phase 11 builds it (full width,
+   batch 128 at 224^2, NCHW, Momentum on ``piecewise_decay``,
+   L2Decay(1e-4)) through ``CompiledProgram`` with
+   ``fuse_elewise_add_act_ops``, ``fuse_all_optimizer_ops`` and
+   ``enable_inplace`` set ('fused') against ``CompiledProgram`` with
+   ``enable_inplace=False`` under ``PADDLE_TPU_PASSES=0`` ('plain'), in one
+   process from the same values on the same batch: the ops a step before
+   and after the pipeline; 3 steps of each under cuDNN's deterministic
+   algorithms, the losses and every persistable bit for bit; then 2
+   warm-up and 20 timed steps of each with the default algorithms, the
+   first step's losses within phase 11's 1e-4: losses, step p50, busy,
+   idle, launches a step, peak memory and the plan's env high-water; the
+   plain run with a plan that frees nothing for its peak and high-water;
+   then the static LeNet with ``Adam`` (phase 8's script) fused and plain,
+   the same checks and its launches a step;
+16. a ``{"kernels": [...]}`` line (all six kernels, each with its
+   ``launches_ptb``, ``launches_s2s``, ``launches_amp`` and
+   ``launches_fused``) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -278,6 +300,7 @@ S, H, D, BS, NB, MAX_BPS = 8, 8, 64, 16, 256, 24
 # K1's contexts: ragged up to the full 384, and the profiled decode step's
 # (every slot active, prompts of 128 and up to 60 tokens decoded)
 DECODE_CONTEXTS = [1, 17, 384, 100, None, 250, 33, 64]
+K1_PROBES, K1_PROBE_TIMEOUT = 8, 300
 SERVED_CONTEXTS = [128, 137, 146, 155, 164, 173, 182, 188]
 PREFILL_RUNGS = (1, 16, 64, 256)
 # flash kernel shapes: BERT-base training (bench.py bench_bert) and the
@@ -463,6 +486,19 @@ def make_tables(rng, contexts):
     return tables, np.asarray(ctx, np.int32)
 
 
+def decode_inputs(rng, dev, contexts):
+    """K1's inputs at ``contexts``, drawn from ``rng`` in phase 3's order:
+    (k_pages, v_pages, tables, contexts, q), the tables and contexts also
+    as numpy."""
+    import torch
+    k_pages, v_pages = make_pool(rng, dev)
+    tables, ctx = make_tables(rng, contexts)
+    bt = torch.from_numpy(tables).to(dev)
+    cl = torch.from_numpy(ctx).to(dev)
+    q = torch.from_numpy(rng.standard_normal((S, H, D), np.float32)).to(dev)
+    return k_pages, v_pages, bt, cl, q, tables, ctx
+
+
 def check_decode_kernel(rng, dev, contexts):
     """K1 against its plain version at ``contexts`` (two launches bitwise
     equal), then its times beside the plain version, SDPA and the
@@ -470,11 +506,8 @@ def check_decode_kernel(rng, dev, contexts):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import nn_ops
-    k_pages, v_pages = make_pool(rng, dev)
-    tables, ctx = make_tables(rng, contexts)
-    bt = torch.from_numpy(tables).to(dev)
-    cl = torch.from_numpy(ctx).to(dev)
-    q = torch.from_numpy(rng.standard_normal((S, H, D), np.float32)).to(dev)
+    k_pages, v_pages, bt, cl, q, tables, ctx = decode_inputs(rng, dev,
+                                                             contexts)
     scale = 1.0 / np.sqrt(D)
     got = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl, sm_scale=scale)
     want = nn_ops.paged_attention_ref(q, k_pages, v_pages, bt, cl,
@@ -509,6 +542,81 @@ def check_decode_kernel(rng, dev, contexts):
             'shape': f'S={S} H={H} D={D} BS={BS} NB={NB} max_bps={MAX_BPS} '
                      f'ctx={ctx.tolist()}',
             'max_abs_err': err, 'bound_ms': bms, 'bound_by': by, **tm}
+
+
+def k1_probe(probe, seed):
+    """One of ROADMAP C.14's probes, in a fresh process: K1's first launch
+    and its check against the plain version. Probes 0 to K1_PROBES / 2 - 1
+    draw phase 3's first inputs (``default_rng(seed)``, DECODE_CONTEXTS),
+    the others random ragged contexts. Before the launch the host checks
+    that every table entry up to ceil(context / BS) lies in [0, NB).
+    Prints one JSON line; a fault ends the process with an error."""
+    import torch
+    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.ops import nn_ops
+    dev = resolve_device('cuda')
+    if probe < K1_PROBES // 2:
+        rng, contexts = np.random.default_rng(seed), DECODE_CONTEXTS
+    else:
+        rng = np.random.default_rng(seed + 1000 + probe)
+        contexts = [int(c) for c in rng.integers(1, MAX_BPS * BS + 1, S)]
+    k_pages, v_pages, bt, cl, q, tables, ctx = decode_inputs(rng, dev,
+                                                             contexts)
+    for i, c in enumerate(ctx):
+        row = tables[i, :-(-int(c) // BS)]
+        if not ((row >= 0) & (row < NB)).all():
+            raise AssertionError(f'probe {probe}: slot {i} (context {c}) '
+                                 f'has a table entry outside [0, {NB}): '
+                                 f'{row.tolist()}')
+    scale = 1.0 / np.sqrt(D)
+    got = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl, sm_scale=scale)
+    torch.cuda.synchronize()
+    want = nn_ops.paged_attention_ref(q, k_pages, v_pages, bt, cl,
+                                      sm_scale=scale)
+    err = compare(f'paged_decode_attention, probe {probe}', got, want)
+    print(json.dumps({'probe': probe, 'contexts': ctx.tolist(),
+                      'max_abs_err': err,
+                      'launches': nn_ops.launch_counts()['paged_attention']}),
+          flush=True)
+
+
+def probe_k1_first_launches(seed, card):
+    """ROADMAP C.14, bounded: K1's first launch in K1_PROBES fresh
+    processes (four at a time), each under CUDA_LAUNCH_BLOCKING=1, so an
+    illegal address shows at the launch that makes it. Prints how many
+    faulted; a fault fails the smoke."""
+    import os
+    env = {**os.environ, 'CUDA_LAUNCH_BLOCKING': '1'}
+    results, faults = [], []
+    t0 = time.perf_counter()
+    for wave in range(0, K1_PROBES, 4):
+        procs = [(i, subprocess.Popen(
+            [sys.executable, __file__, '--seed', str(seed), '--k1-probe',
+             str(i)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env)) for i in range(wave, min(wave + 4,
+                                                          K1_PROBES))]
+        for i, p in procs:
+            try:
+                out, err = p.communicate(timeout=K1_PROBE_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            if p.returncode == 0:
+                results.append(json.loads(out.strip().splitlines()[-1]))
+            else:
+                faults.append(i)
+                log(f'K1 probe {i} exited {p.returncode}: '
+                    + ' | '.join(err.strip().splitlines()[-3:]))
+    log(f'K1 first launches in fresh processes (ROADMAP C.14) [{card}]: '
+        f'{len(faults)} of {K1_PROBES} faulted ({K1_PROBES // 2} at phase '
+        f'3\'s seeded contexts {DECODE_CONTEXTS}, {K1_PROBES // 2} at random '
+        f'ragged ones, CUDA_LAUNCH_BLOCKING=1, table entries checked on the '
+        f'host first); ' + ', '.join(
+            f'probe {r["probe"]} max|diff| {r["max_abs_err"]:.3e} launches '
+            f'{r["launches"]} contexts {r["contexts"]}' for r in results)
+        + f'; {time.perf_counter() - t0:.1f} s')
+    if faults:
+        raise AssertionError(f'K1 faulted in probes {faults} (ROADMAP C.14)')
 
 
 def check_prefill_kernel(rng, dev):
@@ -3745,15 +3853,285 @@ def train_static_amp(seed, card, f32_peak):
     return nn_ops.launch_counts()
 
 
+# Phase 15: the IR passes (ROADMAP A.8d) and in-place state with early
+# freeing (A.8f) on the static ResNet-50 recipe at full width, batch 128.
+# 'fused' is CompiledProgram with fuse_elewise_add_act_ops,
+# fuse_all_optimizer_ops and enable_inplace set (the default pipeline on);
+# 'plain' is CompiledProgram with enable_inplace=False under
+# PADDLE_TPU_PASSES=0, the executor as before both items but for early
+# freeing, which has no switch; 'unfreed' is 'plain' with a plan that
+# frees nothing (executor._free_lists patched), for the peak and the env
+# high-water alone. With cuDNN's deterministic algorithms the two runs
+# must give the same bits: every pass keeps each op's arithmetic
+# (tests/test_torch_ir_passes.py holds them bitwise on the CPU) and an
+# in-place write copies the value the fresh tensor would hold.
+SRESNET_OPS = 675
+FUSED_RUNS = ('plain', 'fused')
+FUSED_BITWISE_STEPS = 3
+LENET_ADAM_LAUNCHES = 469       # ROADMAP A.3(b), of which 185 elementwise
+
+
+def fused_strategy(fluid, fused):
+    """(BuildStrategy, PADDLE_TPU_PASSES) of a phase 15 run."""
+    bs = fluid.compiler.BuildStrategy()
+    if fused:
+        bs.fuse_elewise_add_act_ops = bs.fuse_all_optimizer_ops = True
+        bs.enable_inplace = True
+        return bs, '1'
+    bs.enable_inplace = False
+    return bs, '0'
+
+
+def launches_of(events):
+    """(kernel launches, copies and fills) of a profiled step's events."""
+    copies = sum(e.count for e in events
+                 if e.key.startswith(('Memcpy', 'Memset')))
+    return sum(e.count for e in events) - copies, copies
+
+
+class FusedRuns:
+    """One executor and a fresh scope for each phase 15 run of ``main``,
+    from the numpy values ``host``."""
+
+    def __init__(self, fluid, main, loss_name, host):
+        self.fluid, self.main, self.loss_name = fluid, main, loss_name
+        self.host = host
+
+    def start(self, name, frees=True):
+        """A fresh executor, scope and program for run ``name``."""
+        import os
+        from unittest import mock
+        from paddle_tpu_torch import executor
+        from paddle_tpu_torch.convert import scope_from_paddle
+        fluid = self.fluid
+        bs, passes = fused_strategy(fluid, name == 'fused')
+        os.environ['PADDLE_TPU_PASSES'] = passes
+        scope = fluid.Scope()
+        scope_from_paddle(self.host, scope, fluid.CUDAPlace(0),
+                          program=self.main)
+        prog = fluid.CompiledProgram(self.main, build_strategy=bs)
+        prog = prog.with_data_parallel(loss_name=self.loss_name)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        patch = (mock.patch.object(executor, '_free_lists',
+                                   lambda touched, keep: [()] * len(touched))
+                 if not frees else None)
+        return exe, scope, prog, bs, patch
+
+
+def fused_bitwise(runs, feed, fetch, steps, what, card):
+    """``steps`` steps of 'plain' and 'fused' from the same values under
+    cuDNN's deterministic algorithms: the fetches of every step and every
+    persistable after them bit for bit."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    got = {}
+    try:
+        for name in FUSED_RUNS:
+            exe, scope, prog, _, _ = runs.start(name)
+            out = [exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+                   for _ in range(steps)]
+            state = {n: scope._find(n) for n in runs.host}
+            got[name] = (out, state)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    (a, sa), (b, sb) = got['plain'], got['fused']
+    differ = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    same_out = all(np.array_equal(x, y) for u, w in zip(a, b)
+                   for x, y in zip(u, w))
+    log(f'{what}: plain and fused, {steps} steps from the same values under '
+        f'cuDNN\'s deterministic algorithms [{card}]: losses '
+        f'{[float(u[0]) for u in a]} and {[float(u[0]) for u in b]}; '
+        f'fetches bit for bit {same_out}; {len(sa) - len(differ)} of '
+        f'{len(sa)} persistables bit for bit')
+    if differ or not same_out:
+        raise AssertionError(f'{what}: the fused run differs from the plain '
+                             f'one in {differ[:5]} (of {len(differ)})')
+
+
+def fused_timed(runs, name, feed, loss, card, what, frees=True, steps=None):
+    """WARMUP_STEPS + ``steps`` (TRAIN_STEPS) synchronised steps of run
+    ``name``, one more with the env high-water watched, and a profiled
+    one; the losses must fall over TRAIN_STEPS. Returns a dict of its
+    numbers."""
+    import torch
+    steps = TRAIN_STEPS if steps is None else steps
+    exe, scope, prog, bs, patch = runs.start(name, frees)
+    if patch is not None:
+        patch.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for _ in range(WARMUP_STEPS + steps):
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(out[0]))
+        peak = torch.cuda.max_memory_allocated()
+        exe._watch_env = True
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+        exe._watch_env = False
+        env_hw = exe._env_high_water(runs.main, bs)
+        timed_s = secs[WARMUP_STEPS:]
+        p50 = statistics.median(timed_s) * 1e3
+        prof = profile_train_step(
+            lambda: exe.run(prog, feed=feed, fetch_list=[loss], scope=scope),
+            (), p50, card, STATIC_STEP_GROUPS, what=f'{what} step ({name})')
+    finally:
+        if patch is not None:
+            patch.stop()
+    if not all(np.isfinite(losses)) or (steps == TRAIN_STEPS
+                                        and not losses[-1] < losses[0]):
+        raise AssertionError(f'{what} ({name}) losses {losses}: not finite '
+                             f'or not falling')
+    if exe.lowering_count(runs.main) != 1:
+        raise AssertionError(f'{what} ({name}): lowered '
+                             f'{exe.lowering_count(runs.main)} times')
+    busy = None if prof is None else prof[0]
+    kernels, copies = (None, None) if prof is None else launches_of(prof[1])
+    return {'losses': losses, 'p50': p50, 'min': min(timed_s) * 1e3,
+            'max': max(timed_s) * 1e3, 'peak': peak, 'env_hw': env_hw,
+            'busy': busy, 'idle': None if busy is None else 1 - busy / p50,
+            'kernels': kernels, 'copies': copies}
+
+
+def fmt_run(r):
+    idle = 'not measured' if r['idle'] is None else f'{r["idle"]:.3f}'
+    busy = 'not measured' if r['busy'] is None else f'{r["busy"]:.3f} ms'
+    return (f'step p50 {r["p50"]:.3f} ms (min {r["min"]:.3f}, max '
+            f'{r["max"]:.3f}), busy {busy}, idle {idle}, launches a step '
+            f'{r["kernels"]} kernels + {r["copies"]} copies and fills, peak '
+            f'{r["peak"]} bytes, env high-water {r["env_hw"]} bytes')
+
+
+def fused_resnet(fluid, static_resnet, seed, card):
+    """Phase 15 (a)-(c) on the static ResNet-50 recipe. Returns a summary."""
+    import torch
+    from paddle_tpu_torch import ir
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_resnet.build(fluid)
+    loss = v['loss'].name
+    before = len(main.global_block().ops)
+    if before != SRESNET_OPS:
+        raise AssertionError(f'the train program has {before} ops')
+    opt, ctx = ir.apply_pipeline(main, [loss],
+                                 build_strategy=fused_strategy(fluid, True)[0])
+    after = len(opt.global_block().ops)
+    log(f'static ResNet-50 through the IR passes: {before} ops a step '
+        f'before, {after} after (the loss fetched); {ctx.stats}')
+    gpu, s0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=s0)
+    host = {x.name: s0.find(x.name).cpu().numpy() for x in main.list_vars()
+            if x.persistable}
+    del s0
+    runs = FusedRuns(fluid, main, loss, host)
+    rng = np.random.default_rng(seed)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    what = 'static ResNet-50 fused and in place'
+    # (a) the same bits
+    fused_bitwise(runs, feed, [loss], FUSED_BITWISE_STEPS, what, card)
+    torch.cuda.empty_cache()
+    # (b) timed, each run from the same values on the same batch
+    got = {name: fused_timed(runs, name, feed, loss, card, what)
+           for name in FUSED_RUNS}
+    # (c) the plain run with a plan that frees nothing
+    got['unfreed'] = fused_timed(runs, 'plain', feed, loss, card, what,
+                                 frees=False, steps=1)
+    a, b = got['plain']['losses'], got['fused']['losses']
+    first = abs(a[0] - b[0]) / abs(a[0])
+    worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    for name, r in got.items():
+        log(f'{what}, {name} [{card}]: losses '
+            + ' '.join(repr(x) for x in r['losses']))
+    log(f'{what} [{card}]: batch {RESNET_BATCH}, {WARMUP_STEPS} + '
+        f'{TRAIN_STEPS} steps each, default cuDNN algorithms; the first '
+        f'step\'s loss relative |fused - plain| {first:.3e} (bound '
+        f'{SRESNET_RTOL}, phase 11\'s card against the CPU), the largest '
+        f'over the steps {worst:.3e} (the trajectories part as phase 14 '
+        f'(c) saw); ' + '; '.join(f'{name}: {fmt_run(r)}'
+                                  for name, r in got.items()))
+    if first > SRESNET_RTOL:
+        raise AssertionError(f'{what}: the first step\'s losses differ by '
+                             f'{first:.3e}')
+    return (f'ResNet-50 ops {before} -> {after}, launches '
+            f'{got["plain"]["kernels"]} -> {got["fused"]["kernels"]}, p50 '
+            f'{got["plain"]["p50"]:.3f} -> {got["fused"]["p50"]:.3f} ms, '
+            f'peak {got["unfreed"]["peak"]} (frees nothing) / '
+            f'{got["plain"]["peak"]} -> {got["fused"]["peak"]} bytes, env '
+            f'high-water {got["unfreed"]["env_hw"]} / {got["plain"]["env_hw"]}'
+            f' -> {got["fused"]["env_hw"]} bytes')
+
+
+def fused_lenet(fluid, seed, card):
+    """Phase 15 (d): the static LeNet with Adam, fuse_all_optimizer_ops
+    and in-place state against the plain run: the same bits over
+    FUSED_BITWISE_STEPS steps, and the launches a step. Returns a
+    summary."""
+    main, startup, loss, _ = lenet_programs()
+    gpu, s0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=s0)
+    host = {x.name: s0.find(x.name).cpu().numpy() for x in main.list_vars()
+            if x.persistable}
+    runs = FusedRuns(fluid, main, loss.name, host)
+    rng = np.random.default_rng(seed)
+    feed = {'img': rng.random((LENET_BATCH, 1, 28, 28), dtype=np.float32),
+            'label': rng.integers(0, 10, (LENET_BATCH, 1))}
+    what = 'LeNet with Adam fused and in place'
+    fused_bitwise(runs, feed, [loss.name], FUSED_BITWISE_STEPS, what, card)
+    got = {name: fused_timed(runs, name, feed, loss.name, card, what)
+           for name in FUSED_RUNS}
+    log(f'{what} [{card}]: batch {LENET_BATCH}; ' + '; '.join(
+        f'{name}: {fmt_run(r)}' for name, r in got.items())
+        + f' (ROADMAP A.3(b) counted {LENET_ADAM_LAUNCHES} launches a step)')
+    return (f'LeNet Adam launches {got["plain"]["kernels"]} -> '
+            f'{got["fused"]["kernels"]}, p50 {got["plain"]["p50"]:.3f} -> '
+            f'{got["fused"]["p50"]:.3f} ms')
+
+
+def train_fused_inplace(seed, card):
+    """Phase 15: the IR passes and in-place state. Returns the kernels'
+    launch counts over the phase (none of the port's kernels is on this
+    path)."""
+    import os
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.tools import static_resnet
+    nn_ops.reset_launch_counts()
+    fluid.seed(seed)
+    passes = os.environ.get('PADDLE_TPU_PASSES')
+    try:
+        done = [fused_resnet(fluid, static_resnet, seed, card)]
+        torch.cuda.empty_cache()
+        done.append(fused_lenet(fluid, seed, card))
+    finally:
+        if passes is None:
+            os.environ.pop('PADDLE_TPU_PASSES', None)
+        else:
+            os.environ['PADDLE_TPU_PASSES'] = passes
+    log(f'IR passes and in-place state [{card}]: ' + '; '.join(done))
+    return nn_ops.launch_counts()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--k1-probe', type=int, default=None,
+                    help='run one of phase 2b\'s K1 probes in this process')
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device; this script runs on the card')
+    if args.k1_probe is not None:
+        k1_probe(args.k1_probe, args.seed)
+        return 0
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.ops import _build
 
@@ -3779,6 +4157,9 @@ def main(argv=None):
             log(f'  {line}')
     flash_build = report_flash_build()
     k2_build, k4_build = report_k2_k4_build()
+
+    # 2b. K1's first launch in fresh processes (ROADMAP C.14)
+    probe_k1_first_launches(args.seed, smi)
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(args.seed)
@@ -3900,12 +4281,28 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_amp'] = amp[wrapper]
 
-    # 15. result lines
-    log(f'chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s '
+    # 15. the IR passes and in-place state with early freeing: the static
+    # ResNet-50 recipe and LeNet, fused and in place against plain; no
+    # kernel of the port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    fused = train_fused_inplace(args.seed, smi)
+    if any(fused.values()):
+        raise AssertionError(f'kernels launched on the fused static path: '
+                             f'{fused}')
+    log(f'fused static path kernel launches: {fused}')
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_fused'] = fused[wrapper]
+
+    # 16. result lines
+    log(f'chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
-            'shape', 'launches_ptb', 'launches_s2s', 'launches_amp')
+            'shape', 'launches_ptb', 'launches_s2s', 'launches_amp',
+            'launches_fused')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
             x for x in ('body', 'launches_wgmma', 'launches_ernie', 'stock',

@@ -2,34 +2,34 @@
 
 ``CompiledProgram(program).with_data_parallel(loss_name=...)`` is what a
 Fluid training script runs its step through. The port runs the program
-as it is on the executor's one device: the JAX package shards the feed
-batch over its device mesh, and a mesh of several cards is ROADMAP A.9.
+on the executor's one device: the JAX package shards the feed batch over
+its device mesh, and a mesh of several cards is ROADMAP A.9.
 
 What each strategy knob does here:
 
-- the knobs that rewrite the program before it runs
-  (``BuildStrategy.fuse_elewise_add_act_ops``, ``fuse_all_optimizer_ops``,
-  ``fuse_bn_act_ops`` set True) raise at run time, naming ROADMAP A.8d
-  (the IR passes);
+- ``BuildStrategy.fuse_elewise_add_act_ops`` and
+  ``fuse_all_optimizer_ops`` turn on their IR passes (ir/fuse_act.py,
+  ir/fuse_optimizer.py), which rewrite a clone of the program before the
+  executor builds its plan, as in the JAX package;
+- ``fuse_bn_act_ops`` set True raises, naming ROADMAP A.8d: the JAX
+  package has no pass for it and ignores it, and the port does not
+  ignore a knob in silence;
+- ``enable_inplace=False`` or ``memory_optimize=False`` turns off the
+  executor's in-place state writes (executor.py), as either turns off
+  the JAX package's buffer donation; unset (None) or True leaves them on;
 - ``places`` of more than one device, ``num_trainers`` above 1 and
   ``sync_batch_norm`` across them raise, naming A.9;
 - ``ExecutionStrategy.num_inflight_steps`` above 1 (the asynchronous
   pipeline) raises at run time, naming A.11;
-- the knobs that only touch memory or scheduling (``enable_inplace``,
-  ``memory_optimize``, ``reduce_strategy``, ``gradient_scale_strategy``,
+- the knobs that only touch scheduling across devices or threads
+  (``reduce_strategy``, ``gradient_scale_strategy``,
   ``fuse_all_reduce_ops``, ``num_threads``,
   ``num_iteration_per_drop_scope``, ``use_experimental_executor``) are
-  accepted, and the port does not act on them: the plan frees nothing
-  early and updates no buffer in place (ROADMAP A.8f).
+  accepted, and there is nothing on one card for them to act on.
 """
 from __future__ import annotations
 
 __all__ = ['BuildStrategy', 'ExecutionStrategy', 'CompiledProgram']
-
-# BuildStrategy knobs that rewrite the program (the JAX package's IR passes)
-_PROGRAM_REWRITES = ('fuse_elewise_add_act_ops', 'fuse_all_optimizer_ops',
-                     'fuse_bn_act_ops')
-
 
 class BuildStrategy:
     """The reference's build knobs, with its defaults (see the module's
@@ -100,11 +100,11 @@ class CompiledProgram:
         """The program, once the strategies have been checked against
         what the port does."""
         bs, es = self._build_strategy, self._exec_strategy
-        on = [k for k in _PROGRAM_REWRITES if getattr(bs, k, False)]
-        if on:
+        if bs.fuse_bn_act_ops:
             raise NotImplementedError(
-                f'BuildStrategy {", ".join(on)}: the program-rewriting '
-                f'passes are not ported yet (ROADMAP A.8d)')
+                'BuildStrategy fuse_bn_act_ops: the JAX package has no pass '
+                'for it and ignores it; the port has none either and does '
+                'not ignore a knob in silence (ROADMAP A.8d)')
         if bs.num_trainers > 1 or bs.sync_batch_norm:
             raise NotImplementedError(
                 'num_trainers > 1 and sync_batch_norm need several cards, '
@@ -115,3 +115,10 @@ class CompiledProgram:
                 f'asynchronous step pipeline is not ported yet (ROADMAP '
                 f'A.11)')
         return self._program
+
+    def _inplace(self):
+        """Whether the executor may write the new state into the scope's
+        tensors: not where ``enable_inplace`` or ``memory_optimize`` is
+        False (the JAX package's mapping onto its buffer donation)."""
+        bs = self._build_strategy
+        return not (bs.enable_inplace is False or bs.memory_optimize is False)

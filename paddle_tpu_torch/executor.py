@@ -62,6 +62,33 @@ so one lowering serves every step. ``run`` takes a
 on this executor's one device, after refusing the strategy knobs the port
 does not act on (compiler.py).
 
+Before a plan is built, the IR pass pipeline (ir/) rewrites a clone of the
+program: constant folding and dead-op elimination always, the fused
+(add, activation) op and the multi-tensor optimizer ops where the
+``BuildStrategy`` asks for them, all of it as ``PADDLE_TPU_PASSES``
+selects (``0`` turns it off). The plan key holds the selection
+(``ir.pipeline_signature``), so a flipped knob builds a new plan. The
+passes keep what the run fetches; a later run that fetches a value they
+removed builds the plan again, for the fetches of both runs.
+
+A plan frees what it no longer needs (ROADMAP A.8f): when it is built it
+finds each name's last reader (sub-block reads counted, as DCE counts
+them), and a run drops the name from its env after that op, except the
+fetches, the state, the marker's loss and targets and the recompute
+checkpoints. Autograd keeps what it saved; only the plan's own references
+go, so the forward's values can be freed as the backward consumes them.
+
+The new value of a persistable is written into the tensor the scope holds
+(one ``torch._foreach_copy_`` a type), where shape, type and device
+agree, so the state keeps its memory from step to step, unless
+``PADDLE_TPU_DONATE=0``, or the program is a ``CompiledProgram`` with
+``enable_inplace=False`` or ``memory_optimize=False`` (the JAX package's
+switches for its buffer donation). A value that left the executor keeps
+its contents, as the JAX package's arrays do: a tensor the scope's public
+accessors handed out (core/scope.py), a fetched one, a feed, and any
+tensor sharing memory with one of them or with another state name is
+never written in place; its successor is a new tensor, as before.
+
 A program that static AMP decorated (``program._amp_config``,
 contrib/mixed_precision.py) runs under the reference's casts
 (``_amp_cast_args``), each op's resolved once a lowering, in sub-blocks
@@ -83,9 +110,8 @@ backward restores the plan's generator to where the segment first drew,
 so it draws the same dropout masks, and puts it back afterwards.
 
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
-item: in-place state updates in place of the JAX package's buffer
-donation (A.8f), pipeline plans and the fleet mesh (A.9), the dataset runs
-and asynchronous fetches (A.11).
+item: pipeline plans and the fleet mesh (A.9), the dataset runs and
+asynchronous fetches (A.11).
 """
 from __future__ import annotations
 
@@ -97,11 +123,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import ir
 from .compiler import CompiledProgram
 from .core.dtypes import to_numpy_dtype, to_torch_dtype
 from .core.places import get_device
 from .core.random import default_generator
-from .core.scope import global_scope
+from .core.scope import global_scope, handed_out, mark_handed_out
 from .framework import (BACKWARD_OP_TYPE, Variable, default_main_program,
                         op_read_names)
 from .ops.registry import NON_KERNEL_ATTRS, get_op
@@ -131,11 +158,6 @@ def _check_env():
     if os.environ.get('PADDLE_TPU_ASYNC', '0') not in ('', '0'):
         raise NotImplementedError('asynchronous fetches (PADDLE_TPU_ASYNC) '
                                   'are not ported yet (ROADMAP A.11)')
-    if os.environ.get('PADDLE_TPU_DONATE', '0') not in ('', '0'):
-        raise NotImplementedError(
-            'buffer donation (PADDLE_TPU_DONATE) is not ported yet: the '
-            'plan writes new tensors for the state it updates (ROADMAP '
-            'A.8f)')
 
 
 # the cast of an AMP program's op in neither list: its floating inputs to
@@ -253,8 +275,9 @@ class _Constant:
 
     def run(self, read, env, device, generator):
         if self.tensor is None:
-            self.tensor = torch.from_numpy(
-                np.ascontiguousarray(self.value)).to(device)
+            # every run hands out this one tensor: never written in place
+            self.tensor = mark_handed_out(torch.from_numpy(
+                np.ascontiguousarray(self.value)).to(device))
         env[self.out] = self.tensor
 
 
@@ -550,31 +573,68 @@ class _Segment:
         env.update(out)
 
 
+def _env_bytes(env):
+    """The bytes of the memory the env's tensors hold, each storage once."""
+    seen = {}
+    for v in env.values():
+        for t in (v if isinstance(v, list) else (v,)):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _free_lists(touched, keep):
+    """For each position of ``touched`` (the names each op reads and
+    writes, in run order), the names to drop from the env after it: those
+    it touches that no later position reads, but ``keep``."""
+    last_read = {}
+    for k, (reads, _) in enumerate(touched):
+        for n in reads:
+            last_read[n] = k
+    return [tuple(sorted(n for n in reads | writes
+                         if last_read.get(n, -1) <= k and n not in keep))
+            for k, (reads, writes) in enumerate(touched)]
+
+
 class _Plan:
     """A lowered program: the ops before the backward marker (with
     checkpoints, as recomputed segments), the marker's loss, targets and
-    gradient names, and the ops after it."""
+    gradient names, the ops after it, and what to free after each op.
+    ``fetch_roots`` are the fetches the passes kept; ``removed`` the names
+    the original program writes and this one does not."""
 
-    def __init__(self, program, state_names):
+    def __init__(self, program, state_names, fetch_roots=(), removed=()):
         ops = list(program.global_block().ops)
         bwd = next((i for i, op in enumerate(ops)
                     if op.type == BACKWARD_OP_TYPE), None)
         self.state_names = list(state_names)
+        self.fetch_roots = frozenset(fetch_roots)
+        self.removed = frozenset(removed)
         self.segments = None
+        self.env_high_water = None
+        keep = set(self.state_names)
+        touched = [(op_read_names(op), set(op.output_names())) for op in ops]
         if bwd is None:
             self.fwd = [_step(op) for op in ops]
             self.marker = None
             self.post = []
-        else:
-            marker = ops[bwd]
-            self.fwd = [_step(op) for op in ops[:bwd]]
-            self.marker = (marker.attrs['loss'], list(marker.attrs['params']),
-                           list(marker.outputs['Grads']))
-            self.post = [_step(op) for op in ops[bwd + 1:]]
-            checkpoints = list(marker.attrs.get('checkpoints') or [])
-            if checkpoints:
-                self.segments = self._segments(ops[:bwd], ops[bwd + 1:],
-                                               checkpoints)
+            self.free_fwd, self.free_post = _free_lists(touched, keep), []
+            return
+        marker = ops[bwd]
+        self.fwd = [_step(op) for op in ops[:bwd]]
+        self.marker = (marker.attrs['loss'], list(marker.attrs['params']),
+                       list(marker.outputs['Grads']))
+        self.post = [_step(op) for op in ops[bwd + 1:]]
+        checkpoints = list(marker.attrs.get('checkpoints') or [])
+        keep |= {self.marker[0], *self.marker[1], *checkpoints}
+        touched[bwd] = ({self.marker[0], *self.marker[1]},
+                        set(self.marker[1]) | set(self.marker[2]))
+        free = _free_lists(touched, keep)
+        self.free_fwd, self.free_post = free[:bwd + 1], free[bwd + 1:]
+        if checkpoints:
+            self.segments = self._segments(ops[:bwd], ops[bwd + 1:],
+                                           checkpoints)
 
     def _segments(self, fwd_ops, post_ops, checkpoints):
         downstream = set().union(*(op_read_names(o) for o in post_ops))
@@ -588,9 +648,18 @@ class _Plan:
             segments.append(_Segment(self.fwd[lo:hi], reads, live))
         return segments
 
-    def run(self, state, feeds, fetch_names, device, generator):
-        """-> (new state {name: tensor}, [fetched tensor])."""
+    def serves(self, fetch_names):
+        """Whether the passes kept every name of ``fetch_names``."""
+        return not self.removed.intersection(fetch_names)
+
+    def run(self, state, feeds, fetch_names, device, generator,
+            watch=False):
+        """-> (new state {name: tensor}, [fetched tensor]). With
+        ``watch``, ``env_high_water`` is set to the most bytes the env
+        held between two ops."""
         env = dict(feeds)
+        fetched = set(fetch_names)
+        high = [_env_bytes(env)] if watch else None
 
         def read(name):
             v = env.get(name)
@@ -602,10 +671,18 @@ class _Plan:
                         f"in scope (did you run the startup program?)")
             return v
 
+        def run_steps(steps, free):
+            for s, names in zip(steps, free):
+                s.run(read, env, device, generator)
+                for n in names:
+                    if n not in fetched:
+                        env.pop(n, None)
+                if watch:
+                    high.append(_env_bytes(env))
+
         if self.marker is None:
             with torch.no_grad():
-                for s in self.fwd:
-                    s.run(read, env, device, generator)
+                run_steps(self.fwd, self.free_fwd)
         else:
             loss_name, targets, grad_names = self.marker
             leaves = []
@@ -622,10 +699,9 @@ class _Plan:
                 leaves.append(leaf)
             with torch.enable_grad():
                 if self.segments is None:
-                    for s in self.fwd:
-                        s.run(read, env, device, generator)
+                    run_steps(self.fwd, self.free_fwd)
                 else:
-                    pinned = set(feeds) | set(targets) | set(fetch_names)
+                    pinned = set(feeds) | set(targets) | fetched
                     for seg in self.segments:
                         seg.run(read, env, state, seg.live | pinned,
                                 device, generator)
@@ -635,12 +711,23 @@ class _Plan:
                 env[n] = leaf.detach()
             for gname, leaf, g in zip(grad_names, leaves, grads):
                 env[gname] = torch.zeros_like(leaf) if g is None else g
+            del leaves, grads
+            for n in self.free_fwd[-1]:         # the marker's
+                if n not in fetched:
+                    env.pop(n, None)
+            if watch:
+                high.append(_env_bytes(env))
             with torch.no_grad():
-                for s in self.post:
-                    s.run(read, env, device, generator)
-        new_state = {n: env[n].detach() for n in self.state_names
-                     if n in env}
-        fetches = [read(n).detach() for n in fetch_names]
+                run_steps(self.post, self.free_post)
+        if watch:
+            self.env_high_water = max(high)
+        new_state = {}
+        for n in self.state_names:
+            v = env.get(n)
+            if v is not None:
+                new_state[n] = v.detach() if v.requires_grad else v
+        fetches = [new_state[n] if n in new_state else read(n).detach()
+                   for n in fetch_names]
         return new_state, fetches
 
 
@@ -655,6 +742,9 @@ class Executor:
         self.place = place
         self._cache = {}
         self._lowerings = Counter()
+        # set True to record each plan's env high-water (``_Plan.run``'s
+        # ``watch``); read with :meth:`_env_high_water`
+        self._watch_env = False
 
     @property
     def device(self):
@@ -666,6 +756,15 @@ class Executor:
         if program is None:
             return sum(self._lowerings.values())
         return self._lowerings[program._id]
+
+    def _env_high_water(self, program, build_strategy=None):
+        """The most bytes the env of ``program``'s plan (under
+        ``build_strategy``'s pipeline) held between two ops in its last
+        run with ``_watch_env`` on; None if there was none."""
+        sig = ir.pipeline_signature(build_strategy)
+        plans = [p for k, p in self._cache.items()
+                 if k[:2] == (program._id, program._version) and k[3] == sig]
+        return plans[-1].env_high_water if plans else None
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True, feed_var_name='feed',
@@ -680,7 +779,11 @@ class Executor:
         ``fetch_var_name`` are accepted and ignored, as the JAX package
         ignores them: lowered plans are always cached."""
         _check_env()
+        build_strategy = None
+        inplace = os.environ.get('PADDLE_TPU_DONATE', '1') != '0'
         if isinstance(program, CompiledProgram):
+            build_strategy = program._build_strategy
+            inplace = inplace and program._inplace()
             program = program._program_to_run()
         program = program if program is not None else default_main_program()
         if not hasattr(program, 'global_block'):
@@ -702,24 +805,91 @@ class Executor:
                  for n, v in (feed or {}).items()}
         key = (program._id, program._version,
                tuple(sorted((n, tuple(v.shape), v.dtype)
-                            for n, v in feeds.items())))
+                            for n, v in feeds.items())),
+               ir.pipeline_signature(build_strategy))
         plan = self._cache.get(key)
-        if plan is None:
-            plan = self._cache[key] = _Plan(program, state_names)
+        if plan is None or not plan.serves(fetch_names):
+            roots = set(fetch_names) | (plan.fetch_roots if plan else set())
+            plan = self._cache[key] = self._lower(
+                program, state_names, roots, list(feeds), build_strategy)
             self._lowerings[program._id] += 1
         new_state, fetches = plan.run(
             state, feeds, fetch_names, self._device,
-            default_generator.generator(self._device))
-        for n, v in new_state.items():
-            scope.set(n, v)
+            default_generator.generator(self._device),
+            watch=self._watch_env)
+        self._write_state(scope, state, new_state, feeds, fetch_names,
+                          fetches, inplace)
+        for f in fetches:
+            mark_handed_out(f)
         if return_numpy:
             # numpy has no bf16: such a value comes back as f32, exactly
             return [(f.float() if f.dtype == torch.bfloat16 else f)
                     .cpu().numpy() for f in fetches]
         return fetches
 
+    @staticmethod
+    def _lower(program, state_names, fetch_roots, feed_names,
+               build_strategy):
+        """The IR pipeline on a clone of ``program``, then its plan."""
+        opt, _ = ir.apply_pipeline(program, fetch_names=sorted(fetch_roots),
+                                   feed_names=feed_names,
+                                   build_strategy=build_strategy)
+        removed = ()
+        if opt is not program:
+            def written(p):
+                return {n for op in p.global_block().ops
+                        for n in op.output_names()}
+            removed = written(program) - written(opt)
+        return _Plan(opt, state_names, fetch_roots, removed)
+
+    @staticmethod
+    def _write_state(scope, state, new_state, feeds, fetch_names, fetches,
+                     inplace):
+        """Give the scope the run's new state: into the tensor it holds
+        (``inplace``) where no value outside the scope's one name can see
+        that tensor's memory, else as the new tensor. A tensor the scope
+        keeps whose memory a fetch or a feed shares is marked as handed
+        out, and so is a new one that is fetched or shares the memory of
+        one handed out."""
+        def mem(t):
+            return t.untyped_storage().data_ptr()
+
+        outside = {mem(t) for t in (*feeds.values(), *fetches)}
+        old_mem = {n: mem(v) for n, v in state.items()}
+        shared = Counter(old_mem.values())
+        marked = outside | {old_mem[n] for n, v in state.items()
+                            if handed_out(v)}
+        held = marked | {mem(v) for v in new_state.values()}
+        fetched = set(fetch_names)
+        kept = [n for n in state if n not in new_state]
+        # (type, device) -> (the scope's tensors, their new values): one
+        # multi-tensor copy a type, as a list of mixed types (a schedule's
+        # int64 counter among f32 state) copies one tensor at a time
+        into = {}
+        for n, v in new_state.items():
+            old = state[n]
+            if v is old or (mem(v) == old_mem[n] and v.shape == old.shape
+                            and v.stride() == old.stride()
+                            and v.storage_offset() == old.storage_offset()):
+                kept.append(n)          # the same tensor's memory
+            elif (inplace and n not in fetched and old_mem[n] not in held
+                  and shared[old_mem[n]] == 1 and v.shape == old.shape
+                  and v.dtype == old.dtype and v.device == old.device):
+                dst, src = into.setdefault((old.dtype, old.device), ([], []))
+                dst.append(old)
+                src.append(v)
+            else:
+                if n in fetched or mem(v) in marked:
+                    mark_handed_out(v)
+                scope._put(n, v)
+        for dst, src in into.values():
+            torch._foreach_copy_(dst, src)
+        for n in kept:
+            if old_mem[n] in outside:
+                mark_handed_out(state[n])
+
     def _state_value(self, scope, name):
-        val = scope.find(name)
+        val = scope._find(name)
         if val is None:
             raise RuntimeError(
                 f"persistable var '{name}' is uninitialized; run the startup "
@@ -758,7 +928,7 @@ class Executor:
         def read(name):
             v = env.get(name)
             if v is None:
-                v = scope.find(name)
+                v = scope._find(name)
                 if v is None:
                     raise KeyError(f"startup: uninitialized input '{name}'")
             return v
@@ -773,7 +943,7 @@ class Executor:
                     _step(op).run(read, env, self._device, gen)
         for v in program.list_vars():
             if v.persistable and v.name in env:
-                scope.set(v.name, env[v.name])
+                scope._put(v.name, env[v.name])
 
     def train_from_dataset(self, *args, **kwargs):
         raise NotImplementedError('dataset runs are not ported yet '

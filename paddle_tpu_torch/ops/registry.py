@@ -85,9 +85,9 @@ def register_op(name: str, outputs: Sequence[str] = ('Out',),
 def _load_ops():
     """Import every module that registers ops (they import nothing that
     builds a kernel)."""
-    from . import (loss_ops, math_ops, nn_ops, optimizer_ops,  # noqa: F401
-                   pallas_conv, random_ops, rnn_ops, sequence_ops,
-                   tensor_ops)
+    from . import (fused_ops, loss_ops, math_ops, nn_ops,  # noqa: F401
+                   optimizer_ops, pallas_conv, random_ops, rnn_ops,
+                   sequence_ops, tensor_ops)
 
 
 def get_op(name: str) -> OpDef:

@@ -26,6 +26,7 @@ from paddle_tpu_torch.convert import (bert_expected_shapes, bert_init_params,
 from paddle_tpu_torch.dygraph import TrainStep
 from paddle_tpu_torch.models import bert as port_bert
 from paddle_tpu_torch.optimizer import Adam
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 B, S = 2, 16
 

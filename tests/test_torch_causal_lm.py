@@ -13,6 +13,7 @@ from paddle_tpu.models import causal_lm as jax_lm
 from paddle_tpu_torch.convert import (expected_shapes, init_params,
                                       state_dict_from_paddle)
 from paddle_tpu_torch.models import causal_lm as port_lm
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 ATOL = 1e-4
 

@@ -22,6 +22,7 @@ from paddle_tpu import dygraph as jdy
 from paddle_tpu.models import resnet as jax_resnet
 from paddle_tpu_torch import dygraph
 from paddle_tpu_torch.models import resnet as port_resnet
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 CPU = fluid.CPUPlace()
 

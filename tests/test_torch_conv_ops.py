@@ -30,6 +30,7 @@ from paddle_tpu.ops import nn_ops as jnn
 from paddle_tpu.ops import optimizer_ops as jopt
 from paddle_tpu.ops import pallas_conv as jpc
 from paddle_tpu_torch.ops import nn_ops, optimizer_ops, pallas_conv
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

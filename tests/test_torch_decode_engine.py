@@ -27,6 +27,7 @@ from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.serving import (DecodeEngine, DecodeScheduler,
                                       InvalidRequest, SamplingParams,
                                       ServingServer, TokenSampler)
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 REPO = Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(slots=4, block_size=4, max_blocks=64, max_prompt_len=16,

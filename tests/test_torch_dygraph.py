@@ -43,6 +43,7 @@ from paddle_tpu import dygraph as jdy
 from paddle_tpu import layers as jlayers
 from paddle_tpu_torch import dygraph, layers
 from paddle_tpu_torch.dygraph import to_variable
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 CPU = fluid.CPUPlace()
 

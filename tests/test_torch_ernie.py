@@ -33,6 +33,7 @@ from paddle_tpu_torch.ops import nn_ops
 from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
 from paddle_tpu_torch.optimizer import SGD
 from paddle_tpu_torch.regularizer import L2Decay
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 B, S, CALLS, K = 4, 16, 16, 4
 ACC_PARAM = 'backbone.encoder.0.attn.q.weight'

@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu.ops import nn_ops as jax_ops
 from paddle_tpu_torch.ops import nn_ops
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 ATOL = 1e-5
 # (B, H, S, D)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import _build, nn_ops
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 # C declaration -> ctypes type, for what the interfaces use; every other
 # pointer is a c_void_p

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import nn_ops
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 ATOL, RTOL = 2e-5, 1e-5
 # the paged decode kernel's key range and its CTAs of one slot and head

@@ -13,6 +13,7 @@ from paddle_tpu_torch.ops.optimizer_ops import adam, multi_tensor_adam
 from paddle_tpu_torch.clip import GradientClipByGlobalNorm
 from paddle_tpu_torch.optimizer import Adam, AdamOptimizer
 from paddle_tpu_torch.regularizer import L2Decay
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 
 @pytest.mark.parametrize('scale', [0.02, 1.0])

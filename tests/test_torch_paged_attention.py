@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu.ops import nn_ops as jax_ops
 from paddle_tpu_torch.ops import nn_ops
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 H = 2
 MAXBPS = 4

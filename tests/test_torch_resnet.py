@@ -54,6 +54,7 @@ from paddle_tpu_torch.models import resnet as port_resnet
 from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
 from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.regularizer import L1Decay
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 B, IMG, CLASSES = 8, 32, 10
 FORMATS = ['NHWC', 'NCHW']

@@ -47,6 +47,7 @@ import torch
 from paddle_tpu.ops import loss_ops as jax_loss
 from paddle_tpu.ops import pallas_conv as jpc
 from paddle_tpu_torch.ops import loss_ops, nn_ops, pallas_conv
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 # (module, op) of every public op both packages have
 SHARED_OPS = [

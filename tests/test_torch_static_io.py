@@ -191,7 +191,6 @@ def _small_program():
 
 
 @pytest.mark.parametrize('knob,item', [
-    ('fuse_elewise_add_act_ops', 'A.8d'), ('fuse_all_optimizer_ops', 'A.8d'),
     ('fuse_bn_act_ops', 'A.8d'), ('num_trainers', 'A.9'),
     ('num_inflight_steps', 'A.11')])
 def test_compiled_program_knobs_the_port_does_not_act_on_raise(knob, item):

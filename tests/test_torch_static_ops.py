@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu.ops import registry as jax_registry
 from paddle_tpu_torch.ops import registry
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 ATOL, RTOL = 1e-6, 1e-5
 

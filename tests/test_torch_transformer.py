@@ -39,6 +39,7 @@ from paddle_tpu_torch.convert import (transformer_expected_shapes,
                                       transformer_state_dict_from_paddle)
 from paddle_tpu_torch.dygraph import TrainStep, to_variable
 from paddle_tpu_torch.models import transformer as pt
+import torch_jax_seed  # noqa: F401  (caps torch's threads)
 
 CPU = fluid.CPUPlace()
 B, S, V = 3, 16, 64
