@@ -17,26 +17,35 @@ Phases:
    printed, spill lines included); then each flash body (forward, dK/dV,
    dQ; bf16 and f32; every head dim) as the loaded library reports it:
    registers, local memory a thread (spills), static and dynamic shared
-   memory and the CTAs an SM holds; then the same for K2's key-split body
-   (every head dim) and K4's bodies (bf16 wgmma at 64 and 128 tile
-   columns, bf16 WMMA, f32);
-2b. ROADMAP C.14, bounded: K1's first launch and its check against the
-   plain version in 8 fresh processes (four at a time), each under
-   ``CUDA_LAUNCH_BLOCKING=1``, four at phase 3's seeded contexts and four
-   at random ragged ones, every table entry up to ceil(context / 16)
-   checked on the host to lie in [0, 256) first; the count of faulted
-   launches printed, a fault fails the smoke;
+   memory and the CTAs an SM holds; then the same for K1's split-context
+   and K2's key-split bodies (every head dim, over f32, bf16 and int8
+   pools) and K4's bodies (bf16 wgmma at 64 and 128 tile columns, bf16
+   WMMA, f32);
+2b. ROADMAP C.14, bounded: in 8 fresh processes (four at a time), each
+   under ``CUDA_LAUNCH_BLOCKING=1``, the first launch of each K1
+   instantiation and shape the serving path makes, each checked against
+   the plain version: K1 over the f32 pool, then over the bf16 and int8
+   pools, then the flattened verify read (k 4); four at phase 3's seeded
+   contexts and four at random ragged ones, every table entry a row reads
+   up to ceil(context / 16) checked on the host to lie in [0, 256) first;
+   the count of faulted processes printed, a fault fails the smoke;
 3. kernels against their plain PyTorch versions at the decode-serving
    path's shapes (8 slots, 8 heads, head_dim 64, block 16, 256-block pool,
    24 blocks per sequence): K1 at ragged contexts up to the full 384 and
    at the served decode step's (contexts 128-188 on every slot), two
    launches bitwise equal; K2 at every prompt rung (1, 16, 64, 256), two
-   launches bitwise equal; each launch synchronised and compared; then
-   the device time (torch.profiler) of the kernel, the plain version and
-   one PyTorch library call (``scaled_dot_product_attention``, timed only,
-   never called by the port), CUDA-event times of the same calls back to
-   back, and the least time the card could take (bytes over 3.35 TB/s or
-   f32 operations over 67 TFLOP/s, whichever is larger);
+   launches bitwise equal; then K1 and K2 over bf16 and int8 pools (the
+   KV cache's codec) at the same contexts and rungs, and the verify read
+   of speculative decoding (k 4, f32, bf16 and int8, at the served
+   contexts) against the plain multi-query version and each of its rows
+   bitwise against a single-query K1 launch at context c + j; each launch
+   synchronised and compared; then the device time (torch.profiler) of
+   the kernel, the plain version and one PyTorch library call
+   (``scaled_dot_product_attention`` on the gathered, dequantized view,
+   timed only, never called by the port), CUDA-event times of the same
+   calls back to back, and the least time the card could take (bytes over
+   3.35 TB/s, the K and V rows at the pool's payload, or f32 operations
+   over 67 TFLOP/s, whichever is larger);
 3b. the flash-attention kernels (forward K3, backward K3b-dkv and K3b-dq)
    against their plain versions: at BERT-base's training shapes (B 128,
    H 12, S 128, D 64) in bf16 (the path's type) and f32 with no bias, in
@@ -263,9 +272,22 @@ Phases:
    plain run with a plan that frees nothing for its peak and high-water;
    then the static LeNet with ``Adam`` (phase 8's script) fused and plain,
    the same checks and its launches a step;
-16. a ``{"kernels": [...]}`` line (all six kernels, each with its
-   ``launches_ptb``, ``launches_s2s``, ``launches_amp`` and
-   ``launches_fused``) and, last, ``{"ok": true, "device": {...}}``.
+16. the served variants (ROADMAP A.5, A.6): phase 4's seeded mix through
+   the replica stack at full width four more times, (a) with speculative
+   decoding and the n-gram drafter, (b) with speculative decoding and the
+   target model as its own draft model (acceptance near 1), (c) over a
+   bf16 pool and (d) over an int8 pool: every request its full budget, K1
+   launched (decode steps + verify rounds) x layers and K2 prefills x
+   layers in each run, two streams under teacher forcing through the f32
+   model (the near-tie rule for (a) and (b); for (c) and (d) a limit
+   derived from the storage's half step, ``QUANT_HALF_STEP``); tokens/s,
+   decode-step p50, verify rounds, acceptance, the greedy match rate
+   against phase 4's f32 streams, peak memory and the pool's bytes; one
+   profiled window of verify rounds or decode steps each (host ms, busy
+   ms, idle share);
+17. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+   read, the flash kernels and K4, each with its launches on its path and
+   those of phases 12-16) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -303,6 +325,10 @@ DECODE_CONTEXTS = [1, 17, 384, 100, None, 250, 33, 64]
 K1_PROBES, K1_PROBE_TIMEOUT = 8, 300
 SERVED_CONTEXTS = [128, 137, 146, 155, 164, 173, 182, 188]
 PREFILL_RUNGS = (1, 16, 64, 256)
+# the pool payloads (kv_dtype) K1 and K2 are built for, and the verify
+# window of speculative decoding (the engine's default spec_k)
+PAYLOADS = ('f32', 'bf16', 'int8')
+SPEC_K = 4
 # flash kernel shapes: BERT-base training (bench.py bench_bert) and the
 # causal TransformerLM (CausalLMConfig(): 8 heads of 64, 512 positions)
 BERT_SHAPE = (128, 12, 128, 64)
@@ -471,6 +497,25 @@ def make_pool(rng, dev):
     return k.to(dev), v.to(dev)
 
 
+def quantize_pool(k_pages, v_pages, payload):
+    """(k_pages, v_pages, k_scales, v_scales) of an f32 pool stored at
+    ``payload`` as the KV cache stores it (int8 through its row codec)."""
+    from paddle_tpu_torch.parallel.quant_collectives import rowwise_quantize
+    if payload == 'f32':
+        return k_pages, v_pages, None, None
+    if payload == 'bf16':
+        return k_pages.bfloat16(), v_pages.bfloat16(), None, None
+    (kq, ks), (vq, vs) = rowwise_quantize(k_pages), rowwise_quantize(v_pages)
+    return kq, vq, ks, vs
+
+
+def kv_bytes(keys, payload):
+    """Bytes of ``keys`` K and V rows of H heads at ``payload``: 4 bytes an
+    element for f32, 2 for bf16, 1 for int8 plus its 4-byte row scale."""
+    per_row = {'f32': 4 * D, 'bf16': 2 * D, 'int8': D + 4}[payload]
+    return 2 * keys * H * per_row
+
+
 def make_tables(rng, contexts):
     """Distinct random blocks per sequence, scratch-padded; a context of
     None is an inactive slot (all scratch, context 1)."""
@@ -499,58 +544,145 @@ def decode_inputs(rng, dev, contexts):
     return k_pages, v_pages, bt, cl, q, tables, ctx
 
 
-def check_decode_kernel(rng, dev, contexts):
-    """K1 against its plain version at ``contexts`` (two launches bitwise
-    equal), then its times beside the plain version, SDPA and the
-    bound."""
+def check_decode_kernel(rng, dev, contexts, payload='f32'):
+    """K1 over a ``payload`` pool against its plain version at
+    ``contexts`` (two launches bitwise equal), then its times beside the
+    plain version, SDPA (on the pre-gathered, dequantized dense view) and
+    the bound."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import nn_ops
     k_pages, v_pages, bt, cl, q, tables, ctx = decode_inputs(rng, dev,
                                                              contexts)
+    kp, vp, ks, vs = quantize_pool(k_pages, v_pages, payload)
+    del k_pages, v_pages
     scale = 1.0 / np.sqrt(D)
-    got = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl, sm_scale=scale)
-    want = nn_ops.paged_attention_ref(q, k_pages, v_pages, bt, cl,
+    name = 'paged_decode_attention' + ('' if payload == 'f32'
+                                       else f' {payload}')
+    got = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs, sm_scale=scale)
+    want = nn_ops.paged_attention_ref(q, kp, vp, bt, cl, ks, vs,
                                       sm_scale=scale)
-    err = compare('paged_decode_attention', got, want)
-    again = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl,
-                                   sm_scale=scale)
+    err = compare(name, got, want)
+    again = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs, sm_scale=scale)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError('paged_decode_attention: two launches differ')
+        raise AssertionError(f'{name}: two launches differ')
 
     # yardstick: one library call on the pre-gathered dense view
-    kd = nn_ops._gather_pages(k_pages, bt, S, H, D)
-    vd = nn_ops._gather_pages(v_pages, bt, S, H, D)
+    kd = nn_ops._gather_pages(kp, bt, S, H, D, ks)
+    vd = nn_ops._gather_pages(vp, bt, S, H, D, vs)
     mask = (torch.arange(MAX_BPS * BS, device=dev)[None, None, None, :]
             < cl[:, None, None, None])
     tm = times(lambda: nn_ops.paged_attention(
-                   q, k_pages, v_pages, bt, cl, sm_scale=scale),
+                   q, kp, vp, bt, cl, ks, vs, sm_scale=scale),
                lambda: nn_ops.paged_attention_ref(
-                   q, k_pages, v_pages, bt, cl, sm_scale=scale),
+                   q, kp, vp, bt, cl, ks, vs, sm_scale=scale),
                lambda: F.scaled_dot_product_attention(
                    q[:, :, None, :], kd, vd, attn_mask=mask, scale=scale))
     keys = int(np.minimum(ctx, MAX_BPS * BS).sum())
     nbytes = (2 * S * H * D * 4            # q in, out
-              + 2 * keys * H * D * 4       # K and V rows of attended keys
+              + kv_bytes(keys, payload)    # K and V rows of attended keys
               + tables.nbytes + ctx.nbytes)
     flops = keys * H * 4 * D               # q.k and p.v per key
     bms, by = bound_ms(nbytes, flops)
-    return {'name': 'paged_decode_attention', 'route': 'cuda',
+    return {'name': name, 'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/paged_attention.cu',
             'replaces': 'paddle_tpu/ops/nn_ops.py:785',
             'shape': f'S={S} H={H} D={D} BS={BS} NB={NB} max_bps={MAX_BPS} '
-                     f'ctx={ctx.tolist()}',
+                     f'{payload} ctx={ctx.tolist()}',
             'max_abs_err': err, 'bound_ms': bms, 'bound_by': by, **tm}
 
 
+def check_verify_read(rng, dev, contexts, payload='f32', kq=SPEC_K):
+    """The verify read of speculative decoding, (S, H, kq, D) at
+    ``contexts`` over a ``payload`` pool, through K1 in one launch: against
+    the plain multi-query version (rows whose context stays inside the
+    table), each row bitwise equal to a single-query K1 launch at context
+    c + j, two launches bitwise equal; then the times of K1 on the
+    flattened rows, the whole wrapper, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import nn_ops
+    k_pages, v_pages, bt, cl, _, tables, ctx = decode_inputs(rng, dev,
+                                                             contexts)
+    kp, vp, ks, vs = quantize_pool(k_pages, v_pages, payload)
+    del k_pages, v_pages
+    q = torch.from_numpy(
+        rng.standard_normal((S, H, kq, D), np.float32)).to(dev)
+    scale = 1.0 / np.sqrt(D)
+    full = MAX_BPS * BS
+    name = f'paged_decode_attention verify k={kq} {payload}'
+    rows, rt, rc = nn_ops.verify_rows(q, bt, cl, full)
+    for r, c in zip(rt.cpu().numpy(), rc.cpu().numpy()):
+        read = r[:-(-int(c) // BS)]
+        if not ((read >= 0) & (read < NB)).all() or not 1 <= c <= full:
+            raise AssertionError(f'{name}: a flattened row reads outside '
+                                 f'the pool: context {c}, table {read}')
+    got = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs, sm_scale=scale)
+    again = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs, sm_scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f'{name}: two launches differ')
+    for j in range(kq):
+        single = nn_ops.paged_attention(
+            q[:, :, j].contiguous(), kp, vp, bt,
+            (cl + j).clamp(max=full).int(), ks, vs, sm_scale=scale)
+        torch.cuda.synchronize()
+        if not torch.equal(got[:, :, j], single):
+            raise AssertionError(f'{name}: row {j} differs from the '
+                                 f'single-query launch at context c + {j}')
+    want = nn_ops.paged_attention_ref(q, kp, vp, bt, cl, ks, vs,
+                                      sm_scale=scale)
+    inside = (cl[:, None] + torch.arange(kq, device=dev)) <= full
+    err = compare(name, got.transpose(1, 2)[inside],
+                  want.transpose(1, 2)[inside])
+    kd = nn_ops._gather_pages(kp, bt, S, H, D, ks)
+    vd = nn_ops._gather_pages(vp, bt, S, H, D, vs)
+    mask = (torch.arange(full, device=dev)[None, None, None, :]
+            < cl[:, None, None, None]
+            + torch.arange(kq, device=dev)[None, None, :, None])
+    tk, tw = timed(lambda: nn_ops.paged_attention(
+        rows, kp, vp, rt, rc, ks, vs, sm_scale=scale)), timed(
+        lambda: nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs,
+                                       sm_scale=scale))
+    tm = times_of(tk, timed(lambda: nn_ops.paged_attention_ref(
+                      q, kp, vp, bt, cl, ks, vs, sm_scale=scale)),
+                  timed(lambda: F.scaled_dot_product_attention(
+                      q, kd, vd, attn_mask=mask, scale=scale)))
+    tm['wrapper_ms'] = tw[0] if tw[0] is not None else tw[1]
+    attended = np.minimum(ctx[:, None] + np.arange(kq), full)
+    keys = int(np.minimum(ctx + kq - 1, full).sum())    # each row read once
+    nbytes = (2 * S * kq * H * D * 4 + kv_bytes(keys, payload)
+              + tables.nbytes + ctx.nbytes)
+    flops = int(attended.sum()) * H * 4 * D
+    bms, by = bound_ms(nbytes, flops)
+    return {'name': name, 'route': 'cuda',
+            'source': 'paddle_tpu_torch/csrc/paged_attention.cu',
+            'replaces': 'paddle_tpu/ops/nn_ops.py:785',
+            'shape': f'S={S} H={H} K={kq} D={D} BS={BS} NB={NB} '
+                     f'max_bps={MAX_BPS} {payload} ctx={ctx.tolist()}',
+            'max_abs_err': err, 'bound_ms': bms, 'bound_by': by, **tm}
+
+
+def check_tables_in_range(what, tables, contexts):
+    """Every table entry up to ceil(context / BS) lies in [0, NB)."""
+    for i, c in enumerate(contexts):
+        row = tables[i, :-(-int(c) // BS)]
+        if not ((row >= 0) & (row < NB)).all():
+            raise AssertionError(f'{what}: row {i} (context {c}) has a table '
+                                 f'entry outside [0, {NB}): {row.tolist()}')
+
+
 def k1_probe(probe, seed):
-    """One of ROADMAP C.14's probes, in a fresh process: K1's first launch
-    and its check against the plain version. Probes 0 to K1_PROBES / 2 - 1
-    draw phase 3's first inputs (``default_rng(seed)``, DECODE_CONTEXTS),
-    the others random ragged contexts. Before the launch the host checks
-    that every table entry up to ceil(context / BS) lies in [0, NB).
-    Prints one JSON line; a fault ends the process with an error."""
+    """One of ROADMAP C.14's probes, in a fresh process: the first launch of
+    each K1 instantiation and shape the serving path makes, each checked
+    against the plain version: the f32 pool, then the bf16 and int8 pools,
+    then the flattened verify read (k = SPEC_K, f32) on the same inputs.
+    Probes 0 to K1_PROBES / 2 - 1 draw phase 3's first inputs
+    (``default_rng(seed)``, DECODE_CONTEXTS), the others random ragged
+    contexts. Before each launch the host checks that every table entry up
+    to ceil(context / BS) of every row it reads lies in [0, NB). Prints one
+    JSON line; a fault ends the process with an error."""
     import torch
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.ops import nn_ops
@@ -562,20 +694,34 @@ def k1_probe(probe, seed):
         contexts = [int(c) for c in rng.integers(1, MAX_BPS * BS + 1, S)]
     k_pages, v_pages, bt, cl, q, tables, ctx = decode_inputs(rng, dev,
                                                              contexts)
-    for i, c in enumerate(ctx):
-        row = tables[i, :-(-int(c) // BS)]
-        if not ((row >= 0) & (row < NB)).all():
-            raise AssertionError(f'probe {probe}: slot {i} (context {c}) '
-                                 f'has a table entry outside [0, {NB}): '
-                                 f'{row.tolist()}')
+    check_tables_in_range(f'probe {probe}', tables, ctx)
     scale = 1.0 / np.sqrt(D)
-    got = nn_ops.paged_attention(q, k_pages, v_pages, bt, cl, sm_scale=scale)
+    errs = {}
+    for payload in PAYLOADS:
+        kp, vp, ks, vs = quantize_pool(k_pages, v_pages, payload)
+        got = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs,
+                                     sm_scale=scale)
+        torch.cuda.synchronize()
+        want = nn_ops.paged_attention_ref(q, kp, vp, bt, cl, ks, vs,
+                                          sm_scale=scale)
+        errs[payload] = compare(f'K1 {payload}, probe {probe}', got, want)
+    full = MAX_BPS * BS
+    q4 = torch.from_numpy(
+        rng.standard_normal((S, H, SPEC_K, D), np.float32)).to(dev)
+    _, rt, rc = nn_ops.verify_rows(q4, bt, cl, full)
+    check_tables_in_range(f'probe {probe} verify rows', rt.cpu().numpy(),
+                          rc.cpu().numpy())
+    got = nn_ops.paged_attention(q4, k_pages, v_pages, bt, cl,
+                                 sm_scale=scale)
     torch.cuda.synchronize()
-    want = nn_ops.paged_attention_ref(q, k_pages, v_pages, bt, cl,
+    want = nn_ops.paged_attention_ref(q4, k_pages, v_pages, bt, cl,
                                       sm_scale=scale)
-    err = compare(f'paged_decode_attention, probe {probe}', got, want)
+    inside = (cl[:, None] + torch.arange(SPEC_K, device=dev)) <= full
+    errs['verify'] = compare(f'K1 verify, probe {probe}',
+                             got.transpose(1, 2)[inside],
+                             want.transpose(1, 2)[inside])
     print(json.dumps({'probe': probe, 'contexts': ctx.tolist(),
-                      'max_abs_err': err,
+                      'max_abs_err': errs,
                       'launches': nn_ops.launch_counts()['paged_attention']}),
           flush=True)
 
@@ -608,23 +754,32 @@ def probe_k1_first_launches(seed, card):
                 log(f'K1 probe {i} exited {p.returncode}: '
                     + ' | '.join(err.strip().splitlines()[-3:]))
     log(f'K1 first launches in fresh processes (ROADMAP C.14) [{card}]: '
-        f'{len(faults)} of {K1_PROBES} faulted ({K1_PROBES // 2} at phase '
+        f'{len(faults)} of {K1_PROBES} processes faulted, each making the '
+        f'first launch of K1 over f32, bf16 and int8 pools and of the '
+        f'flattened verify read (k={SPEC_K}) ({K1_PROBES // 2} at phase '
         f'3\'s seeded contexts {DECODE_CONTEXTS}, {K1_PROBES // 2} at random '
         f'ragged ones, CUDA_LAUNCH_BLOCKING=1, table entries checked on the '
         f'host first); ' + ', '.join(
-            f'probe {r["probe"]} max|diff| {r["max_abs_err"]:.3e} launches '
-            f'{r["launches"]} contexts {r["contexts"]}' for r in results)
+            f'probe {r["probe"]} max|diff| '
+            + ' '.join(f'{k} {v:.3e}' for k, v in r['max_abs_err'].items())
+            + f' launches {r["launches"]} contexts {r["contexts"]}'
+            for r in results)
         + f'; {time.perf_counter() - t0:.1f} s')
     if faults:
         raise AssertionError(f'K1 faulted in probes {faults} (ROADMAP C.14)')
 
 
-def check_prefill_kernel(rng, dev):
+def check_prefill_kernel(rng, dev, payload='f32'):
+    """K2 over a ``payload`` pool against its plain version at every prompt
+    rung (two launches bitwise equal), with its times beside the plain
+    version, SDPA (on the raw, dequantized prompt K/V) and the bound."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import nn_ops
-    k_pages, v_pages = make_pool(rng, dev)
+    kp, vp, ks, vs = quantize_pool(*make_pool(rng, dev), payload)
     scale = 1.0 / np.sqrt(D)
+    name = 'paged_prefill_attention' + ('' if payload == 'f32'
+                                        else f' {payload}')
     errs, rungs = [], {}
     for lb in PREFILL_RUNGS:
         # a prompt of lb tokens plus a budget, as the engine reserves it
@@ -632,38 +787,40 @@ def check_prefill_kernel(rng, dev):
         bt = torch.from_numpy(tables).to(dev)
         q = torch.from_numpy(
             rng.standard_normal((1, H, lb, D), np.float32)).to(dev)
-        got = nn_ops.paged_prefill_attention(q, q, q, k_pages, v_pages, bt,
+        got = nn_ops.paged_prefill_attention(q, q, q, kp, vp, bt, ks, vs,
                                              sm_scale=scale)
-        want = nn_ops.paged_prefill_attention_ref(q, k_pages, v_pages, bt,
+        want = nn_ops.paged_prefill_attention_ref(q, kp, vp, bt, ks, vs,
                                                   sm_scale=scale)
-        errs.append(compare(f'paged_prefill_attention Lb={lb}', got, want))
-        again = nn_ops.paged_prefill_attention(q, q, q, k_pages, v_pages, bt,
+        errs.append(compare(f'{name} Lb={lb}', got, want))
+        again = nn_ops.paged_prefill_attention(q, q, q, kp, vp, bt, ks, vs,
                                                sm_scale=scale)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
-            raise AssertionError(f'paged_prefill_attention Lb={lb}: two '
-                                 f'launches differ')
+            raise AssertionError(f'{name} Lb={lb}: two launches differ')
         # yardstick: causal SDPA on the raw prompt K/V (what the TPU
         # kernel attended); the same rows the paged view holds
-        kr = nn_ops._gather_pages(k_pages, bt, 1, H, D)[:, :, :lb]
-        vr = nn_ops._gather_pages(v_pages, bt, 1, H, D)[:, :, :lb]
+        kr = nn_ops._gather_pages(kp, bt, 1, H, D, ks)[:, :, :lb]
+        vr = nn_ops._gather_pages(vp, bt, 1, H, D, vs)[:, :, :lb]
         tm = times(lambda: nn_ops.paged_prefill_attention(
-                       q, q, q, k_pages, v_pages, bt, sm_scale=scale),
+                       q, q, q, kp, vp, bt, ks, vs, sm_scale=scale),
                    lambda: nn_ops.paged_prefill_attention_ref(
-                       q, k_pages, v_pages, bt, sm_scale=scale),
+                       q, kp, vp, bt, ks, vs, sm_scale=scale),
                    lambda: F.scaled_dot_product_attention(
                        q, kr, vr, is_causal=True, scale=scale))
-        nbytes = 2 * lb * H * D * 4 * 2 + tables.nbytes   # q,out + K,V
-        flops = lb * (lb + 1) // 2 * H * 4 * D            # causal pairs
+        nbytes = (2 * lb * H * D * 4            # q in, out
+                  + kv_bytes(lb, payload)       # the prompt's K and V rows
+                  + tables.nbytes)
+        flops = lb * (lb + 1) // 2 * H * 4 * D  # causal pairs
         bms, by = bound_ms(nbytes, flops)
         rungs[lb] = {'bound_ms': bms, 'bound_by': by, **tm}
-        log(f'K2 Lb={lb}: max|diff| {errs[-1]:.3e} {fmt_times(rungs[lb])}')
+        log(f'K2 {payload} Lb={lb}: max|diff| {errs[-1]:.3e} '
+            f'{fmt_times(rungs[lb])}')
     top = rungs[PREFILL_RUNGS[-1]]
-    return {'name': 'paged_prefill_attention', 'route': 'cuda',
+    return {'name': name, 'route': 'cuda',
             'source': 'paddle_tpu_torch/csrc/paged_attention.cu',
             'replaces': 'paddle_tpu/ops/nn_ops.py:883',
             'shape': f'B=1 H={H} Lb={PREFILL_RUNGS[-1]} D={D} BS={BS} '
-                     f'NB={NB} max_bps={MAX_BPS}',
+                     f'NB={NB} max_bps={MAX_BPS} {payload}',
             'max_abs_err': max(errs), **top}
 
 
@@ -712,10 +869,12 @@ def report_flash_build():
 
 
 def report_k2_k4_build():
-    """Phase 2, K2's bodies (every head dim) and K4's (the bf16 wgmma body
-    at each tile width, the bf16 WMMA body, the f32 body) as the loaded
-    libraries report them. Returns K2's figures at D 64 and K4's by body
-    and tile, labelled as ``check_k4_kernel`` labels them (``'wgmma
+    """Phase 2, K1's and K2's bodies (every head dim, over f32, bf16 and
+    int8 pools) and K4's (the bf16 wgmma body at each tile width, the bf16
+    WMMA body, the f32 body) as the loaded libraries report them. Returns
+    the paged bodies' figures at D 64 by kernel and payload
+    (``{'paged_decode_attention': {'f32': {...}, ...}, ...}``) and K4's by
+    body and tile, labelled as ``check_k4_kernel`` labels them (``'wgmma
     128x64'``)."""
     from paddle_tpu_torch.ops import nn_ops, pallas_conv
 
@@ -725,16 +884,20 @@ def report_k2_k4_build():
             f'{info["dynamic_smem"]} B dynamic shared, {info["threads"]} '
             f'threads, {info["ctas_per_sm"]} CTAs an SM')
 
-    k2 = {}
-    for d in nn_ops.HEAD_DIMS:
-        k2[d] = nn_ops.prefill_kernel_info(d)
-        line(f'paged_prefill_attention D {d}', k2[d])
+    paged = {kind: {} for kind in nn_ops.PAGED_KINDS}
+    for kind in nn_ops.PAGED_KINDS:
+        for payload, name in zip(nn_ops.PAGED_PAYLOADS, PAYLOADS):
+            for d in nn_ops.HEAD_DIMS:
+                info = nn_ops.paged_kernel_info(kind, d, payload)
+                line(f'{kind} {name} D {d}', info)
+                if d == D:
+                    paged[kind][name] = info
     k4 = {}
     for body, bn in [('wgmma', t) for t in pallas_conv.K4_WGMMA_TILES] + [
             ('wmma', 64), ('f32', 64)]:
         k4[f'{body} 128x{bn}'] = pallas_conv.conv1x1_kernel_info(body, bn)
         line(f'conv1x1_bn_act {body} 128 x {bn}', k4[f'{body} 128x{bn}'])
-    return k2[D], k4
+    return paged, k4
 
 
 def check_flash_chain(label, q, k, v, do, bias, causal, tol):
@@ -2236,36 +2399,33 @@ def post(port, body, timeout=600):
     return tokens, lines[-1]['finish_reason']
 
 
-def serve(seed, card):
+def served_mix(seed, vocab):
+    """Phase 4's seeded mix of 16 ``/generate`` requests: prompts of 16-256
+    tokens, budgets of 16-48 and, every fourth, 96-128; half streamed."""
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(16):
+        n = int(rng.randint(16, 257))
+        budget = int(rng.randint(96, 129) if i % 4 == 3
+                     else rng.randint(16, 49))
+        prompt = [int(t) for t in rng.randint(0, vocab, n)]
+        reqs.append({'prompt': prompt, 'max_new_tokens': budget,
+                     'stream': i % 2 == 0, 'request_id': f'smoke-{i}'})
+    return reqs, rng
+
+
+def drive_mix(engine, sched, reqs):
+    """Serve ``reqs`` concurrently through a ``ServingServer`` over
+    ``sched`` (warmed first): every request must end with its full budget,
+    and K1 must launch once a layer for every decode step and verify round,
+    K2 once a layer for every prefill. Returns (results, wall seconds,
+    launch counts, the engine's stats, peak device memory)."""
     import torch
-    from paddle_tpu_torch.models.causal_lm import (greedy_generate,
-                                                   max_logit_gaps)
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.serving import ServingServer
-    from paddle_tpu_torch.serving.tier.replica import (build_lm,
-                                                       build_replica_stack)
-    t0 = time.perf_counter()
-    model = build_lm('default', seed, 'cuda')
-    cfg = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
-    engine, sched = build_replica_stack(model)
     srv = ServingServer(None, port=0, generator=sched, warmup=True,
                         request_timeout=600).start()
-    log(f'served model: CausalLMConfig() {n_params} parameters, '
-        f'{cfg.num_hidden_layers} layers; engine slots={engine.slots} '
-        f'block={engine.block_size} ladder={engine.prompt_buckets} '
-        f'padded_context={engine.padded_context}; built and warmed in '
-        f'{time.perf_counter() - t0:.1f} s')
     try:
-        rng = np.random.RandomState(seed)
-        reqs = []
-        for i in range(16):
-            n = int(rng.randint(16, 257))
-            budget = int(rng.randint(96, 129) if i % 4 == 3
-                         else rng.randint(16, 49))
-            prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-            reqs.append({'prompt': prompt, 'max_new_tokens': budget,
-                         'stream': i % 2 == 0, 'request_id': f'smoke-{i}'})
         results = [None] * len(reqs)
 
         def client(i):
@@ -2285,68 +2445,102 @@ def serve(seed, card):
         wall = time.perf_counter() - t0
         launches = nn_ops.launch_counts()
         stats = engine.stats
-        if any(t.is_alive() for t in threads) or None in results:
-            raise AssertionError('a /generate request did not finish')
-        for r, (tokens, reason) in zip(reqs, results):
-            if len(tokens) != r['max_new_tokens'] or reason != 'length':
-                raise AssertionError(
-                    f'{r["request_id"]}: {len(tokens)} tokens ({reason}), '
-                    f'budget {r["max_new_tokens"]}')
-        layers = cfg.num_hidden_layers
-        if stats['prefills'] != len(reqs):
-            raise AssertionError(f'{stats["prefills"]} prefills for '
-                                 f'{len(reqs)} requests')
-        if launches['paged_attention'] != stats['decode_steps'] * layers:
-            raise AssertionError(f'K1 launches {launches} != decode steps '
-                                 f'{stats["decode_steps"]} x {layers}')
-        if launches['paged_prefill_attention'] != stats['prefills'] * layers:
-            raise AssertionError(f'K2 launches {launches} != prefills '
-                                 f'{stats["prefills"]} x {layers}')
         peak = torch.cuda.max_memory_allocated()
-        # two streamed requests against the uncached reference on the card
-        for i in (0, 3):
-            r, tokens = reqs[i], results[i][0]
-            gaps = max_logit_gaps(model, r['prompt'], tokens,
-                                  pad_len=engine.padded_context)
-            ref = greedy_generate(model, r['prompt'], len(tokens),
-                                  pad_len=engine.padded_context)
-            same = sum(a == b for a, b in zip(tokens, ref))
-            log(f'reference {r["request_id"]}: prompt {len(r["prompt"])} '
-                f'budget {len(tokens)}: {same}/{len(tokens)} tokens equal to '
-                f'greedy_generate, max teacher-forced logit gap '
-                f'{gaps.max():.3e} (limit {NEAR_TIE})')
-            if gaps.max() > NEAR_TIE:
-                raise AssertionError(f'{r["request_id"]}: served token '
-                                     f'{gaps.max():.3e} below its row max')
-        generated = sum(len(t) for t, _ in results)
-        steps_ms = sorted(1e3 * s for s in stats['step_seconds'])
-        prefill_ms = {b: round(1e3 * statistics.median(v), 3)
-                      for b, v in sorted(stats['prefill_seconds'].items())}
-        log(f'served [{card}]: {len(reqs)} requests, {generated} tokens in '
-            f'{wall:.3f} s = {generated / wall:.1f} tokens/s; '
-            f'{stats["decode_steps"]} decode steps, p50 '
-            f'{statistics.median(steps_ms):.3f} ms; prefill median ms by '
-            f'rung {prefill_ms}; peak device memory {peak} bytes')
-        log(f'launches on the served path: {launches} '
-            f'(decode steps {stats["decode_steps"]}, prefills '
-            f'{stats["prefills"]}, layers {layers})')
     finally:
         srv.shutdown()
+    if any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError('a /generate request did not finish')
+    for r, (tokens, reason) in zip(reqs, results):
+        if len(tokens) != r['max_new_tokens'] or reason != 'length':
+            raise AssertionError(
+                f'{r["request_id"]}: {len(tokens)} tokens ({reason}), '
+                f'budget {r["max_new_tokens"]}')
+    layers = engine.model.cfg.num_hidden_layers
+    if stats['prefills'] != len(reqs):
+        raise AssertionError(f'{stats["prefills"]} prefills for '
+                             f'{len(reqs)} requests')
+    if launches['paged_attention'] != stats['decode_steps'] * layers:
+        raise AssertionError(f'K1 launches {launches} != (decode steps + '
+                             f'verify rounds) {stats["decode_steps"]} x '
+                             f'{layers}')
+    if launches['paged_prefill_attention'] != stats['prefills'] * layers:
+        raise AssertionError(f'K2 launches {launches} != prefills '
+                             f'{stats["prefills"]} x {layers}')
+    return results, wall, launches, stats, peak
+
+
+def served_line(label, card, reqs, results, wall, stats, peak):
+    generated = sum(len(t) for t, _ in results)
+    steps_ms = sorted(1e3 * s for s in stats['step_seconds'])
+    prefill_ms = {b: round(1e3 * statistics.median(v), 3)
+                  for b, v in sorted(stats['prefill_seconds'].items())}
+    log(f'{label} [{card}]: {len(reqs)} requests, {generated} tokens in '
+        f'{wall:.3f} s = {generated / wall:.1f} tokens/s; '
+        f'{stats["decode_steps"]} decode steps ({stats["spec_rounds"]} '
+        f'verify rounds), p50 {statistics.median(steps_ms):.3f} ms; prefill '
+        f'median ms by rung {prefill_ms}; peak device memory {peak} bytes')
+
+
+def serve(seed, card):
+    """Phase 4: the f32 replica stack at full width on the seeded mix.
+    Returns the launch counts, the model, the requests and their results
+    (phase 16's f32 reference)."""
+    from paddle_tpu_torch.models.causal_lm import (greedy_generate,
+                                                   max_logit_gaps)
+    from paddle_tpu_torch.serving.tier.replica import (build_lm,
+                                                       build_replica_stack)
+    t0 = time.perf_counter()
+    model = build_lm('default', seed, 'cuda')
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    engine, sched = build_replica_stack(model)
+    reqs, rng = served_mix(seed, cfg.vocab_size)
+    results, wall, launches, stats, peak = drive_mix(engine, sched, reqs)
+    log(f'served model: CausalLMConfig() {n_params} parameters, '
+        f'{cfg.num_hidden_layers} layers; engine slots={engine.slots} '
+        f'block={engine.block_size} ladder={engine.prompt_buckets} '
+        f'padded_context={engine.padded_context}; built, warmed and served '
+        f'in {time.perf_counter() - t0:.1f} s')
+    # two streamed requests against the uncached reference on the card
+    for i in (0, 3):
+        r, tokens = reqs[i], results[i][0]
+        gaps = max_logit_gaps(model, r['prompt'], tokens,
+                              pad_len=engine.padded_context)
+        ref = greedy_generate(model, r['prompt'], len(tokens),
+                              pad_len=engine.padded_context)
+        same = sum(a == b for a, b in zip(tokens, ref))
+        log(f'reference {r["request_id"]}: prompt {len(r["prompt"])} '
+            f'budget {len(tokens)}: {same}/{len(tokens)} tokens equal to '
+            f'greedy_generate, max teacher-forced logit gap '
+            f'{gaps.max():.3e} (limit {NEAR_TIE})')
+        if gaps.max() > NEAR_TIE:
+            raise AssertionError(f'{r["request_id"]}: served token '
+                                 f'{gaps.max():.3e} below its row max')
+    served_line('served', card, reqs, results, wall, stats, peak)
+    log(f'launches on the served path: {launches} '
+        f'(decode steps {stats["decode_steps"]}, prefills '
+        f'{stats["prefills"]}, layers {cfg.num_hidden_layers})')
     profile_decode_steps(engine, rng, card)
-    return launches
+    return launches, model, reqs, results
 
 
 def profile_decode_steps(engine, rng, card, steps=20):
-    """Where a decode step's time goes, with every slot active at a context
-    of half the longest prompt and up: host-clock ms per step (synchronised)
-    against the device's busy ms per step (profiler), and the kernels that
-    take it."""
+    """Where a decode step's (or, with speculative decoding on, a verify
+    round's) time goes, with every slot active at a context of half the
+    longest prompt and up: host-clock ms per step (synchronised) against
+    the device's busy ms per step (profiler), and the kernels that take
+    it. A verify round feeds each slot its pending token and SPEC_K - 1
+    copies of it as drafts and keeps one token (the rest rolled back), so
+    every round reads the full window."""
     import torch
     vocab = engine.model.cfg.vocab_size
     prompt_len = engine.max_prompt_len // 2
+    spec = engine.spec_enabled
     tables, tokens = [], []
     for _ in range(engine.slots):
-        t = engine.reserve_table(prompt_len, 3 * steps + 1)
+        # three runs of ``steps`` (timed, then the profiler's two), a token
+        # kept a step, and a verify round's window past the last
+        t = engine.reserve_table(prompt_len, 3 * steps + engine.spec_k + 1)
         tokens.append(engine.prefill(
             [int(x) for x in rng.randint(0, vocab, prompt_len)], t))
         tables.append(t)
@@ -2354,7 +2548,15 @@ def profile_decode_steps(engine, rng, card, steps=20):
     def run():
         nonlocal tokens
         for _ in range(steps):
-            tokens = [int(x) for x in engine.decode_step(tokens, tables)]
+            if spec:
+                bases = [t.context_len for t in tables]
+                rows = engine.spec_step([[tok] * engine.spec_k
+                                         for tok in tokens], tables)
+                tokens = [int(x) for x in rows[:, 0].argmax(-1)]
+                for t, b in zip(tables, bases):
+                    t.context_len = b + 1
+            else:
+                tokens = [int(x) for x in engine.decode_step(tokens, tables)]
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()
@@ -2364,18 +2566,20 @@ def profile_decode_steps(engine, rng, card, steps=20):
     prof = profiled(run)
     for t in tables:
         engine.release_table(t)
+    what = f'verify round (k={engine.spec_k})' if spec else 'decode step'
     busy_ms = device_us(prof) / 1e3 / steps
     if busy_ms <= 0:
-        log(f'decode step [{card}]: {wall_ms:.3f} ms per step; device busy '
+        log(f'{what} [{card}]: {wall_ms:.3f} ms per step; device busy '
             f'share not measured (the profiler recorded no device time)')
-        return
+        return {'host_ms': wall_ms, 'busy_ms': None, 'idle': None}
     k1 = [e for e in prof.key_averages() if 'paged_decode' in e.key]
     k1_ms = sum(getattr(e, 'self_device_time_total', 0.0)
                 for e in k1) / 1e3 / steps
-    log(f'decode step [{card}]: {engine.slots} active slots, context '
-        f'{prompt_len}-{prompt_len + 3 * steps}: {wall_ms:.3f} ms per step '
-        f'on the host clock, device busy {busy_ms:.3f} ms per step, idle '
-        f'share {1 - busy_ms / wall_ms:.3f}; K1 {k1_ms:.4f} ms per step = '
+    log(f'{what} [{card}]: {engine.slots} active slots, '
+        f'{engine.pool.kv_dtype} pool, context {prompt_len}-'
+        f'{prompt_len + 3 * steps}: {wall_ms:.3f} ms per step on the '
+        f'host clock, device busy {busy_ms:.3f} ms per step, idle share '
+        f'{1 - busy_ms / wall_ms:.3f}; K1 {k1_ms:.4f} ms per step = '
         f'{k1_ms / busy_ms:.3f} of busy, '
         f'{sum(e.count for e in k1) // steps} kernel launches per step')
     top = sorted(prof.key_averages(), key=lambda e: -getattr(
@@ -2383,6 +2587,109 @@ def profile_decode_steps(engine, rng, card, steps=20):
     for e in top:
         log(f'  {getattr(e, "self_device_time_total", 0.0) / 1e3 / steps:.4f}'
             f' ms/step  {e.count // steps} calls/step  {e.key[:90]}')
+    return {'host_ms': wall_ms, 'busy_ms': busy_ms,
+            'idle': 1 - busy_ms / wall_ms}
+
+
+# Phase 16: the served variants. A quantized pool moves each cached K or V
+# element by at most half a step of its storage: int8 absmax / 254 of its
+# row, bf16 2**-9 of itself. Taken as a relative error QUANT_HALF_STEP of
+# every cached row in each of the model's layers, a logit moves by at most
+# that error times the layers times its row's largest magnitude, and a
+# served token's teacher-forced gap by twice that (its own logit and the
+# row's max): the limit below, derived from the storage and not fitted to a
+# run, beside NEAR_TIE's rounding
+QUANT_HALF_STEP = {'bf16': 2.0 ** -9, 'int8': 1 / 254}
+
+
+def teacher_forced(model, prompt, tokens, pad_len):
+    """(gaps, largest |logit| of each row) of ``tokens`` under the
+    uncached f32 model: one forward over ``prompt + tokens``."""
+    import torch
+    n = len(prompt)
+    buf = torch.zeros((1, pad_len), dtype=torch.long, device=model.device)
+    buf[0, :n + len(tokens)] = torch.tensor(list(prompt) + list(tokens))
+    with torch.no_grad():
+        rows = model(buf)[0, n - 1:n - 1 + len(tokens)].cpu().numpy()
+    picked = rows[np.arange(len(tokens)), np.asarray(tokens, np.int64)]
+    return rows.max(axis=-1) - picked, np.abs(rows).max(axis=-1)
+
+
+def serve_variants(model, reqs, f32_results, seed, card):
+    """Phase 16: phase 4's seeded mix at full width through the replica
+    stack four more times, (a) speculative decoding with the n-gram
+    drafter, (b) speculative decoding with a ``DraftModelDrafter`` holding
+    the target's own weights (acceptance near 1, the accept path), (c) a
+    bf16 pool and (d) an int8 pool. Each: every request its full budget;
+    K1 launched (decode steps + verify rounds) x layers, K2 prefills x
+    layers; two streams under teacher forcing through the f32 model (the
+    near-tie rule for (a) and (b), the quantization limit for (c) and
+    (d)); tokens/s, decode-step p50, verify rounds, acceptance, the greedy
+    match rate against phase 4's f32 streams, peak memory and the pool's
+    bytes; one profiled window of verify rounds or decode steps. Returns
+    each run's launch counts, by 'ngram', 'self', 'bf16' and 'int8'."""
+    import torch
+    from paddle_tpu_torch.serving.decode.drafter import DraftModelDrafter
+    from paddle_tpu_torch.serving.tier.replica import (ENGINE_DEFAULTS,
+                                                       build_replica_stack)
+    from paddle_tpu_torch.ops import nn_ops
+    layers = model.cfg.num_hidden_layers
+    variants = [('ngram', '(a) spec_decode, n-gram drafter',
+                 {'spec_decode': True}, 'ngram'),
+                ('self', '(b) spec_decode, the target as its own draft model',
+                 {'spec_decode': True}, 'self'),
+                ('bf16', '(c) kv_dtype bf16', {'kv_dtype': 'bf16'}, None),
+                ('int8', '(d) kv_dtype int8', {'kv_dtype': 'int8'}, None)]
+    by_run = {}
+    rng = np.random.RandomState(seed + 16)
+    for key, label, kw, drafter in variants:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if drafter == 'self':
+            geometry = {**ENGINE_DEFAULTS, **kw}
+            bs = geometry['block_size']
+            pad = -(-(geometry['max_prompt_len']
+                      + geometry['max_new_tokens_cap']) // bs) * bs
+            drafter = DraftModelDrafter(model, pad)
+        engine, sched = build_replica_stack(model, drafter=drafter, **kw)
+        t0 = time.perf_counter()
+        results, wall, launches, stats, peak = drive_mix(engine, sched, reqs)
+        by_run[key] = launches
+        pool = engine.pool
+        kv = pool.kv_dtype
+        for i in (0, 3):
+            r, tokens = reqs[i], results[i][0]
+            gaps, scale = teacher_forced(model, r['prompt'], tokens,
+                                         engine.padded_context)
+            limit = NEAR_TIE + (2 * QUANT_HALF_STEP[kv] * layers * scale
+                                if kv != 'f32' else 0.0)
+            worst = float((gaps - limit).max())
+            log(f'{label} {r["request_id"]}: max teacher-forced gap '
+                f'{gaps.max():.3e}, limit {NEAR_TIE}'
+                + (f' + 2 x {QUANT_HALF_STEP[kv]:.3e} x {layers} x '
+                   f'max|logit| (at most {limit.max():.3e})'
+                   if kv != 'f32' else ''))
+            if worst > 0:
+                raise AssertionError(f'{label} {r["request_id"]}: a served '
+                                     f'token beyond its limit by {worst}')
+        matched = sum(sum(a == b for a, b in zip(t, f))
+                      for (t, _), (f, _) in zip(results, f32_results))
+        total_tokens = sum(len(f) for f, _ in f32_results)
+        served_line(f'served {label}', card, reqs, results, wall, stats,
+                    peak)
+        acc = (stats['spec_accepted'] / stats['spec_drafted']
+               if stats['spec_drafted'] else None)
+        log(f'{label} [{card}]: verify rounds {stats["spec_rounds"]}, drafts '
+            f'{stats["spec_drafted"]} of which accepted '
+            f'{stats["spec_accepted"]} (acceptance '
+            f'{"n/a" if acc is None else f"{acc:.3f}"}); greedy match rate '
+            f'against phase 4\'s f32 streams {matched}/{total_tokens} = '
+            f'{matched / total_tokens:.4f}; {kv} pool {pool.bytes_in_hbm()} '
+            f'bytes in device memory; launches {launches}; '
+            f'{time.perf_counter() - t0:.1f} s')
+        profile_decode_steps(engine, rng, card)
+        del engine, sched
+    return by_run
 
 
 STATIC_STEP_GROUPS = {
@@ -4156,7 +4463,7 @@ def main(argv=None):
         for line in i['ptxas']:
             log(f'  {line}')
     flash_build = report_flash_build()
-    k2_build, k4_build = report_k2_k4_build()
+    paged_build, k4_build = report_k2_k4_build()
 
     # 2b. K1's first launch in fresh processes (ROADMAP C.14)
     probe_k1_first_launches(args.seed, smi)
@@ -4172,15 +4479,48 @@ def main(argv=None):
         'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
         'bound_by', 'timing')}
     k2 = check_prefill_kernel(rng, dev)
+    # the quantized pools' instantiations and the verify read, at the same
+    # shapes (after the f32 checks, whose inputs phase 2b repeats)
+    variants = []
+    for payload in PAYLOADS[1:]:
+        kern = check_decode_kernel(rng, dev, DECODE_CONTEXTS, payload)
+        log(f'K1 {payload} [{smi}]: max|diff| {kern["max_abs_err"]:.3e} '
+            f'{fmt_times(kern)}')
+        at_served = check_decode_kernel(rng, dev, SERVED_CONTEXTS, payload)
+        log(f'K1 {payload} at the served decode step [{smi}]: max|diff| '
+            f'{at_served["max_abs_err"]:.3e} {fmt_times(at_served)}')
+        kern['served_shape'] = {key: at_served[key] for key in (
+            'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+            'bound_ms', 'bound_by', 'timing')}
+        variants += [kern, check_prefill_kernel(rng, dev, payload)]
+    verify = {}
+    for payload in PAYLOADS:
+        verify[payload] = check_verify_read(rng, dev, SERVED_CONTEXTS,
+                                            payload)
+        log(f'K1 verify read k={SPEC_K} {payload} at the served contexts '
+            f'[{smi}]: max|diff| {verify[payload]["max_abs_err"]:.3e}, each '
+            f'row bitwise the single-query launch at c + j; '
+            f'{fmt_times(verify[payload])}; the wrapper (flattening '
+            f'included) {verify[payload]["wrapper_ms"]:.5f} ms')
+    # the quantized pools' verify reads are those instantiations' launches
+    # at other shapes, off phase 16's runs: reported inside their entries
+    for kern in variants:
+        payload = kern['name'].split()[-1]
+        if 'decode' in kern['name']:
+            kern['verify'] = {key: verify[payload][key] for key in (
+                'shape', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                'bound_ms', 'bound_by', 'timing', 'wrapper_ms')}
+    variants.append(verify['f32'])
 
     # 3b. flash-attention kernels against their plain versions
     flash = check_flash_kernels(rng, dev, smi)
 
     # 4. served path
-    launches = serve(args.seed, smi)
+    launches, lm, lm_reqs, lm_results = serve(args.seed, smi)
     k1['launches'] = launches['paged_attention']
     k2['launches'] = launches['paged_prefill_attention']
-    k2['build'] = k2_build
+    k1['build'] = paged_build['paged_decode_attention']['f32']
+    k2['build'] = paged_build['paged_prefill_attention']['f32']
 
     # 5. training path
     launches = train(args.seed, dev, smi)
@@ -4296,18 +4636,52 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_fused'] = fused[wrapper]
 
-    # 16. result lines
-    log(f'chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s '
+    # 16. the served variants: speculative decoding (n-gram and draft-model
+    # drafters) and bf16 / int8 pools, phase 4's mix through the replica
+    # stack; the launches of each variant's kernels are counted from 0
+    # just before its run and read just after
+    torch.cuda.empty_cache()
+    by_run = serve_variants(lm, lm_reqs, lm_results, args.seed, smi)
+    del lm
+    for kern in variants:
+        prefill = 'prefill' in kern['name']
+        wrapper = 'paged_prefill_attention' if prefill else 'paged_attention'
+        payload = kern['name'].split()[-1]
+        if payload in ('bf16', 'int8'):
+            # the bf16 and int8 pools' runs (c) and (d)
+            kern['launches'] = by_run[payload][wrapper]
+        else:
+            # the f32 verify read: every K1 launch of runs (a) and (b)
+            kern['launches'] = (by_run['ngram'][wrapper]
+                                + by_run['self'][wrapper])
+        kern['build'] = paged_build[
+            'paged_prefill_attention' if prefill
+            else 'paged_decode_attention'][
+            'f32' if 'verify' in kern['name'] else payload]
+    # the f32 instantiations' launches in phase 16, runs (a) and (b) (K1's
+    # are the verify reads); none of the flash kernels or K4
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_served_variants'] = (by_run['ngram'][wrapper]
+                                            + by_run['self'][wrapper])
+    log(f'served variants kernel launches by run: {by_run}')
+
+    # 17. result lines
+    log(f'chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
-            'shape', 'launches_ptb', 'launches_s2s', 'launches_amp',
-            'launches_fused')
+            'shape')
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
-            x for x in ('body', 'launches_wgmma', 'launches_ernie', 'stock',
-                        'build', 'served_shape') if x in kern)}
-        for kern in (k1, k2, *flash, k4)]}))
+            x for x in ('launches_ptb', 'launches_s2s', 'launches_amp',
+                        'launches_fused', 'launches_served_variants', 'body',
+                        'launches_wgmma', 'launches_ernie', 'stock', 'build',
+                        'served_shape', 'wrapper_ms', 'verify')
+            if x in kern)}
+        for kern in (k1, k2, *variants, *flash, k4)]}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                            'count': count}}))
     return 0

@@ -1,12 +1,31 @@
-// Paged attention for the decode-serving path, f32, hand-written for Hopper
+// Paged attention for the decode-serving path, hand-written for Hopper
 // (sm_90a). Two kernels, each behind an extern "C" launcher that returns
 // cudaGetLastError() so the ctypes wrapper in ops/nn_ops.py can raise.
 //
 // Pool layout (as in paddle_tpu/serving/decode/kv_cache.py): k_pages and
-// v_pages are (H, NB, BS, D) f32, contiguous; block_tables is (S, max_bps)
+// v_pages are (H, NB, BS, D), contiguous; block_tables is (S, max_bps)
 // int32 with each sequence's cache blocks in order, padded with the scratch
 // block 0. A key at position t of sequence s lives at
 //   pages[h, block_tables[s, t / BS], t % BS, :].
+//
+// Payloads (the pool's kv_dtype): f32; bf16; int8 with one f32 scale a
+// (head, position) row, k_scales and v_scales laid out (H, NB, BS). Both
+// kernels take the payload as a template parameter (Payload<T> below) and
+// dequantize each K or V row as it is loaded: bf16 widened to f32 (exact),
+// int8 as (float)q * scale[h][block][row], one f32 product. That is the
+// value the reference's gather-then-dequantize makes
+// (paddle_tpu/ops/nn_ops.py:_gather_pages), and every operation after the
+// load is the f32 arithmetic of the f32 payload, so the f32 instantiation
+// is the kernel it was and the others compute what the plain version
+// computes from the same pool. q and out stay f32. A quantized pool cuts
+// the bytes a launch reads (2 bytes an element for bf16, 1 plus 4 a row
+// for int8); nothing else changes.
+//
+// The verify read of speculative decoding (q (S, H, K, D), row j attending
+// context_lens + j keys) is no kernel of its own: the wrapper flattens it
+// into S * K single-query rows (tables repeated, contexts + j) and launches
+// paged_decode_attention on them, so each verify row is computed exactly as
+// the lockstep row at that context (the cluster depends on max_bps only).
 //
 // paged_decode_attention
 //   Replaces: the stock Pallas paged-attention kernel that
@@ -84,8 +103,11 @@
 // BS >= 1.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kernel_info.cuh"
 
@@ -112,19 +134,62 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Four consecutive elements of a K or V row as f32: the pool's payload
+// widened (bf16) or times its row's scale (int8). kScaled: the payload has
+// row scales (k_scales / v_scales) to read beside the row.
+template <typename T>
+struct Payload;
+
+template <>
+struct Payload<float> {
+  static constexpr bool kScaled = false;
+  static __device__ __forceinline__ float4 load4(const float* p, float) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+};
+
+template <>
+struct Payload<__nv_bfloat16> {
+  static constexpr bool kScaled = false;
+  // element 0 is the low half of the first word (little-endian)
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p,
+                                                 float) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+};
+
+template <>
+struct Payload<int8_t> {
+  static constexpr bool kScaled = true;
+  static __device__ __forceinline__ float4 load4(const int8_t* p,
+                                                 float scale) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(p));
+    return make_float4((float)c.x * scale, (float)c.y * scale,
+                       (float)c.z * scale, (float)c.w * scale);
+  }
+};
+
 // One CTA per (head, slot, rank); the ranks of one (head, slot) are one
 // cluster along z. Rank r takes keys [r passes kSplitKeys, (r + 1) passes
 // kSplitKeys), kSplitKeys at a time with an online softmax across passes.
-template <int kD>
+// T is the pool's payload; k_scales and v_scales are read only for int8.
+template <int kD, typename T>
 __global__ void __launch_bounds__(kSplitWarps * 32)
 paged_decode_attention_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k_pages,
-                              const float* __restrict__ v_pages,
+                              const T* __restrict__ k_pages,
+                              const T* __restrict__ v_pages,
+                              const float* __restrict__ k_scales,
+                              const float* __restrict__ v_scales,
                               const int* __restrict__ block_tables,
                               const int* __restrict__ context_lens,
                               float* __restrict__ out, int H, int NB, int BS,
                               int max_bps, int passes, float scale_log2) {
   namespace cg = cooperative_groups;
+  using PL = Payload<T>;
   constexpr int kLanes = kD / 4;             // lanes that share one key row
   constexpr int kRows = 32 / kLanes;         // keys a warp reads at a time
   constexpr int kWarpKeys = kSplitKeys / kSplitWarps;
@@ -162,8 +227,11 @@ paged_decode_attention_kernel(const float* __restrict__ q,
   const int grp = lane / kLanes;
   const int col = (lane % kLanes) * 4;
   const float4 qv = *reinterpret_cast<const float4*>(q + row_off + col);
-  const float* kh = k_pages + (size_t)h * NB * BS * kD + col;
-  const float* vh = v_pages + (size_t)h * NB * BS * kD + col;
+  const T* kh = k_pages + (size_t)h * NB * BS * kD + col;
+  const T* vh = v_pages + (size_t)h * NB * BS * kD + col;
+  // the head's row scales (int8 only): one f32 a (block, row)
+  const float* ksh = PL::kScaled ? k_scales + (size_t)h * NB * BS : nullptr;
+  const float* vsh = PL::kScaled ? v_scales + (size_t)h * NB * BS : nullptr;
   // a warp with no key (past the context) keeps m = -inf, l = 0, o = 0
   float mw = neg_inf();
   float lw = 0.f;
@@ -187,10 +255,14 @@ paged_decode_attention_kernel(const float* __restrict__ q,
       const int t = w_begin + st * kRows + grp;
       kr[st] = vr[st] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < k_end) {
-        const size_t row =
-            ((size_t)blk_s[t / BS - b_first] * BS + t % BS) * kD;
-        kr[st] = __ldg(reinterpret_cast<const float4*>(kh + row));
-        vr[st] = __ldg(reinterpret_cast<const float4*>(vh + row));
+        const size_t r = (size_t)blk_s[t / BS - b_first] * BS + t % BS;
+        float ks = 1.f, vs = 1.f;
+        if constexpr (PL::kScaled) {
+          ks = __ldg(ksh + r);
+          vs = __ldg(vsh + r);
+        }
+        kr[st] = PL::load4(kh + r * kD, ks);
+        vr[st] = PL::load4(vh + r * kD, vs);
       }
     }
     float sc[kSteps];
@@ -325,27 +397,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
-// The K and V rows of keys c0 .. c0 + nk - 1 (nk <= 32) into k_s and v_s,
-// all in flight at once: each lane first finds its key's row through the
-// block table, then the warp copies 16 bytes a lane, neighbouring lanes on
-// neighbouring addresses of a row.
-template <int kD>
+// The K and V rows of keys c0 .. c0 + nk - 1 (nk <= 32) into k_s and v_s
+// as f32: each lane first finds its key's row (and, for int8, its row
+// scales) through the block table, then the warp moves four elements a
+// lane, neighbouring lanes on neighbouring addresses of a row. An f32
+// payload goes with cp.async, all in flight at once; bf16 and int8 are
+// loaded, dequantized (Payload<T>) and stored.
+template <int kD, typename T>
 __device__ __forceinline__ void load_keys(float* k_s, float* v_s,
-                                          const float* kh, const float* vh,
+                                          const T* kh, const T* vh,
+                                          const float* ksh, const float* vsh,
                                           const int* table, int BS, int c0,
                                           int nk, int lane) {
   using P = Prefill<kD>;
+  using PL = Payload<T>;
   const int t = c0 + lane;
   const int row = lane < nk ? table[t / BS] * BS + t % BS : 0;
+  float ks = 1.f, vs = 1.f;
+  if constexpr (PL::kScaled) {
+    if (lane < nk) {
+      ks = ksh[row];
+      vs = vsh[row];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < P::kD4; ++i) {
     const int e = lane + 32 * i;
     const int j = e / P::kD4;
     const int c = 4 * (e % P::kD4);
     const int rj = __shfl_sync(kFull, row, j);
+    float ksj = 1.f, vsj = 1.f;
+    if constexpr (PL::kScaled) {
+      ksj = __shfl_sync(kFull, ks, j);
+      vsj = __shfl_sync(kFull, vs, j);
+    }
     if (j < nk) {
-      cp_async16(k_s + j * P::kDP + c, kh + (size_t)rj * kD + c);
-      cp_async16(v_s + j * P::kDP + c, vh + (size_t)rj * kD + c);
+      if constexpr (std::is_same<T, float>::value) {
+        cp_async16(k_s + j * P::kDP + c, kh + (size_t)rj * kD + c);
+        cp_async16(v_s + j * P::kDP + c, vh + (size_t)rj * kD + c);
+      } else {
+        *reinterpret_cast<float4*>(k_s + j * P::kDP + c) =
+            PL::load4(kh + (size_t)rj * kD + c, ksj);
+        *reinterpret_cast<float4*>(v_s + j * P::kDP + c) =
+            PL::load4(vh + (size_t)rj * kD + c, vsj);
+      }
     }
   }
 }
@@ -354,11 +449,14 @@ __device__ __forceinline__ void load_keys(float* k_s, float* v_s,
 // 0 .. q0 + rows - 1 are split into kWarps contiguous ranges, one a warp;
 // each warp runs an online softmax over its range for all 16 rows, 32 keys
 // at a time, and the warps merge their (max, sum, O) once, in warp order.
-template <int kD>
+// T is the pool's payload; k_scales and v_scales are read only for int8.
+template <int kD, typename T>
 __global__ void __launch_bounds__(Prefill<kD>::kThreads, 1)
 paged_prefill_attention_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k_pages,
-                               const float* __restrict__ v_pages,
+                               const T* __restrict__ k_pages,
+                               const T* __restrict__ v_pages,
+                               const float* __restrict__ k_scales,
+                               const float* __restrict__ v_scales,
                                const int* __restrict__ block_tables,
                                float* __restrict__ out, int H, int Lq, int NB,
                                int BS, int max_bps, float scale_log2) {
@@ -378,8 +476,12 @@ paged_prefill_attention_kernel(const float* __restrict__ q,
   const int rows = min(kR, Lq - q0);
   const size_t bh_off = ((size_t)b * H + h) * Lq * kD;
   const int* table = block_tables + (size_t)b * max_bps;
-  const float* kh = k_pages + (size_t)h * NB * BS * kD;
-  const float* vh = v_pages + (size_t)h * NB * BS * kD;
+  const T* kh = k_pages + (size_t)h * NB * BS * kD;
+  const T* vh = v_pages + (size_t)h * NB * BS * kD;
+  const float* ksh =
+      Payload<T>::kScaled ? k_scales + (size_t)h * NB * BS : nullptr;
+  const float* vsh =
+      Payload<T>::kScaled ? v_scales + (size_t)h * NB * BS : nullptr;
   float* k_s = kv_all + warp * P::kWarpKV;
   float* v_s = k_s + kKeyChunk * P::kDP;
   float* p_s = p_all + warp * P::kWarpP;
@@ -402,8 +504,8 @@ paged_prefill_attention_kernel(const float* __restrict__ q,
           make_float4(0.f, 0.f, 0.f, 0.f);
   }
   if (k_begin < k_end)
-    load_keys<kD>(k_s, v_s, kh, vh, table, BS, k_begin,
-                  min(kKeyChunk, k_end - k_begin), lane);
+    load_keys<kD, T>(k_s, v_s, kh, vh, ksh, vsh, table, BS, k_begin,
+                     min(kKeyChunk, k_end - k_begin), lane);
   cp_async_wait_all();
   __syncthreads();
 
@@ -427,7 +529,8 @@ paged_prefill_attention_kernel(const float* __restrict__ q,
   for (int c0 = k_begin; c0 < k_end; c0 += kKeyChunk) {
     const int nk = min(kKeyChunk, k_end - c0);
     if (c0 != k_begin) {
-      load_keys<kD>(k_s, v_s, kh, vh, table, BS, c0, nk, lane);
+      load_keys<kD, T>(k_s, v_s, kh, vh, ksh, vsh, table, BS, c0, nk,
+                       lane);
       cp_async_wait_all();
       __syncwarp();
     }
@@ -563,8 +666,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // (H, S, ranks) CTAs in clusters of (1, 1, ranks): up to kMaxCluster
 // ranks, each taking `passes` ranges of kSplitKeys keys
-template <int kD>
+template <int kD, typename T>
 int launch_decode(const void* q, const void* k_pages, const void* v_pages,
+                  const void* k_scales, const void* v_scales,
                   const void* block_tables, const void* context_lens,
                   void* out, int S, int H, int NB, int BS, int max_bps,
                   float sm_scale, cudaStream_t stream) {
@@ -585,8 +689,9 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_decode_attention_kernel<kD>, static_cast<const float*>(q),
-      static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
+      &cfg, paged_decode_attention_kernel<kD, T>, static_cast<const float*>(q),
+      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
       static_cast<const int*>(block_tables),
       static_cast<const int*>(context_lens), static_cast<float*>(out), H, NB,
       BS, max_bps, passes, sm_scale * kLog2e);
@@ -594,103 +699,137 @@ int launch_decode(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
-template <int kD>
+template <int kD, typename T>
 int launch_prefill(const void* q, const void* k_pages, const void* v_pages,
+                   const void* k_scales, const void* v_scales,
                    const void* block_tables, void* out, int B, int H, int Lq,
                    int NB, int BS, int max_bps, float sm_scale,
                    cudaStream_t stream) {
   using P = Prefill<kD>;
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_attention_kernel<kD>,
+      paged_prefill_attention_kernel<kD, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lq + kPrefillRows - 1) / kPrefillRows, H, B);
-  paged_prefill_attention_kernel<kD><<<grid, P::kThreads, P::kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<float*>(out), H, Lq, NB, BS, max_bps, sm_scale * kLog2e);
+  paged_prefill_attention_kernel<kD, T>
+      <<<grid, P::kThreads, P::kSmem, stream>>>(
+          static_cast<const float*>(q), static_cast<const T*>(k_pages),
+          static_cast<const T*>(v_pages), static_cast<const float*>(k_scales),
+          static_cast<const float*>(v_scales),
+          static_cast<const int*>(block_tables), static_cast<float*>(out), H,
+          Lq, NB, BS, max_bps, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <int kD>
-int prefill_info(int* out) {
+template <int kD, typename T>
+int kernel_info(int kind, int* out) {
+  if (kind == 0)
+    return describe_kernel(paged_decode_attention_kernel<kD, T>,
+                           kSplitWarps * 32, 0, out);
   using P = Prefill<kD>;
   const cudaError_t e = cudaFuncSetAttribute(
-      paged_prefill_attention_kernel<kD>,
+      paged_prefill_attention_kernel<kD, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (e != cudaSuccess) return (int)e;
-  return describe_kernel(paged_prefill_attention_kernel<kD>, P::kThreads,
+  return describe_kernel(paged_prefill_attention_kernel<kD, T>, P::kThreads,
                          P::kSmem, out);
+}
+
+// The instantiation for a head dim and a payload code (0 f32, 1 bf16,
+// 2 int8: kv_cache.py's KV_DTYPE_CODES): f(std::integral_constant<int, D>,
+// payload type tag), or cudaErrorInvalidValue for one not built.
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+template <typename F>
+int dispatch(int D, int payload, F&& f) {
+  auto with_d = [&](auto tag) -> int {
+    switch (D) {
+      case 16: return f(std::integral_constant<int, 16>(), tag);
+      case 32: return f(std::integral_constant<int, 32>(), tag);
+      case 64: return f(std::integral_constant<int, 64>(), tag);
+      case 128: return f(std::integral_constant<int, 128>(), tag);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  switch (payload) {
+    case 0: return with_d(Tag<float>());
+    case 1: return with_d(Tag<__nv_bfloat16>());
+    case 2: return with_d(Tag<int8_t>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int decode(const void* q, const void* k_pages, const void* v_pages,
+           const void* k_scales, const void* v_scales,
+           const void* block_tables, const void* context_lens, void* out,
+           int S, int H, int D, int NB, int BS, int max_bps, int payload,
+           float sm_scale, cudaStream_t stream) {
+  return dispatch(D, payload, [&](auto d, auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    return launch_decode<decltype(d)::value, T>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, context_lens,
+        out, S, H, NB, BS, max_bps, sm_scale, stream);
+  });
+}
+
+int prefill(const void* q, const void* k_pages, const void* v_pages,
+            const void* k_scales, const void* v_scales,
+            const void* block_tables, void* out, int B, int H, int Lq, int D,
+            int NB, int BS, int max_bps, int payload, float sm_scale,
+            cudaStream_t stream) {
+  return dispatch(D, payload, [&](auto d, auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    return launch_prefill<decltype(d)::value, T>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, out, B, H, Lq,
+        NB, BS, max_bps, sm_scale, stream);
+  });
+}
+
+int info(int kind, int D, int payload, int* out) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  return dispatch(D, payload, [&](auto d, auto tag) -> int {
+    using T = typename decltype(tag)::type;
+    return kernel_info<decltype(d)::value, T>(kind, out);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
+// payload: 0 f32, 1 bf16, 2 int8 (k_scales and v_scales (H, NB, BS) f32,
+// else unread and may be null)
 int paged_decode_attention(const void* q, const void* k_pages,
-                           const void* v_pages, const void* block_tables,
+                           const void* v_pages, const void* k_scales,
+                           const void* v_scales, const void* block_tables,
                            const void* context_lens, void* out, int S, int H,
-                           int D, int NB, int BS, int max_bps, float sm_scale,
-                           void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch_decode<16>(q, k_pages, v_pages, block_tables,
-                               context_lens, out, S, H, NB, BS, max_bps,
-                               sm_scale, st);
-    case 32:
-      return launch_decode<32>(q, k_pages, v_pages, block_tables,
-                               context_lens, out, S, H, NB, BS, max_bps,
-                               sm_scale, st);
-    case 64:
-      return launch_decode<64>(q, k_pages, v_pages, block_tables,
-                               context_lens, out, S, H, NB, BS, max_bps,
-                               sm_scale, st);
-    case 128:
-      return launch_decode<128>(q, k_pages, v_pages, block_tables,
-                                context_lens, out, S, H, NB, BS, max_bps,
-                                sm_scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                           int D, int NB, int BS, int max_bps, int payload,
+                           float sm_scale, void* stream) {
+  return decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                context_lens, out, S, H, D, NB, BS, max_bps, payload,
+                sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 int paged_prefill_attention(const void* q, const void* k_pages,
-                            const void* v_pages, const void* block_tables,
+                            const void* v_pages, const void* k_scales,
+                            const void* v_scales, const void* block_tables,
                             void* out, int B, int H, int Lq, int D, int NB,
-                            int BS, int max_bps, float sm_scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch_prefill<16>(q, k_pages, v_pages, block_tables,
-                                out, B, H, Lq, NB, BS, max_bps, sm_scale,
-                                st);
-    case 32:
-      return launch_prefill<32>(q, k_pages, v_pages, block_tables,
-                                out, B, H, Lq, NB, BS, max_bps, sm_scale,
-                                st);
-    case 64:
-      return launch_prefill<64>(q, k_pages, v_pages, block_tables,
-                                out, B, H, Lq, NB, BS, max_bps, sm_scale,
-                                st);
-    case 128:
-      return launch_prefill<128>(q, k_pages, v_pages, block_tables,
-                                 out, B, H, Lq, NB, BS, max_bps, sm_scale,
-                                 st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                            int BS, int max_bps, int payload, float sm_scale,
+                            void* stream) {
+  return prefill(q, k_pages, v_pages, k_scales, v_scales, block_tables, out,
+                 B, H, Lq, D, NB, BS, max_bps, payload, sm_scale,
+                 static_cast<cudaStream_t>(stream));
 }
 
-// What the prefill body for head_dim d was built with: out[0] registers,
-// out[1] local memory a thread, out[2] static and out[3] dynamic shared
-// memory, out[4] CTAs an SM, out[5] threads.
-int paged_prefill_attention_kernel_info(int d, int* out) {
-  switch (d) {
-    case 16: return prefill_info<16>(out);
-    case 32: return prefill_info<32>(out);
-    case 64: return prefill_info<64>(out);
-    case 128: return prefill_info<128>(out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// What a body was built with (kind 0 the decode kernel, 1 the prefill
+// kernel; head dim d; payload code): out[0] registers, out[1] local memory
+// a thread, out[2] static and out[3] dynamic shared memory, out[4] CTAs an
+// SM, out[5] threads.
+int paged_attention_kernel_info(int kind, int d, int payload, int* out) {
+  return info(kind, d, payload, out);
 }
 
 const char* paged_attention_error_string(int err) {

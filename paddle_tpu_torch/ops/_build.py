@@ -41,13 +41,17 @@ _F = ctypes.c_float
 # source name -> {C function: (restype, argtypes)}; every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits
 SOURCES = {
+    # the launchers take q, the pages, the two row-scale pointers (int8
+    # pools; else null), ..., the payload code (0 f32, 1 bf16, 2 int8)
     'paged_attention': {
         'paged_decode_attention': (
-            _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _F, _P]),
         'paged_prefill_attention': (
-            _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-        # head dim, int[6] out
-        'paged_prefill_attention_kernel_info': (_I, [_I, _P]),
+            _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _F, _P]),
+        # kind (0 decode, 1 prefill), head dim, payload code, int[6] out
+        'paged_attention_kernel_info': (_I, [_I, _I, _I, _P]),
         'paged_attention_error_string': (ctypes.c_char_p, [_I]),
     },
     # each launcher takes a pointer to a FlashParams block (ops/nn_ops.py

@@ -4,7 +4,8 @@ paddle_tpu/ops/nn_ops.py).
 
 - ``paged_attention`` and ``paged_prefill_attention``: the two ops the
   decode-serving path runs in every attention layer
-  (csrc/paged_attention.cu).
+  (csrc/paged_attention.cu), over f32, bf16 or int8 pools; the verify read
+  of speculative decoding is ``paged_attention``'s (S, H, K, D) form.
 - ``fused_attention``: the training path's attention, a
   ``torch.autograd.Function`` whose forward and backward are the three
   flash-attention kernels of csrc/flash_attention.cu
@@ -43,54 +44,76 @@ __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'fused_attention_ref', 'fused_attention_fwd_ref',
            'fused_attention_bwd_ref', 'flash_attention_fwd',
            'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
-           'flash_kernel_info', 'FLASH_KINDS', 'prefill_kernel_info',
+           'flash_kernel_info', 'FLASH_KINDS', 'paged_kernel_info',
+           'PAGED_KINDS', 'PAGED_PAYLOADS', 'verify_rows',
            'conv2d', 'pool2d', 'batch_norm', 'relu', 'softmax',
            'log_softmax', 'layer_norm', 'dropout', 'lookup_table',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
 # head dims the kernels are compiled for (csrc/*.cu)
 HEAD_DIMS = (16, 32, 64, 128)
+# the pool payloads the paged kernels are compiled for, by the code their
+# launchers take (serving/decode/kv_cache.py's KV_DTYPE_CODES)
+PAGED_PAYLOADS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+PAGED_KINDS = ('paged_decode_attention', 'paged_prefill_attention')
 
 
-def _gather_pages(pages, block_tables, s, h, d):
+def _gather_pages(pages, block_tables, s, h, d, scales=None):
     """(H, NB, BS, D) cache pool + (S, nbs) tables -> dense (S, H, nbs*BS, D)
-    per-slot key/value view."""
+    per-slot key/value view, f32. A quantized pool dequantizes after the
+    gather, as the reference does: int8 payload times its row's scale
+    (``scales`` (H, NB, BS), gathered the same way), bf16 cast to f32."""
     nb = block_tables.shape[1]
     bs = pages.shape[2]
-    g = pages.index_select(1, block_tables.reshape(-1).long())
+    idx = block_tables.reshape(-1).long()
+    g = pages.index_select(1, idx)
     g = g.reshape(h, s, nb, bs, d).permute(1, 0, 2, 3, 4)
-    return g.reshape(s, h, nb * bs, d)
+    g = g.reshape(s, h, nb * bs, d)
+    if scales is not None:
+        sc = scales.index_select(1, idx).reshape(h, s, nb, bs)
+        sc = sc.permute(1, 0, 2, 3).reshape(s, h, nb * bs)
+        return g.float() * sc[..., None]
+    if g.dtype != torch.float32:
+        return g.float()
+    return g
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
-                        sm_scale=1.0):
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
+                        k_scales=None, v_scales=None, *, sm_scale=1.0):
     """Plain version of :func:`paged_attention`: gather each slot's blocks
-    into a dense view, then matmul -> mask -> softmax -> matmul. Masked keys
-    get exactly zero probability (``finfo.min`` underflows ``exp``), so
-    stale rows in reused blocks never bleed into the result."""
-    s, h, d = q.shape
-    k = _gather_pages(k_pages, block_tables, s, h, d)
-    v = _gather_pages(v_pages, block_tables, s, h, d)
+    into a dense f32 view, then matmul -> mask -> softmax -> matmul. Masked
+    keys get exactly zero probability (``finfo.min`` underflows ``exp``), so
+    stale rows in reused blocks never bleed into the result. A (S, H, K, D)
+    ``q`` is the verify read: row j attends ``context_lens + j`` keys."""
+    multi = q.dim() == 4
+    s, h = q.shape[:2]
+    d = q.shape[-1]
+    kq = q.shape[2] if multi else 1
+    k = _gather_pages(k_pages, block_tables, s, h, d, k_scales)
+    v = _gather_pages(v_pages, block_tables, s, h, d, v_scales)
     t_pad = k.shape[2]
-    scores = torch.matmul(q[:, :, None, :], k.transpose(-1, -2))
+    scores = torch.matmul(q if multi else q[:, :, None, :],
+                          k.transpose(-1, -2))
     if sm_scale != 1.0:
         scores = scores * sm_scale
-    valid = (torch.arange(t_pad, device=q.device)[None, None, None, :]
-             < context_lens.to(q.device)[:, None, None, None])
+    extent = (context_lens.to(q.device)[:, None, None, None]
+              + torch.arange(kq, device=q.device)[None, None, :, None])
+    valid = torch.arange(t_pad, device=q.device)[None, None, None, :] < extent
     scores = scores.masked_fill(~valid, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs, v)
-    return out.reshape(s, h, d)
+    return out if multi else out.reshape(s, h, d)
 
 
-def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, *,
+def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                k_scales=None, v_scales=None, *,
                                 sm_scale=1.0):
     """Plain version of :func:`paged_prefill_attention`: causal attention of
-    ``q`` (B, H, Lq, D) over the gathered paged view; row r attends keys
-    0..r."""
+    ``q`` (B, H, Lq, D) over the gathered (and dequantized) paged view; row
+    r attends keys 0..r."""
     b, h, lq, d = q.shape
-    kd = _gather_pages(k_pages, block_tables, b, h, d)
-    vd = _gather_pages(v_pages, block_tables, b, h, d)
+    kd = _gather_pages(k_pages, block_tables, b, h, d, k_scales)
+    vd = _gather_pages(v_pages, block_tables, b, h, d, v_scales)
     t_pad = kd.shape[2]
     scores = torch.matmul(q, kd.transpose(-1, -2))
     if sm_scale != 1.0:
@@ -102,19 +125,43 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, *,
     return torch.matmul(probs, vd)
 
 
+def _check_scales(k_pages, k_scales, v_scales):
+    """An int8 pool needs both row-scale tensors, an f32 or bf16 pool takes
+    none; each is (H, NB, BS) f32, contiguous, on the pool's device."""
+    int8 = k_pages.dtype == torch.int8
+    for name, sc in (('k_scales', k_scales), ('v_scales', v_scales)):
+        if int8 and sc is None:
+            raise ValueError(f'{name} is missing: an int8 pool needs '
+                             f'k_scales and v_scales')
+        if not int8 and sc is not None:
+            raise ValueError(f'{name} given for a {k_pages.dtype} pool: only '
+                             f'int8 pools take row scales')
+        if sc is None:
+            continue
+        want = tuple(k_pages.shape[:3])
+        if (sc.dtype != torch.float32 or tuple(sc.shape) != want
+                or sc.device != k_pages.device or not sc.is_contiguous()):
+            raise ValueError(f'{name} must be a contiguous {want} float32 '
+                             f'tensor on {k_pages.device}, got {sc.dtype} '
+                             f'{tuple(sc.shape)} on {sc.device}')
+
+
 def _check_pool(k_pages, v_pages, block_tables, dev):
     """Validate the pool and tables for a kernel launch; returns
-    (H, NB, BS, D, max_bps)."""
-    for name, t, dtype in (('k_pages', k_pages, torch.float32),
-                           ('v_pages', v_pages, torch.float32),
-                           ('block_tables', block_tables, torch.int32)):
+    (H, NB, BS, D, max_bps, payload code)."""
+    for name, t in (('k_pages', k_pages), ('v_pages', v_pages),
+                    ('block_tables', block_tables)):
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, expected {dev}')
-        if t.dtype != dtype:
-            raise TypeError(f'{name} must be {dtype}, got {t.dtype} (bf16 and '
-                            f'int8 pools come in a later slice)')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f'block_tables must be torch.int32, got '
+                        f'{block_tables.dtype}')
+    if k_pages.dtype not in PAGED_PAYLOADS or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f'k_pages/v_pages must both be one of '
+                        f'{list(PAGED_PAYLOADS)}, got {k_pages.dtype} and '
+                        f'{v_pages.dtype}')
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f'k_pages/v_pages must both be (H, NB, BS, D), got '
                          f'{tuple(k_pages.shape)} and {tuple(v_pages.shape)}')
@@ -125,24 +172,23 @@ def _check_pool(k_pages, v_pages, block_tables, dev):
     if block_tables.dim() != 2:
         raise ValueError(f'block_tables must be 2-D, got '
                          f'{tuple(block_tables.shape)}')
-    return h, nb, bs, d, block_tables.shape[1]
+    return h, nb, bs, d, block_tables.shape[1], PAGED_PAYLOADS[k_pages.dtype]
 
 
-def _no_scales(k_scales, v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError('k_scales / v_scales: quantized KV pools '
-                                  'are not ported yet (ROADMAP A.6)')
-
-
-def prefill_kernel_info(head_dim):
-    """What K2's body at ``head_dim`` was built with, read from the loaded
-    library on the current card: ``{'registers', 'spill_bytes',
-    'static_smem', 'dynamic_smem', 'ctas_per_sm', 'threads'}``."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f'no prefill body for head_dim {head_dim}')
+def paged_kernel_info(kind, head_dim, payload=torch.float32):
+    """What K1's (``kind`` 'paged_decode_attention') or K2's
+    ('paged_prefill_attention') body at ``head_dim`` over a ``payload``
+    pool (f32, bf16 or int8) was built with, read from the loaded library
+    on the current card: ``{'registers', 'spill_bytes', 'static_smem',
+    'dynamic_smem', 'ctas_per_sm', 'threads'}``."""
+    if (kind not in PAGED_KINDS or head_dim not in HEAD_DIMS
+            or payload not in PAGED_PAYLOADS):
+        raise ValueError(f'no paged body for {kind} at head_dim {head_dim} '
+                         f'over {payload}')
     from ._build import kernel_info
-    return kernel_info('paged_attention',
-                       'paged_prefill_attention_kernel_info', head_dim)
+    return kernel_info('paged_attention', 'paged_attention_kernel_info',
+                       PAGED_KINDS.index(kind), head_dim,
+                       PAGED_PAYLOADS[payload])
 
 
 def _check_status(lib, err, name):
@@ -152,70 +198,120 @@ def _check_status(lib, err, name):
                            f'({msg})')
 
 
-@register_op('paged_attention')
-def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
-                    k_scales=None, v_scales=None, *, sm_scale=1.0,
-                    pages_per_compute_block=4):
-    """Single-token decode attention over the paged KV pool.
+def verify_rows(q, block_tables, context_lens, max_keys):
+    """The verify read (``q`` (S, H, K, D), row j of a slot attending
+    ``context_lens + j`` keys) as the S*K single-query rows K1 takes:
+    ``(rows (S*K, H, D) slot-major, tables (S*K, max_bps), contexts
+    (S*K,))``, each row the function K1 computes for a lockstep step at
+    that context.
 
-    - ``q``: (S, H, D) f32, one query row per decode slot.
-    - ``k_pages`` / ``v_pages``: (H, NB, BS, D) f32; block 0 is scratch.
-    - ``block_tables``: (S, max_bps) int32, each slot's blocks in order,
-      padded with the scratch block.
-    - ``context_lens``: (S,) int32, keys to attend per slot, including the
-      token written this step; inactive slots pass 1 and read scratch.
-    - ``k_scales`` / ``v_scales``: the reference's dequant scales of int8
-      pools; quantized pools are not ported yet, so anything but ``None``
-      raises.
-    - ``pages_per_compute_block``: the TPU kernel's tiling knob, checked
-      and otherwise unused (the kernel here splits the context itself).
+    A padded lane's context ``c + 1 + j`` (a slot that fed fewer than K
+    tokens, or an inactive one at context 1) can pass ``max_keys`` =
+    max_bps * BS near the end of a table, and the blocks the slot owns.
+    Each context is clamped to ``max_keys``, so no row reads a table entry
+    past the table's width; past the owned blocks the tables pad with the
+    scratch block, so every row reads inside the pool. Those rows are
+    garbage that the scheduler ignores."""
+    s, h, kq, d = q.shape
+    rows = q.transpose(1, 2).reshape(s * kq, h, d).contiguous()
+    tables = block_tables.repeat_interleave(kq, dim=0)
+    lanes = torch.arange(kq, dtype=torch.int32, device=context_lens.device)
+    contexts = (context_lens[:, None] + lanes[None, :]).reshape(-1)
+    return rows, tables, contexts.clamp(max=max_keys)
 
-    Returns (S, H, D) f32. CUDA tensors launch the hand-written kernel
-    (split-context: each CTA takes 64-key ranges of one slot and head, and
-    the CTAs of a slot and head, one thread-block cluster, merge their
-    ranges in a fixed order), CPU tensors run :func:`paged_attention_ref`.
-    """
-    _no_scales(k_scales, v_scales)
-    if (not isinstance(pages_per_compute_block, numbers.Integral)
-            or isinstance(pages_per_compute_block, bool)
-            or pages_per_compute_block < 1):
-        raise ValueError(f'pages_per_compute_block must be a positive int, '
-                         f'got {pages_per_compute_block!r}')
-    if q.dim() == 4:
-        raise NotImplementedError(
-            'the multi-query (S, H, K, D) read of speculative decoding comes '
-            'with the spec_decode slice')
-    if q.device.type == 'cpu':
-        return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   context_lens, sm_scale=sm_scale)
-    if q.device.type != 'cuda':
-        raise ValueError(f'unsupported device {q.device}')
-    dev = q.device
-    h, nb, bs, d, max_bps = _check_pool(k_pages, v_pages, block_tables, dev)
-    if q.dtype != torch.float32 or not q.is_contiguous() or q.dim() != 3:
-        raise ValueError(f'q must be a contiguous (S, H, D) f32 tensor, got '
-                         f'{q.dtype} {tuple(q.shape)}')
+
+def _launch_decode(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                   context_lens, pool, sm_scale):
+    """One K1 launch over (S, H, D) rows ``q``; ``pool`` is
+    :func:`_check_pool`'s tuple."""
+    h, nb, bs, d, max_bps, payload = pool
     s = q.shape[0]
-    if tuple(q.shape) != (s, h, d) or block_tables.shape[0] != s:
-        raise ValueError(f'q {tuple(q.shape)} does not match the pool '
-                         f'(H={h}, D={d}) or block_tables '
-                         f'{tuple(block_tables.shape)}')
-    if (context_lens.device != dev or context_lens.dtype != torch.int32
-            or tuple(context_lens.shape) != (s,)
-            or not context_lens.is_contiguous()):
-        raise ValueError(f'context_lens must be a contiguous ({s},) int32 '
-                         f'tensor on {dev}')
+    dev = q.device
     from ._build import library
     lib = library('paged_attention')
     out = torch.empty_like(q)
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if k_scales is None else k_scales.data_ptr(),
+        None if v_scales is None else v_scales.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        s, h, d, nb, bs, max_bps, float(sm_scale),
+        s, h, d, nb, bs, max_bps, payload, float(sm_scale),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_status(lib, err, 'paged_decode_attention')
     paged_attention.launches += 1
     return out
+
+
+@register_op('paged_attention')
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    k_scales=None, v_scales=None, *, sm_scale=1.0,
+                    pages_per_compute_block=4):
+    """Decode attention over the paged KV pool.
+
+    - ``q``: (S, H, D) f32, one query row per decode slot; or (S, H, K, D),
+      the verify read of speculative decoding, where row j of a slot attends
+      ``context_lens + j`` keys (the slot's K fed tokens, causally).
+    - ``k_pages`` / ``v_pages``: (H, NB, BS, D) f32, bf16 or int8; block 0
+      is scratch.
+    - ``block_tables``: (S, max_bps) int32, each slot's blocks in order,
+      padded with the scratch block.
+    - ``context_lens``: (S,) int32, keys to attend per slot (row 0's),
+      including the token written this step; inactive slots pass 1 and read
+      scratch.
+    - ``k_scales`` / ``v_scales``: (H, NB, BS) f32 row scales, given for an
+      int8 pool and only then.
+    - ``pages_per_compute_block``: the TPU kernel's tiling knob, checked
+      and otherwise unused (the kernel here splits the context itself).
+
+    Returns (S, H, D) or (S, H, K, D) f32. CUDA tensors launch the
+    hand-written kernel once (split-context: each CTA takes 64-key ranges
+    of one slot and head, and the CTAs of a slot and head, one thread-block
+    cluster, merge their ranges in a fixed order; quantized rows are
+    dequantized as they are loaded; the verify read goes through it as
+    :func:`verify_rows` flattens it), CPU tensors run
+    :func:`paged_attention_ref`.
+    """
+    _check_scales(k_pages, k_scales, v_scales)
+    if (not isinstance(pages_per_compute_block, numbers.Integral)
+            or isinstance(pages_per_compute_block, bool)
+            or pages_per_compute_block < 1):
+        raise ValueError(f'pages_per_compute_block must be a positive int, '
+                         f'got {pages_per_compute_block!r}')
+    if q.dim() not in (3, 4):
+        raise ValueError(f'q must be (S, H, D) or (S, H, K, D), got '
+                         f'{tuple(q.shape)}')
+    if q.device.type == 'cpu':
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   context_lens, k_scales, v_scales,
+                                   sm_scale=sm_scale)
+    if q.device.type != 'cuda':
+        raise ValueError(f'unsupported device {q.device}')
+    dev = q.device
+    pool = _check_pool(k_pages, v_pages, block_tables, dev)
+    h, _, bs, d, max_bps, _ = pool
+    s = q.shape[0]
+    if (q.dtype != torch.float32 or (q.dim() == 3 and not q.is_contiguous())
+            or (q.shape[1], q.shape[-1]) != (h, d)
+            or block_tables.shape[0] != s):
+        raise ValueError(f'q must be a contiguous (S, H, D) or an '
+                         f'(S, H, K, D) f32 tensor matching the pool (H={h}, '
+                         f'D={d}) and block_tables '
+                         f'{tuple(block_tables.shape)}, got {q.dtype} '
+                         f'{tuple(q.shape)}')
+    if (context_lens.device != dev or context_lens.dtype != torch.int32
+            or tuple(context_lens.shape) != (s,)
+            or not context_lens.is_contiguous()):
+        raise ValueError(f'context_lens must be a contiguous ({s},) int32 '
+                         f'tensor on {dev}')
+    if q.dim() == 3:
+        return _launch_decode(q, k_pages, v_pages, k_scales, v_scales,
+                              block_tables, context_lens, pool, sm_scale)
+    kq = q.shape[2]
+    rows, tables, contexts = verify_rows(q, block_tables, context_lens,
+                                         max_bps * bs)
+    out = _launch_decode(rows, k_pages, v_pages, k_scales, v_scales, tables,
+                         contexts, pool, sm_scale)
+    return out.reshape(s, kq, h, d).transpose(1, 2)
 
 
 @register_op('paged_prefill_attention')
@@ -227,24 +323,27 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
     ``k`` and ``v`` are the prompt's own (B, H, Lq, D) projections, which
     the reference hands only to its TPU kernel: they are checked for shape
     and not read. ``block_tables`` is (B, max_bps) int32 with
-    Lq <= max_bps * BS. Row r attends keys 0..r; rows past the real prompt
-    are finite garbage, never read. ``k_scales`` / ``v_scales`` (quantized
-    pools) are not ported yet and raise. CUDA tensors launch the
-    hand-written kernel (key-split: the warps of a CTA share a 16-row query
-    tile's causal keys and merge once), CPU tensors run
-    :func:`paged_prefill_attention_ref`."""
-    _no_scales(k_scales, v_scales)
+    Lq <= max_bps * BS; the pool is f32, bf16 or int8, and
+    ``k_scales`` / ``v_scales`` (H, NB, BS) f32 are given for an int8 pool
+    and only then. Row r attends keys 0..r; rows past the real prompt are
+    finite garbage, never read. CUDA tensors launch the hand-written kernel
+    (key-split: the warps of a CTA share a 16-row query tile's causal keys
+    and merge once; quantized rows are dequantized as they are loaded),
+    CPU tensors run :func:`paged_prefill_attention_ref`."""
+    _check_scales(k_pages, k_scales, v_scales)
     for name, t in (('k', k), ('v', v)):
         if tuple(t.shape) != tuple(q.shape):
             raise ValueError(f'{name} {tuple(t.shape)} must have q\'s shape '
                              f'{tuple(q.shape)}')
     if q.device.type == 'cpu':
         return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                           k_scales, v_scales,
                                            sm_scale=sm_scale)
     if q.device.type != 'cuda':
         raise ValueError(f'unsupported device {q.device}')
     dev = q.device
-    h, nb, bs, d, max_bps = _check_pool(k_pages, v_pages, block_tables, dev)
+    h, nb, bs, d, max_bps, payload = _check_pool(k_pages, v_pages,
+                                                 block_tables, dev)
     if q.dtype != torch.float32 or not q.is_contiguous() or q.dim() != 4:
         raise ValueError(f'q must be a contiguous (B, H, Lq, D) f32 tensor, '
                          f'got {q.dtype} {tuple(q.shape)}')
@@ -261,8 +360,11 @@ def paged_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     err = lib.paged_prefill_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if k_scales is None else k_scales.data_ptr(),
+        None if v_scales is None else v_scales.data_ptr(),
         block_tables.data_ptr(), out.data_ptr(), b, h, lq, d, nb, bs,
-        max_bps, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+        max_bps, payload, float(sm_scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     _check_status(lib, err, 'paged_prefill_attention')
     paged_prefill_attention.launches += 1
     return out

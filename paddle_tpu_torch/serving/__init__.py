@@ -1,11 +1,12 @@
 """Serving: the decode engine, its scheduler and the HTTP front end."""
 from .decode import (DecodeEngine, DecodeScheduler, GenerationStream,
-                     SamplingParams, TokenSampler)
+                     KVCachePool, NGramDrafter, SamplingParams, TokenSampler)
 from .errors import (DeadlineExceeded, EngineClosed, EngineUnhealthy,
                      InvalidRequest, OutOfBlocks, Overloaded, ServingError)
 from .server import ServingServer
 
 __all__ = ['DecodeEngine', 'DecodeScheduler', 'GenerationStream',
-           'SamplingParams', 'TokenSampler', 'ServingServer',
+           'KVCachePool', 'NGramDrafter', 'SamplingParams', 'TokenSampler',
+           'ServingServer',
            'DeadlineExceeded', 'EngineClosed', 'EngineUnhealthy',
            'InvalidRequest', 'OutOfBlocks', 'Overloaded', 'ServingError']

@@ -8,17 +8,22 @@
   tokens + (S, max_blocks_per_seq) tables + (S,) context lengths); attention
   goes through the ``paged_attention`` kernel.
 
+- **spec_step** (speculative decoding) feeds up to ``spec_k`` tokens a
+  slot in one (S, K) step; attention reads through the ``paged_attention``
+  kernel's verify form, row j of a slot at context ``c + 1 + j``.
+
 Each decode step copies the (S, V) logits rows to the host, where the
 scheduler picks tokens (greedy argmax or the request's sampler).
 
 The engine is single-threaded by design (one scheduler worker owns it); it
-holds no queueing or lifecycle logic, that is scheduler.py. Speculative
-decoding, the prefix cache and disaggregated prefill come with later slices
-and raise ``NotImplementedError`` here.
+holds no queueing or lifecycle logic, that is scheduler.py. The prefix cache
+and disaggregated prefill come with ROADMAP A.7 and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import collections
+import os
 import time
 
 import numpy as np
@@ -26,6 +31,9 @@ import torch
 
 from ..engine import bucket_ladder
 from ..errors import InvalidRequest
+from ..tier.knobs import (ENV_DECODE_HBM_MB, ENV_KV_DTYPE, ENV_SPEC_DECODE,
+                          ENV_SPEC_K, KV_DTYPE_CHOICES, parse_choice_env,
+                          parse_flag_env, parse_int_env)
 from .kv_cache import (CacheContext, KVCachePool, DEFAULT_BLOCK_SIZE,
                        DEFAULT_MAX_BLOCKS, DEFAULT_SLOTS)
 
@@ -45,23 +53,32 @@ class DecodeEngine:
     - ``max_prompt_len``: top rung of the prefill bucket ladder.
     - ``max_new_tokens_cap``: per-request generation budget cap (block
       reservations are taken against prompt + budget at admission).
+    - ``spec_decode`` / ``spec_k``: speculative decoding, the (S, k) verify
+      step :meth:`spec_step` (``spec_k`` default 4, at least 2). The
+      argument wins, else ``PADDLE_TPU_SPEC_DECODE``, default off; an
+      explicit ``PADDLE_TPU_SPEC_DECODE=0`` wins over the argument too (the
+      operator's escape hatch).
+    - ``kv_dtype``: the pool's storage, 'f32', 'bf16' or 'int8'; the
+      argument, else ``PADDLE_TPU_KV_DTYPE``, else f32.
 
     Counters (``stats``, cleared by :meth:`reset_stats`): ``prefills``,
-    ``decode_steps``, ``step_seconds`` (the wall time of each of the last
-    :data:`TIMING_WINDOW` decode steps, the host copy of the logits
-    included) and ``prefill_seconds`` (the same, by rung).
+    ``decode_steps`` (lockstep steps and verify rounds), ``step_seconds``
+    (the wall time of each of the last :data:`TIMING_WINDOW` decode steps
+    and verify rounds, the host copy of the logits included),
+    ``prefill_seconds`` (the same, by rung), and speculative decoding's
+    ``spec_rounds``, ``spec_drafted`` and ``spec_accepted`` (draft tokens
+    fed and confirmed; the scheduler counts them). They stand in for the
+    reference's ``decode_spec_*`` metrics, which come with ROADMAP A.11.
     """
 
     def __init__(self, model, slots=None, block_size=None, max_blocks=None,
                  max_prompt_len=64, max_new_tokens_cap=64, eos_id=None,
-                 prefix_cache=None,
-                 spec_decode=None, kv_dtype=None):
-        if spec_decode:
-            raise NotImplementedError(
-                'speculative decoding comes with the spec_decode slice')
+                 prefix_cache=None, spec_decode=None, spec_k=None,
+                 kv_dtype=None):
         if prefix_cache:
             raise NotImplementedError(
-                'the prefix cache comes with the prefix-cache/disagg slice')
+                'the prefix cache comes with the prefix-cache/disagg slice '
+                '(ROADMAP A.7)')
         self.model = model
         model.eval()               # generation is inference: no dropout
         self.device = next(model.parameters()).device
@@ -73,9 +90,11 @@ class DecodeEngine:
         block_size = int(block_size or DEFAULT_BLOCK_SIZE)
         max_total = self.max_prompt_len + self.max_new_tokens_cap
         max_bps = -(-max_total // block_size)
+        if kv_dtype is None:
+            kv_dtype = parse_choice_env(ENV_KV_DTYPE, KV_DTYPE_CHOICES, 'f32')
         self.pool = KVCachePool(block_size=block_size,
-                                num_blocks=int(max_blocks
-                                               or DEFAULT_MAX_BLOCKS),
+                                num_blocks=self._resolve_num_blocks(
+                                    max_blocks),
                                 max_blocks_per_seq=max_bps,
                                 kv_dtype=kv_dtype, device=self.device)
         if self.pool.allocator.capacity < max_bps:
@@ -91,15 +110,48 @@ class DecodeEngine:
             raise ValueError(
                 f'padded_context {self.pool.padded_context} exceeds the '
                 f'model\'s {positions} position embeddings')
+        # env '0' is the escape hatch and wins over the argument; else the
+        # argument, else the env, default off
+        if os.environ.get(ENV_SPEC_DECODE, '').strip() == '0':
+            self.spec_enabled = False
+        elif spec_decode is not None:
+            self.spec_enabled = bool(spec_decode)
+        else:
+            self.spec_enabled = parse_flag_env(ENV_SPEC_DECODE, False)
+        self.spec_k = int(spec_k if spec_k is not None
+                          else parse_int_env(ENV_SPEC_K, 4, minimum=2))
+        if self.spec_k < 2:
+            raise ValueError(f'spec_k must be >= 2, got {self.spec_k}')
         self._prefilled_buckets = set()
         self._stepped = False
+        self._spec_stepped = False
         self.reset_stats()
+
+    @staticmethod
+    def _resolve_num_blocks(max_blocks):
+        """The pool's block count: the argument, then an explicitly set
+        ``PADDLE_TPU_DECODE_MAX_BLOCKS``, else the module default.
+        ``PADDLE_TPU_DECODE_HBM_MB`` (a budget solved into a block count)
+        raises: its solve is analysis/plan.py's, ROADMAP A.11."""
+        if max_blocks:
+            return int(max_blocks)
+        raw = os.environ.get('PADDLE_TPU_DECODE_MAX_BLOCKS', '').strip()
+        if raw:
+            return int(raw)
+        if parse_int_env(ENV_DECODE_HBM_MB, 0, minimum=1):
+            raise NotImplementedError(
+                f'{ENV_DECODE_HBM_MB}: the pool-size solve over a device '
+                f'memory budget (analysis/plan.py) comes with ROADMAP A.11; '
+                f'set max_blocks or PADDLE_TPU_DECODE_MAX_BLOCKS')
+        return DEFAULT_MAX_BLOCKS
 
     def reset_stats(self):
         self.stats = {'prefills': 0, 'decode_steps': 0,
                       'step_seconds': collections.deque(maxlen=TIMING_WINDOW),
                       'prefill_seconds': collections.defaultdict(
-                          lambda: collections.deque(maxlen=TIMING_WINDOW))}
+                          lambda: collections.deque(maxlen=TIMING_WINDOW)),
+                      'spec_rounds': 0, 'spec_drafted': 0,
+                      'spec_accepted': 0}
 
     # -- geometry ----------------------------------------------------------
     @property
@@ -216,22 +268,80 @@ class DecodeEngine:
             return out, rows
         return out
 
+    def spec_step(self, token_lists, tables):
+        """One (S, k) speculative verify step over all S slots.
+
+        ``token_lists``: length-S list; None or [] for an inactive slot,
+        else up to ``spec_k`` tokens to feed, the slot's pending token
+        first, then its drafts. Their K/V are written at positions
+        context_len .. context_len + f - 1 and each table's
+        ``context_len`` advances by f; the caller rolls a rejected tail
+        back with one store, ``table.context_len = base + accepted`` (the
+        blocks stay; the stale positions are masked until rewritten).
+
+        Returns (S, k, V) logits rows: row j of a slot is the model's
+        distribution after fed tokens 0..j, the row the lockstep step
+        would give at that context. Padded lanes (j >= f) are garbage and
+        must be ignored."""
+        s_count, kw = self.slots, self.spec_k
+        if len(token_lists) != s_count or len(tables) != s_count:
+            raise ValueError(f'spec_step needs {s_count} token lists and '
+                             f'tables, got {len(token_lists)} and '
+                             f'{len(tables)}')
+        ids = np.zeros((s_count, kw), np.int64)
+        pos = np.zeros((s_count, kw), np.int64)
+        ctx_lens, fed_counts = [], []
+        for s in range(s_count):
+            toks = token_lists[s]
+            if tables[s] is None or not toks:
+                ctx_lens.append(1)      # scratch read, masked + ignored
+                fed_counts.append(0)
+                continue
+            f = min(len(toks), kw)
+            c = tables[s].context_len
+            ids[s, :f] = toks[:f]
+            pos[s, :f] = np.arange(c, c + f)
+            pos[s, f:] = c + f - 1      # padded lanes: an in-range position
+            tables[s].context_len = c + f
+            ctx_lens.append(c + 1)
+            fed_counts.append(f)
+        ctx = CacheContext(self.pool, 'decode', tables, ctx_lens,
+                           fed_counts=fed_counts, window=kw)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            both = torch.as_tensor(np.concatenate([ids, pos], 1),
+                                   device=self.device)
+            logits = self.model(both[:, :kw], pos_ids=both[:, kw:],
+                                cache=ctx)
+            rows = logits.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self._spec_stepped = True
+        self.stats['decode_steps'] += 1
+        self.stats['spec_rounds'] += 1
+        self.stats['step_seconds'].append(dt)
+        return rows
+
     # -- warmup ------------------------------------------------------------
     @property
     def warmed(self):
-        """True once every prefill rung and the decode step have run (via
-        :meth:`warmup` or traffic): the kernels are built and loaded and the
-        allocator has seen every shape. Surfaced through ``/healthz``."""
-        return self._stepped and all(b in self._prefilled_buckets
-                                     for b in self.prompt_buckets)
+        """True once every prefill rung, the decode step and (with
+        speculative decoding) the verify step have run (via :meth:`warmup`
+        or traffic): the kernels are built and loaded and the allocator has
+        seen every shape. Surfaced through ``/healthz``."""
+        return (self._stepped
+                and (self._spec_stepped or not self.spec_enabled)
+                and all(b in self._prefilled_buckets
+                        for b in self.prompt_buckets))
 
     def warmup(self):
-        """Run every prefill rung and one decode step before traffic
-        arrives. Returns {phase: seconds}. Uses temporary blocks; the pool
-        ends unchanged."""
+        """Run every prefill rung, one decode step and, with speculative
+        decoding, one verify step before traffic arrives. Returns {phase:
+        seconds}. Uses temporary blocks; the pool ends unchanged."""
         timings = {}
         for bucket in self.prompt_buckets:
-            table = self.reserve_table(bucket, 1)
+            # spec_k tokens of headroom for the verify step's window
+            table = self.reserve_table(
+                bucket, self.spec_k if self.spec_enabled else 1)
             t0 = time.perf_counter()
             tok = self.prefill([1] * bucket, table)
             timings[f'prefill_{bucket}'] = time.perf_counter() - t0
@@ -240,5 +350,12 @@ class DecodeEngine:
             t0 = time.perf_counter()
             self.decode_step(tokens, tables)
             timings.setdefault('decode_step', time.perf_counter() - t0)
+            if self.spec_enabled and 'spec_step' not in timings:
+                base = table.context_len
+                feed = [[tok] * (self.spec_k - 1)] + [None] * (self.slots - 1)
+                t0 = time.perf_counter()
+                self.spec_step(feed, tables)
+                timings['spec_step'] = time.perf_counter() - t0
+                table.context_len = base      # roll the warm-up feed back
             self.release_table(table)
         return timings

@@ -2,7 +2,7 @@
 block tables (counterpart of paddle_tpu/serving/decode/kv_cache.py).
 
 Layout per layer: ``k_pages`` / ``v_pages`` (H, num_blocks, block_size, D)
-f32 on the engine's device. A request holds ``ceil(context / block_size)``
+on the engine's device, at the pool's ``kv_dtype``. A request holds ``ceil(context / block_size)``
 blocks (plus its reservation); the free list recycles them the moment a slot
 finishes, and the attention ops read through the block table so the cache
 never moves.
@@ -15,7 +15,16 @@ version and are never read by the kernels).
 Writes are in-place ``index_put_`` into the pool tensors: one scatter per
 layer per step, no copy of the pool per token.
 
-Only f32 storage is ported; bf16 and int8 pools come with a later slice.
+Storage (``kv_dtype``): ``f32`` (exact, the default), ``bf16`` (half the
+bytes; the reads widen it back to f32, exact for every stored value) or
+``int8`` (a quarter of the bytes: one symmetric int8 row and one f32 scale
+per (head, position) row, parallel/quant_collectives.py's
+``rowwise_quantize``). Rows are quantized where they are written (prefill
+block scatter, decode and verify token scatter) and dequantized where the
+attention ops read them, inside the kernels, so the resident pool never
+exists at f32. Scales start at 0, so unwritten rows and the scratch block
+dequantize to exact zeros. The disaggregation and prefix-cache transfers
+(``read_blocks`` / ``write_whole_blocks``) come with ROADMAP A.7.
 """
 from __future__ import annotations
 
@@ -25,17 +34,43 @@ import numpy as np
 import torch
 
 from ...ops import nn_ops
+from ...parallel.quant_collectives import rowwise_quantize
 from ..errors import InvalidRequest, OutOfBlocks
 
 __all__ = ['BlockAllocator', 'BlockTable', 'KVCachePool', 'CacheContext',
            'DEFAULT_SLOTS', 'DEFAULT_BLOCK_SIZE', 'DEFAULT_MAX_BLOCKS',
-           'SCRATCH_BLOCK']
+           'SCRATCH_BLOCK', 'KV_PAYLOAD_DTYPES', 'KV_DTYPE_CODES',
+           'kv_row_bytes']
 
 DEFAULT_SLOTS = 8
 DEFAULT_BLOCK_SIZE = 16
 DEFAULT_MAX_BLOCKS = 256
 
 SCRATCH_BLOCK = 0
+
+# storage payload per element, by kv_dtype; int8 also keeps one f32 scale
+# per (head, position) row
+KV_PAYLOAD_DTYPES = {'f32': torch.float32, 'bf16': torch.bfloat16,
+                     'int8': torch.int8}
+_KV_PAYLOAD_BYTES = {'f32': 4, 'bf16': 2, 'int8': 1}
+# the reference's stable codes (its kv_cache_dtype gauge and handoff wire
+# meta), also the payload codes of the paged kernels' launchers
+KV_DTYPE_CODES = {'f32': 0, 'bf16': 1, 'int8': 2}
+
+
+def _check_kv_dtype(kv_dtype):
+    if kv_dtype not in KV_PAYLOAD_DTYPES:
+        raise ValueError(
+            f'kv_dtype={kv_dtype!r} is not supported; supported values: '
+            + ', '.join(repr(c) for c in KV_PAYLOAD_DTYPES))
+
+
+def kv_row_bytes(head_dim, kv_dtype):
+    """Bytes of ONE cached K or V row (one head, one token position) at
+    ``kv_dtype``: the payload, plus its f32 row scale for int8."""
+    _check_kv_dtype(kv_dtype)
+    return (int(head_dim) * _KV_PAYLOAD_BYTES[kv_dtype]
+            + (4 if kv_dtype == 'int8' else 0))
 
 
 class BlockAllocator:
@@ -139,17 +174,22 @@ class KVCachePool:
         self.block_size = int(block_size or DEFAULT_BLOCK_SIZE)
         self.num_blocks = int(num_blocks or DEFAULT_MAX_BLOCKS)
         self.max_blocks_per_seq = int(max_blocks_per_seq or 8)
-        if (kv_dtype or 'f32') != 'f32':
-            raise NotImplementedError(
-                f'kv_dtype={kv_dtype!r}: bf16 and int8 KV pools come with a '
-                f'later slice; this one stores f32')
+        kv_dtype = kv_dtype or 'f32'
+        _check_kv_dtype(kv_dtype)
+        self.kv_dtype = kv_dtype
+        self.dtype = KV_PAYLOAD_DTYPES[kv_dtype]
         self.device = torch.device(device)
         self.allocator = BlockAllocator(self.num_blocks)
         self._layers = {}          # layer idx -> [k_pages, v_pages]
+        self._scales = {}          # int8 only: layer -> [k_scales, v_scales]
 
     @property
     def padded_context(self):
         return self.max_blocks_per_seq * self.block_size
+
+    @property
+    def num_layers(self):
+        return len(self._layers)
 
     def new_table(self, total_tokens):
         """Allocate a table holding ``total_tokens`` (prompt + budget).
@@ -170,12 +210,42 @@ class KVCachePool:
         if layer not in self._layers:
             shape = (n_heads, self.num_blocks, self.block_size, head_dim)
             self._layers[layer] = [
-                torch.zeros(shape, dtype=torch.float32, device=self.device),
-                torch.zeros(shape, dtype=torch.float32, device=self.device)]
+                torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device)]
+            if self.kv_dtype == 'int8':
+                # zero scales: unwritten rows (the scratch block's too)
+                # dequantize to exact zeros
+                self._scales[layer] = [
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=self.device),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=self.device)]
         return self._layers[layer]
 
     def pages(self, layer):
         return self._layers[layer]
+
+    def scales(self, layer):
+        """int8 pools: [k_scales, v_scales], each (H, NB, BS) f32; None for
+        f32 and bf16 pools."""
+        return self._scales.get(layer)
+
+    def _encode_rows(self, vals):
+        """f32 rows (H, ..., D) -> (payload at the storage type, row scales
+        (H, ...) f32 or None). The f32 pool returns ``vals`` itself."""
+        if self.kv_dtype == 'f32':
+            return vals, None
+        if self.kv_dtype == 'bf16':
+            return vals.to(torch.bfloat16), None
+        return rowwise_quantize(vals)
+
+    def bytes_in_hbm(self):
+        """Resident pool bytes over the allocated layers: payload tensors
+        and, for int8, their scale tensors."""
+        return sum(t.numel() * t.element_size()
+                   for tensors in (*self._layers.values(),
+                                   *self._scales.values())
+                   for t in tensors)
 
     def write_prefill(self, layer, table, k, v):
         """Write the prompt's K/V rows. ``k``/``v``: (H, L, D), the bucket-
@@ -194,22 +264,35 @@ class KVCachePool:
                               device=self.device)
         heads = torch.arange(h, device=self.device)[:, None]
         idx = (heads, ids[None, :])
-        pages[0].index_put_(idx, k[:, :target].reshape(h, nb_w,
-                                                       self.block_size, d))
-        pages[1].index_put_(idx, v[:, :target].reshape(h, nb_w,
-                                                       self.block_size, d))
+        kb, ks = self._encode_rows(
+            k[:, :target].reshape(h, nb_w, self.block_size, d))
+        vb, vs = self._encode_rows(
+            v[:, :target].reshape(h, nb_w, self.block_size, d))
+        pages[0].index_put_(idx, kb)
+        pages[1].index_put_(idx, vb)
+        if ks is not None:
+            scales = self._scales[layer]
+            scales[0].index_put_(idx, ks)
+            scales[1].index_put_(idx, vs)
 
     def write_tokens(self, layer, block_ids, offsets, k, v):
-        """One decode step's K/V: ``k``/``v`` (H, S, D) written at
-        (block_ids[s], offsets[s]) per slot, ``block_ids``/``offsets`` (S,)
-        integer tensors on the pool's device. Inactive slots point at the
-        scratch block."""
+        """One decode step's K/V: ``k``/``v`` (H, N, D) written at
+        (block_ids[i], offsets[i]), ``block_ids``/``offsets`` (N,) integer
+        tensors on the pool's device (N = S, or S * K for a verify step,
+        slot-major). Inactive slots and padded lanes point at the scratch
+        block."""
         h, _, d = k.shape
         pages = self.ensure_layer(layer, h, d)
         heads = torch.arange(h, device=self.device)[:, None]
         idx = (heads, block_ids[None, :], offsets[None, :])
+        k, ks = self._encode_rows(k)
+        v, vs = self._encode_rows(v)
         pages[0].index_put_(idx, k)
         pages[1].index_put_(idx, v)
+        if ks is not None:
+            scales = self._scales[layer]
+            scales[0].index_put_(idx, ks)
+            scales[1].index_put_(idx, vs)
 
 
 class CacheContext:
@@ -223,14 +306,25 @@ class CacheContext:
 
     mode='decode': q/k/v are (S, H, 1, D), one token per slot; K/V land at
     each slot's next position and attention reads through the batched block
-    tables (``paged_attention``). The step's tables, context lengths and
-    write coordinates go to the device in one copy, shared by every layer.
+    tables (``paged_attention``).
+
+    mode='decode' with ``window`` K > 1 (the speculative verify step):
+    q/k/v are (S, H, K, D); slot s feeds ``fed_counts[s]`` <= K real tokens
+    at positions context_lens[s] - 1 onwards, and its other lanes write to
+    the scratch block. ``context_lens[s]`` is the extent of fed row 0;
+    ``paged_attention``'s (S, H, K, D) read gives row j the extent
+    context_lens + j.
+
+    The step's tables, context lengths and write coordinates go to the
+    device in one copy, shared by every layer.
     """
 
-    def __init__(self, pool, mode, tables, context_lens=None):
+    def __init__(self, pool, mode, tables, context_lens=None,
+                 fed_counts=None, window=1):
         self.pool = pool
         self.mode = mode
         self.tables = tables          # prefill: [BlockTable]; decode: list
+        self.window = int(window)
         self._layer = 0
         width = pool.max_blocks_per_seq
         if mode == 'prefill':
@@ -241,21 +335,36 @@ class CacheContext:
         if mode != 'decode':
             raise ValueError(f"mode must be 'prefill' or 'decode', got "
                              f"{mode!r}")
-        s = len(tables)
-        # one int32 buffer: tables (S, width) | ctx (S) | write block | offset
-        packed = np.zeros(s * (width + 3), np.int32)
+        s, kw = len(tables), self.window
+        if fed_counts is None:
+            fed_counts = [int(t is not None) for t in tables]
+        # one int32 buffer: tables (S, width) | ctx (S) | write blocks
+        # (S * K) | write offsets (S * K)
+        packed = np.zeros(s * (width + 1 + 2 * kw), np.int32)
         tab = packed[:s * width].reshape(s, width)
-        ctx, ids, offs = packed[s * width:].reshape(3, s)
-        for i, (t, c) in enumerate(zip(tables, context_lens)):
+        ctx = packed[s * width:s * (width + 1)]
+        ids, offs = packed[s * (width + 1):].reshape(2, s, kw)
+        for i, (t, c, f) in enumerate(zip(tables, context_lens, fed_counts)):
             ctx[i] = max(int(c), 1)
-            if t is not None:                        # inactive: scratch
-                tab[i] = t.padded(width)
-                ids[i], offs[i] = t.slot_for(int(c) - 1)
+            if t is None:                     # inactive: scratch
+                continue
+            tab[i] = t.padded(width)
+            for j in range(int(f)):           # other lanes: scratch
+                ids[i, j], offs[i, j] = t.slot_for(int(c) - 1 + j)
         meta = torch.as_tensor(packed, device=pool.device)
         self._tables = meta[:s * width].view(s, width)
-        self._ctx, ids, offs = meta[s * width:].view(3, s)
+        self._ctx = meta[s * width:s * (width + 1)]
+        ids, offs = meta[s * (width + 1):].view(2, s * kw)
         self._write_ids = ids.long()
         self._write_offs = offs.long()
+
+    def _scale_inputs(self, layer):
+        """The row scales an int8 pool's reads take; nothing for f32 and
+        bf16 pools."""
+        scales = self.pool.scales(layer)
+        if scales is None:
+            return {}
+        return {'k_scales': scales[0], 'v_scales': scales[1]}
 
     def attend(self, q, k, v, sm_scale=1.0):
         layer = self._layer
@@ -266,14 +375,16 @@ class CacheContext:
             k_pages, v_pages = self.pool.pages(layer)
             return nn_ops.paged_prefill_attention(
                 q.contiguous(), k, v, k_pages, v_pages, self._tables,
-                sm_scale=float(sm_scale))
-        # decode: (S, H, 1, D) -> (H, S, D) token rows
-        s, h, _, d = q.shape
+                sm_scale=float(sm_scale), **self._scale_inputs(layer))
+        # decode: (S, H, K, D) -> (H, S * K, D) token rows, slot-major as
+        # the write coordinates
+        s, h, kw, d = q.shape
         self.pool.write_tokens(layer, self._write_ids, self._write_offs,
-                               k[:, :, 0].transpose(0, 1),
-                               v[:, :, 0].transpose(0, 1))
+                               k.transpose(0, 1).reshape(h, s * kw, d),
+                               v.transpose(0, 1).reshape(h, s * kw, d))
         k_pages, v_pages = self.pool.pages(layer)
+        q_in = q.contiguous() if kw > 1 else q.reshape(s, h, d).contiguous()
         out = nn_ops.paged_attention(
-            q.reshape(s, h, d).contiguous(), k_pages, v_pages, self._tables,
-            self._ctx, sm_scale=float(sm_scale))
-        return out.reshape(s, h, 1, d)
+            q_in, k_pages, v_pages, self._tables, self._ctx,
+            sm_scale=float(sm_scale), **self._scale_inputs(layer))
+        return out.reshape(s, h, kw, d)

@@ -1,7 +1,7 @@
 """Slot-based continuous-batching scheduler + per-request token streams
 (counterpart of paddle_tpu/serving/decode/scheduler.py, without its
-speculative-decoding, disaggregation, prefix-cache and tracing branches,
-which come with later slices).
+disaggregation, prefix-cache and tracing branches, which come with ROADMAP
+A.7 and A.11).
 
 The scheduling model is S fixed decode slots stepped in lockstep:
 
@@ -26,6 +26,10 @@ until a finishing slot frees blocks (FIFO, no starvation).
 
 Deadlines bound WAITING only: once a request holds a slot it runs to
 completion.
+
+With speculative decoding on (``engine.spec_enabled``) step 3 is one (S, k)
+verify round: each greedy slot feeds its pending token and up to k - 1
+drafter guesses, and emits the longest prefix the model agrees with.
 """
 from __future__ import annotations
 
@@ -40,6 +44,8 @@ import uuid
 from ..breaker import CircuitBreaker
 from ..errors import (DeadlineExceeded, EngineClosed, EngineUnhealthy,
                       InvalidRequest, Overloaded, OutOfBlocks, ServingError)
+from ..tier.knobs import ENV_SPEC_DRAFTER, parse_choice_env
+from .drafter import DRAFTER_CHOICES, build_drafter
 from .sampling import SamplingParams, TokenSampler
 
 __all__ = ['DecodeScheduler', 'GenerationStream', 'DEFAULT_QUEUE_DEPTH']
@@ -137,7 +143,7 @@ class GenerationStream:
 class _Request:
     __slots__ = ('prompt', 'max_new_tokens', 'eos_id', 'stream', 'deadline',
                  'enqueued_at', 'table', 'next_token', 'generated',
-                 'sampling', 'sampler')
+                 'sampling', 'sampler', 'history')
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline,
                  replica_id=None, sampling=None, request_id=None):
@@ -157,6 +163,9 @@ class _Request:
         self.sampling = sampling or SamplingParams()
         self.sampler = (None if self.sampling.greedy else
                         TokenSampler(self.sampling, self.stream.request_id))
+        # prompt + emitted tokens: what the drafter continues (its last
+        # element is the pending, uncached token)
+        self.history = list(prompt)
 
     def expired(self, now):
         return self.deadline is not None and now > self.deadline
@@ -167,6 +176,10 @@ class DecodeScheduler:
 
     - ``queue_depth``: waiting-queue bound -> typed ``Overloaded``.
     - ``start``: start the worker thread now (False leaves it stopped).
+    - ``drafter``: with speculative decoding on, a name ('ngram',
+      'draft_model', 'off'), an object with ``propose(history, n)``, or
+      None for the ``PADDLE_TPU_SPEC_DRAFTER`` knob (default 'ngram');
+      unused otherwise.
     """
 
     def __init__(self, engine, queue_depth=DEFAULT_QUEUE_DEPTH, start=True,
@@ -174,11 +187,14 @@ class DecodeScheduler:
         if disagg is not None:
             raise NotImplementedError(
                 'disaggregated prefill comes with the prefix-cache/disagg '
-                'slice')
-        if drafter is not None:
-            raise NotImplementedError(
-                'speculative-decoding drafters come with the spec_decode '
-                'slice')
+                'slice (ROADMAP A.7)')
+        self.drafter = None
+        if engine.spec_enabled:
+            if drafter is None:
+                drafter = parse_choice_env(ENV_SPEC_DRAFTER, DRAFTER_CHOICES,
+                                           'ngram')
+            self.drafter = build_drafter(drafter, engine.padded_context,
+                                         device=engine.device)
         self.engine = engine
         self.replica_id = (replica_id
                            or os.environ.get('PADDLE_TPU_REPLICA_ID')
@@ -326,6 +342,7 @@ class DecodeScheduler:
         or its budget. Otherwise the token is fed to the next decode step
         (its K/V are not cached yet)."""
         req.generated += 1
+        req.history.append(int(token))
         req.stream._emit(token)
         if req.eos_id is not None and int(token) == int(req.eos_id):
             self._retire(req, 'stop')
@@ -383,6 +400,64 @@ class DecodeScheduler:
                 self._emit_token(req, int(out[i]))
         return True
 
+    def _spec_step(self):
+        """One speculative (S, k) verify round; returns whether any slot was
+        live.
+
+        A greedy slot feeds its pending token and up to k - 1 drafts, never
+        more than its remaining budget; the verify rows confirm drafts in
+        order, and the slot emits every confirmed token and the model's own
+        at the first miss. The rejected tail rolls back with one store,
+        ``table.context_len = base + emitted`` (its K/V positions stay,
+        masked until rewritten). A sampled slot feeds one token, so its
+        draws are the lockstep stream's."""
+        active = [r for r in self._slots if r is not None]
+        if not active:
+            return False
+        kw = self.engine.spec_k
+        fed = [None] * len(self._slots)
+        tables = [None] * len(self._slots)
+        for i, req in enumerate(self._slots):
+            if req is None:
+                continue
+            tables[i] = req.table
+            drafts = []
+            if req.sampler is None and self.drafter is not None:
+                n = min(kw, req.max_new_tokens - req.generated) - 1
+                if n > 0:
+                    drafts = [int(t) for t in
+                              self.drafter.propose(req.history, n)][:n]
+            fed[i] = [req.next_token] + drafts
+        bases = [t.context_len if t is not None else 0 for t in tables]
+        try:
+            rows = self.engine.spec_step(fed, tables)
+        except Exception as e:     # isolate: fail the batch, keep serving
+            _logger.exception('verify step failed')
+            for req in active:
+                self._fail_request(req, e)
+            self._record_engine_failure()
+            return True
+        self.breaker.record_success()
+        stats = self.engine.stats
+        for i, req in enumerate(self._slots):
+            if req is None:
+                continue
+            toks = fed[i]
+            emitted = 0
+            for j in range(len(toks)):
+                tok = self._pick_token(req, rows[i, j])
+                self._emit_token(req, tok)
+                emitted += 1
+                if (req.table is None or j + 1 == len(toks)
+                        or int(toks[j + 1]) != tok):
+                    break          # retired, window end or first miss
+            if req.table is not None:
+                # commit the accepted prefix, roll back the rejected tail
+                req.table.context_len = bases[i] + emitted
+            stats['spec_drafted'] += len(toks) - 1
+            stats['spec_accepted'] += emitted - 1
+        return True
+
     def _fail_all_locked(self):
         """Fail-fast shutdown: error every waiting and in-flight request.
         Runs on the WORKER thread (slot state is worker-owned)."""
@@ -407,7 +482,8 @@ class DecodeScheduler:
                 admitted = self._admit_locked()
             for req in admitted:
                 self._prefill(req)
-            stepped = self._step()
+            stepped = (self._spec_step() if self.engine.spec_enabled
+                       else self._step())
             if not stepped and not admitted:
                 with self._cv:
                     if self._closing:

@@ -10,8 +10,13 @@ default`` (the default) serves ``CausalLMConfig()`` at its full width;
 ``convert.init_params(cfg, seed)``, so every process started with one seed
 serves the same parameters.
 
-On start the replica warms the engine (every prefill rung and one decode
-step, which also builds the CUDA kernels), prints ONE JSON line to stdout,
+``--spec-decode 1`` (with ``--spec-k`` and ``--drafter``) turns on
+speculative decoding; ``PADDLE_TPU_KV_DTYPE=bf16|int8`` stores the KV pool
+quantized.
+
+On start the replica warms the engine (every prefill rung, one decode step
+and, with speculative decoding, one verify step, which also builds the CUDA
+kernels), prints ONE JSON line to stdout,
 ``{"ready": true, "port": N, "pid": P, "replica_id": ..., "device": ...}``,
 and serves until killed.
 """
@@ -49,13 +54,16 @@ def build_lm(config='default', seed=DEFAULT_SEED, device=None):
     return model
 
 
-def build_replica_stack(model, queue_depth=128, replica_id=None, **engine_kw):
+def build_replica_stack(model, queue_depth=128, replica_id=None,
+                        drafter=None, **engine_kw):
     """(engine, scheduler): the replica's serving stack minus the HTTP
-    listener. ``engine_kw`` overrides :data:`ENGINE_DEFAULTS`."""
+    listener. ``engine_kw`` overrides :data:`ENGINE_DEFAULTS` (and takes
+    ``spec_decode``, ``spec_k`` and ``kv_dtype``); ``drafter`` goes to the
+    scheduler."""
     from ..decode import DecodeEngine, DecodeScheduler
     engine = DecodeEngine(model, **{**ENGINE_DEFAULTS, **engine_kw})
     scheduler = DecodeScheduler(engine, queue_depth=queue_depth,
-                                replica_id=replica_id)
+                                replica_id=replica_id, drafter=drafter)
     return engine, scheduler
 
 
@@ -81,6 +89,17 @@ def main(argv=None):
     ap.add_argument('--max-new-tokens-cap', type=int,
                     default=ENGINE_DEFAULTS['max_new_tokens_cap'])
     ap.add_argument('--replica-id', default=None)
+    ap.add_argument('--spec-decode', type=int, choices=(0, 1), default=None,
+                    help='speculative decoding on/off (default: the '
+                         'PADDLE_TPU_SPEC_DECODE knob, off; an env 0 always '
+                         'wins)')
+    ap.add_argument('--spec-k', type=int, default=None,
+                    help='speculative verify window (default: '
+                         'PADDLE_TPU_SPEC_K, 4)')
+    ap.add_argument('--drafter', default=None,
+                    choices=('ngram', 'draft_model', 'off'),
+                    help='draft proposer (default: PADDLE_TPU_SPEC_DRAFTER, '
+                         'ngram)')
     args = ap.parse_args(argv)
 
     from ..server import ServingServer
@@ -89,14 +108,20 @@ def main(argv=None):
         model, replica_id=args.replica_id, slots=args.slots,
         block_size=args.block_size, max_blocks=args.max_blocks,
         max_prompt_len=args.max_prompt_len,
-        max_new_tokens_cap=args.max_new_tokens_cap)
+        max_new_tokens_cap=args.max_new_tokens_cap,
+        spec_decode=(None if args.spec_decode is None
+                     else bool(args.spec_decode)),
+        spec_k=args.spec_k, drafter=args.drafter)
     srv = ServingServer(None, host=args.host, port=args.port,
                         generator=scheduler, warmup=True)
     # the launcher parses this single stdout line for the port and pid
     sys.stdout.write(json.dumps({'ready': True, 'port': srv.port,
                                  'pid': os.getpid(),
                                  'replica_id': scheduler.replica_id,
-                                 'device': str(engine.device)}) + '\n')
+                                 'device': str(engine.device),
+                                 'spec_decode': engine.spec_enabled,
+                                 'spec_k': engine.spec_k,
+                                 'kv_dtype': engine.pool.kv_dtype}) + '\n')
     sys.stdout.flush()
     srv.serve_forever()
 

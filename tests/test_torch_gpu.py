@@ -192,8 +192,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bt = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
     cl = torch.ones(3, dtype=torch.int32, device=cuda)
     q = torch.zeros(3, 2, 16, device=cuda)
-    with pytest.raises(TypeError, match='bf16'):
-        nn_ops.paged_attention(q, k.bfloat16(), k.bfloat16(), bt, cl)
+    with pytest.raises(TypeError, match='float16'):
+        nn_ops.paged_attention(q, k.half(), k.half(), bt, cl)
+    with pytest.raises(TypeError):
+        nn_ops.paged_attention(q, k, k.bfloat16(), bt, cl)
     with pytest.raises(TypeError):
         nn_ops.paged_attention(q, k, k, bt.long(), cl)
     with pytest.raises(ValueError, match='expected cuda'):
@@ -208,6 +210,211 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match='Lq'):
         q9 = torch.zeros(1, 2, 9, 16, device=cuda)
         nn_ops.paged_prefill_attention(q9, q9, q9, k, k, bt[:1])
+
+
+# --- quantized pools and the verify read (K1 and K2 over bf16 / int8) -----
+
+PAYLOADS = ['f32', 'bf16', 'int8']
+
+
+def quantized(k, v, payload):
+    """(k_pages, v_pages, k_scales, v_scales) of an f32 pool stored at
+    ``payload`` as the KV cache stores it; int8's scratch block keeps scale
+    0 (unwritten rows)."""
+    from paddle_tpu_torch.parallel.quant_collectives import rowwise_quantize
+    if payload == 'f32':
+        return k, v, None, None
+    if payload == 'bf16':
+        return k.bfloat16(), v.bfloat16(), None, None
+    (kq, ks), (vq, vs) = rowwise_quantize(k), rowwise_quantize(v)
+    ks[:, 0] = 0
+    vs[:, 0] = 0
+    return kq, vq, ks.contiguous(), vs.contiguous()
+
+
+@pytest.mark.parametrize('payload', ['bf16', 'int8'])
+@pytest.mark.parametrize('d,bs', [(16, 4), (32, 1), (64, 16), (128, 48)])
+def test_decode_kernel_over_quantized_pools_matches_plain(cuda, d, bs,
+                                                          payload):
+    """K1 dequantizes each row as it loads it: against the plain version's
+    gather-then-dequantize at f32's tolerance, two launches bitwise
+    equal."""
+    rng = np.random.default_rng(3 * d + bs)
+    h, max_bps = 4, 8
+    full = max_bps * bs
+    contexts = [1, None, full, bs + 1, 3, full - 1, None, 2 * bs]
+    nb = 2 + sum(-(-c // bs) for c in contexts if c)
+    kp, vp, ks, vs = quantized(*pool(rng, h, nb, bs, d, cuda), payload)
+    tables, ctx = tables_for(rng, contexts, bs, nb, max_bps)
+    bt, cl = torch.from_numpy(tables).to(cuda), torch.from_numpy(ctx).to(cuda)
+    q = torch.from_numpy(
+        rng.standard_normal((len(contexts), h, d), np.float32)).to(cuda)
+    before = nn_ops.paged_attention.launches
+    got = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs,
+                                 sm_scale=d ** -0.5)
+    again = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs,
+                                   sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert nn_ops.paged_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = nn_ops.paged_attention_ref(q, kp, vp, bt, cl, ks, vs,
+                                      sm_scale=d ** -0.5)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize('payload', ['bf16', 'int8'])
+@pytest.mark.parametrize('d,bs', [(16, 4), (32, 1), (64, 16), (128, 48)])
+@pytest.mark.parametrize('lq', [1, 33, 256])
+def test_prefill_kernel_over_quantized_pools_matches_plain(cuda, lq, d, bs,
+                                                           payload):
+    rng = np.random.default_rng(d * lq + 7 * bs)
+    h = 4
+    max_bps = -(-(lq + 8) // bs)
+    nb = 2 * max_bps + 2
+    kp, vp, ks, vs = quantized(*pool(rng, h, nb, bs, d, cuda), payload)
+    tables, _ = tables_for(rng, [lq + 8, lq], bs, nb, max_bps)
+    bt = torch.from_numpy(tables).to(cuda)
+    q = torch.from_numpy(
+        rng.standard_normal((2, h, lq, d), np.float32)).to(cuda)
+    before = nn_ops.paged_prefill_attention.launches
+    got = nn_ops.paged_prefill_attention(q, q, q, kp, vp, bt, ks, vs,
+                                         sm_scale=d ** -0.5)
+    again = nn_ops.paged_prefill_attention(q, q, q, kp, vp, bt, ks, vs,
+                                           sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert nn_ops.paged_prefill_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = nn_ops.paged_prefill_attention_ref(q, kp, vp, bt, ks, vs,
+                                              sm_scale=d ** -0.5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize('payload', PAYLOADS)
+@pytest.mark.parametrize('d,bs', [(16, 4), (64, 16), (128, 48)])
+def test_verify_read_is_single_query_k1_at_each_context(cuda, d, bs,
+                                                        payload):
+    """The (S, H, K, D) read goes through K1 in one launch, its row j of a
+    slot bitwise equal to a single-query launch at context c + j (clamped
+    to max_bps * BS), and within f32's tolerance of the plain multi-query
+    version; padded lanes near the end of a table stay finite."""
+    rng = np.random.default_rng(5 * d + bs)
+    h, max_bps, kq = 4, 8, 4
+    full = max_bps * bs
+    contexts = [1, None, full - 1, full, bs + 1, 3, full - 2, 2 * bs]
+    nb = 2 + sum(-(-c // bs) for c in contexts if c)
+    kp, vp, ks, vs = quantized(*pool(rng, h, nb, bs, d, cuda), payload)
+    tables, ctx = tables_for(rng, contexts, bs, nb, max_bps)
+    bt, cl = torch.from_numpy(tables).to(cuda), torch.from_numpy(ctx).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((len(contexts), h, kq, d),
+                                             np.float32)).to(cuda)
+    before = nn_ops.paged_attention.launches
+    got = nn_ops.paged_attention(q, kp, vp, bt, cl, ks, vs,
+                                 sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert nn_ops.paged_attention.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    for j in range(kq):
+        single = nn_ops.paged_attention(
+            q[:, :, j].contiguous(), kp, vp, bt,
+            (cl + j).clamp(max=full).int(), ks, vs, sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :, j], single), j
+    # rows whose context stays within the table, against the plain version
+    want = nn_ops.paged_attention_ref(q, kp, vp, bt, cl, ks, vs,
+                                      sm_scale=d ** -0.5)
+    inside = (cl[:, None] + torch.arange(kq, device=cuda)) <= full
+    torch.testing.assert_close(got.transpose(1, 2)[inside],
+                               want.transpose(1, 2)[inside],
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_wrappers_reject_wrong_scale_arguments(cuda):
+    """No fallback: scales that do not match the pool's payload, shape or
+    device, or a query rank the kernels do not take, raise on the card."""
+    k = torch.zeros(2, 4, 4, 16, device=cuda)
+    k8 = k.to(torch.int8)
+    sc = torch.ones(2, 4, 4, device=cuda)
+    bt = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
+    cl = torch.ones(3, dtype=torch.int32, device=cuda)
+    q = torch.zeros(3, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match='v_scales is missing'):
+        nn_ops.paged_attention(q, k8, k8, bt, cl, sc)
+    with pytest.raises(ValueError, match='k_scales is missing'):
+        nn_ops.paged_attention(q, k8, k8, bt, cl, None, sc)
+    with pytest.raises(ValueError, match='k_scales given'):
+        nn_ops.paged_attention(q, k, k, bt, cl, sc, sc)
+    with pytest.raises(ValueError, match='k_scales given'):
+        nn_ops.paged_attention(q, k.bfloat16(), k.bfloat16(), bt, cl, sc, sc)
+    with pytest.raises(ValueError, match='k_scales must be'):
+        nn_ops.paged_attention(q, k8, k8, bt, cl, sc.cpu(), sc)
+    with pytest.raises(ValueError, match='v_scales must be'):
+        nn_ops.paged_attention(q, k8, k8, bt, cl, sc, sc[:, :2])
+    with pytest.raises(ValueError, match='k_scales must be'):
+        nn_ops.paged_attention(q, k8, k8, bt, cl, sc.double(), sc)
+    with pytest.raises(ValueError, match='v_scales is missing'):
+        q4 = torch.zeros(1, 2, 4, 16, device=cuda)
+        nn_ops.paged_prefill_attention(q4, q4, q4, k8, k8, bt[:1], sc)
+    with pytest.raises(ValueError, match='S, H, K, D'):
+        nn_ops.paged_attention(q[None, :, :, None], k, k, bt, cl)
+
+
+@pytest.mark.parametrize('kv_dtype', ['bf16', 'int8'])
+def test_served_engine_with_speculation_over_quantized_pools(cuda, kv_dtype):
+    """A tiny engine on the card with speculative decoding over a quantized
+    pool: every prefill, decode step and verify round launches the kernels,
+    and the speculative streams equal the lockstep ones on the same pool."""
+    from paddle_tpu_torch.serving import DecodeEngine, DecodeScheduler
+    from paddle_tpu_torch.serving.tier.replica import build_lm
+    model = build_lm('tiny', 3, cuda)
+    prompts = [[5, 9, 2], list(range(1, 17)), [7, 7, 7, 7]]
+
+    def run(**kw):
+        engine = DecodeEngine(model, slots=4, block_size=4, max_blocks=64,
+                              max_prompt_len=16, max_new_tokens_cap=16,
+                              kv_dtype=kv_dtype, **kw)
+        nn_ops.reset_launch_counts()
+        with DecodeScheduler(engine) as sched:
+            outs = [sched.submit(p, max_new_tokens=12).result(120)
+                    for p in prompts]
+        layers = model.cfg.num_hidden_layers
+        counts = nn_ops.launch_counts()
+        assert counts['paged_attention'] == (engine.stats['decode_steps']
+                                             * layers)
+        assert counts['paged_prefill_attention'] == (
+            engine.stats['prefills'] * layers)
+        assert engine.pool.allocator.used == 0
+        return outs, engine.stats
+
+    lockstep, _ = run()
+    spec, stats = run(spec_decode=True, spec_k=4)
+    assert stats['spec_rounds'] > 0
+    # the verify rows' attention is the lockstep rows' bit for bit; the
+    # model's GEMMs at (S * K) rows may round otherwise than at S, so a
+    # token may part only at a near tie of the lockstep engine's own rows
+    engine = DecodeEngine(model, slots=4, block_size=4, max_blocks=64,
+                          max_prompt_len=16, max_new_tokens_cap=16,
+                          kv_dtype=kv_dtype)
+    for p, a, b in zip(prompts, spec, lockstep):
+        assert len(a) == len(b) == 12
+        if a != b:
+            assert lockstep_gaps(engine, p, a).max() <= 1e-3, (a, b)
+
+
+def lockstep_gaps(engine, prompt, tokens):
+    """Teacher-forced gaps of ``tokens`` under ``engine``'s lockstep path:
+    for each token, its row's max logit less the token's."""
+    table = engine.reserve_table(len(prompt), len(tokens))
+    rows = []
+    engine.prefill(prompt, table, sampler=lambda r: rows.append(r) or 0)
+    pad = [None] * (engine.slots - 1)
+    for tok in tokens[:-1]:
+        _, step = engine.decode_step([tok] + pad, [table] + pad,
+                                     return_rows=True)
+        rows.append(step[0])
+    engine.release_table(table)
+    rows = np.stack(rows)
+    return rows.max(-1) - rows[np.arange(len(tokens)), tokens]
 
 
 def test_served_engine_goes_through_the_kernels(cuda):

@@ -27,7 +27,8 @@ took over in doing so behave as the reference's do (on the CPU).
   ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
   same formula).
 - The quantized-pool scales of ``paged_attention`` and
-  ``paged_prefill_attention`` are not ported and raise.
+  ``paged_prefill_attention`` go with an int8 pool and only with it: one
+  without the other, or either with an f32 or bf16 pool, raises naming it.
 - ``fused_conv1x1_bn_act(force_pallas=False)``, the reference's unfused
   formulation, against the JAX op's: f32 atol and rtol 1e-5 (sums in
   another order); bf16 within one bf16 ulp of the larger value plus 1e-6
@@ -364,22 +365,50 @@ def paged_operands():
     return q, pages, tables, torch.ones(2, dtype=torch.int32)
 
 
+def _other(which):
+    return {'k': 'v', 'v': 'k'}[which]
+
+
 @pytest.mark.parametrize('which', ['k', 'v'])
 def test_paged_attention_scales_are_not_ported(which):
+    """The scales are ported (ROADMAP A.6): an int8 pool takes both, so
+    giving one alone raises ``ValueError`` naming the missing one, and an
+    f32 or bf16 pool takes none, so giving one raises naming it; an int8
+    pool with both runs."""
     q, pages, tables, ctx = paged_operands()
     scales = {f'{which}_scales': torch.ones(2, 4, 4)}
-    with pytest.raises(NotImplementedError, match='A.6'):
-        nn_ops.paged_attention(q, pages, pages, tables, ctx, **scales)
+    p8 = pages.to(torch.int8)
+    with pytest.raises(ValueError, match=f'{_other(which)}_scales is '
+                                         f'missing'):
+        nn_ops.paged_attention(q, p8, p8, tables, ctx, **scales)
+    for pool in (pages, pages.bfloat16()):
+        with pytest.raises(ValueError, match=f'{which}_scales given'):
+            nn_ops.paged_attention(q, pool, pool, tables, ctx, **scales)
+    both = {'k_scales': torch.ones(2, 4, 4), 'v_scales': torch.ones(2, 4, 4)}
+    assert nn_ops.paged_attention(q, p8, p8, tables, ctx,
+                                  **both).shape == q.shape
 
 
 @pytest.mark.parametrize('which', ['k', 'v'])
 def test_paged_prefill_attention_scales_are_not_ported(which):
+    """As for ``paged_attention``: an int8 pool needs both scales, an f32 or
+    bf16 pool takes none, each miss or extra raises ``ValueError`` naming
+    the argument, and an int8 pool with both runs."""
     _, pages, tables, _ = paged_operands()
     q = torch.zeros(1, 2, 3, 16)
     scales = {f'{which}_scales': torch.ones(2, 4, 4)}
-    with pytest.raises(NotImplementedError, match='A.6'):
-        nn_ops.paged_prefill_attention(q, q, q, pages, pages, tables[:1],
+    p8 = pages.to(torch.int8)
+    with pytest.raises(ValueError, match=f'{_other(which)}_scales is '
+                                         f'missing'):
+        nn_ops.paged_prefill_attention(q, q, q, p8, p8, tables[:1],
                                        **scales)
+    for pool in (pages, pages.bfloat16()):
+        with pytest.raises(ValueError, match=f'{which}_scales given'):
+            nn_ops.paged_prefill_attention(q, q, q, pool, pool, tables[:1],
+                                           **scales)
+    both = {'k_scales': torch.ones(2, 4, 4), 'v_scales': torch.ones(2, 4, 4)}
+    assert nn_ops.paged_prefill_attention(q, q, q, p8, p8, tables[:1],
+                                          **both).shape == q.shape
 
 
 @pytest.mark.parametrize('ppcb', [0, -1, 2.0, True, None])
