@@ -285,9 +285,29 @@ Phases:
    against phase 4's f32 streams, peak memory and the pool's bytes; one
    profiled window of verify rounds or decode steps each (host ms, busy
    ms, idle share);
-17. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+17. the serving tier (ROADMAP A.7a): a seeded shared-system-prompt mix
+   (16 greedy requests, one 192-token system prompt of 12 whole blocks,
+   distinct 16-64-token suffixes, budgets 32-64; the first request alone,
+   then the other 15 at once, streamed over HTTP) through the replica
+   stack at full width six ways: (a) prefix cache off, (b) on, (c) on with
+   speculative decoding (k 4, n-gram; the suffix fill rides verify
+   rounds), (d) disaggregated prefill on a prefill engine on the same
+   card, (e) on with a host tier, its cap lowered below the system prompt
+   after the first request so the second wave reinjects spilled blocks,
+   (f) two replica processes (cache on) behind the ``Router``, one killed
+   with SIGKILL once a stream on it has a token. Each: tokens/s, time to
+   first token p50 and p90 at the client, decode-step p50, K1 and K2
+   launches against decode steps and prefills x layers, hits, misses and
+   tokens saved, handoff bytes and seconds, spills and reinjects, the
+   router's completed, rerouted and failed counts. (b) and (c) equal (a)
+   token for token or part at a near tie; (d)'s handed-over blocks equal
+   a colocated prefill's bit for bit, and its streams (a)'s; (e)'s
+   streams equal (b)'s bit for bit; in (f) only streams with a token from
+   the killed replica fail, every other request completes with (b)'s
+   tokens, and the lost ones, sent again, too;
+18. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-16) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-17) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2493,7 +2513,7 @@ def serve(seed, card):
     model = build_lm('default', seed, 'cuda')
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
-    engine, sched = build_replica_stack(model)
+    engine, sched, _ = build_replica_stack(model)
     reqs, rng = served_mix(seed, cfg.vocab_size)
     results, wall, launches, stats, peak = drive_mix(engine, sched, reqs)
     log(f'served model: CausalLMConfig() {n_params} parameters, '
@@ -2651,7 +2671,8 @@ def serve_variants(model, reqs, f32_results, seed, card):
             pad = -(-(geometry['max_prompt_len']
                       + geometry['max_new_tokens_cap']) // bs) * bs
             drafter = DraftModelDrafter(model, pad)
-        engine, sched = build_replica_stack(model, drafter=drafter, **kw)
+        engine, sched, _ = build_replica_stack(model, drafter=drafter,
+                                               **kw)
         t0 = time.perf_counter()
         results, wall, launches, stats, peak = drive_mix(engine, sched, reqs)
         by_run[key] = launches
@@ -2689,6 +2710,475 @@ def serve_variants(model, reqs, f32_results, seed, card):
             f'{time.perf_counter() - t0:.1f} s')
         profile_decode_steps(engine, rng, card)
         del engine, sched
+    return by_run
+
+
+# Phase 17: the serving tier (ROADMAP A.7a) on a shared-system-prompt mix:
+# 16 greedy requests, one 192-token system prompt (12 whole blocks of 16)
+# and distinct 16-64-token suffixes, budgets 32-64, the first request
+# alone (it fills the cache), then the other 15 at once. Runs: (a) prefix
+# cache off, (b) on, (c) on with speculative decoding (k SPEC_K, n-gram:
+# the suffix fill rides verify rounds), (d) disaggregated prefill on a
+# prefill engine on the same card, (e) on through its knobs with a host
+# tier of SHARED_HOST_MB and a resident cap of SHARED_CAP blocks, which
+# holds one system prompt with its suffix blocks but not two: the mix's
+# requests alternate with two of a second system prompt, in waves (0),
+# (B0), (1-7), (B1), (8-15): B0's publication spills the mix's idle
+# blocks, the hits of (1-7) reinject them and their publications spill
+# B0's, and B1's hit reinjects those (the reference's policy: a
+# publication under the cap spills one idle block a new one, and a
+# reinjection is not capped, so (8-15) find the mix's blocks resident),
+# (f) two replica processes (cache on) behind a Router, one killed
+# (SIGKILL) once a stream on it has started
+SHARED_SYSTEM = 192
+SHARED_CAP = 16
+SHARED_HOST_MB = 64
+# run (f)'s replica processes: their arguments beyond the port, seed and
+# cache flags, and the device their ready line must name
+REPLICA_ARGS = ()
+REPLICA_DEVICE = 'cuda'
+
+
+def shared_prefix_mix(seed, vocab):
+    """Phase 17's seeded mix: one system prompt, 16 distinct suffixes of
+    16-64 tokens, budgets of 32-64, every request streamed and greedy."""
+    rng = np.random.RandomState(seed + 17)
+    system = [int(t) for t in rng.randint(0, vocab, SHARED_SYSTEM)]
+    reqs = []
+    for i in range(16):
+        suffix = [int(t) for t in rng.randint(0, vocab,
+                                              int(rng.randint(16, 65)))]
+        reqs.append({'prompt': system + suffix,
+                     'max_new_tokens': int(rng.randint(32, 65)),
+                     'stream': True, 'request_id': f'shared-{i}'})
+    return reqs
+
+
+def second_system_requests(seed, vocab):
+    """Run (e)'s two requests of another system prompt (its length and the
+    mix's suffix and budget ranges)."""
+    rng = np.random.RandomState(seed + 18)
+    system = [int(t) for t in rng.randint(0, vocab, SHARED_SYSTEM)]
+    return [{'prompt': system + [int(t) for t in rng.randint(
+                 0, vocab, int(rng.randint(16, 65)))],
+             'max_new_tokens': int(rng.randint(32, 65)), 'stream': True,
+             'request_id': f'second-{i}'} for i in range(2)]
+
+
+def stream_events(events, t0):
+    """Consume one generation's NDJSON events: (tokens, finish reason,
+    seconds to the first token, error event or None)."""
+    tokens, ttft, reason, error = [], None, None, None
+    for event in events:
+        if 'token' in event:
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            tokens.append(event['token'])
+        elif event.get('done'):
+            reason = event['finish_reason']
+            if event['tokens'] != tokens:
+                raise AssertionError('streamed tokens differ from the '
+                                     'final line')
+        elif 'error' in event:
+            error = event
+    return tokens, reason, ttft, error
+
+
+def post_stream(url, body, timeout=600):
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        url + '/generate', data=json.dumps(body).encode(),
+        headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return stream_events((json.loads(ln) for ln in r if ln.strip()),
+                             t0)
+
+
+def drive_waves(send, n, waves):
+    """``send(i)`` for each wave of request indexes in turn, a wave's
+    requests at once; returns (the n results, wall seconds of the waves
+    after the first)."""
+    results, wall = [None] * n, 0.0
+
+    def client(i):
+        results[i] = send(i)
+
+    for w, wave in enumerate(waves):
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in wave]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        if w:
+            wall += time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(
+                results[i] is None for i in wave):
+            raise AssertionError('a /generate request did not finish')
+    return results, wall
+
+
+def ttft_line(results, later):
+    """Time to first token of the requests ``later`` (those after the
+    first wave) and of the first request."""
+    ms = sorted(1e3 * results[i][2] for i in later)
+    return (f'time to first token of the {len(later)} p50 '
+            f'{np.percentile(ms, 50):.3f} p90 {np.percentile(ms, 90):.3f} ms '
+            f'(the first request {1e3 * results[0][2]:.3f} ms)'), ms
+
+
+def equal_or_near_tie(model, reqs, got, want, pad_len, what):
+    """Each stream of ``got`` equal to ``want``'s or, where it parts, every
+    token of it within NEAR_TIE of its teacher-forced row's max."""
+    parted, worst = 0, 0.0
+    for r, g, w in zip(reqs, got, want):
+        if g == w:
+            continue
+        parted += 1
+        gaps, _ = teacher_forced(model, r['prompt'], g, pad_len)
+        worst = max(worst, float(gaps.max()))
+    log(f'{what}: {len(reqs) - parted}/{len(reqs)} streams equal token for '
+        f'token, {parted} parted, their largest teacher-forced gap {worst:.3e} '
+        f'(limit {NEAR_TIE})')
+    if worst > NEAR_TIE:
+        raise AssertionError(f'{what}: a token {worst} below its row max')
+
+
+def tier_run(model, reqs, label, card, waves=None, env=None, **stack_kw):
+    """One of phase 17's in-process runs (a)-(e) through the replica stack
+    behind a ServingServer, warmed first: ``waves`` of request indexes
+    (default the first request alone, then the others at once), the stack
+    built under the environment variables ``env``. Checks every request's
+    full budget and K1 = (decode steps + verify rounds) x layers, K2 =
+    (the decode and prefill engines' prefills) x layers. Returns (results,
+    launches, engine, prefill engine or None)."""
+    import os
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.serving import ServingServer
+    from paddle_tpu_torch.serving.tier.replica import build_replica_stack
+    waves = waves or [[0], list(range(1, len(reqs)))]
+    later = [i for wave in waves[1:] for i in wave]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        engine, sched, worker = build_replica_stack(model, **stack_kw)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    prefill_engine = worker.replica.engine if worker else None
+    srv = ServingServer(None, port=0, generator=sched, warmup=True,
+                        request_timeout=600).start()
+    url = f'http://127.0.0.1:{srv.port}'
+    try:
+        if prefill_engine is not None:
+            prefill_engine.warmup()
+        pc = engine.prefix_cache
+        torch.cuda.synchronize()
+        nn_ops.reset_launch_counts()
+        engine.reset_stats()
+        if prefill_engine is not None:
+            prefill_engine.reset_stats()
+            worker.reset_stats()
+        if pc is not None:
+            pc.reset_stats()
+        results, wall = drive_waves(lambda i: post_stream(url, reqs[i]),
+                                    len(reqs), waves)
+        torch.cuda.synchronize()
+        launches = nn_ops.launch_counts()
+    finally:
+        srv.shutdown()
+        if worker is not None:
+            worker.close()
+    layers = model.cfg.num_hidden_layers
+    for r, (tokens, reason, _, error) in zip(reqs, results):
+        if error is not None or len(tokens) != r['max_new_tokens'] \
+                or reason != 'length':
+            raise AssertionError(f'{label} {r["request_id"]}: {len(tokens)} '
+                                 f'tokens ({reason}, {error})')
+    stats = engine.stats
+    prefills = stats['prefills'] + (prefill_engine.stats['prefills']
+                                    if prefill_engine else 0)
+    if launches['paged_attention'] != stats['decode_steps'] * layers:
+        raise AssertionError(f'{label}: K1 launches {launches} != decode '
+                             f'steps {stats["decode_steps"]} x {layers}')
+    if launches['paged_prefill_attention'] != prefills * layers:
+        raise AssertionError(f'{label}: K2 launches {launches} != prefills '
+                             f'{prefills} x {layers}')
+    generated = sum(len(results[i][0]) for i in later)
+    steps_ms = sorted(1e3 * s for s in stats['step_seconds'])
+    ttft, _ = ttft_line(results, later)
+    log(f'{label} [{card}]: the {len(later)} after the first in '
+        f'{len(waves) - 1} wave(s) {generated} tokens in {wall:.3f} s = '
+        f'{generated / wall:.1f} tokens/s; {ttft}; {stats["decode_steps"]}'
+        f' decode steps ({stats["spec_rounds"]} verify rounds), p50 '
+        f'{statistics.median(steps_ms):.3f} ms; prefills: decode engine '
+        f'{stats["prefills"]}, prefill engine '
+        f'{prefill_engine.stats["prefills"] if prefill_engine else 0}; '
+        f'K1 {launches["paged_attention"]} = {stats["decode_steps"]} x '
+        f'{layers}, K2 {launches["paged_prefill_attention"]} = {prefills} x '
+        f'{layers}')
+    if pc is not None:
+        s = pc.stats
+        log(f'{label}: prefix cache hits {s["prefix_cache_hits"]}, misses '
+            f'{s["prefix_cache_misses"]}, tokens saved '
+            f'{s["prefix_cache_tokens_saved"]}, inserted blocks '
+            f'{s["prefix_cache_inserted_blocks"]}, evictions '
+            f'{s["prefix_cache_evictions"]}, spills '
+            f'{s["kv_cache_spill_count"]} ({s["kv_cache_bytes_spilled"]} '
+            f'bytes), reinjects {s["kv_cache_reinject_count"]} blocks in '
+            f'{len(s["kv_cache_reinject_seconds"])} events, '
+            f'{1e3 * sum(s["kv_cache_reinject_seconds"]):.3f} ms; resident '
+            f'{pc.resident_blocks}, host {pc.spilled_blocks} blocks')
+    if worker is not None:
+        s = worker.stats
+        secs = sorted(1e3 * x for x in s['disagg_handoff_seconds'])
+        log(f'{label}: handoffs {s["disagg_handoffs"]} '
+            f'({s["disagg_handoff_failures"]} failed), '
+            f'{s["disagg_kv_bytes"]} bytes, submit to payload p50 '
+            f'{np.percentile(secs, 50):.3f} p90 {np.percentile(secs, 90):.3f}'
+            f' ms')
+        if s['disagg_handoff_failures']:
+            raise AssertionError(f'{label}: a handoff failed')
+    return results, launches, engine, prefill_engine
+
+
+def check_handoff_blocks(engine, prefill_engine, prompt, label):
+    """The prefill engine's payload of ``prompt`` against the decode
+    engine's own (colocated) prefill of it: every block bit for bit."""
+    import torch
+    from paddle_tpu_torch.serving.tier.disagg import PrefillReplica
+    payload = PrefillReplica(prefill_engine).prefill_to_payload(prompt)
+    table = engine.reserve_table(len(prompt), 1)
+    try:
+        first = engine.prefill(prompt, table)
+        nb = payload.num_blocks
+        for layer, (k, v) in enumerate(payload.layers):
+            ck, cv = engine.pool.read_blocks(layer, table.blocks[:nb])
+            if not (torch.equal(k, ck) and torch.equal(v, cv)):
+                raise AssertionError(f'{label}: layer {layer}\'s handed-over '
+                                     f'blocks differ from the colocated '
+                                     f'prefill\'s')
+    finally:
+        engine.release_table(table)
+    if first != payload.first_token:
+        raise AssertionError(f'{label}: first token {payload.first_token} '
+                             f'against the colocated {first}')
+    log(f'{label}: the handoff of a {len(prompt)}-token prompt, '
+        f'{payload.num_blocks} blocks x {len(payload.layers)} layers, '
+        f'{payload.nbytes} bytes, bit for bit the colocated prefill\'s')
+
+
+def spawn_replica(seed):
+    """A replica process (full width on the card, the prefix cache on)."""
+    import os
+    return subprocess.Popen(
+        [sys.executable, '-m', 'paddle_tpu_torch.serving.tier.replica',
+         '--port', '0', '--seed', str(seed), '--prefix-cache', '1',
+         *REPLICA_ARGS], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def ready_url(proc, timeout=300):
+    box = []
+    reader = threading.Thread(target=lambda: box.append(
+        proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout)
+    if not box or not box[0].strip():
+        raise AssertionError(f'a replica process did not start (rc '
+                             f'{proc.poll()})')
+    ready = json.loads(box[0])
+    if not (ready['ready'] and ready['prefix_cache']
+            and ready['device'].startswith(REPLICA_DEVICE)):
+        raise AssertionError(f'replica ready line {ready}')
+    return f'http://127.0.0.1:{ready["port"]}'
+
+
+def routed_kill_run(reqs, want, seed, card):
+    """Run (f): two replica processes (prefix cache on, the smoke's weights)
+    behind a Router. The first request goes to each replica (each fills its
+    own cache), then the other 15 at once through the router; the replica
+    whose stream shows a token first is killed with SIGKILL at once. The
+    streams that had tokens from it end with an error event (in flight,
+    lost); every other request completes with (b)'s tokens, rerouted
+    where it had been sent to the killed replica; the lost ones, sent again
+    through the router, complete with (b)'s tokens too."""
+    import os
+    import signal
+    from paddle_tpu_torch.serving import Router
+    procs = [spawn_replica(seed) for _ in range(2)]
+    t_start = time.perf_counter()
+    try:
+        urls = [ready_url(p) for p in procs]
+        log(f'(f) two replica processes ready in '
+            f'{time.perf_counter() - t_start:.1f} s: {urls}')
+        for url in urls:
+            tokens, _, _, error = post_stream(url, reqs[0])
+            if error is not None or tokens != want[0]:
+                raise AssertionError(f'(f) {url}: the first request '
+                                     f'{error} or other tokens than (b)')
+        with Router(urls, health_poll_s=0.5, request_timeout=600) as router:
+            first_token = threading.Event()
+            gens, results = [None] * len(reqs), [None] * len(reqs)
+            started = {}
+
+            def client(i):
+                gen = router.stream_generate(
+                    reqs[i]['prompt'], max_new_tokens=reqs[i][
+                        'max_new_tokens'])
+                gens[i] = gen
+                t0 = time.perf_counter()
+
+                def events():
+                    for event in gen.events():
+                        if 'token' in event and i not in started:
+                            started[i] = gen.replica
+                            first_token.set()
+                        yield event
+
+                results[i] = stream_events(events(), t0)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(1, len(reqs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            if not first_token.wait(300):
+                raise AssertionError('(f): no stream started')
+            victim_url = next(iter(started.values()))
+            victim = procs[urls.index(victim_url)]
+            os.kill(victim.pid, signal.SIGKILL)
+            for t in threads:
+                t.join(900)
+            # a token can come only from a live replica: every stream with a
+            # token from the killed one was in flight there
+            in_flight = {i for i, u in started.items() if u == victim_url}
+            wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads):
+                raise AssertionError('(f): a routed request did not finish')
+            lost = [i for i in range(1, len(reqs))
+                    if results[i][3] is not None]
+            if not lost or not set(lost) <= in_flight:
+                raise AssertionError(f'(f): lost {lost}, in flight on the '
+                                     f'killed replica {sorted(in_flight)}')
+            for i in range(1, len(reqs)):
+                if i not in lost and results[i][0] != want[i]:
+                    raise AssertionError(f'(f) {reqs[i]["request_id"]}: '
+                                         f'other tokens than (b)')
+            rerouted = sum(g.retries for g in gens[1:])
+            for i in lost:                # the clients send them again
+                fin = router.generate(reqs[i]['prompt'], max_new_tokens=reqs[
+                    i]['max_new_tokens'])
+                if fin['tokens'] != want[i]:
+                    raise AssertionError(f'(f) {reqs[i]["request_id"]}: the '
+                                         f'retry\'s tokens differ from (b)')
+            stats = dict(router.stats)
+        if victim.wait(timeout=60) != -signal.SIGKILL:
+            raise AssertionError('(f): the killed replica did not die of '
+                                 'SIGKILL')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    done = [r for i, r in enumerate(results[1:], 1) if i not in lost]
+    generated = sum(len(r[0]) for r in done)
+    ms = sorted(1e3 * r[2] for r in done)
+    log(f'(f) two replicas behind the Router, one killed [{card}]: '
+        f'{len(done)}/15 completed with (b)\'s tokens, {len(lost)} lost in '
+        f'flight on the killed replica (of {len(in_flight)} started there '
+        f'at the kill) and sent again with (b)\'s tokens, {rerouted} '
+        f'rerouted before their first event; {generated} tokens in '
+        f'{wall:.3f} s = {generated / wall:.1f} tokens/s; time to first '
+        f'token p50 {np.percentile(ms, 50):.3f} p90 '
+        f'{np.percentile(ms, 90):.3f} ms; router completed '
+        f'{stats["router_requests_completed"]}, rerouted '
+        f'{stats["router_requests_rerouted"]}, failed '
+        f'{stats["router_requests_failed"]}; '
+        f'{time.perf_counter() - t_start:.1f} s')
+    return {'lost': len(lost), 'rerouted': rerouted, 'stats': stats}
+
+
+def serve_shared_prefix(model, seed, card):
+    """Phase 17: runs (a)-(f) (see SHARED_SYSTEM). Returns each in-process
+    run's launch counts by 'off', 'cache', 'spec', 'disagg', 'spill'."""
+    reqs = shared_prefix_mix(seed, model.cfg.vocab_size)
+    t_start = time.perf_counter()
+    log(f'shared-prefix mix: {len(reqs)} greedy requests, a '
+        f'{SHARED_SYSTEM}-token system prompt, suffixes '
+        f'{min(len(r["prompt"]) for r in reqs) - SHARED_SYSTEM}-'
+        f'{max(len(r["prompt"]) for r in reqs) - SHARED_SYSTEM} tokens, '
+        f'budgets {min(r["max_new_tokens"] for r in reqs)}-'
+        f'{max(r["max_new_tokens"] for r in reqs)}')
+    by_run, out = {}, {}
+    from paddle_tpu_torch.serving.tier.knobs import (
+        ENV_PREFIX_CACHE, ENV_PREFIX_CACHE_HOST_MB,
+        ENV_PREFIX_CACHE_MAX_BLOCKS)
+    n = len(reqs)
+    alternating = reqs + second_system_requests(seed, model.cfg.vocab_size)
+    spill_env = {ENV_PREFIX_CACHE: '1',
+                 ENV_PREFIX_CACHE_MAX_BLOCKS: str(SHARED_CAP),
+                 ENV_PREFIX_CACHE_HOST_MB: str(SHARED_HOST_MB)}
+    runs = [('off', '(a) prefix cache off', reqs, {'prefix_cache': False}),
+            ('cache', '(b) prefix cache on', reqs, {'prefix_cache': True}),
+            ('spec', f'(c) prefix cache on, spec_decode k {SPEC_K} n-gram',
+             reqs, {'prefix_cache': True, 'spec_decode': True,
+                    'spec_k': SPEC_K, 'drafter': 'ngram'}),
+            ('disagg', '(d) disaggregated prefill, colocated on the card',
+             reqs, {'prefix_cache': False, 'disagg': True}),
+            ('spill', f'(e) prefix cache from its knobs, cap {SHARED_CAP} '
+             f'blocks, host tier {SHARED_HOST_MB} MB, two system prompts '
+             f'alternating', alternating,
+             {'env': spill_env, 'waves': [
+                 [0], [n], list(range(1, 8)), [n + 1],
+                 list(range(8, n))]})]
+    for key, label, run_reqs, kw in runs:
+        results, launches, engine, prefill_engine = tier_run(
+            model, run_reqs, label, card, **kw)
+        by_run[key] = launches
+        out[key] = [r[0] for r in results[:n]]
+        if key == 'disagg':
+            check_handoff_blocks(engine, prefill_engine, reqs[1]['prompt'],
+                                 label)
+        if key == 'spill':
+            # the cache's own policy: publications under the cap spill the
+            # other prompt's idle blocks, and the hits of (1-7) and B1
+            # reinject them
+            pc = engine.prefix_cache
+            s = pc.stats
+            if not (pc.max_blocks == SHARED_CAP
+                    and s['prefix_cache_evictions']['cap']
+                    and s['kv_cache_spill_count']
+                    and len(s['kv_cache_reinject_seconds']) >= 2
+                    and s['prefix_cache_hits'] == len(alternating) - 2
+                    and s['prefix_cache_misses'] == 2):
+                raise AssertionError(f'{label}: the cap did not spill and '
+                                     f'the hits did not reinject: {s}')
+        del engine, prefill_engine
+    from paddle_tpu_torch.serving.tier.replica import ENGINE_DEFAULTS
+    bs = ENGINE_DEFAULTS['block_size']
+    pad_len = -(-(ENGINE_DEFAULTS['max_prompt_len']
+                  + ENGINE_DEFAULTS['max_new_tokens_cap']) // bs) * bs
+    letter = {key: label[:3] for key, label, _, _ in runs}
+    for key in ('cache', 'spec'):
+        equal_or_near_tie(model, reqs, out[key], out['off'], pad_len,
+                          f'{letter[key]} against (a)')
+    for key, ref_key in (('disagg', 'off'), ('spill', 'cache')):
+        same = sum(g == w for g, w in zip(out[key], out[ref_key]))
+        log(f'{letter[key]} against {letter[ref_key]}: {same}/{len(reqs)} '
+            f'streams bit for bit')
+        if same != len(reqs):
+            raise AssertionError(f'{letter[key]}: streams differ from '
+                                 f'{letter[ref_key]}\'s')
+    routed_kill_run(reqs, out['cache'], seed, card)
+    log(f'phase 17 in {time.perf_counter() - t_start:.1f} s')
     return by_run
 
 
@@ -4642,7 +5132,6 @@ def main(argv=None):
     # just before its run and read just after
     torch.cuda.empty_cache()
     by_run = serve_variants(lm, lm_reqs, lm_results, args.seed, smi)
-    del lm
     for kern in variants:
         prefill = 'prefill' in kern['name']
         wrapper = 'paged_prefill_attention' if prefill else 'paged_attention'
@@ -4668,8 +5157,25 @@ def main(argv=None):
                                             + by_run['self'][wrapper])
     log(f'served variants kernel launches by run: {by_run}')
 
-    # 17. result lines
-    log(f'chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s '
+    # 17. the serving tier on a shared-system-prompt mix: the prefix cache,
+    # speculative suffix fill, disaggregated prefill, the host tier, and
+    # two replica processes behind the router; the launches of each
+    # in-process run are counted from 0 just before it and read just after
+    torch.cuda.empty_cache()
+    tier = serve_shared_prefix(lm, args.seed, smi)
+    del lm
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_shared_prefix'] = sum(run[wrapper]
+                                             for run in tier.values())
+    # the f32 verify read: run (c)'s K1 launches
+    variants[-1]['launches_shared_prefix'] = tier['spec']['paged_attention']
+    log(f'shared-prefix mix kernel launches by run: {tier}')
+
+    # 18. result lines
+    log(f'chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -4677,7 +5183,8 @@ def main(argv=None):
     log(json.dumps({'kernels': [
         {k: kern[k] for k in keys + tuple(
             x for x in ('launches_ptb', 'launches_s2s', 'launches_amp',
-                        'launches_fused', 'launches_served_variants', 'body',
+                        'launches_fused', 'launches_served_variants',
+                        'launches_shared_prefix', 'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

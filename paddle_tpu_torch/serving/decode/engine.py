@@ -15,10 +15,14 @@
 Each decode step copies the (S, V) logits rows to the host, where the
 scheduler picks tokens (greedy argmax or the request's sampler).
 
+With a prefix cache (serving/tier/prefix_cache.py), ``reserve_table(...,
+prompt=)`` starts a table with shared cached blocks and
+:meth:`DecodeEngine.publish_prefix` publishes a filled prompt; under
+disaggregated prefill (serving/tier/disagg.py) :meth:`DecodeEngine.
+inject_prefill` writes a prefill engine's blocks into this pool.
+
 The engine is single-threaded by design (one scheduler worker owns it); it
-holds no queueing or lifecycle logic, that is scheduler.py. The prefix cache
-and disaggregated prefill come with ROADMAP A.7 and raise
-``NotImplementedError`` here.
+holds no queueing or lifecycle logic, that is scheduler.py.
 """
 from __future__ import annotations
 
@@ -31,9 +35,9 @@ import torch
 
 from ..engine import bucket_ladder
 from ..errors import InvalidRequest
-from ..tier.knobs import (ENV_DECODE_HBM_MB, ENV_KV_DTYPE, ENV_SPEC_DECODE,
-                          ENV_SPEC_K, KV_DTYPE_CHOICES, parse_choice_env,
-                          parse_flag_env, parse_int_env)
+from ..tier.knobs import (ENV_DECODE_HBM_MB, ENV_KV_DTYPE, ENV_PREFIX_CACHE,
+                          ENV_SPEC_DECODE, ENV_SPEC_K, KV_DTYPE_CHOICES,
+                          parse_choice_env, parse_flag_env, parse_int_env)
 from .kv_cache import (CacheContext, KVCachePool, DEFAULT_BLOCK_SIZE,
                        DEFAULT_MAX_BLOCKS, DEFAULT_SLOTS)
 
@@ -60,6 +64,15 @@ class DecodeEngine:
       operator's escape hatch).
     - ``kv_dtype``: the pool's storage, 'f32', 'bf16' or 'int8'; the
       argument, else ``PADDLE_TPU_KV_DTYPE``, else f32.
+    - ``prefix_cache``: True (a :class:`PrefixCache` over this pool, its
+      cap and host tier from their knobs), False, a ``PrefixCache``, or
+      None for ``PADDLE_TPU_PREFIX_CACHE`` (default off).
+
+    The reference serializes the forwards of a decode and a prefill engine
+    under one model lock because its dygraph no-grad flag is process-wide.
+    The port takes no lock: torch's grad mode is per thread and the
+    model's forward mutates nothing, so two engines on one model run their
+    forwards from two threads as they are.
 
     Counters (``stats``, cleared by :meth:`reset_stats`): ``prefills``,
     ``decode_steps`` (lockstep steps and verify rounds), ``step_seconds``
@@ -73,12 +86,8 @@ class DecodeEngine:
 
     def __init__(self, model, slots=None, block_size=None, max_blocks=None,
                  max_prompt_len=64, max_new_tokens_cap=64, eos_id=None,
-                 prefix_cache=None, spec_decode=None, spec_k=None,
-                 kv_dtype=None):
-        if prefix_cache:
-            raise NotImplementedError(
-                'the prefix cache comes with the prefix-cache/disagg slice '
-                '(ROADMAP A.7)')
+                 prefix_cache=None, spec_decode=None,
+                 spec_k=None, kv_dtype=None):
         self.model = model
         model.eval()               # generation is inference: no dropout
         self.device = next(model.parameters()).device
@@ -122,6 +131,12 @@ class DecodeEngine:
                           else parse_int_env(ENV_SPEC_K, 4, minimum=2))
         if self.spec_k < 2:
             raise ValueError(f'spec_k must be >= 2, got {self.spec_k}')
+        if prefix_cache is None:
+            prefix_cache = parse_flag_env(ENV_PREFIX_CACHE, False)
+        if prefix_cache is True:
+            from ..tier.prefix_cache import PrefixCache
+            prefix_cache = PrefixCache(self.pool)
+        self.prefix_cache = prefix_cache or None
         self._prefilled_buckets = set()
         self._stepped = False
         self._spec_stepped = False
@@ -192,10 +207,23 @@ class DecodeEngine:
                 f'{self.max_new_tokens_cap}')
         return prompt, max_new
 
-    def reserve_table(self, prompt_len, max_new_tokens):
+    def reserve_table(self, prompt_len, max_new_tokens, prompt=None):
         """Block reservation for prompt + budget (raises OutOfBlocks, which
-        the scheduler treats as 'wait for a finishing slot')."""
-        return self.pool.new_table(int(prompt_len) + int(max_new_tokens))
+        the scheduler treats as 'wait for a finishing slot'). With the
+        prefix cache on and ``prompt`` given, the table's front blocks are
+        shared cached-prefix blocks (``table.cached_len`` > 0) and only the
+        rest is allocated."""
+        total = int(prompt_len) + int(max_new_tokens)
+        if self.prefix_cache is not None:
+            return self.prefix_cache.acquire_table(prompt or [], total)
+        return self.pool.new_table(total)
+
+    def publish_prefix(self, prompt, table):
+        """Publish ``table``'s whole prompt blocks into the prefix cache (a
+        no-op without one), once the whole prompt's K/V is cached: after a
+        cold prefill, a suffix fill or an injected handoff."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(prompt, table)
 
     def release_table(self, table):
         self.pool.free_table(table)
@@ -320,6 +348,37 @@ class DecodeEngine:
         self.stats['spec_rounds'] += 1
         self.stats['step_seconds'].append(dt)
         return rows
+
+    def inject_prefill(self, table, payload):
+        """Receive a disaggregated prefill (serving/tier/disagg.py): write
+        the payload's whole K/V blocks into ``table``'s first blocks of this
+        pool, one scatter a layer, and mark the prompt cached. Blocks below
+        ``table.cached_len`` (shared prefix-cache blocks) are filled
+        already and skipped. Returns the payload's first greedy token."""
+        bs = self.pool.block_size
+        if payload.block_size != bs:
+            raise InvalidRequest(
+                f'handoff block_size {payload.block_size} != engine '
+                f'block_size {bs}')
+        skip = table.cached_len // bs
+        nb = payload.num_blocks
+        if nb > len(table.blocks):
+            raise InvalidRequest(
+                f'handoff carries {nb} blocks but the table reserves only '
+                f'{len(table.blocks)}')
+        for layer, (k, v) in enumerate(payload.layers):
+            ks = vs = None
+            if payload.scales is not None:
+                ks, vs = payload.scales[layer]
+            if skip:
+                k, v = k[:, skip:], v[:, skip:]
+                if ks is not None:
+                    ks, vs = ks[:, skip:], vs[:, skip:]
+            if k.shape[1]:
+                self.pool.write_whole_blocks(layer, table.blocks[skip:nb],
+                                             k, v, k_scale=ks, v_scale=vs)
+        table.context_len = payload.context_len
+        return int(payload.first_token)
 
     # -- warmup ------------------------------------------------------------
     @property

@@ -23,8 +23,14 @@ per (head, position) row, parallel/quant_collectives.py's
 block scatter, decode and verify token scatter) and dequantized where the
 attention ops read them, inside the kernels, so the resident pool never
 exists at f32. Scales start at 0, so unwritten rows and the scratch block
-dequantize to exact zeros. The disaggregation and prefix-cache transfers
-(``read_blocks`` / ``write_whole_blocks``) come with ROADMAP A.7.
+dequantize to exact zeros.
+
+Whole-block transfer (the disaggregated handoff and the prefix cache's
+host tier): ``read_blocks`` / ``read_block_scales`` copy blocks to host
+tensors (the copy waits for the writes before it), ``write_whole_blocks``
+scatters them into other block ids with one ``index_put_`` a layer; a
+payload at the pool's own storage (int8 with its scales) lands byte for
+byte.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from ...ops import nn_ops
-from ...parallel.quant_collectives import rowwise_quantize
+from ...parallel.quant_collectives import rowwise_dequantize, rowwise_quantize
 from ..errors import InvalidRequest, OutOfBlocks
 
 __all__ = ['BlockAllocator', 'BlockTable', 'KVCachePool', 'CacheContext',
@@ -74,10 +80,16 @@ def kv_row_bytes(head_dim, kv_dtype):
 
 
 class BlockAllocator:
-    """Free-list block allocator. Block 0 (scratch) is never handed out.
-    Every block has one owner in this slice (no prefix sharing), so a
-    refcount is not needed: ``free`` returns blocks to the list and raises
-    on a double free."""
+    """Refcounted free-list block allocator. Block 0 (scratch) is never
+    handed out.
+
+    Refcounts make prefix sharing (serving/tier/prefix_cache.py) safe: a
+    block holding a shared prompt's K/V carries the cache's own reference
+    plus one per live request reading it, and returns to the free list
+    when the last reference is released. ``allocate`` hands blocks out at
+    refcount 1; ``free`` and ``release`` are the same operation (drop one
+    reference, recycle at zero), and releasing a block that is not live
+    raises (a double free)."""
 
     def __init__(self, num_blocks):
         if num_blocks < 2:
@@ -85,7 +97,7 @@ class BlockAllocator:
                              f'{num_blocks}')
         self.num_blocks = int(num_blocks)
         self._free = list(range(self.num_blocks - 1, 0, -1))  # pop() -> 1..
-        self._live = set()
+        self._refs = {}               # live block id -> refcount >= 1
         self._lock = threading.Lock()
 
     @property
@@ -101,41 +113,65 @@ class BlockAllocator:
     def used(self):
         return self.capacity - self.available
 
+    def refcount(self, block_id):
+        """Live references on ``block_id`` (0: on the free list)."""
+        with self._lock:
+            return self._refs.get(int(block_id), 0)
+
     def allocate(self, n):
-        """n block ids, or raise :class:`OutOfBlocks` (nothing
-        allocated)."""
+        """n block ids at refcount 1, or raise :class:`OutOfBlocks`
+        (nothing allocated)."""
         n = int(n)
         with self._lock:
             if n > len(self._free):
                 raise OutOfBlocks(n, len(self._free))
             ids = [self._free.pop() for _ in range(n)]
-            self._live.update(ids)
+            for b in ids:
+                self._refs[b] = 1
             return ids
 
-    def free(self, block_ids):
-        """Return blocks to the free list. Freeing the scratch block or a
-        block that is not live raises."""
+    def retain(self, block_ids):
+        """Add one reference per block (sharing a live block)."""
+        with self._lock:
+            for b in block_ids:
+                b = int(b)
+                if b not in self._refs:
+                    raise ValueError(f'retain of non-live block {b}')
+                self._refs[b] += 1
+
+    def release(self, block_ids):
+        """Drop one reference per block; a block reaching zero returns to
+        the free list. Releasing the scratch block or a block that is not
+        live raises."""
         with self._lock:
             for b in block_ids:
                 b = int(b)
                 if b == SCRATCH_BLOCK:
                     raise ValueError('freeing the scratch block')
-                if b not in self._live:
+                if b not in self._refs:
                     raise ValueError(f'double free of block {b}')
-                self._live.remove(b)
-                self._free.append(b)
+                self._refs[b] -= 1
+                if self._refs[b] == 0:
+                    del self._refs[b]
+                    self._free.append(b)
+
+    free = release
 
 
 class BlockTable:
     """One request's cache blocks, in sequence order. ``context_len`` is the
     number of cached tokens (prompt + generated so far)."""
 
-    __slots__ = ('blocks', 'block_size', 'context_len')
+    __slots__ = ('blocks', 'block_size', 'context_len', 'cached_len')
 
-    def __init__(self, blocks, block_size):
+    def __init__(self, blocks, block_size, cached_len=0):
         self.blocks = list(blocks)
         self.block_size = int(block_size)
         self.context_len = 0
+        # tokens at the front of the table held by shared prefix-cache
+        # blocks (a whole number of blocks): this request never writes a
+        # position below it, the other requests sharing them read them
+        self.cached_len = int(cached_len)
 
     @property
     def capacity_tokens(self):
@@ -293,6 +329,66 @@ class KVCachePool:
             scales = self._scales[layer]
             scales[0].index_put_(idx, ks)
             scales[1].index_put_(idx, vs)
+
+    # -- whole-block transfer (tier/disagg.py, tier/prefix_cache.py) --------
+    def _block_index(self, h, block_ids):
+        ids = torch.as_tensor([int(b) for b in block_ids], dtype=torch.long,
+                              device=self.device)
+        return torch.arange(h, device=self.device)[:, None], ids[None, :]
+
+    def read_blocks(self, layer, block_ids):
+        """Whole blocks as host tensors: ``(k, v)``, each (H, nb,
+        block_size, D) at the pool's storage type, the handoff payload's
+        layout."""
+        k_pages, v_pages = self._layers[layer]
+        idx = self._block_index(k_pages.shape[0], block_ids)
+        return k_pages[idx].cpu(), v_pages[idx].cpu()
+
+    def read_block_scales(self, layer, block_ids):
+        """int8 pools: the blocks' row scales as host tensors ``(k_scales,
+        v_scales)``, each (H, nb, block_size) f32, shipped beside
+        :meth:`read_blocks`; None for f32 and bf16 pools."""
+        if layer not in self._scales:
+            return None
+        ks, vs = self._scales[layer]
+        idx = self._block_index(ks.shape[0], block_ids)
+        return ks[idx].cpu(), vs[idx].cpu()
+
+    def write_whole_blocks(self, layer, block_ids, k, v, k_scale=None,
+                           v_scale=None):
+        """Scatter whole blocks (the :meth:`read_blocks` shapes, torch
+        tensors or numpy arrays) into this pool at ``block_ids``: the
+        receiving half of a handoff or a host-tier reinjection.
+
+        A payload at this pool's storage type (int8 with its scales)
+        lands byte for byte; any other is decoded to f32 (with
+        ``k_scale``/``v_scale`` when the sender was int8) and encoded at
+        this pool's type, as the reference does."""
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        h, _, bs, d = k.shape
+        if bs != self.block_size:
+            raise InvalidRequest(
+                f'handoff block_size {bs} != pool block_size '
+                f'{self.block_size}')
+        pages = self.ensure_layer(layer, h, d)
+        idx = self._block_index(h, block_ids)
+        k, v = k.to(self.device), v.to(self.device)
+        if k_scale is not None:
+            k_scale = torch.as_tensor(k_scale).to(self.device)
+            v_scale = torch.as_tensor(v_scale).to(self.device)
+        if not (k.dtype == self.dtype
+                and (self.kv_dtype != 'int8' or k_scale is not None)):
+            if k_scale is not None:          # an int8 sender: decode first
+                k = rowwise_dequantize(k, k_scale)
+                v = rowwise_dequantize(v, v_scale)
+            k, k_scale = self._encode_rows(k.float())
+            v, v_scale = self._encode_rows(v.float())
+        pages[0].index_put_(idx, k)
+        pages[1].index_put_(idx, v)
+        if self.kv_dtype == 'int8':
+            scales = self._scales[layer]
+            scales[0].index_put_(idx, k_scale)
+            scales[1].index_put_(idx, v_scale)
 
 
 class CacheContext:

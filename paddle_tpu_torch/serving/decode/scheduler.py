@@ -1,7 +1,6 @@
 """Slot-based continuous-batching scheduler + per-request token streams
-(counterpart of paddle_tpu/serving/decode/scheduler.py, without its
-disaggregation, prefix-cache and tracing branches, which come with ROADMAP
-A.7 and A.11).
+(counterpart of paddle_tpu/serving/decode/scheduler.py, without its tracing
+branches, which come with ROADMAP A.11).
 
 The scheduling model is S fixed decode slots stepped in lockstep:
 
@@ -30,6 +29,15 @@ completion.
 With speculative decoding on (``engine.spec_enabled``) step 3 is one (S, k)
 verify round: each greedy slot feeds its pending token and up to k - 1
 drafter guesses, and emits the longest prefix the model agrees with.
+
+With the engine's prefix cache, a hit's admission takes the shared blocks
+and its uncached suffix is fed through step 3 (one prompt token a
+lockstep step, up to k a verify round) before its first token; the filled
+prompt is published. With ``disagg=`` (a ``LocalPrefillWorker``) a greedy
+miss is handed to the prefill engine instead of prefilled inline: its slot
+waits, inactive, while the step goes on, and the returned blocks are
+injected between steps. Sampled requests prefill inline, as in the
+reference (the handoff carries a greedy first token, not logits).
 """
 from __future__ import annotations
 
@@ -143,7 +151,8 @@ class GenerationStream:
 class _Request:
     __slots__ = ('prompt', 'max_new_tokens', 'eos_id', 'stream', 'deadline',
                  'enqueued_at', 'table', 'next_token', 'generated',
-                 'sampling', 'sampler', 'history')
+                 'sampling', 'sampler', 'history', 'pending_prompt',
+                 'prefilling', 'handoff_pending')
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline,
                  replica_id=None, sampling=None, request_id=None):
@@ -166,6 +175,14 @@ class _Request:
         # prompt + emitted tokens: what the drafter continues (its last
         # element is the pending, uncached token)
         self.history = list(prompt)
+        # a prefix-cache hit's suffix fill: the prompt tokens still to feed
+        # through the step; while prefilling, the step's rows are not
+        # emitted (the next fed token is the prompt's)
+        self.pending_prompt = None
+        self.prefilling = False
+        # disaggregated: admitted, blocks reserved, waiting for the prefill
+        # engine's payload; an inactive lane of the step until then
+        self.handoff_pending = False
 
     def expired(self, now):
         return self.deadline is not None and now > self.deadline
@@ -180,14 +197,14 @@ class DecodeScheduler:
       'draft_model', 'off'), an object with ``propose(history, n)``, or
       None for the ``PADDLE_TPU_SPEC_DRAFTER`` knob (default 'ngram');
       unused otherwise.
+    - ``disagg``: a handoff transport (``submit`` / ``drain_completed``,
+      tier/disagg.py's ``LocalPrefillWorker``) that prefills greedy cache
+      misses on another engine, or None to prefill inline.
     """
 
     def __init__(self, engine, queue_depth=DEFAULT_QUEUE_DEPTH, start=True,
                  replica_id=None, disagg=None, drafter=None):
-        if disagg is not None:
-            raise NotImplementedError(
-                'disaggregated prefill comes with the prefix-cache/disagg '
-                'slice (ROADMAP A.7)')
+        self.disagg = disagg
         self.drafter = None
         if engine.spec_enabled:
             if drafter is None:
@@ -294,8 +311,8 @@ class DecodeScheduler:
                 continue
             req = self._waiting[0]
             try:
-                req.table = self.engine.reserve_table(len(req.prompt),
-                                                      req.max_new_tokens)
+                req.table = self.engine.reserve_table(
+                    len(req.prompt), req.max_new_tokens, prompt=req.prompt)
             except OutOfBlocks:
                 break                 # FIFO: wait for blocks, don't skip
             self._waiting.popleft()
@@ -303,7 +320,27 @@ class DecodeScheduler:
             admitted.append(req)
         return admitted
 
+    def _publish(self, req):
+        """Publish the request's fully cached prompt into the engine's
+        prefix cache (a no-op without one)."""
+        self.engine.publish_prefix(req.prompt, req.table)
+
     def _prefill(self, req):
+        cached = req.table.cached_len
+        if cached:
+            # a prefix-cache hit: the table's front is shared filled blocks;
+            # the suffix rides the step like every slot's generation
+            req.table.context_len = cached
+            req.next_token = req.prompt[cached]
+            req.pending_prompt = collections.deque(req.prompt[cached + 1:])
+            req.prefilling = True
+            return
+        if self.disagg is not None and req.sampler is None:
+            # a miss under disaggregation: the prefill engine runs it; the
+            # slot waits, inactive, while the step goes on
+            req.handoff_pending = True
+            self.disagg.submit(req, req.prompt, req.max_new_tokens)
+            return
         try:
             if req.sampler is None:
                 first = self.engine.prefill(req.prompt, req.table)
@@ -317,7 +354,34 @@ class DecodeScheduler:
             self._record_engine_failure()
             return
         self.breaker.record_success()
+        self._publish(req)
         self._emit_token(req, first)
+
+    def _drain_handoffs(self, timeout=0.0):
+        """Apply finished handoffs: inject the payload into the decode pool
+        (on this worker thread, the engine's one owner), publish the prompt
+        and emit the first token. A failed handoff fails its request only;
+        payloads of requests failed or closed meanwhile are dropped."""
+        if self.disagg is None:
+            return
+        for req, payload, exc in self.disagg.drain_completed(timeout):
+            if req not in self._slots or req.table is None:
+                continue              # failed or closed while in flight
+            req.handoff_pending = False
+            if exc is not None:
+                self._fail_request(req, exc)
+                self._record_engine_failure()
+                continue
+            try:
+                first = self.engine.inject_prefill(req.table, payload)
+            except Exception as e:
+                _logger.exception('handoff injection failed')
+                self._fail_request(req, e)
+                self._record_engine_failure()
+                continue
+            self.breaker.record_success()
+            self._publish(req)
+            self._emit_token(req, first)
 
     def _record_engine_failure(self):
         """Book one engine-failure batch with the breaker; on a trip, fail
@@ -368,16 +432,27 @@ class DecodeScheduler:
                              f'generation failed: '
                              f'{type(exc).__name__}: {exc}'))
 
+    def _lanes(self):
+        """(live requests, the requests the step feeds): a handoff-pending
+        slot is live but an inactive lane."""
+        live = [r for r in self._slots if r is not None]
+        return live, [r for r in live if not r.handoff_pending]
+
     def _step(self):
         """One lockstep decode step over the current slots; returns whether
-        any slot was live."""
-        active = [r for r in self._slots if r is not None]
+        any slot was live. A suffix-filling slot feeds its next prompt
+        token and emits nothing until the prompt is exhausted: the step
+        after its last prompt token gives its first generated token."""
+        live, active = self._lanes()
         if not active:
-            return False
-        tokens = [r.next_token if r is not None else None
-                  for r in self._slots]
-        tables = [r.table if r is not None else None for r in self._slots]
-        need_rows = any(r.sampler is not None for r in active)
+            return bool(live)         # only pending handoffs: work remains
+        tokens = [r.next_token if r in active else None for r in self._slots]
+        tables = [r.table if r in active else None for r in self._slots]
+        # rows for every sampled slot that emits this step (a suffix fill
+        # emits once its prompt is out)
+        need_rows = any(r.sampler is not None
+                        and not (r.prefilling and r.pending_prompt)
+                        for r in active)
         try:
             if need_rows:
                 out, rows = self.engine.decode_step(tokens, tables,
@@ -392,8 +467,16 @@ class DecodeScheduler:
             return True
         self.breaker.record_success()
         for i, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.handoff_pending:
                 continue
+            if req.prefilling:
+                if req.pending_prompt:
+                    req.next_token = req.pending_prompt.popleft()
+                    continue          # still feeding the prompt's suffix
+                # the step consumed the last prompt token: the whole
+                # prompt is cached, publish it and emit the first token
+                req.prefilling = False
+                self._publish(req)
             if req.sampler is not None:
                 self._emit_token(req, self._pick_token(req, rows[i]))
             else:
@@ -410,17 +493,23 @@ class DecodeScheduler:
         at the first miss. The rejected tail rolls back with one store,
         ``table.context_len = base + emitted`` (its K/V positions stay,
         masked until rewritten). A sampled slot feeds one token, so its
-        draws are the lockstep stream's."""
-        active = [r for r in self._slots if r is not None]
+        draws are the lockstep stream's. A suffix-filling slot feeds up to
+        k prompt tokens a round, all of which stay cached."""
+        live, active = self._lanes()
         if not active:
-            return False
+            return bool(live)
         kw = self.engine.spec_k
         fed = [None] * len(self._slots)
         tables = [None] * len(self._slots)
         for i, req in enumerate(self._slots):
-            if req is None:
+            if req not in active:
                 continue
             tables[i] = req.table
+            if req.prefilling:
+                fed[i] = [req.next_token]
+                while len(fed[i]) < kw and req.pending_prompt:
+                    fed[i].append(req.pending_prompt.popleft())
+                continue
             drafts = []
             if req.sampler is None and self.drafter is not None:
                 n = min(kw, req.max_new_tokens - req.generated) - 1
@@ -440,9 +529,18 @@ class DecodeScheduler:
         self.breaker.record_success()
         stats = self.engine.stats
         for i, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.handoff_pending:
                 continue
             toks = fed[i]
+            if req.prefilling:
+                if req.pending_prompt:
+                    req.next_token = req.pending_prompt.popleft()
+                    continue          # every fed prompt token stays cached
+                req.prefilling = False
+                self._publish(req)
+                self._emit_token(req, self._pick_token(req,
+                                                       rows[i, len(toks) - 1]))
+                continue
             emitted = 0
             for j in range(len(toks)):
                 tok = self._pick_token(req, rows[i, j])
@@ -482,6 +580,10 @@ class DecodeScheduler:
                 admitted = self._admit_locked()
             for req in admitted:
                 self._prefill(req)
+            # finished handoffs join before the step; when only handoffs
+            # are in flight, wait briefly on their queue instead of spinning
+            live, active = self._lanes()
+            self._drain_handoffs(0.01 if live and not active else 0.0)
             stepped = (self._spec_step() if self.engine.spec_enabled
                        else self._step())
             if not stepped and not admitted:

@@ -14,8 +14,9 @@ scheduler's single worker) exposing:
   ``draining`` once shutdown begins, 503 ``degraded`` while the circuit
   breaker is not closed.
 
-``POST /predict`` (the micro-batched stateless path) and ``GET /metrics``
-come with later slices; they answer 404 naming that.
+``POST /predict`` (the micro-batched stateless path, ROADMAP A.7b) and
+``GET /metrics`` (A.11) come with later slices; they answer 404 naming
+their item.
 
 Shutdown (SIGTERM / SIGINT / :meth:`ServingServer.shutdown`) is graceful:
 healthz flips to draining, the scheduler drains every admitted request,
@@ -53,9 +54,10 @@ _GENERATE_KEYS = frozenset(('prompt', 'max_new_tokens', 'eos_id', 'stream',
                             'timeout_ms', 'request_id')) | _SAMPLING_KEYS
 
 _LATER_SLICE = {'/predict': 'POST /predict comes with a later slice of the '
-                            'port (this server decodes: use POST /generate)',
+                            'port, ROADMAP A.7b (this server decodes: use '
+                            'POST /generate)',
                 '/metrics': 'GET /metrics comes with the observability '
-                            'slice of the port'}
+                            'slice of the port, ROADMAP A.11'}
 
 
 def _status_for(exc):

@@ -12,7 +12,10 @@ serves the same parameters.
 
 ``--spec-decode 1`` (with ``--spec-k`` and ``--drafter``) turns on
 speculative decoding; ``PADDLE_TPU_KV_DTYPE=bf16|int8`` stores the KV pool
-quantized.
+quantized; ``--prefix-cache 1`` (or ``PADDLE_TPU_PREFIX_CACHE=1``) serves
+shared prompt prefixes from the pool; ``--disagg 1`` (or
+``PADDLE_TPU_DISAGG=1``) prefills on a second engine beside the decode
+engine and hands the blocks over.
 
 On start the replica warms the engine (every prefill rung, one decode step
 and, with speculative decoding, one verify step, which also builds the CUDA
@@ -55,16 +58,38 @@ def build_lm(config='default', seed=DEFAULT_SEED, device=None):
 
 
 def build_replica_stack(model, queue_depth=128, replica_id=None,
-                        drafter=None, **engine_kw):
-    """(engine, scheduler): the replica's serving stack minus the HTTP
-    listener. ``engine_kw`` overrides :data:`ENGINE_DEFAULTS` (and takes
-    ``spec_decode``, ``spec_k`` and ``kv_dtype``); ``drafter`` goes to the
-    scheduler."""
+                        drafter=None, prefix_cache=None, disagg=None,
+                        **engine_kw):
+    """(engine, scheduler, prefill worker or None): the replica's serving
+    stack minus the HTTP listener, as the reference's. ``engine_kw``
+    overrides :data:`ENGINE_DEFAULTS` (and takes ``spec_decode``,
+    ``spec_k`` and ``kv_dtype``); ``drafter`` goes to the scheduler.
+    ``prefix_cache`` (default ``PADDLE_TPU_PREFIX_CACHE``) goes to the
+    decode engine. ``disagg`` (default ``PADDLE_TPU_DISAGG``) builds a
+    prefill-role engine on the same model (its own pool, no prefix cache,
+    the decode engine's geometry and storage) and a
+    :class:`~.disagg.LocalPrefillWorker` over it, which the caller closes
+    after the scheduler. The two engines share no model lock (the port
+    needs none, see ``DecodeEngine``)."""
     from ..decode import DecodeEngine, DecodeScheduler
-    engine = DecodeEngine(model, **{**ENGINE_DEFAULTS, **engine_kw})
+    from .knobs import ENV_DISAGG, parse_flag_env
+    if disagg is None:
+        disagg = parse_flag_env(ENV_DISAGG, False)
+    kw = {**ENGINE_DEFAULTS, **engine_kw}
+    engine = DecodeEngine(model, prefix_cache=prefix_cache, **kw)
+    worker = None
+    if disagg:
+        from .disagg import LocalPrefillWorker, PrefillReplica
+        geometry = {k: v for k, v in kw.items()
+                    if k not in ('slots', 'spec_decode', 'spec_k')}
+        geometry['kv_dtype'] = engine.pool.kv_dtype
+        prefill_engine = DecodeEngine(model, slots=1, prefix_cache=False,
+                                      **geometry)
+        worker = LocalPrefillWorker(PrefillReplica(prefill_engine))
     scheduler = DecodeScheduler(engine, queue_depth=queue_depth,
-                                replica_id=replica_id, drafter=drafter)
-    return engine, scheduler
+                                replica_id=replica_id, drafter=drafter,
+                                disagg=worker)
+    return engine, scheduler, worker
 
 
 def main(argv=None):
@@ -100,18 +125,27 @@ def main(argv=None):
                     choices=('ngram', 'draft_model', 'off'),
                     help='draft proposer (default: PADDLE_TPU_SPEC_DRAFTER, '
                          'ngram)')
+    ap.add_argument('--prefix-cache', type=int, choices=(0, 1), default=None,
+                    help='the radix prefix cache on/off (default: '
+                         'PADDLE_TPU_PREFIX_CACHE, off)')
+    ap.add_argument('--disagg', type=int, choices=(0, 1), default=None,
+                    help='disaggregated prefill on/off (default: '
+                         'PADDLE_TPU_DISAGG, off)')
     args = ap.parse_args(argv)
 
     from ..server import ServingServer
     model = build_lm(args.config, args.seed, args.device)
-    engine, scheduler = build_replica_stack(
+    engine, scheduler, worker = build_replica_stack(
         model, replica_id=args.replica_id, slots=args.slots,
         block_size=args.block_size, max_blocks=args.max_blocks,
         max_prompt_len=args.max_prompt_len,
         max_new_tokens_cap=args.max_new_tokens_cap,
         spec_decode=(None if args.spec_decode is None
                      else bool(args.spec_decode)),
-        spec_k=args.spec_k, drafter=args.drafter)
+        spec_k=args.spec_k, drafter=args.drafter,
+        prefix_cache=(None if args.prefix_cache is None
+                      else bool(args.prefix_cache)),
+        disagg=None if args.disagg is None else bool(args.disagg))
     srv = ServingServer(None, host=args.host, port=args.port,
                         generator=scheduler, warmup=True)
     # the launcher parses this single stdout line for the port and pid
@@ -121,9 +155,16 @@ def main(argv=None):
                                  'device': str(engine.device),
                                  'spec_decode': engine.spec_enabled,
                                  'spec_k': engine.spec_k,
-                                 'kv_dtype': engine.pool.kv_dtype}) + '\n')
+                                 'kv_dtype': engine.pool.kv_dtype,
+                                 'prefix_cache':
+                                     engine.prefix_cache is not None,
+                                 'disagg': worker is not None}) + '\n')
     sys.stdout.flush()
-    srv.serve_forever()
+    try:
+        srv.serve_forever()
+    finally:
+        if worker is not None:
+            worker.close()
 
 
 if __name__ == '__main__':

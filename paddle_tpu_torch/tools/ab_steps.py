@@ -37,7 +37,7 @@ from paddle_tpu_torch.serving.tier.replica import build_lm, build_replica_stack
 _build.build()
 card = sys.argv[1]
 chip_smoke.train(0, resolve_device('cuda'), card)
-engine, _ = build_replica_stack(build_lm('default', 0, 'cuda'))
+engine = build_replica_stack(build_lm('default', 0, 'cuda'))[0]
 chip_smoke.profile_decode_steps(engine, np.random.RandomState(0), card)
 prompt = [int(t) for t in np.random.RandomState(1).randint(
     0, engine.model.cfg.vocab_size, 256)]

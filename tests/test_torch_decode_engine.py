@@ -148,10 +148,13 @@ def test_eos_and_sampled_replay(models):
 
 
 def test_validation_and_later_slices(models):
-    """Admission checks, and the pieces that are still ROADMAP A.7's: the
-    prefix cache, disaggregated prefill and ``/predict`` raise. (Speculative
-    decoding and the quantized pools run now: tests/test_torch_spec_decode.py
-    and tests/test_torch_kv_quant.py.)"""
+    """Admission checks, and the pieces that still wait for later slices:
+    the stateless ``/predict`` engine and ``/metrics`` name theirs, and the
+    router's fleet metrics name ROADMAP A.11. (The prefix cache and
+    disaggregated prefill run now: tests/test_torch_prefix_cache.py and
+    tests/test_torch_disagg.py.)"""
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.serving.server import _LATER_SLICE
     _, pm = models
     engine = DecodeEngine(pm, **ENGINE_KW)
     with pytest.raises(InvalidRequest):
@@ -162,12 +165,19 @@ def test_validation_and_later_slices(models):
         engine.validate([1, 128], 4)            # id outside the vocab
     with pytest.raises(InvalidRequest):
         engine.validate([1], 17)
-    with pytest.raises(NotImplementedError, match='prefix'):
-        DecodeEngine(pm, **ENGINE_KW, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match='disagg'):
-        DecodeScheduler(engine, disagg=object(), start=False)
+    assert DecodeEngine(pm, **ENGINE_KW,
+                        prefix_cache=True).prefix_cache is not None
+    sched = DecodeScheduler(engine, disagg=object(), start=False)
+    assert sched.disagg is not None
     with pytest.raises(NotImplementedError, match='predict'):
         ServingServer(engine=object(), generator=None)
+    assert 'A.7b' in _LATER_SLICE['/predict']
+    assert 'A.11' in _LATER_SLICE['/metrics']
+    router = Router(['http://127.0.0.1:9'], connect_timeout=0.5,
+                    start=False)
+    with pytest.raises(NotImplementedError, match='A.11'):
+        router.fleet_metrics_text()
+    router.close()
 
 
 def _post(port, path, body):

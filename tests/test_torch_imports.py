@@ -37,7 +37,7 @@ def test_import_leaves_no_jax_or_reference_module():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(' ', 1)
-    assert int(count) >= 69          # every module of the six slices
+    assert int(count) >= 98          # every module, the serving tier too
     assert bad.strip() == '[]'
 
 

@@ -20,9 +20,12 @@ took over in doing so behave as the reference's do (on the CPU).
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
   ``decorate``, the ERNIE model and ``finetune_optimizer``,
-  ``TrainStep``); the port may add a
-  keyword-only ``device``, and the Layer methods torch itself calls keep
-  torch's arguments through ``*torch_args`` / ``**torch_kwargs``.
+  ``TrainStep``), and so are the serving tier's (the prefix cache, the
+  handoff's payload and worker, the router, their knobs, the pool's
+  whole-block transfer and the engine's prefix and handoff methods); the
+  port may add a keyword-only ``device``, and the Layer methods torch
+  itself calls keep torch's arguments through ``*torch_args`` /
+  ``**torch_kwargs``.
 - ``softmax_with_cross_entropy`` with ``soft_label`` and on another
   ``axis``, against the JAX op: atol 1e-6 (one log-softmax in f32, the
   same formula).
@@ -309,6 +312,56 @@ def test_dygraph_function_takes_the_reference_parameters(module, name):
     port = importlib.import_module(f'paddle_tpu_torch.dygraph.{module}')
     ref = importlib.import_module(f'paddle_tpu.dygraph.{module}')
     assert _params(getattr(port, name)) == _params(getattr(ref, name))
+
+
+# (module of both packages, attribute path) of the serving tier's slice:
+# the prefix cache, the handoff, the router, their knobs and the pool's and
+# engine's new methods
+SERVING_TIER_NAMES = [
+    ('serving.tier.knobs', 'parse_float_env'),
+    ('serving.tier.knobs', 'parse_replicas_env'),
+    ('serving.tier.prefix_cache', 'PrefixCache'),
+    ('serving.tier.prefix_cache', 'PrefixCache.match'),
+    ('serving.tier.prefix_cache', 'PrefixCache.acquire_table'),
+    ('serving.tier.prefix_cache', 'PrefixCache.insert'),
+    ('serving.tier.prefix_cache', 'PrefixCache.evict_idle'),
+    ('serving.tier.disagg', 'KVPayload'),
+    ('serving.tier.disagg', 'KVPayload.from_bytes'),
+    ('serving.tier.disagg', 'PrefillReplica.prefill_to_payload'),
+    ('serving.tier.disagg', 'PrefillReplica'),
+    ('serving.tier.disagg', 'LocalPrefillWorker.submit'),
+    ('serving.tier.disagg', 'LocalPrefillWorker.drain_completed'),
+    ('serving.tier.router', 'Router'),
+    ('serving.tier.router', 'Router.stream_generate'),
+    ('serving.tier.router', 'Router.generate'),
+    ('serving.tier.router', 'Router.generate_nonstream'),
+    ('serving.tier.router', 'Router.rolling_restart'),
+    ('serving.tier.router', 'Router.add_replica'),
+    ('serving.tier.router', 'Router.remove_replica'),
+    ('serving.tier.router', 'Router.fleet_metrics_text'),
+    ('serving.tier.router', 'RouterServer'),
+    ('serving.tier.router', 'Replica'),
+    ('serving.decode.kv_cache', 'BlockTable'),
+    ('serving.decode.kv_cache', 'BlockAllocator.retain'),
+    ('serving.decode.kv_cache', 'BlockAllocator.release'),
+    ('serving.decode.kv_cache', 'KVCachePool.read_blocks'),
+    ('serving.decode.kv_cache', 'KVCachePool.read_block_scales'),
+    ('serving.decode.kv_cache', 'KVCachePool.write_whole_blocks'),
+    ('serving.decode.engine', 'DecodeEngine.reserve_table'),
+    ('serving.decode.engine', 'DecodeEngine.publish_prefix'),
+    ('serving.decode.engine', 'DecodeEngine.inject_prefill')]
+
+
+@pytest.mark.parametrize('module,path', SERVING_TIER_NAMES,
+                         ids=[f'{m}.{p}' for m, p in SERVING_TIER_NAMES])
+def test_serving_tier_name_takes_the_reference_parameters(module, path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return _params(obj)
+
+    assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
 
 
 # ------------------------------------------------ softmax_with_cross_entropy
