@@ -305,9 +305,30 @@ Phases:
    streams equal (b)'s bit for bit; in (f) only streams with a token from
    the killed replica fail, every other request completes with (b)'s
    tokens, and the lost ones, sent again, too;
-18. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+18. the Fluid script surface (ROADMAP A.13): PaddleBook's recognize_digits
+   (``tools/recognize_digits.py``: ``build_static_lenet``'s LeNet, batch
+   64, Adam 1e-3) through ``import paddle_tpu_torch.fluid as fluid``: (a)
+   ``fluid.install_check.run_check()`` on the card; (b)
+   ``contrib.Trainer(place=CUDAPlace(0))`` for 200 steps on seeded
+   synthetic digits in MNIST's row format, ``feed_order=['img',
+   'label']``, checkpoints every 50 steps keeping 2, an ``EndStepEvent``
+   handler accumulating ``fluid.metrics.Accuracy`` and
+   ``fluid.average.WeightedAverage`` (each equal to the mean of the
+   fetched values within 1e-12), ``test`` over 10 batches,
+   ``save_params``, ``save_inference_model`` (reloaded) and
+   ``contrib.Inferencer`` against the test program on the same batch
+   within 1e-6; (c) the same LeNet through a plain ``Executor.run`` loop
+   on a pre-stacked batch: both loops' step p50, busy and idle share, and
+   ``DataFeeder.feed``'s host time a batch; (d) ``FLAGS_check_nan_inf``:
+   step p50 with the fetch scan on and off, and a NaN pixel raising
+   ``FloatingPointError`` naming the loss; (e) ``contrib.summary``'s
+   parameter and FLOP totals, ``op_freq_statistic``'s top ops,
+   ``memory_usage(program, 64)``, and ``device_memory_stats()``'s peak
+   against ``torch.cuda.max_memory_allocated()``; no kernel of the port
+   launched;
+19. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-17) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-18) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4915,6 +4936,288 @@ def train_fused_inplace(seed, card):
     return nn_ops.launch_counts()
 
 
+# PaddleBook's recognize_digits through the Fluid script surface (ROADMAP
+# A.13, tools/recognize_digits.py): build_static_lenet's LeNet at its
+# published width, batches of 64, Adam(1e-3), 200 Trainer steps on seeded
+# synthetic digits of MNIST's row format (MNIST is not in the repository),
+# checkpoints every 50 steps keeping 2, 10 test batches; the Inferencer
+# against the test program on the same card within 1e-6 (the same program
+# and parameters on one card: equal up to the run-to-run spread, which
+# is none for these kernels); the metric's accumulated accuracy against
+# the mean of the fetched ones within 1e-12 (the same numbers summed in
+# another order, in float64), and WeightedAverage's loss within 200 f32
+# unit round-offs of it (it sums the f32 losses in f32, as the JAX
+# package's does)
+FLUID_STEPS, FLUID_TEST_BATCHES = 200, 10
+FLUID_CKPT_INTERVAL, FLUID_CKPT_KEEP = 50, 2
+FLUID_INFER_TOL, FLUID_METRIC_TOL = 1e-6, 1e-12
+FLUID_FEED_REPEATS = 50
+
+
+def fluid_steps(run, steps):
+    """p50 ms of ``steps`` calls of ``run`` (each synced), after
+    WARMUP_STEPS more."""
+    import torch
+    secs = []
+    for _ in range(WARMUP_STEPS + steps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs[WARMUP_STEPS:]) * 1e3
+
+
+def fluid_surface(seed, card):
+    """Phase 18: PaddleBook's recognize_digits through
+    ``fluid.install_check``, ``contrib.Trainer``, ``DataFeeder``,
+    ``fluid.metrics``, ``fluid.average`` and ``contrib.Inferencer``, then
+    the same LeNet through a plain ``Executor.run`` loop, the
+    ``FLAGS_check_nan_inf`` scan and the introspection tools. Returns the
+    kernels' launch counts over the phase (none of the port's kernels is
+    on this path)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.tools import recognize_digits as book
+    t_start = time.perf_counter()
+    nn_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the install check, on the card by default
+    t0 = time.perf_counter()
+    fluid.install_check.run_check()
+    log(f'(a) fluid.install_check.run_check() on the card in '
+        f'{time.perf_counter() - t0:.3f} s [{card}]: '
+        + fluid.debugging.device_report().replace('\n', '; '))
+
+    # (b) the Trainer, its metrics and checkpoints, test, save, Inferencer
+    fluid.seed(seed)
+    accuracy = fluid.metrics.Accuracy()
+    average = fluid.average.WeightedAverage()
+    losses, accs, ends = [], [], []
+
+    def handler(event):
+        if isinstance(event, fluid.contrib.EndStepEvent):
+            ends.append(time.perf_counter())
+            loss, acc = event.metrics
+            losses.append(float(loss))
+            accs.append(float(acc))
+            accuracy.update(acc, book.BATCH)
+            average.add(loss, book.BATCH)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'checkpoints')
+        os.makedirs(ckpt)
+        trainer = fluid.contrib.Trainer(
+            train_func=lambda: book.train_program(fluid),
+            optimizer_func=lambda: book.optimizer_func(fluid),
+            place=fluid.CUDAPlace(0),
+            checkpoint_config=fluid.contrib.CheckpointConfig(
+                checkpoint_dir=ckpt, step_interval=FLUID_CKPT_INTERVAL,
+                max_num_checkpoints=FLUID_CKPT_KEEP))
+        t0 = time.perf_counter()
+        trainer.train(num_epochs=1, event_handler=handler,
+                      reader=book.mnist_reader(seed, FLUID_STEPS),
+                      feed_order=book.FEED_ORDER)
+        train_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(ckpt))
+        if len(losses) != FLUID_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f'Trainer: {len(losses)} steps, losses '
+                                 f'{losses[:3]} ... {losses[-3:]}')
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        if not last < first:
+            raise AssertionError(f'Trainer loss did not fall: mean of the '
+                                 f'first 10 steps {first}, last 10 {last}')
+        metric_gap = abs(accuracy.eval() - np.mean(accs))
+        loss_gap = abs(average.eval() - np.mean(losses))
+        if (metric_gap > FLUID_METRIC_TOL or loss_gap
+                > FLUID_STEPS * 2.0 ** -24 * abs(np.mean(losses))):
+            raise AssertionError(f'fluid.metrics.Accuracy {accuracy.eval()!r}'
+                                 f' or WeightedAverage {average.eval()!r} '
+                                 f'against the fetched means: gaps '
+                                 f'{metric_gap:.3e}, {loss_gap:.3e}')
+        if len(kept) != FLUID_CKPT_KEEP:
+            raise AssertionError(f'checkpoints left: {kept}')
+        gaps = np.diff(ends)[WARMUP_STEPS:] * 1e3
+        trainer_p50 = float(np.median(gaps))
+        log(f'(b) contrib.Trainer, recognize_digits conv net (LeNet, '
+            f'431080 parameters), batch {book.BATCH}, Adam '
+            f'{book.LEARNING_RATE}, {FLUID_STEPS} steps on the card in '
+            f'{train_s:.3f} s [{card}]: loss {losses[0]!r} -> '
+            f'{losses[-1]!r} (mean of the first 10 {first:.4f}, last 10 '
+            f'{last:.4f}), train accuracy of the last 10 '
+            f'{np.mean(accs[-10:]):.4f}; step p50 {trainer_p50:.3f} ms '
+            f'(between EndStepEvents, after {WARMUP_STEPS}; max '
+            f'{gaps.max():.3f} ms with a checkpoint); fluid.metrics.Accuracy '
+            f'{accuracy.eval()!r} against the mean fetched accuracy '
+            f'{np.mean(accs)!r} (|diff| {metric_gap:.3e}), '
+            f'WeightedAverage loss {average.eval()!r} (|diff| '
+            f'{loss_gap:.3e}); checkpoints every {FLUID_CKPT_INTERVAL} steps '
+            f'and at the epoch\'s end, {kept} left of '
+            f'{FLUID_STEPS // FLUID_CKPT_INTERVAL + 1}')
+        trainer.checkpoint_cfg = None
+
+        t0 = time.perf_counter()
+        test = trainer.test(book.mnist_reader(seed + 1, FLUID_TEST_BATCHES),
+                            book.FEED_ORDER)
+        log(f'(b) Trainer.test over {FLUID_TEST_BATCHES} batches in '
+            f'{time.perf_counter() - t0:.3f} s [{card}]: loss '
+            f'{float(test[0])!r}, accuracy {float(test[1])!r}')
+        params, model = os.path.join(tmp, 'params'), os.path.join(tmp,
+                                                                  'model')
+        trainer.save_params(params)
+        trainer.save_inference_model(model, book.FEED_ORDER, [0, 1])
+        rows = next(book.mnist_reader(seed + 2, 1)())
+        block = trainer.train_program.global_block()
+        feeder = fluid.DataFeeder([block.var(n) for n in book.FEED_ORDER],
+                                  place=fluid.CUDAPlace(0))
+        feed = feeder.feed(rows)
+        inferencer = fluid.contrib.Inferencer(
+            infer_func=lambda: book.inference_program(fluid),
+            param_path=params, place=fluid.CUDAPlace(0))
+        got, = inferencer.infer({'img': feed['img']})
+        test_program = trainer.train_program.clone(for_test=True)
+        softmax = [op for op in test_program.global_block().ops
+                   if op.type == 'softmax'][0].output_names()[0]
+        want, = trainer.exe.run(test_program, feed=feed,
+                                fetch_list=[softmax], scope=trainer.scope)
+        infer_err = float(np.abs(got - want).max())
+        if got.shape != (book.BATCH, 10) or not infer_err <= FLUID_INFER_TOL:
+            raise AssertionError(f'Inferencer {got.shape} against the test '
+                                 f'program: max|diff| {infer_err:.3e}')
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(fluid.Scope()):
+            program, feeds, fetches = fluid.load_inference_model(model, exe)
+            saved = exe.run(program, feed=feed, fetch_list=fetches)
+        direct = trainer.exe.run(test_program, feed=feed,
+                                 fetch_list=trainer.train_func_outputs,
+                                 scope=trainer.scope)
+        saved_err = max(float(np.abs(a - b).max())
+                        for a, b in zip(saved, direct))
+        if feeds != book.FEED_ORDER or not saved_err <= FLUID_INFER_TOL:
+            raise AssertionError(f'saved inference model {feeds}: max|diff| '
+                                 f'{saved_err:.3e}')
+        log(f'(b) contrib.Inferencer from save_params against the test '
+            f'program on the same batch [{card}]: max|diff| '
+            f'{infer_err:.3e} (limit {FLUID_INFER_TOL}); '
+            f'save_inference_model reloaded: loss and accuracy max|diff| '
+            f'{saved_err:.3e}; argmax agrees on '
+            f'{int((got.argmax(1) == want.argmax(1)).sum())}/{book.BATCH}')
+
+    # (c) the same LeNet through a plain Executor.run loop on one
+    # pre-stacked batch, against the Trainer's loop over rows held in
+    # memory, in turns (plain, Trainer, Trainer, plain); the reader's and
+    # DataFeeder's host cost a batch
+    main, startup, loss, acc = lenet_programs()
+    gpu, gscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=gscope)
+    stacked = {k: np.ascontiguousarray(v) for k, v in feed.items()}
+
+    def plain_step():
+        return gpu.run(main, feed=stacked, fetch_list=[loss, acc],
+                       scope=gscope)
+
+    held = list(book.mnist_reader(seed + 3, WARMUP_STEPS + TRAIN_STEPS)())
+
+    def trainer_loop():
+        marks = []
+        trainer.train(1, lambda e: marks.append(time.perf_counter())
+                      if isinstance(e, fluid.contrib.EndStepEvent) else None,
+                      reader=lambda: iter(held), feed_order=book.FEED_ORDER)
+        return statistics.median(np.diff(marks)[WARMUP_STEPS - 1:]) * 1e3
+
+    turns = {'plain': [], 'trainer': []}
+    for what in ('plain', 'trainer', 'trainer', 'plain'):
+        turns[what].append(fluid_steps(plain_step, TRAIN_STEPS)
+                           if what == 'plain' else trainer_loop())
+    plain_p50 = statistics.median(turns['plain'])
+    loop_p50 = statistics.median(turns['trainer'])
+    read_ms, feed_ms = [], []
+    batches = book.mnist_reader(seed + 4, FLUID_FEED_REPEATS)()
+    for _ in range(FLUID_FEED_REPEATS):
+        t0 = time.perf_counter()
+        batch_rows = next(batches)
+        t1 = time.perf_counter()
+        feeder.feed(batch_rows)
+        read_ms.append((t1 - t0) * 1e3)
+        feed_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f'(c) step p50 in turns (plain, Trainer, Trainer, plain), '
+        f'{TRAIN_STEPS} steps each: plain Executor.run on pre-stacked numpy '
+        f'feeds {turns["plain"][0]:.3f}, {turns["plain"][1]:.3f} ms; '
+        f'contrib.Trainer over rows held in memory '
+        f'{turns["trainer"][0]:.3f}, {turns["trainer"][1]:.3f} ms [{card}]; '
+        f'on the host a batch of {book.BATCH} rows: the synthetic reader '
+        f'p50 {statistics.median(read_ms):.3f} ms, DataFeeder.feed p50 '
+        f'{statistics.median(feed_ms):.3f} ms')
+    profile_train_step(plain_step, (), plain_p50, card, STATIC_STEP_GROUPS,
+                       what='(c) plain Executor.run LeNet step')
+    one_batch = held[:1]
+    profile_train_step(
+        lambda: trainer.train(1, lambda e: None,
+                              reader=lambda: iter(one_batch),
+                              feed_order=book.FEED_ORDER),
+        (), loop_p50, card, STATIC_STEP_GROUPS,
+        what='(c) contrib.Trainer step (train over one held batch)')
+
+    # (d) FLAGS_check_nan_inf: the fetch scan's cost in turns (off, on,
+    # on, off), then a NaN pixel
+    scan = {False: [], True: []}
+    try:
+        for on in (False, True, True, False):
+            fluid.debugging.enable_check_nan_inf(on)
+            scan[on].append(fluid_steps(plain_step, TRAIN_STEPS))
+        fluid.debugging.enable_check_nan_inf()
+        bad = dict(stacked, img=stacked['img'].copy())
+        bad['img'][0, 0, 0, 0] = np.nan
+        try:
+            gpu.run(main, feed=bad, fetch_list=[loss, acc], scope=gscope)
+        except FloatingPointError as e:
+            caught = str(e)
+        else:
+            raise AssertionError('a NaN pixel with FLAGS_check_nan_inf on '
+                                 'did not raise')
+    finally:
+        fluid.debugging.enable_check_nan_inf(False)
+    if repr(loss.name) not in caught:
+        raise AssertionError(f'the NaN error does not name {loss.name}: '
+                             f'{caught}')
+    log(f'(d) FLAGS_check_nan_inf, plain step p50 in turns (off, on, on, '
+        f'off): {scan[False][0]:.3f}, {scan[True][0]:.3f}, '
+        f'{scan[True][1]:.3f}, {scan[False][1]:.3f} ms [{card}]; a NaN pixel '
+        f'raised FloatingPointError: ' + caught.replace('\n', ' '))
+
+    # (e) the introspection tools
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        _, n_params, flops = fluid.contrib.summary(trainer.train_program)
+    log(f'(e) contrib.summary of the Trainer\'s program [{card}]:\n'
+        + table.getvalue().rstrip())
+    uni, adj = fluid.contrib.op_freq_statistic(trainer.train_program)
+    lower, upper, unit = fluid.contrib.memory_usage(trainer.train_program,
+                                                    book.BATCH)
+    stats = fluid.contrib.device_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    mine = stats[str(torch.device('cuda', torch.cuda.current_device()))]
+    if mine['peak_bytes_in_use'] != peak:
+        raise AssertionError(f'device_memory_stats peak '
+                             f'{mine["peak_bytes_in_use"]} != '
+                             f'max_memory_allocated {peak}')
+    log(f'(e) contrib.summary: {n_params} parameters, {flops} FLOPs an '
+        f'image (the ops it counts); op_freq_statistic top ops '
+        f'{list(uni.items())[:5]}, pairs {list(adj.items())[:3]}; '
+        f'memory_usage(program, {book.BATCH}) {lower:.3f}-{upper:.3f} '
+        f'{unit}; device_memory_stats peak {mine["peak_bytes_in_use"]} '
+        f'bytes = torch.cuda.max_memory_allocated() {peak} of '
+        f'{mine["bytes_limit"]} [{card}]')
+    log(f'phase 18 in {time.perf_counter() - t_start:.1f} s [{card}]')
+    return nn_ops.launch_counts()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -5174,8 +5477,24 @@ def main(argv=None):
     variants[-1]['launches_shared_prefix'] = tier['spec']['paged_attention']
     log(f'shared-prefix mix kernel launches by run: {tier}')
 
-    # 18. result lines
-    log(f'chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s '
+    # 18. the Fluid script surface: PaddleBook's recognize_digits through
+    # install_check, contrib.Trainer, DataFeeder, metrics and Inferencer,
+    # a plain Executor loop and the NaN/Inf scan; no kernel of the port is
+    # on this path, and none may launch
+    torch.cuda.empty_cache()
+    surface = fluid_surface(args.seed, smi)
+    if any(surface.values()):
+        raise AssertionError(f'kernels launched on the Fluid script '
+                             f'surface\'s path: {surface}')
+    log(f'Fluid script surface path kernel launches: {surface}')
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_fluid_surface'] = surface[wrapper]
+
+    # 19. result lines
+    log(f'chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -5184,7 +5503,8 @@ def main(argv=None):
         {k: kern[k] for k in keys + tuple(
             x for x in ('launches_ptb', 'launches_s2s', 'launches_amp',
                         'launches_fused', 'launches_served_variants',
-                        'launches_shared_prefix', 'body',
+                        'launches_shared_prefix', 'launches_fluid_surface',
+                        'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

@@ -1,6 +1,7 @@
 """Places (counterpart of paddle_tpu/core/places.py): ``CPUPlace`` is the
 CPU; ``CUDAPlace(i)``, and the JAX package's ``TPUPlace(i)`` and
-``XLAPlace(i)``, are the CUDA card ``cuda:i``. :meth:`Place.device` resolves
+``XLAPlace(i)``, are the CUDA card ``cuda:i``; ``CUDAPinnedPlace`` is
+host memory, a CPU place. :meth:`Place.device` resolves
 a place through ``device.resolve_device``, so a card place with no card
 raises instead of running on the CPU."""
 from __future__ import annotations
@@ -10,8 +11,8 @@ import torch
 from ..device import resolve_device
 
 __all__ = ['Place', 'CPUPlace', 'CUDAPlace', 'TPUPlace', 'XLAPlace',
-           'is_compiled_with_cuda', 'cuda_places', 'cpu_places',
-           'get_device']
+           'CUDAPinnedPlace', 'is_compiled_with_cuda', 'cuda_places',
+           'cpu_places', 'tpu_places', 'cuda_pinned_places', 'get_device']
 
 
 class Place:
@@ -58,6 +59,15 @@ class XLAPlace(TPUPlace):
     pass
 
 
+class CUDAPinnedPlace(Place):
+    """Pinned host memory: the port stages feeds on the host, so this is a
+    CPU place."""
+    _device_kind = 'cpu'
+
+    def __init__(self):
+        super().__init__(0)
+
+
 def is_compiled_with_cuda():
     return torch.cuda.is_available()
 
@@ -70,6 +80,18 @@ def cuda_places(device_ids=None):
 
 def cpu_places(device_count=1):
     return [CPUPlace() for _ in range(device_count)]
+
+
+def tpu_places(device_ids=None):
+    """The JAX package's accelerator places: here the cards, as
+    :func:`cuda_places`."""
+    return cuda_places(device_ids)
+
+
+def cuda_pinned_places(device_count=None):
+    """``device_count`` (1 if None) pinned host places."""
+    n = 1 if device_count is None else int(device_count)
+    return [CUDAPinnedPlace() for _ in range(n)]
 
 
 def get_device(place):

@@ -109,6 +109,12 @@ checkpoints read (the JAX package's ``live_after``). Its recompute in the
 backward restores the plan's generator to where the segment first drew,
 so it draws the same dropout masks, and puts it back afterwards.
 
+With ``FLAGS_check_nan_inf`` (debugging.py), ``run`` tests each fetched
+float tensor with one ``isfinite().all()`` on the device, all of them read
+in one copy, before any fetch goes to the host; a non-finite one raises
+``FloatingPointError`` naming it, after the step's state is written, as
+the JAX package's fetch scan does. With the check off nothing more runs.
+
 Not ported yet, and each raises ``NotImplementedError`` naming its ROADMAP
 item: pipeline plans and the fleet mesh (A.9), the dataset runs and
 asynchronous fetches (A.11).
@@ -129,6 +135,7 @@ from .core.dtypes import to_numpy_dtype, to_torch_dtype
 from .core.places import get_device
 from .core.random import default_generator
 from .core.scope import global_scope, handed_out, mark_handed_out
+from .debugging import check_nan_inf_enabled, check_numerics
 from .framework import (BACKWARD_OP_TYPE, Variable, default_main_program,
                         op_read_names)
 from .ops.registry import NON_KERNEL_ATTRS, get_op
@@ -158,6 +165,19 @@ def _check_env():
     if os.environ.get('PADDLE_TPU_ASYNC', '0') not in ('', '0'):
         raise NotImplementedError('asynchronous fetches (PADDLE_TPU_ASYNC) '
                                   'are not ported yet (ROADMAP A.11)')
+
+
+def _check_fetches_finite(fetch_names, fetches):
+    """``FLAGS_check_nan_inf``: raise ``FloatingPointError`` naming each
+    fetched float tensor that holds NaN or Inf."""
+    floats = [(n, f) for n, f in zip(fetch_names, fetches)
+              if f.is_floating_point()]
+    if not floats:
+        return
+    finite = torch.stack([torch.isfinite(f).all() for _, f in floats])
+    bad = {n: f for (n, f), ok in zip(floats, finite.tolist()) if not ok}
+    if bad:
+        check_numerics(bad, 'fetches')
 
 
 # the cast of an AMP program's op in neither list: its floating inputs to
@@ -821,6 +841,8 @@ class Executor:
                           fetches, inplace)
         for f in fetches:
             mark_handed_out(f)
+        if fetches and check_nan_inf_enabled():
+            _check_fetches_finite(fetch_names, fetches)
         if return_numpy:
             # numpy has no bf16: such a value comes back as f32, exactly
             return [(f.float() if f.dtype == torch.bfloat16 else f)

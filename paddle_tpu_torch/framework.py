@@ -25,7 +25,8 @@ __all__ = ['Variable', 'Parameter', 'Operator', 'Block', 'Program',
            'program_guard', 'default_main_program', 'default_startup_program',
            'switch_main_program', 'switch_startup_program', 'name_scope',
            'in_dygraph_mode', 'manual_seed', 'shape_to_concrete',
-           'shape_from_concrete', 'BACKWARD_OP_TYPE']
+           'shape_from_concrete', 'BACKWARD_OP_TYPE', 'device_guard',
+           'load_op_library', 'require_version']
 
 # the size that stands in for a -1 dim while shapes are inferred on meta
 # tensors; an inferred dim equal to it reads back as -1
@@ -104,6 +105,8 @@ class Operator:
             k: ([v] if isinstance(v, str) else list(v))
             for k, v in (outputs or {}).items()}
         self.attrs = dict(attrs or {})
+        if _DEVICE_GUARD is not None and 'op_device' not in self.attrs:
+            self.attrs['op_device'] = _DEVICE_GUARD
 
     def input_names(self):
         return [n for vs in self.inputs.values() for n in vs]
@@ -407,3 +410,56 @@ def name_scope(prefix=None):
     """Fluid's debugging name scope: names in the IR are already unique,
     so nothing is renamed and nothing is recorded."""
     yield
+
+
+@contextlib.contextmanager
+def device_guard(device=None):
+    """Fluid's ``device_guard``: ops appended inside carry the attr
+    ``op_device``. It is recorded for inspection and otherwise inert, as
+    in the JAX package (ops/registry.py lists it in ``NON_KERNEL_ATTRS``):
+    a program runs on its Executor's device."""
+    global _DEVICE_GUARD
+    old = _DEVICE_GUARD
+    _DEVICE_GUARD = device
+    try:
+        yield
+    finally:
+        _DEVICE_GUARD = old
+
+
+_DEVICE_GUARD = None
+
+
+def load_op_library(lib_path):
+    """Fluid's ``load_op_library`` loads a custom C++ op library; the port
+    takes custom ops as torch functions registered with
+    ``paddle_tpu_torch.ops.registry.register_op``. Warns and returns None,
+    as the JAX package does."""
+    import warnings
+    warnings.warn(
+        f'load_op_library({lib_path!r}): custom C++ op libraries are not '
+        f'loaded by the port; register a torch function with '
+        f'paddle_tpu_torch.ops.registry.register_op',
+        stacklevel=2)
+    return None
+
+
+def require_version(min_version, max_version=None):
+    """Raise unless ``min_version`` <= the package's Fluid API level
+    (``__version__``) <= ``max_version``."""
+    import paddle_tpu_torch
+
+    def parse(v, width):
+        parts = [int(x) for x in str(v).split('.') if x.isdigit()]
+        return tuple(parts + [0] * (width - len(parts)))
+
+    cur_str = getattr(paddle_tpu_torch, '__version__', '1.7.0')
+    width = max(len(str(v).split('.'))
+                for v in (cur_str, min_version, max_version or '0'))
+    cur = parse(cur_str, width)
+    if parse(min_version, width) > cur:
+        raise Exception(
+            f'installed version {cur_str} is below required {min_version}')
+    if max_version is not None and parse(max_version, width) < cur:
+        raise Exception(
+            f'installed version {cur_str} is above allowed {max_version}')

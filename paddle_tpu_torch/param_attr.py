@@ -1,10 +1,16 @@
-"""ParamAttr (counterpart of paddle_tpu/param_attr.py): a parameter's
-name, initializer, learning rate, regularizer and trainability."""
+"""ParamAttr and WeightNormParamAttr (counterpart of
+paddle_tpu/param_attr.py): a parameter's name, initializer, learning rate,
+regularizer and trainability.
+
+``WeightNormParamAttr`` constructs, but no layer takes it: the JAX package
+stores its ``dim`` and never normalises a weight (ROADMAP C.4 item 10), so
+a layer given one raises naming that item instead of training an
+unnormalised weight in silence."""
 from __future__ import annotations
 
 from .initializer import ConstantInitializer, Initializer
 
-__all__ = ['ParamAttr']
+__all__ = ['ParamAttr', 'WeightNormParamAttr']
 
 
 class ParamAttr:
@@ -25,6 +31,11 @@ class ParamAttr:
             return ParamAttr()
         if isinstance(arg, (list, tuple)):
             return [ParamAttr._to_attr(a) for a in arg]
+        if isinstance(arg, WeightNormParamAttr):
+            raise NotImplementedError(
+                'WeightNormParamAttr: weight normalisation is not applied '
+                'by the JAX package, which stores the attribute and trains '
+                'the plain weight (ROADMAP C.4 item 10)')
         if isinstance(arg, ParamAttr):
             return arg
         if isinstance(arg, str):
@@ -44,3 +55,13 @@ class ParamAttr:
         if with_initializer:
             kw['initializer'] = self.initializer
         return kw
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A weight-normalised parameter's attribute (``dim``: the axis kept
+    apart in the norm). Constructs; a layer given it raises (module
+    docstring)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -1447,3 +1447,47 @@ def test_static_ptb_lm_steps_on_the_card_match_the_cpu(cuda, route):
     assert np.isfinite(out[0])
     if route == 'padding':
         assert abs((out[1] != 0).mean() - 0.35) < 0.1
+
+
+def test_run_check_and_trainer_steps_on_the_card(cuda, tmp_path):
+    """``fluid.install_check.run_check()`` with no place runs on the card;
+    three ``contrib.Trainer`` steps of PaddleBook's recognize_digits at
+    batch 64 on ``CUDAPlace(0)`` give finite losses, no kernel of the port
+    launches, and the Inferencer reading the saved parameters gives the
+    test program's softmax within 1e-6 on the same card; with
+    ``FLAGS_check_nan_inf`` on, a NaN pixel raises naming the loss."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.tools import recognize_digits as book
+    fluid.install_check.run_check()
+    nn_ops.reset_launch_counts()
+    trainer = fluid.contrib.Trainer(lambda: book.train_program(fluid),
+                                    lambda: book.optimizer_func(fluid),
+                                    place=fluid.CUDAPlace(0))
+    losses = []
+    trainer.train(1, lambda e: losses.append(float(e.metrics[0]))
+                  if isinstance(e, fluid.contrib.EndStepEvent) else None,
+                  reader=book.mnist_reader(0, 3), feed_order=book.FEED_ORDER)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert set(nn_ops.launch_counts().values()) == {0}
+    trainer.save_params(str(tmp_path))
+    inf = fluid.contrib.Inferencer(lambda: book.inference_program(fluid),
+                                   str(tmp_path), place=fluid.CUDAPlace(0))
+    rows = next(book.mnist_reader(1, 1)())
+    test_program = trainer.train_program.clone(for_test=True)
+    block = trainer.train_program.global_block()
+    feed = fluid.DataFeeder([block.var(n) for n in book.FEED_ORDER]).feed(
+        rows)
+    softmax = [op for op in test_program.global_block().ops
+               if op.type == 'softmax'][0].output_names()[0]
+    want, = trainer.exe.run(test_program, feed=feed, fetch_list=[softmax],
+                            scope=trainer.scope)
+    got, = inf.infer({'img': feed['img']})
+    assert np.abs(got - want).max() <= 1e-6
+    fluid.debugging.enable_check_nan_inf()
+    try:
+        with pytest.raises(FloatingPointError, match=trainer.loss.name):
+            trainer.train(1, lambda e: None,
+                          reader=book.mnist_reader(0, 1, nan_pixel=True),
+                          feed_order=book.FEED_ORDER)
+    finally:
+        fluid.debugging.enable_check_nan_inf(False)

@@ -246,6 +246,101 @@ def test_suffix_fill_steps(models, spec, steps):
     assert eng.stats['decode_steps'] - before == steps
 
 
+# -- a sampled hit alone in its step (ROADMAP C.15, C.4 item 9) --------------
+
+SAMPLED = {'temperature': 0.9, 'top_k': 20, 'top_p': 0.95, 'seed': 1234}
+HIT_PROMPT = SYS_PROMPT + [13, 21, 4]
+
+
+def recording_steps(engine):
+    """Wrap ``engine.decode_step`` and ``engine.prefill``: each decode step
+    appends (tables, rows or None), each sampled prefill its row."""
+    steps, prefill_rows = [], []
+    decode_step, prefill = engine.decode_step, engine.prefill
+
+    def step(tokens, tables, return_rows=False):
+        out = decode_step(tokens, tables, return_rows=return_rows)
+        steps.append((list(tables), out[1] if return_rows else None))
+        return out
+
+    def fill(prompt, table, sampler=None):
+        def draw(row):
+            prefill_rows.append(np.array(row))
+            return sampler(row)
+        return prefill(prompt, table, sampler=draw if sampler else None)
+
+    engine.decode_step, engine.prefill = step, fill
+    return steps, prefill_rows
+
+
+def sampled_first_token(engine, request_id):
+    with DecodeScheduler(engine, queue_depth=2) as sched:
+        return sched.submit(HIT_PROMPT, max_new_tokens=1, sampling=SAMPLED,
+                            request_id=request_id).result(WAIT)
+
+
+def test_sampled_hit_alone_draws_its_first_token_from_its_row(models):
+    """A sampled request that hits the cache alone in its step: the step
+    that consumes its last suffix token asks for logits rows, and its first
+    token is the request's sampler applied to that hit's row. Against a
+    cold run of the same request and seed: the rows agree within ATOL (the
+    row test's rule), so the first tokens are equal or part only at such a
+    near tie. (The JAX package emits the argmax there: the next test.)"""
+    from paddle_tpu_torch.serving.decode.sampling import (SamplingParams,
+                                                           TokenSampler)
+    _, pm = models
+    eng = make_engine(pm)
+    serve(eng, [(SYS_PROMPT + [1], 1)])
+    steps, _ = recording_steps(eng)
+    got = sampled_first_token(eng, 'c15')
+    assert eng.prefix_cache.stats['prefix_cache_hits'] == 1
+    assert len(steps) == len(HIT_PROMPT) - 8       # the suffix, one a step
+    tables, rows = steps[-1]
+    live = [i for i, t in enumerate(tables) if t is not None]
+    assert len(live) == 1 and rows is not None     # alone, rows asked for
+    hit_row = rows[live[0]]
+    sampler = TokenSampler(SamplingParams.validate(SAMPLED), 'c15')
+    assert got == [sampler.sample(hit_row, 0)]
+    # at this seed the draw is not the row's argmax, so the test tells the
+    # two behaviours apart
+    assert got[0] != int(np.argmax(hit_row))
+
+    cold_eng = make_engine(pm, prefix_cache=False)
+    _, cold_rows = recording_steps(cold_eng)
+    cold = sampled_first_token(cold_eng, 'c15')
+    assert len(cold_rows) == 1
+    assert cold == [sampler.sample(cold_rows[0], 0)]
+    np.testing.assert_allclose(hit_row, cold_rows[0], atol=ATOL)
+    assert got == cold or np.abs(hit_row - cold_rows[0]).max() <= ATOL
+
+
+def test_jax_scheduler_emits_the_argmax_for_a_sampled_hit_alone(models):
+    """ROADMAP C.4 item 9: the JAX package's step that consumes a hit's last
+    suffix token asks for rows only for slots that are not prefilling
+    (paddle_tpu/serving/decode/scheduler.py:546-547), so a sampled hit
+    alone in it emits the argmax: the greedy hit's first token, which the
+    request's own sampler does not draw from that row."""
+    from paddle_tpu.serving.decode.sampling import (SamplingParams,
+                                                     TokenSampler)
+    jm, _ = models
+    jeng = JaxEngine(jm, prefix_cache=True, **ENGINE_KW)
+    with JaxScheduler(jeng) as js:
+        js.submit(SYS_PROMPT + [1], max_new_tokens=1).result(WAIT)
+        hits = jax_counter('prefix_cache_hits')
+        sampled = js.submit(HIT_PROMPT, max_new_tokens=1, sampling=SAMPLED,
+                            request_id='c15').result(WAIT)
+        greedy = js.submit(HIT_PROMPT, max_new_tokens=1).result(WAIT)
+    assert jax_counter('prefix_cache_hits') - hits == 2
+    assert sampled == greedy
+    cold = JaxEngine(jm, **ENGINE_KW)
+    t = cold.reserve_table(len(HIT_PROMPT), 1)
+    row = []
+    cold.prefill(HIT_PROMPT, t, sampler=lambda r: row.append(r) or 0)
+    assert int(np.argmax(row[0])) == sampled[0]
+    sampler = TokenSampler(SamplingParams.validate(SAMPLED), 'c15')
+    assert sampler.sample(row[0], 0) != sampled[0]
+
+
 def test_concurrent_mixed_workload(models):
     """A ragged concurrent mix of cold and hitting prompts through the
     continuous batching scheduler at 3 slots."""

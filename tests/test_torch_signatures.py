@@ -22,7 +22,14 @@ took over in doing so behave as the reference's do (on the CPU).
   ``decorate``, the ERNIE model and ``finetune_optimizer``,
   ``TrainStep``), and so are the serving tier's (the prefix cache, the
   handoff's payload and worker, the router, their knobs, the pool's
-  whole-block transfer and the engine's prefix and handoff methods); the
+  whole-block transfer and the engine's prefix and handoff methods), and
+  so are the Fluid top-level surface's (``DataFeeder``, the metrics,
+  ``WeightedAverage``, ``Trainer``, ``CheckpointConfig``, ``Inferencer``,
+  ``device_guard``, ``require_version``, ``load_op_library``,
+  ``memory_optimize``, ``release_memory``, the ``debugging`` functions,
+  ``memory_usage``, ``summary``, ``op_freq_statistic``, ``probe_backend``
+  and the host tools'; ``install_check`` and ``run_check`` add a last
+  ``place=None``, named in ``TOP_LEVEL_ADDITIONS``); the
   port may add a keyword-only ``device``, and the Layer methods torch
   itself calls keep torch's arguments through ``*torch_args`` /
   ``**torch_kwargs``.
@@ -362,6 +369,83 @@ def test_serving_tier_name_takes_the_reference_parameters(module, path):
         return _params(obj)
 
     assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
+
+
+# (module of both packages, attribute path) of the Fluid top-level
+# surface's slice (ROADMAP A.13)
+TOP_LEVEL_NAMES = [
+    ('data_feeder', 'DataFeeder'), ('data_feeder', 'DataFeeder.feed'),
+    ('data_feeder', 'DataFeeder.feed_batch'),
+    *(('metrics', f'{c}{m}') for c in (
+        'MetricBase', 'CompositeMetric', 'Precision', 'Recall', 'Accuracy',
+        'ChunkEvaluator', 'EditDistance', 'Auc')
+      for m in ('', '.update', '.eval')),
+    ('metrics', 'CompositeMetric.add_metric'), ('metrics', 'DetectionMAP'),
+    ('average', 'WeightedAverage'), ('average', 'WeightedAverage.add'),
+    ('average', 'WeightedAverage.eval'),
+    ('contrib.trainer', 'Trainer'), ('contrib.trainer', 'Trainer.train'),
+    ('contrib.trainer', 'Trainer.test'), ('contrib.trainer', 'Trainer.stop'),
+    ('contrib.trainer', 'Trainer.save_params'),
+    ('contrib.trainer', 'Trainer.save_inference_model'),
+    ('contrib.trainer', 'CheckpointConfig'),
+    ('contrib.trainer', 'BeginEpochEvent'),
+    ('contrib.trainer', 'EndEpochEvent'),
+    ('contrib.trainer', 'BeginStepEvent'),
+    ('contrib.trainer', 'EndStepEvent'),
+    ('contrib.inferencer', 'Inferencer'),
+    ('contrib.inferencer', 'Inferencer.infer'),
+    ('framework', 'device_guard'), ('framework', 'require_version'),
+    ('framework', 'load_op_library'), ('transpiler', 'memory_optimize'),
+    ('transpiler', 'release_memory'),
+    ('debugging', 'enable_check_nan_inf'),
+    ('debugging', 'check_nan_inf_enabled'),
+    ('debugging', 'nonfinite_summary'), ('debugging', 'check_numerics'),
+    ('debugging', 'assert_all_finite'), ('debugging', 'device_report'),
+    ('debugging', 'install_check'), ('install_check', 'run_check'),
+    ('contrib.memory_usage_calc', 'memory_usage'),
+    ('contrib.memory_usage_calc', 'device_memory_stats'),
+    ('contrib.memory_usage_calc', 'print_memory_report'),
+    ('contrib.model_stat', 'summary'),
+    ('contrib.op_frequence', 'op_freq_statistic'),
+    ('utils.backend_probe', 'probe_backend'),
+    ('utils.plot', 'Ploter'), ('utils.plot', 'Ploter.append'),
+    ('utils.plot', 'Ploter.plot'), ('utils.dump_config', 'dump_config'),
+    ('debugger', 'draw_block_graphviz'), ('debugger', 'pprint_block_codes'),
+    ('debugger', 'pprint_program_codes'), ('debugger', 'repr_var'),
+    ('debugger', 'repr_op'), ('debugger', 'prepare_fast_nan_inf_debug'),
+    ('debugger', 'run_fast_nan_inf_debug'), ('net_drawer', 'draw_graph'),
+    ('net_drawer', 'parse_graph'), ('op', 'get_all_op_protos'),
+    ('op', 'OpInfo'), ('op', 'OperatorFactory.get_op_creation_info'),
+    ('param_attr', 'WeightNormParamAttr'),
+    ('core.places', 'cuda_pinned_places'), ('core.places', 'tpu_places'),
+    ('log_helper', 'get_logger'), ('annotations', 'deprecated'),
+    ('default_scope_funcs', 'scoped_function'),
+    ('default_scope_funcs', 'var'), ('default_scope_funcs', 'find_var')]
+
+# the port's additions to the reference's parameters in that slice: the
+# JAX package's self-test runs on its default device, the port's on the
+# card unless the caller passes a place
+TOP_LEVEL_ADDITIONS = {('debugging', 'install_check'): ('place', None),
+                       ('install_check', 'run_check'): ('place', None)}
+
+
+@pytest.mark.parametrize('module,path', TOP_LEVEL_NAMES,
+                         ids=[f'{m}.{p}' for m, p in TOP_LEVEL_NAMES])
+def test_top_level_name_takes_the_reference_parameters(module, path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return _params(obj)
+
+    got, want = resolve('paddle_tpu_torch'), resolve('paddle_tpu')
+    added = TOP_LEVEL_ADDITIONS.get((module, path))
+    if added is not None:
+        name, default = added
+        assert got[-1] == (name, inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                           default)
+        got = got[:-1]
+    assert got == want
 
 
 # ------------------------------------------------ softmax_with_cross_entropy
