@@ -326,13 +326,38 @@ Phases:
    ``memory_usage(program, 64)``, and ``device_memory_stats()``'s peak
    against ``torch.cuda.max_memory_allocated()``; no kernel of the port
    launched;
-19. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+19. the stateless serving path (ROADMAP A.7b) and the observability core
+   (A.11): PaddleCV's ResNet-50 inference model (``tools/static_resnet.py``
+   at full width, 1000 classes, 224^2, weights from the seed, saved with
+   ``save_inference_model``) behind ``InferenceEngine(max_batch_size=32)``
+   (ladder 1-32), in f32 and through ``Config.enable_bf16()``: (a) the
+   engine alone: each rung's first-run seconds; at each rung a seeded batch
+   against ``Predictor.run`` on the same rows and each row alone (max
+   |diff| and whether bit for bit, within ``STATELESS_ROW_TOL``);
+   ``Predictor.run`` at batch 32: images/s and p50, the ceiling; (b)
+   ``MicroBatcher(batch_timeout_ms=2)`` under 64 closed-loop clients, 2048
+   one-row requests: images/s, latency p50 and p99, queue wait p50, the
+   batch rows, padding waste, a profiled window's busy ms and idle share,
+   every row against its row alone; (c) f32 only: ``ServingServer`` on
+   port 0, 8 clients x 8 one-row ``POST /predict`` requests (rows against
+   (b)'s), latency p50, the parse of a body timed apart from compute, one
+   400, 429 and 504, then ``GET /metrics`` against the clients' counts and
+   the batches run; no kernel of the port launched. Two more parts run
+   inside earlier phases: (d) in phase 4, the decode server's
+   ``/metrics`` over its 16 requests (decode steps x layers = K1's
+   launches, prefills x layers = K2's, tokens generated = tokens
+   streamed) and the decode step's p50 with telemetry off, on, on, off and
+   with the metric hooks stubbed, on, on, stubbed; (e) at the end of phase
+   17 (f), the router's ``/metrics/fleet`` against the live replica's own
+   ``/metrics``;
+20. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-18) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-19) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import itertools
 import json
 import statistics
@@ -340,6 +365,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2455,12 +2481,31 @@ def served_mix(seed, vocab):
     return reqs, rng
 
 
-def drive_mix(engine, sched, reqs):
+def scrape_metrics(port):
+    """``GET /metrics`` of the server on ``port``, parsed."""
+    from paddle_tpu_torch.observability import distributed
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}/metrics',
+                                timeout=60) as r:
+        return distributed.parse_prometheus_text(r.read().decode())
+
+
+def metric_total(fams, name, suffix=''):
+    """Sum over the samples of family ``name`` (prefixed) whose sample
+    name ends with ``suffix``; 0 for a family the export lacks."""
+    fam = fams.get('paddle_tpu_' + name)
+    if fam is None:
+        return 0.0
+    return sum(v for s, _, v in fam['samples'] if s.endswith(suffix))
+
+
+def drive_mix(engine, sched, reqs, scraped=None):
     """Serve ``reqs`` concurrently through a ``ServingServer`` over
     ``sched`` (warmed first): every request must end with its full budget,
     and K1 must launch once a layer for every decode step and verify round,
-    K2 once a layer for every prefill. Returns (results, wall seconds,
-    launch counts, the engine's stats, peak device memory)."""
+    K2 once a layer for every prefill. With ``scraped`` (a dict) the
+    server's ``/metrics`` is read just before the clients start and just
+    after they end, into its 'before' and 'after'. Returns (results, wall
+    seconds, launch counts, the engine's stats, peak device memory)."""
     import torch
     from paddle_tpu_torch.ops import nn_ops
     from paddle_tpu_torch.serving import ServingServer
@@ -2474,6 +2519,8 @@ def drive_mix(engine, sched, reqs):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        if scraped is not None:
+            scraped['before'] = scrape_metrics(srv.port)
         nn_ops.reset_launch_counts()
         engine.reset_stats()
         t0 = time.perf_counter()
@@ -2487,6 +2534,8 @@ def drive_mix(engine, sched, reqs):
         launches = nn_ops.launch_counts()
         stats = engine.stats
         peak = torch.cuda.max_memory_allocated()
+        if scraped is not None:
+            scraped['after'] = scrape_metrics(srv.port)
     finally:
         srv.shutdown()
     if any(t.is_alive() for t in threads) or None in results:
@@ -2536,7 +2585,9 @@ def serve(seed, card):
     n_params = sum(p.numel() for p in model.parameters())
     engine, sched, _ = build_replica_stack(model)
     reqs, rng = served_mix(seed, cfg.vocab_size)
-    results, wall, launches, stats, peak = drive_mix(engine, sched, reqs)
+    scraped = {}
+    results, wall, launches, stats, peak = drive_mix(engine, sched, reqs,
+                                                     scraped)
     log(f'served model: CausalLMConfig() {n_params} parameters, '
         f'{cfg.num_hidden_layers} layers; engine slots={engine.slots} '
         f'block={engine.block_size} ladder={engine.prompt_buckets} '
@@ -2562,7 +2613,101 @@ def serve(seed, card):
         f'(decode steps {stats["decode_steps"]}, prefills '
         f'{stats["prefills"]}, layers {cfg.num_hidden_layers})')
     profile_decode_steps(engine, rng, card)
+    check_decode_metrics(scraped, launches, results, cfg.num_hidden_layers,
+                         card)
+    decode_hook_cost(engine, rng, card)
     return launches, model, reqs, results
+
+
+def check_decode_metrics(scraped, launches, results, layers, card):
+    """Phase 19 (d), on phase 4's mix: the decode server's ``/metrics``
+    over the 16 requests (read just before and just after them) against
+    the kernels' launch counters and the tokens streamed."""
+    def delta(name, suffix=''):
+        return (metric_total(scraped['after'], name, suffix)
+                - metric_total(scraped['before'], name, suffix))
+
+    steps = delta('decode_steps')
+    prefills = delta('decode_prefill_seconds', '_count')
+    tokens = delta('decode_tokens_generated')
+    streamed = sum(len(t) for t, _ in results)
+    got = {'K1': launches['paged_attention'],
+           'K2': launches['paged_prefill_attention']}
+    want = {'K1': steps * layers, 'K2': prefills * layers}
+    if got != want or tokens != streamed or \
+            delta('decode_requests_completed') != len(results):
+        raise AssertionError(f'19 (d): launches {got} against /metrics '
+                             f'{want}; tokens {tokens} against {streamed} '
+                             f'streamed')
+    log(f'19 (d) phase 4\'s decode server, GET /metrics over its '
+        f'{len(results)} requests [{card}]: decode_steps {steps:.0f} x '
+        f'{layers} layers = K1 launches {got["K1"]}, prefills '
+        f'{prefills:.0f} x {layers} = K2 launches {got["K2"]}, '
+        f'decode_tokens_generated {tokens:.0f} = tokens streamed')
+
+
+class _NoHooks:
+    """Stands in for the decode engine's metrics and series modules:
+    every attribute and call is itself, so a hook site does nothing."""
+
+    def __getattr__(self, name):
+        return self
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+
+def decode_hook_cost(engine, rng, card, steps=40, prompt_len=16):
+    """Phase 19 (d): phase 4's decode step (every slot active, contexts
+    from ``prompt_len`` up) timed on the host clock, ``steps`` steps a
+    turn, p50 a turn: telemetry off, on, on, off; then the engine's
+    always-on metric hooks stubbed out, on, on, stubbed; the spread of a
+    pair of equal turns is the host's noise."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.serving.decode import engine as decode_engine
+    vocab = engine.model.cfg.vocab_size
+    tables, tokens = [], []
+    for _ in range(engine.slots):
+        t = engine.reserve_table(prompt_len, 8 * steps + 1)
+        tokens.append(engine.prefill(
+            [int(x) for x in rng.randint(0, vocab, prompt_len)], t))
+        tables.append(t)
+
+    def turn():
+        nonlocal tokens
+        secs = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            tokens = [int(x) for x in engine.decode_step(tokens, tables)]
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs) * 1e3
+
+    hooks = (decode_engine._m, decode_engine._dobs)
+    tele = []
+    for on in (False, True, True, False):
+        with observability.telemetry_guard(on):
+            tele.append(turn())
+    stub = []
+    try:
+        for live in (False, True, True, False):
+            decode_engine._m, decode_engine._dobs = (
+                hooks if live else (_NoHooks(), _NoHooks()))
+            stub.append(turn())
+    finally:
+        decode_engine._m, decode_engine._dobs = hooks
+    for t in tables:
+        engine.release_table(t)
+    fmt = ', '.join
+    log(f'19 (d) decode step p50 ms, {engine.slots} active slots [{card}]: '
+        f'telemetry off/on/on/off '
+        f'{fmt(f"{x:.3f}" for x in tele)} (on - off '
+        f'{(tele[1] + tele[2] - tele[0] - tele[3]) / 2:+.3f}, noise: the '
+        f'off turns differ by {abs(tele[0] - tele[3]):.3f}, the on turns by '
+        f'{abs(tele[1] - tele[2]):.3f}); metric hooks stubbed/on/on/stubbed '
+        f'{fmt(f"{x:.3f}" for x in stub)} (hooks - stubbed '
+        f'{(stub[1] + stub[2] - stub[0] - stub[3]) / 2:+.3f}, noise '
+        f'{abs(stub[0] - stub[3]):.3f} / {abs(stub[1] - stub[2]):.3f})')
+    return {'telemetry': tele, 'hooks': stub}
 
 
 def profile_decode_steps(engine, rng, card, steps=20):
@@ -3101,6 +3246,7 @@ def routed_kill_run(reqs, want, seed, card):
                     raise AssertionError(f'(f) {reqs[i]["request_id"]}: the '
                                          f'retry\'s tokens differ from (b)')
             stats = dict(router.stats)
+            fleet_check(router, urls, victim_url, card)
         if victim.wait(timeout=60) != -signal.SIGKILL:
             raise AssertionError('(f): the killed replica did not die of '
                                  'SIGKILL')
@@ -3125,6 +3271,30 @@ def routed_kill_run(reqs, want, seed, card):
         f'{stats["router_requests_failed"]}; '
         f'{time.perf_counter() - t_start:.1f} s')
     return {'lost': len(lost), 'rerouted': rerouted, 'stats': stats}
+
+
+def fleet_check(router, urls, victim_url, card):
+    """Phase 19 (e), at the end of phase 17's run (f): the router's
+    ``/metrics/fleet`` merge once, its decode_tokens_generated against the
+    sum of the live replicas' own ``/metrics``; the killed replica's
+    scrape is a counted failure, not a failed merge."""
+    from paddle_tpu_torch.observability import distributed, registry
+    failures = registry.counter('router_scrape_failures')
+    before = sum(s['value'] for s in failures.to_dict()['samples'])
+    fleet = distributed.parse_prometheus_text(router.fleet_metrics_text())
+    after = sum(s['value'] for s in failures.to_dict()['samples'])
+    live = [u for u in urls if u != victim_url]
+    own = [metric_total(scrape_metrics(int(u.rsplit(':', 1)[1])),
+                        'decode_tokens_generated') for u in live]
+    merged = metric_total(fleet, 'decode_tokens_generated')
+    if merged != sum(own) or after - before != 1:
+        raise AssertionError(f'19 (e): merged tokens {merged} against the '
+                             f'live replicas\' {own}; scrape failures '
+                             f'{after - before}')
+    log(f'19 (e) phase 17 (f)\'s router, GET /metrics/fleet once at its end '
+        f'[{card}]: merged decode_tokens_generated {merged:.0f} = the live '
+        f'replica\'s own {own}; the killed replica\'s scrape counted as one '
+        f'router_scrape_failures')
 
 
 def serve_shared_prefix(model, seed, card):
@@ -5218,6 +5388,396 @@ def fluid_surface(seed, card):
     return nn_ops.launch_counts()
 
 
+# Phase 19: the stateless serving path (ROADMAP A.7b) with the
+# observability core (A.11): PaddleCV's ResNet-50 inference model as
+# tools/static_resnet.py builds it (full width, 1000 classes, 224^2, NCHW,
+# f32 weights from the seed, no training), saved with
+# save_inference_model, behind InferenceEngine(max_batch_size=32) (ladder
+# 1-32), MicroBatcher(batch_timeout_ms=2) and ServingServer on port 0. A
+# row's output is its softmax over 1000 classes; a row served in any
+# bucket is held to the same row run alone at STATELESS_ROW_TOL (f32: the
+# same products summed in another order where cuDNN picks another
+# algorithm for another batch size), and the result says whether it was
+# bit for bit. (b) runs SERVE_REQUESTS one-row requests from SERVE_CLIENTS
+# closed-loop client threads, rows drawn from a pool of SERVE_POOL seeded
+# images; (c) sends HTTP_CLIENTS x HTTP_EACH of them as JSON.
+STATELESS_MAX_BATCH, STATELESS_TIMEOUT_MS = 32, 2
+STATELESS_ROW_TOL = 1e-5
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_POOL = 64, 2048, 256
+SERVE_PROFILED = 256
+HTTP_CLIENTS, HTTP_EACH = 8, 8
+PREDICT_RUNS = 20
+
+
+def stateless_model(seed, card):
+    """The saved ResNet-50 inference model's directory (a temporary one,
+    the caller removes it) and its parameter count."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import static_resnet
+    fluid.seed(seed)
+    t0 = time.perf_counter()
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_resnet.build(fluid)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    if n_params != SRESNET_PARAMS:
+        raise AssertionError(f'ResNet-50 has {n_params} parameters')
+    tmp = tempfile.mkdtemp(prefix='smoke-stateless-')
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(tmp, ['image'], [v['prob']], exe,
+                                      main_program=main)
+    log(f'19 (a) ResNet-50 inference model [{card}]: {n_params} parameters, '
+        f'1000 classes, 224^2, weights from seed {seed}; built, initialised '
+        f'on the card and saved in {time.perf_counter() - t0:.1f} s')
+    return tmp
+
+
+def counted(engine):
+    """Wrap ``engine.run_batch`` to record each batch's rows (the batches
+    the batcher ran); returns the list it appends to."""
+    batches = []
+    run = engine.run_batch
+
+    def run_batch(feed, nrows=None):
+        out = run(feed, nrows)
+        batches.append(len(out[0]))
+        return out
+
+    engine.run_batch = run_batch
+    return batches
+
+
+def row_diffs(got, want):
+    """(max |diff|, rows bit for bit) over paired output rows."""
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    same = sum(bool(np.array_equal(g, w)) for g, w in zip(got, want))
+    return err, same
+
+
+def stateless_engine_alone(engine, pred, rng, card, what):
+    """(a): each rung's first-run seconds; at each rung (and two counts
+    between rungs) a seeded batch against Predictor.run on the same rows
+    and against each row run alone; Predictor.run at the top rung alone:
+    images/s and its p50. Returns the largest row-alone |diff|."""
+    import torch
+    warm = engine.warmup()
+    log(f'19 (a) {what} warmup, first-run seconds by rung [{card}]: '
+        + ', '.join(f'{b}: {s:.3f}' for b, s in warm.items()))
+    worst, all_same, lines = 0.0, True, []
+    # two counts between rungs, padded: 3 and 20 (of 32)
+    for n in engine.buckets + [3, STATELESS_MAX_BATCH * 5 // 8]:
+        x = rng.standard_normal((n, 3, RESNET_IMG, RESNET_IMG),
+                                dtype=np.float32)
+        got = engine.run_batch({'image': x}, n)[0]
+        if got.shape != (n, RESNET_CLASSES) or not np.isfinite(got).all():
+            raise AssertionError(f'{what}: rung {n} output {got.shape}')
+        p_err, p_same = row_diffs(got, pred.run([x])[0])
+        alone = [engine.run_batch({'image': x[i:i + 1]}, 1)[0][0]
+                 for i in range(n)]
+        a_err, a_same = row_diffs(got, alone)
+        worst = max(worst, a_err, p_err)
+        all_same &= a_same == n and p_same == n
+        lines.append(f'{n} rows (bucket {engine.bucket_for(n)}): '
+                     f'Predictor {p_err:.3e} ({p_same}/{n} bitwise), '
+                     f'alone {a_err:.3e} ({a_same}/{n} bitwise)')
+        if max(a_err, p_err) > STATELESS_ROW_TOL:
+            raise AssertionError(f'{what}: {lines[-1]} beyond '
+                                 f'{STATELESS_ROW_TOL}')
+    log(f'19 (a) {what} rows against Predictor.run on the same rows and '
+        f'against each row alone, max |diff| [{card}]: ' + '; '.join(lines))
+    agree = ('bit for bit equal to' if all_same
+             else f'within {STATELESS_ROW_TOL} of')
+    log(f'19 (a) {what}: every row {agree} its Predictor and single-row '
+        f'values across the ladder')
+    x = rng.standard_normal((STATELESS_MAX_BATCH, 3, RESNET_IMG,
+                             RESNET_IMG), dtype=np.float32)
+    secs = []
+    for _ in range(WARMUP_STEPS + PREDICT_RUNS):
+        t0 = time.perf_counter()
+        pred.run([x])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    p50 = statistics.median(secs[WARMUP_STEPS:])
+    log(f'19 (a) {what} Predictor.run at batch {STATELESS_MAX_BATCH} alone, '
+        f'the engine\'s ceiling [{card}]: p50 {p50 * 1e3:.3f} ms = '
+        f'{STATELESS_MAX_BATCH / p50:.1f} images/s')
+    return {'worst': worst, 'bitwise': all_same, 'ceiling': (
+        STATELESS_MAX_BATCH / p50), 'predict_p50_ms': p50 * 1e3}
+
+
+def closed_loop(send, n_requests, n_clients, n_rows):
+    """``n_clients`` threads, each sending one request after another until
+    ``n_requests`` went out: request i is ``send(i, i % n_rows)``. Returns
+    (wall seconds, each request's seconds, each request's output)."""
+    lat, outs = [None] * n_requests, [None] * n_requests
+    ticket = itertools.count()
+
+    def client():
+        while True:
+            i = next(ticket)
+            if i >= n_requests:
+                return
+            t0 = time.perf_counter()
+            outs[i] = send(i, i % n_rows)
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or None in lat:
+        raise AssertionError('a client did not finish')
+    return wall, lat, outs
+
+
+def stateless_batcher(engine, pool, ref, card, what, tol):
+    """(b): the closed loop through a MicroBatcher, then a profiled window
+    of SERVE_PROFILED requests. Every output row against its pool row run
+    alone (``ref``) within ``tol``."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.serving import MicroBatcher
+    observability.reset()
+    batches = counted(engine)
+    with MicroBatcher(engine, batch_timeout_ms=STATELESS_TIMEOUT_MS,
+                      queue_depth=4 * SERVE_CLIENTS) as batcher:
+        def send(i, r):
+            return batcher.predict({'image': pool[r:r + 1]})[0][0]
+
+        wall, lat, outs = closed_loop(send, SERVE_REQUESTS, SERVE_CLIENTS,
+                                      len(pool))
+        reg = observability.registry
+        wait_p50 = reg.histogram('serving_queue_wait_seconds').percentile(50)
+        runs = reg.counter('serving_bucket_runs').to_dict()['samples']
+        n_batches = len(batches)
+        walls = []
+
+        def window():
+            t0 = time.perf_counter()
+            closed_loop(send, SERVE_PROFILED, SERVE_CLIENTS, len(pool))
+            walls.append(time.perf_counter() - t0)
+
+        prof = profiled(window)
+    del engine.run_batch                  # the engine's own method again
+    err, same = row_diffs(outs, [ref[i % len(pool)]
+                                 for i in range(SERVE_REQUESTS)])
+    if err > tol:
+        raise AssertionError(f'{what}: a batched row is {err:.3e} from its '
+                             f'row alone, beyond {tol}')
+    if sum(s['value'] for s in runs) != n_batches:
+        raise AssertionError(f'{what}: serving_bucket_runs {runs} against '
+                             f'{n_batches} batches run')
+    rows = collections.Counter(batches[:n_batches])
+    padded = sum(engine.bucket_for(n) for n in batches[:n_batches])
+    lat_ms = np.asarray(lat) * 1e3
+    busy_ms = device_us(prof) / 1e3
+    idle = (f'device busy {busy_ms:.3f} ms of {walls[-1] * 1e3:.3f} ms, '
+            f'idle share {1 - busy_ms / (walls[-1] * 1e3):.3f}'
+            if busy_ms > 0 else 'device busy not measured (the profiler '
+            'recorded no device time)')
+    log(f'19 (b) {what} MicroBatcher, {SERVE_CLIENTS} closed-loop clients, '
+        f'{SERVE_REQUESTS} one-row requests [{card}]: {wall:.3f} s = '
+        f'{SERVE_REQUESTS / wall:.1f} images/s; request latency p50 '
+        f'{np.percentile(lat_ms, 50):.3f} p99 {np.percentile(lat_ms, 99):.3f}'
+        f' ms; queue wait p50 {wait_p50 * 1e3:.3f} ms (last 512); '
+        f'{n_batches} batches, rows: {dict(sorted(rows.items()))}; padding '
+        f'waste {1 - SERVE_REQUESTS / padded:.4f}; rows against each row '
+        f'alone {err:.3e} ({same}/{SERVE_REQUESTS} bit for bit); profiled '
+        f'window of {SERVE_PROFILED} requests: {idle}')
+    return {'images_per_s': SERVE_REQUESTS / wall, 'outs': outs}
+
+
+def http_json(port, path, body=None, timeout=600):
+    """(status, parsed body) of one request; ``body`` bytes are POSTed."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}', data=body,
+        headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read().decode()
+            code = r.status
+    except urllib.error.HTTPError as e:
+        raw, code = e.read().decode(), e.code
+    return code, (json.loads(raw) if raw.startswith('{') else raw)
+
+
+def stateless_http(engine, pool, ref, batched, card, tol):
+    """(c): HTTP_CLIENTS x HTTP_EACH one-row POST /predict requests (the
+    outputs against (b)'s rows and each row alone), the parse time of the
+    same bodies measured apart, one 400, 429 and 504 each on a second
+    server with queue_depth=1, then GET /metrics against the client's own
+    counts."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.observability import distributed
+    from paddle_tpu_torch.serving import ServingServer
+    n = HTTP_CLIENTS * HTTP_EACH
+    t0 = time.perf_counter()
+    bodies = [json.dumps({'inputs': {'image': pool[i:i + 1].tolist()}})
+              .encode() for i in range(n)]
+    log(f'19 (c) {n} JSON bodies of one 224^2 image, '
+        f'{statistics.median(len(b) for b in bodies) / 1e6:.3f} MB each, '
+        f'built by the client in {time.perf_counter() - t0:.1f} s')
+    # the server's parse of the same bodies, timed apart: json.loads and
+    # the engine's validate (np.asarray of the nested lists)
+    parse, convert = [], []
+    for b in bodies[:16]:
+        t0 = time.perf_counter()
+        payload = json.loads(b)
+        t1 = time.perf_counter()
+        engine.validate(payload['inputs'])
+        parse.append(t1 - t0)
+        convert.append(time.perf_counter() - t1)
+    observability.reset()
+    batches = counted(engine)
+    srv = ServingServer(engine, port=0, max_batch_size=STATELESS_MAX_BATCH,
+                        batch_timeout_ms=STATELESS_TIMEOUT_MS,
+                        request_timeout=600).start()
+    codes = collections.Counter()
+    try:
+        def send(i, r):
+            code, reply = http_json(srv.port, '/predict', bodies[r])
+            codes[code] += 1
+            if code != 200:
+                raise AssertionError(f'(c) request {i}: {code} {reply}')
+            return np.asarray(reply['outputs'][engine.get_output_names()[0]],
+                              np.float32)[0]
+
+        wall, lat, outs = closed_loop(send, n, HTTP_CLIENTS, n)
+        code, reply = http_json(srv.port, '/predict', json.dumps(
+            {'inputs': {'image': pool[:1, :, :2, :2].tolist()}}).encode())
+        codes[code] += 1
+        if code != 400 or reply['error'] != 'InvalidRequest':
+            raise AssertionError(f'(c) wrong shape: {code} {reply}')
+        # 429 and 504: a second server with a queue of one; the engine is
+        # held while request A runs, B (timeout 1 ms) waits in the queue
+        # and C finds it full; B's deadline passes before the release
+        srv2 = ServingServer(engine, port=0, batch_timeout_ms=0,
+                             queue_depth=1, request_timeout=600).start()
+        try:
+            replies = {}
+
+            def post2(key, body):
+                replies[key] = http_json(srv2.port, '/predict', body)
+
+            timed_out = json.dumps({'inputs': {'image': pool[1:2].tolist()},
+                                    'timeout_ms': 1}).encode()
+            with engine._lock:
+                a = threading.Thread(target=post2, args=('A', bodies[0]))
+                a.start()
+                while srv2.batcher.pending() or not a.is_alive():
+                    time.sleep(0.001)
+                time.sleep(0.2)              # A's parse, then the worker
+                b = threading.Thread(target=post2, args=('B', timed_out))
+                b.start()
+                deadline = time.monotonic() + 60
+                while srv2.batcher.pending() != 1:
+                    if time.monotonic() > deadline:
+                        raise AssertionError('(c) B never queued')
+                    time.sleep(0.001)
+                post2('C', bodies[2])
+                time.sleep(0.01)
+            a.join(600)
+            b.join(600)
+        finally:
+            srv2.shutdown()
+        got = {k: replies[k][0] for k in 'ABC'}
+        if got != {'A': 200, 'B': 504, 'C': 429}:
+            raise AssertionError(f'(c) 429/504 sequence: {replies}')
+        codes.update(got.values())
+        with urllib.request.urlopen(
+                f'http://127.0.0.1:{srv.port}/metrics', timeout=60) as r:
+            fams = distributed.parse_prometheus_text(r.read().decode())
+        n_batches = len(batches)
+    finally:
+        srv.shutdown()
+        del engine.run_batch
+
+    def count(name):
+        fam = fams.get('paddle_tpu_' + name)
+        return sum(v for _, _, v in fam['samples']) if fam else 0
+
+    want = {'serving_requests_completed': codes[200],
+            'serving_requests_rejected_invalid': codes[400],
+            'serving_requests_rejected_overload': codes[429],
+            'serving_requests_deadline_missed': codes[504],
+            'serving_requests_failed': 0,
+            'serving_bucket_runs': n_batches}
+    seen = {k: count(k) for k in want}
+    if seen != want:
+        raise AssertionError(f'(c) /metrics {seen} against the client\'s '
+                             f'{want}')
+    err, same = row_diffs(outs, [ref[i] for i in range(n)])
+    b_err, b_same = row_diffs(outs, batched[:n])
+    if max(err, b_err) > tol:
+        raise AssertionError(f'(c) HTTP rows {err:.3e} / {b_err:.3e} from '
+                             f'the rows alone / (b), beyond {tol}')
+    compute = fams['paddle_tpu_serving_compute_seconds']['samples']
+    c_sum = sum(v for s, _, v in compute if s.endswith('_sum'))
+    c_n = sum(v for s, _, v in compute if s.endswith('_count'))
+    lat_ms = np.asarray(lat) * 1e3
+    log(f'19 (c) HTTP POST /predict, {HTTP_CLIENTS} clients x {HTTP_EACH} '
+        f'one-row requests [{card}]: {wall:.3f} s = {n / wall:.1f} '
+        f'images/s; latency p50 {np.percentile(lat_ms, 50):.3f} p99 '
+        f'{np.percentile(lat_ms, 99):.3f} ms; the server\'s parse of one '
+        f'body, timed apart: json.loads p50 '
+        f'{statistics.median(parse) * 1e3:.3f} ms + validate (np.asarray) '
+        f'p50 {statistics.median(convert) * 1e3:.3f} ms, against the '
+        f'engine\'s compute {c_sum / max(c_n, 1) * 1e3:.3f} ms a batch '
+        f'(mean of {int(c_n)} batches); rows against each row alone '
+        f'{err:.3e} ({same}/{n} bit for bit) and against (b) {b_err:.3e} '
+        f'({b_same}/{n}); 400, 429 and 504 once each; /metrics: {seen}, '
+        f'equal to the client\'s counts and the batches run')
+
+
+def serve_stateless(seed, card):
+    """Phase 19 (a)-(c). Returns the kernels' launch counts over it (none
+    of the port's kernels is on this path)."""
+    import shutil
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops import nn_ops
+    from paddle_tpu_torch.serving import InferenceEngine
+    t_start = time.perf_counter()
+    nn_ops.reset_launch_counts()
+    path = stateless_model(seed, card)
+    try:
+        rng = np.random.default_rng(seed + 19)
+        pool = rng.standard_normal((SERVE_POOL, 3, RESNET_IMG, RESNET_IMG),
+                                   dtype=np.float32)
+        batched = None
+        for what, cfg in (('f32', inference.Config(path)),
+                          ('bf16', inference.Config(path).enable_bf16())):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            engine = InferenceEngine(cfg, executor=exe,
+                                     max_batch_size=STATELESS_MAX_BATCH)
+            pred = inference.Predictor(cfg, fluid.Executor(
+                fluid.CUDAPlace(0)))
+            alone = stateless_engine_alone(engine, pred, rng, card, what)
+            ref = [engine.run_batch({'image': pool[i:i + 1]}, 1)[0][0]
+                   for i in range(SERVE_POOL)]
+            tol = STATELESS_ROW_TOL
+            out = stateless_batcher(engine, pool, ref, card, what, tol)
+            log(f'19 (b) {what}: {out["images_per_s"]:.1f} images/s = '
+                f'{out["images_per_s"] / alone["ceiling"]:.3f} of (a)\'s '
+                f'ceiling {alone["ceiling"]:.1f} images/s')
+            if what == 'f32':
+                batched = [out['outs'][i] for i in range(SERVE_POOL)]
+                stateless_http(engine, pool, ref, batched, card, tol)
+            del engine, pred
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    launches = nn_ops.launch_counts()
+    log(f'phase 19 (a)-(c) in {time.perf_counter() - t_start:.1f} s '
+        f'[{card}]; kernel launches {launches}')
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -5493,8 +6053,23 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_fluid_surface'] = surface[wrapper]
 
-    # 19. result lines
-    log(f'chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s '
+    # 19. the stateless serving path: ResNet-50's inference model through
+    # InferenceEngine, the MicroBatcher and POST /predict, and /metrics
+    # against the clients' counts; no kernel of the port is on this path,
+    # and none may launch ((d) and (e) ran inside phases 4 and 17)
+    torch.cuda.empty_cache()
+    stateless = serve_stateless(args.seed, smi)
+    if any(stateless.values()):
+        raise AssertionError(f'kernels launched on the stateless serving '
+                             f'path: {stateless}')
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_stateless_serving'] = stateless[wrapper]
+
+    # 20. result lines
+    log(f'chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -5504,7 +6079,7 @@ def main(argv=None):
             x for x in ('launches_ptb', 'launches_s2s', 'launches_amp',
                         'launches_fused', 'launches_served_variants',
                         'launches_shared_prefix', 'launches_fluid_surface',
-                        'body',
+                        'launches_stateless_serving', 'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

@@ -34,7 +34,12 @@ fifteenth is the Fluid top-level surface (ROADMAP A.13): ``DataFeeder``,
 ``net_drawer``, ``op``, ``utils``, ``transpiler``'s no-ops,
 ``contrib.Trainer`` and ``Inferencer``, and the ``fluid`` alias, so that
 ``import paddle_tpu_torch.fluid as fluid`` runs PaddleBook's scripts
-(``tools/recognize_digits.py``). Every other public top-level name of the
+(``tools/recognize_digits.py``). The sixteenth is the stateless serving
+path (``serving/engine.py``'s ``InferenceEngine``, ``serving/batcher.py``,
+``POST /predict``) with the observability core (``observability/``: the
+metrics registry behind ``GET /metrics``, the tracer, trace contexts, the
+fleet merge behind the router's ``GET /metrics/fleet``, windowed series
+and SLOs). Every other public top-level name of the
 JAX package is a stand-in that raises ``NotImplementedError`` naming its
 ROADMAP item (``NOT_PORTED`` below); a name the JAX package lacks is not
 an attribute. A static script::
@@ -106,6 +111,7 @@ from .transpiler import memory_optimize, release_memory
 from . import utils
 from . import inference
 from . import parallel
+from . import observability
 from . import serving
 from . import _not_ported
 
@@ -136,7 +142,6 @@ NOT_PORTED = {
     'DataLoader': ('A.11', 'class'),
     'FetchHandle': ('A.11', 'class'),
     'profiler': ('A.11', 'module'),
-    'observability': ('A.11', 'module'),
     'resilience': ('A.11', 'module'),
     'analysis': ('A.11', 'module'),
     'dataset': ('A.11', 'module'),

@@ -17,7 +17,7 @@ ITEMS = {
     'A.9': 'distributed training on torch.distributed',
     'A.10': 'LoD tensors, the model zoo and the op long tail',
     'A.11': ('the runtime services: readers, datasets, the profiler, '
-             'observability and resilience'),
+             'resilience and the rest of observability'),
 }
 
 

@@ -130,6 +130,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import ir
+from . import observability as _obs
 from .compiler import CompiledProgram
 from .core.dtypes import to_numpy_dtype, to_torch_dtype
 from .core.places import get_device
@@ -177,6 +178,12 @@ def _check_fetches_finite(fetch_names, fetches):
     finite = torch.stack([torch.isfinite(f).all() for _, f in floats])
     bad = {n: f for (n, f), ok in zip(floats, finite.tolist()) if not ok}
     if bad:
+        # the detections land in telemetry before the raise, so a NaN
+        # storm is a series and not only the first traceback
+        _obs.inc('nonfinite_detections', len(bad),
+                 help='fetched variables containing NaN/Inf '
+                      '(FLAGS_check_nan_inf)')
+        _obs.instant('nonfinite_detected', variables=','.join(bad))
         check_numerics(bad, 'fetches')
 
 
@@ -765,6 +772,7 @@ class Executor:
         # set True to record each plan's env high-water (``_Plan.run``'s
         # ``watch``); read with :meth:`_env_high_water`
         self._watch_env = False
+        self._step_counter = 0
 
     @property
     def device(self):
@@ -797,7 +805,22 @@ class Executor:
         on the device, detached (the JAX package returns ``FetchHandle`` s
         there). ``use_program_cache``, ``feed_var_name`` and
         ``fetch_var_name`` are accepted and ignored, as the JAX package
-        ignores them: lowered plans are always cached."""
+        ignores them: lowered plans are always cached.
+
+        With telemetry on (``PADDLE_TPU_TELEMETRY``, ``observability``) each
+        run is one span tree, ``executor/run`` over ``prepare``, ``lower``
+        (a plan built), ``execute``, ``fetch`` and ``check_nan_inf``, and
+        counts ``executor_steps`` and the feed and fetch bytes. The spans
+        time the host: ``execute`` is the dispatch of the plan's kernels,
+        and ``fetch`` waits for the device when it copies to numpy."""
+        if not _obs._ENABLED:
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy)
+        with _obs.span('executor/run', step=self._step_counter + 1):
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy)
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
         _check_env()
         build_strategy = None
         inplace = os.environ.get('PADDLE_TPU_DONATE', '1') != '0'
@@ -814,8 +837,11 @@ class Executor:
         _check_ported(program)
         block = program.global_block()
         if any(op.type == '__init__' for op in block.ops):
-            self._run_startup(program, scope)
+            with _obs.span('executor/startup'):
+                self._run_startup(program, scope)
             return []
+        prep_span = _obs.span('executor/prepare')
+        prep_span.__enter__()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         state_names = sorted({v.name for v in program.list_vars()
@@ -827,27 +853,65 @@ class Executor:
                tuple(sorted((n, tuple(v.shape), v.dtype)
                             for n, v in feeds.items())),
                ir.pipeline_signature(build_strategy))
+        prep_span.__exit__(None, None, None)
         plan = self._cache.get(key)
-        if plan is None or not plan.serves(fetch_names):
-            roots = set(fetch_names) | (plan.fetch_roots if plan else set())
-            plan = self._cache[key] = self._lower(
-                program, state_names, roots, list(feeds), build_strategy)
+        compiled_now = plan is None or not plan.serves(fetch_names)
+        lower_span = _obs.span('executor/lower', program=program._id)
+        if compiled_now:
+            with lower_span:
+                roots = set(fetch_names) | (plan.fetch_roots if plan
+                                            else set())
+                plan = self._cache[key] = self._lower(
+                    program, state_names, roots, list(feeds),
+                    build_strategy)
             self._lowerings[program._id] += 1
-        new_state, fetches = plan.run(
-            state, feeds, fetch_names, self._device,
-            default_generator.generator(self._device),
-            watch=self._watch_env)
-        self._write_state(scope, state, new_state, feeds, fetch_names,
-                          fetches, inplace)
-        for f in fetches:
-            mark_handed_out(f)
+        self._step_counter += 1
+        exec_span = _obs.span('executor/execute', compile=compiled_now)
+        with exec_span:
+            new_state, fetches = plan.run(
+                state, feeds, fetch_names, self._device,
+                default_generator.generator(self._device),
+                watch=self._watch_env)
+        fetch_span = _obs.span('executor/fetch')
+        with fetch_span:
+            self._write_state(scope, state, new_state, feeds, fetch_names,
+                              fetches, inplace)
+            for f in fetches:
+                mark_handed_out(f)
+            if return_numpy:
+                # numpy has no bf16: such a value comes back as f32, exactly
+                result = [(f.float() if f.dtype == torch.bfloat16 else f)
+                          .cpu().numpy() for f in fetches]
+            else:
+                result = fetches
         if fetches and check_nan_inf_enabled():
-            _check_fetches_finite(fetch_names, fetches)
-        if return_numpy:
-            # numpy has no bf16: such a value comes back as f32, exactly
-            return [(f.float() if f.dtype == torch.bfloat16 else f)
-                    .cpu().numpy() for f in fetches]
-        return fetches
+            with _obs.span('executor/check_nan_inf'):
+                _check_fetches_finite(fetch_names, fetches)
+        if _obs._ENABLED:
+            feed_bytes = sum(v.numel() * v.element_size()
+                             for v in feeds.values())
+            fetch_bytes = sum(f.numel() * f.element_size() for f in fetches)
+            _obs.inc('executor_steps',
+                     help='completed Executor.run training/eval steps')
+            _obs.inc('executor_feed_bytes', feed_bytes,
+                     help='bytes fed into Executor.run')
+            _obs.inc('executor_fetch_bytes', fetch_bytes,
+                     help='bytes fetched out of Executor.run')
+            if compiled_now:
+                _obs.observe(
+                    'executor_compile_seconds',
+                    lower_span.duration + exec_span.duration,
+                    help='lower + first-execution time per program+shape '
+                         'plan built')
+            _obs.log_step(
+                kind='executor', step=self._step_counter,
+                compiled=compiled_now, feed_bytes=feed_bytes,
+                fetch_bytes=fetch_bytes,
+                prepare_s=round(prep_span.duration, 6),
+                lower_s=round(lower_span.duration, 6),
+                execute_s=round(exec_span.duration, 6),
+                fetch_s=round(fetch_span.duration, 6))
+        return result
 
     @staticmethod
     def _lower(program, state_names, fetch_roots, feed_names,

@@ -22,15 +22,19 @@ op whose definition ``needs_rng`` (ir/dce.py), and a run with the passes
 on draws what a run with them off draws.
 
 Each manager counts, by pass name, how often it applied the pass
-(``applied``) and the seconds it took (``elapsed``). The JAX package
-exports these as gauges; the port's metrics wait for ROADMAP A.11, as
-does the verifier hook between passes (``PADDLE_TPU_VERIFY``).
+(``applied``) and the seconds it took (``elapsed``); with telemetry on
+(``observability``) each application also counts into the registry's
+``ir_pass_applied_total`` and ``ir_pass_seconds`` by pass, as the JAX
+package's do. The verifier hook between passes (``PADDLE_TPU_VERIFY``)
+waits for ROADMAP A.11's ``analysis/``.
 """
 from __future__ import annotations
 
 import time
 from collections import Counter, defaultdict
 from typing import Dict, List, Optional
+
+from .. import observability as _obs
 
 __all__ = ['Pass', 'PassContext', 'PassManager', 'register_pass',
            'get_pass', 'all_passes']
@@ -110,8 +114,16 @@ class PassManager:
         for p in self.passes:
             t0 = time.perf_counter()
             p.apply(opt, ctx)
-            self.elapsed[p.name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.elapsed[p.name] += dt
             self.applied[p.name] += 1
+            if _obs._ENABLED:
+                _obs.inc('ir_pass_applied_total', 1,
+                         help='IR pass executions by pass name',
+                         **{'pass': p.name})
+                _obs.observe('ir_pass_seconds', dt,
+                             help='wall time per IR pass application',
+                             **{'pass': p.name})
         return opt, ctx
 
     def names(self):

@@ -33,13 +33,15 @@ import time
 import numpy as np
 import torch
 
+from .. import metrics as _m
 from ..engine import bucket_ladder
 from ..errors import InvalidRequest
+from ...observability import distributed as _dobs
 from ..tier.knobs import (ENV_DECODE_HBM_MB, ENV_KV_DTYPE, ENV_PREFIX_CACHE,
                           ENV_SPEC_DECODE, ENV_SPEC_K, KV_DTYPE_CHOICES,
                           parse_choice_env, parse_flag_env, parse_int_env)
 from .kv_cache import (CacheContext, KVCachePool, DEFAULT_BLOCK_SIZE,
-                       DEFAULT_MAX_BLOCKS, DEFAULT_SLOTS)
+                       DEFAULT_MAX_BLOCKS, DEFAULT_SLOTS, KV_DTYPE_CODES)
 
 __all__ = ['DecodeEngine', 'TIMING_WINDOW']
 
@@ -80,8 +82,11 @@ class DecodeEngine:
     and verify rounds, the host copy of the logits included),
     ``prefill_seconds`` (the same, by rung), and speculative decoding's
     ``spec_rounds``, ``spec_drafted`` and ``spec_accepted`` (draft tokens
-    fed and confirmed; the scheduler counts them). They stand in for the
-    reference's ``decode_spec_*`` metrics, which come with ROADMAP A.11.
+    fed and confirmed; the scheduler counts them). They are this engine's
+    own view; the registry's ``decode_*``, ``decode_spec_*`` and
+    ``kv_cache_*`` metrics (serving/metrics.py, ``GET /metrics``) and the
+    ``occupancy`` and ``decode_step`` windowed series are recorded always,
+    at the reference's sites.
     """
 
     def __init__(self, model, slots=None, block_size=None, max_blocks=None,
@@ -113,6 +118,9 @@ class DecodeEngine:
                 f'max_blocks={self.pool.num_blocks} cannot hold one '
                 f'maximal request ({max_bps} blocks for '
                 f'{max_total} tokens at block_size={block_size})')
+        _m.decode_slots_total.set(self.slots)
+        _m.decode_cache_blocks_total.set(self.pool.allocator.capacity)
+        _m.kv_cache_dtype.set(KV_DTYPE_CODES[self.pool.kv_dtype])
         positions = model.cfg.max_position_embeddings
         if self.pool.padded_context > positions:
             # a position id past the table faults on the card
@@ -227,6 +235,7 @@ class DecodeEngine:
 
     def release_table(self, table):
         self.pool.free_table(table)
+        _m.decode_cache_blocks_used.set(self.pool.allocator.used)
 
     # -- phases ------------------------------------------------------------
     def prefill(self, prompt, table, sampler=None):
@@ -246,7 +255,12 @@ class DecodeEngine:
                                 cache=ctx)
             row = logits[0, n - 1].cpu().numpy()
         dt = time.perf_counter() - t0
-        self._prefilled_buckets.add(bucket)
+        _m.decode_prefill_seconds.observe(dt)
+        if bucket not in self._prefilled_buckets:
+            self._prefilled_buckets.add(bucket)
+            _m.decode_prefill_compiles.inc()
+        _m.decode_cache_blocks_used.set(self.pool.allocator.used)
+        _m.kv_cache_bytes_in_hbm.set(self.pool.bytes_in_hbm())
         self.stats['prefills'] += 1
         self.stats['prefill_seconds'][bucket].append(dt)
         if sampler is not None:
@@ -292,6 +306,14 @@ class DecodeEngine:
         self._stepped = True
         self.stats['decode_steps'] += 1
         self.stats['step_seconds'].append(dt)
+        _m.decode_step_seconds.observe(dt)
+        _m.decode_steps.inc()
+        active = sum(t is not None for t in tables)
+        _m.decode_slots_active.set(active)
+        _m.decode_slot_occupancy.observe(active / max(s_count, 1))
+        # sliding-window views for /healthz and the SLO monitor
+        _dobs.series('occupancy').observe(active / max(s_count, 1))
+        _dobs.series('decode_step').observe(dt)
         if return_rows:
             return out, rows
         return out
@@ -347,6 +369,15 @@ class DecodeEngine:
         self.stats['decode_steps'] += 1
         self.stats['spec_rounds'] += 1
         self.stats['step_seconds'].append(dt)
+        _m.decode_step_seconds.observe(dt)      # it IS the decode step
+        _m.decode_spec_verify_seconds.observe(dt)
+        _m.decode_steps.inc()
+        _m.decode_spec_rounds.inc()
+        active = sum(t is not None for t in tables)
+        _m.decode_slots_active.set(active)
+        _m.decode_slot_occupancy.observe(active / max(s_count, 1))
+        _dobs.series('occupancy').observe(active / max(s_count, 1))
+        _dobs.series('decode_step').observe(dt)
         return rows
 
     def inject_prefill(self, table, payload):
@@ -378,6 +409,8 @@ class DecodeEngine:
                 self.pool.write_whole_blocks(layer, table.blocks[skip:nb],
                                              k, v, k_scale=ks, v_scale=vs)
         table.context_len = payload.context_len
+        _m.decode_cache_blocks_used.set(self.pool.allocator.used)
+        _m.kv_cache_bytes_in_hbm.set(self.pool.bytes_in_hbm())
         return int(payload.first_token)
 
     # -- warmup ------------------------------------------------------------

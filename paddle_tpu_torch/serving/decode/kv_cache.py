@@ -390,6 +390,10 @@ class KVCachePool:
             scales[0].index_put_(idx, k_scale)
             scales[1].index_put_(idx, v_scale)
 
+    # -- observability -----------------------------------------------------
+    def utilization(self):
+        return self.allocator.used / max(self.allocator.capacity, 1)
+
 
 class CacheContext:
     """The ``cache=`` object MultiHeadAttention calls into (models/bert.py).

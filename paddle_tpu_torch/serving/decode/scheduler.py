@@ -1,6 +1,5 @@
 """Slot-based continuous-batching scheduler + per-request token streams
-(counterpart of paddle_tpu/serving/decode/scheduler.py, without its tracing
-branches, which come with ROADMAP A.11).
+(counterpart of paddle_tpu/serving/decode/scheduler.py).
 
 The scheduling model is S fixed decode slots stepped in lockstep:
 
@@ -38,6 +37,13 @@ miss is handed to the prefill engine instead of prefilled inline: its slot
 waits, inactive, while the step goes on, and the returned blocks are
 injected between steps. Sampled requests prefill inline, as in the
 reference (the handoff carries a greedy first token, not logits).
+
+Metrics, recorded always at the reference's sites: the ``decode_*`` and
+``decode_spec_*`` families of serving/metrics.py and the ``queue_depth``,
+``tokens`` and ``ttft`` windowed series. A request submitted with a
+sampled ``TraceContext`` (the ``X-PaddleTPU-Trace`` header) records its
+``replica/queue_wait``, ``replica/prefill``, ``replica/handoff_wait``,
+``replica/token`` and ``replica/verify_round`` spans under it.
 """
 from __future__ import annotations
 
@@ -49,10 +55,12 @@ import threading
 import time
 import uuid
 
+from .. import metrics as _m
 from ..breaker import CircuitBreaker
 from ..errors import (DeadlineExceeded, EngineClosed, EngineUnhealthy,
                       InvalidRequest, Overloaded, OutOfBlocks, ServingError)
 from ..tier.knobs import ENV_SPEC_DRAFTER, parse_choice_env
+from ...observability import distributed as _dobs
 from .drafter import DRAFTER_CHOICES, build_drafter
 from .sampling import SamplingParams, TokenSampler
 
@@ -77,14 +85,16 @@ class GenerationStream:
     running. Failures (engine error, deadline, shutdown) raise from both
     the iterator and ``result()``. ``meta`` carries the ``request_id``
     (client-pinned or random; for sampled requests also the stream seed)
-    and the ``replica_id`` of the serving process."""
+    and the ``replica_id`` of the serving process, and for a request with a
+    sampled trace its ``trace_id``."""
 
     def __init__(self, prompt_len, max_new_tokens, replica_id=None,
-                 request_id=None):
+                 request_id=None, trace_id=None):
         self.prompt_len = prompt_len
         self.max_new_tokens = max_new_tokens
         self.replica_id = replica_id
         self.request_id = request_id or uuid.uuid4().hex[:16]
+        self.trace_id = trace_id
         self._q = queue.Queue()
         self._tokens = []
         self._done = threading.Event()
@@ -93,7 +103,10 @@ class GenerationStream:
 
     @property
     def meta(self):
-        return {'request_id': self.request_id, 'replica_id': self.replica_id}
+        meta = {'request_id': self.request_id, 'replica_id': self.replica_id}
+        if self.trace_id is not None:
+            meta['trace_id'] = self.trace_id
+        return meta
 
     # -- consumer side -----------------------------------------------------
     def __iter__(self):
@@ -152,18 +165,26 @@ class _Request:
     __slots__ = ('prompt', 'max_new_tokens', 'eos_id', 'stream', 'deadline',
                  'enqueued_at', 'table', 'next_token', 'generated',
                  'sampling', 'sampler', 'history', 'pending_prompt',
-                 'prefilling', 'handoff_pending')
+                 'prefilling', 'handoff_pending', 'trace', 'enqueued_perf',
+                 'handoff_t0')
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline,
-                 replica_id=None, sampling=None, request_id=None):
+                 replica_id=None, sampling=None, request_id=None,
+                 trace=None):
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
-        self.stream = GenerationStream(len(prompt), max_new_tokens,
-                                       replica_id=replica_id,
-                                       request_id=request_id)
+        # distributed trace carrier (observability.TraceContext or None):
+        # spans recorded here parent under the router's dispatch span
+        self.trace = trace if (trace is not None and trace.sampled) else None
+        self.stream = GenerationStream(
+            len(prompt), max_new_tokens, replica_id=replica_id,
+            request_id=request_id,
+            trace_id=self.trace.trace_id if self.trace else None)
         self.deadline = deadline
         self.enqueued_at = time.monotonic()
+        self.enqueued_perf = time.perf_counter()
+        self.handoff_t0 = None
         self.table = None
         self.next_token = None        # picked but not yet cached
         self.generated = 0
@@ -219,8 +240,12 @@ class DecodeScheduler:
         # consecutive engine failures (prefill or lockstep step) trip the
         # breaker: waiting requests fail fast with EngineUnhealthy and
         # /healthz reports degraded until a half-open probe succeeds
-        self.breaker = CircuitBreaker(name='decode engine')
+        self.breaker = CircuitBreaker(metrics=_m.DECODE_BREAKER_METRICS,
+                                      name='decode engine')
         self.queue_depth = int(queue_depth)
+        # lifetime draft totals behind the decode_spec_acceptance gauge
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._waiting = collections.deque()
         self._slots = [None] * engine.slots      # _Request | None
         self._cv = threading.Condition()
@@ -235,7 +260,7 @@ class DecodeScheduler:
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=16, eos_id=None,
-               timeout_ms=None, sampling=None, request_id=None):
+               timeout_ms=None, sampling=None, request_id=None, trace=None):
         """Validate and enqueue one generation; returns its
         :class:`GenerationStream`. Raises InvalidRequest / Overloaded /
         EngineUnhealthy (breaker open) / EngineClosed (all pre-enqueue).
@@ -243,35 +268,49 @@ class DecodeScheduler:
         ``sampling``: None (greedy) | dict | SamplingParams, validated here.
         ``request_id``: optional client-pinned id; for sampled requests it
         seeds the stream, so resubmitting the same id + params replays the
-        same token sequence."""
+        same token sequence. ``trace``: an optional
+        :class:`observability.TraceContext` from the HTTP front end; this
+        generation's spans are recorded under it."""
         if not self.breaker.allow():
             raise EngineUnhealthy('decode engine',
                                   self.breaker.consecutive_failures)
-        prompt, max_new = self.engine.validate(prompt_ids, max_new_tokens)
-        params = SamplingParams.validate(sampling)
-        if request_id is not None:
-            request_id = str(request_id)
-            if not 0 < len(request_id) <= 128 or any(
-                    c in request_id for c in '\r\n'):
-                raise InvalidRequest(
-                    'request_id must be 1-128 characters with no newlines')
-        if timeout_ms is not None and (
-                isinstance(timeout_ms, bool)
-                or not isinstance(timeout_ms, (int, float))):
-            raise InvalidRequest(f'timeout_ms must be a number, got '
-                                 f'{timeout_ms!r}')
+        try:
+            prompt, max_new = self.engine.validate(prompt_ids,
+                                                   max_new_tokens)
+            params = SamplingParams.validate(sampling)
+            if request_id is not None:
+                request_id = str(request_id)
+                if not 0 < len(request_id) <= 128 or any(
+                        c in request_id for c in '\r\n'):
+                    raise InvalidRequest(
+                        'request_id must be 1-128 characters with no '
+                        'newlines')
+            if timeout_ms is not None and (
+                    isinstance(timeout_ms, bool)
+                    or not isinstance(timeout_ms, (int, float))):
+                raise InvalidRequest(f'timeout_ms must be a number, got '
+                                     f'{timeout_ms!r}')
+        except Exception:
+            _m.decode_requests_rejected_invalid.inc()
+            raise
         deadline = None if timeout_ms is None \
             else time.monotonic() + float(timeout_ms) / 1e3
         req = _Request(prompt, max_new,
                        self.engine.eos_id if eos_id is None else eos_id,
                        deadline, replica_id=self.replica_id,
-                       sampling=params, request_id=request_id)
+                       sampling=params, request_id=request_id, trace=trace)
+        if req.trace is not None:
+            _m.trace_requests_sampled.inc()
         with self._cv:
             if self._closing:
                 raise EngineClosed('decode scheduler is shutting down')
             if len(self._waiting) >= self.queue_depth:
+                _m.decode_requests_rejected_overload.inc()
                 raise Overloaded(len(self._waiting))
             self._waiting.append(req)
+            _m.decode_requests_accepted.inc()
+            _m.decode_queue_depth.set(len(self._waiting))
+            _dobs.series('queue_depth').observe(len(self._waiting))
             self._cv.notify()
         return req.stream
 
@@ -294,12 +333,14 @@ class DecodeScheduler:
         kept = collections.deque()
         for req in self._waiting:
             if req.expired(now):
+                _m.decode_requests_deadline_missed.inc()
                 req.stream._fail(DeadlineExceeded(
                     f'deadline expired after {now - req.enqueued_at:.3f}s '
                     f'waiting for a decode slot'))
             else:
                 kept.append(req)
         self._waiting = kept
+        _m.decode_queue_depth.set(len(self._waiting))
 
     def _admit_locked(self):
         """Move waiting requests into free slots (FIFO; stops at the first
@@ -318,6 +359,7 @@ class DecodeScheduler:
             self._waiting.popleft()
             self._slots[i] = req
             admitted.append(req)
+        _m.decode_queue_depth.set(len(self._waiting))
         return admitted
 
     def _publish(self, req):
@@ -325,7 +367,19 @@ class DecodeScheduler:
         prefix cache (a no-op without one)."""
         self.engine.publish_prefix(req.prompt, req.table)
 
+    def _trace_span(self, req, name, start_perf, end_perf, **args):
+        """Record one replica-side span of a traced request (no-op when the
+        request carries no sampled trace: one None check)."""
+        if req.trace is None:
+            return
+        _m.trace_spans_recorded.inc()
+        _dobs.record_span(req.trace.child(), name, start_perf, end_perf,
+                          request_id=req.stream.request_id,
+                          replica_id=self.replica_id, **args)
+
     def _prefill(self, req):
+        self._trace_span(req, 'replica/queue_wait', req.enqueued_perf,
+                         time.perf_counter())
         cached = req.table.cached_len
         if cached:
             # a prefix-cache hit: the table's front is shared filled blocks;
@@ -339,8 +393,10 @@ class DecodeScheduler:
             # a miss under disaggregation: the prefill engine runs it; the
             # slot waits, inactive, while the step goes on
             req.handoff_pending = True
+            req.handoff_t0 = time.perf_counter()
             self.disagg.submit(req, req.prompt, req.max_new_tokens)
             return
+        t0 = time.perf_counter()
         try:
             if req.sampler is None:
                 first = self.engine.prefill(req.prompt, req.table)
@@ -353,6 +409,8 @@ class DecodeScheduler:
             self._fail_request(req, e)
             self._record_engine_failure()
             return
+        self._trace_span(req, 'replica/prefill', t0, time.perf_counter(),
+                         prompt_len=len(req.prompt))
         self.breaker.record_success()
         self._publish(req)
         self._emit_token(req, first)
@@ -379,6 +437,10 @@ class DecodeScheduler:
                 self._fail_request(req, e)
                 self._record_engine_failure()
                 continue
+            if req.handoff_t0 is not None:
+                self._trace_span(req, 'replica/handoff_wait',
+                                 req.handoff_t0, time.perf_counter(),
+                                 prompt_len=len(req.prompt))
             self.breaker.record_success()
             self._publish(req)
             self._emit_token(req, first)
@@ -391,14 +453,20 @@ class DecodeScheduler:
         exc = EngineUnhealthy('decode engine',
                               self.breaker.consecutive_failures)
         with self._cv:
+            failed = len(self._waiting)
             while self._waiting:
                 self._waiting.popleft().stream._fail(exc)
+            _m.decode_queue_depth.set(0)
+        if failed:
+            _m.decode_requests_failed.inc(failed)
 
     def _pick_token(self, req, row):
         """Next token from a logits row: the request's deterministic
         sampler (indexed by tokens generated so far) or exact argmax."""
         if req.sampler is not None:
-            return int(req.sampler.sample(row, req.generated))
+            tok = req.sampler.sample(row, req.generated)
+            _m.decode_tokens_sampled.inc()
+            return int(tok)
         return int(row.argmax())
 
     def _emit_token(self, req, token):
@@ -408,6 +476,12 @@ class DecodeScheduler:
         req.generated += 1
         req.history.append(int(token))
         req.stream._emit(token)
+        _m.decode_tokens_generated.inc()
+        _dobs.series('tokens').observe(1.0)
+        if req.generated == 1:
+            ttft = time.perf_counter() - req.enqueued_perf
+            _m.decode_ttft_seconds.observe(ttft)
+            _dobs.series('ttft').observe(ttft)
         if req.eos_id is not None and int(token) == int(req.eos_id):
             self._retire(req, 'stop')
         elif req.generated >= req.max_new_tokens:
@@ -420,6 +494,7 @@ class DecodeScheduler:
         req.table = None
         self._slots[self._slots.index(req)] = None
         req.stream._finish(reason)
+        _m.decode_requests_completed.inc()
 
     def _fail_request(self, req, exc):
         if req.table is not None:
@@ -427,6 +502,7 @@ class DecodeScheduler:
             req.table = None
         if req in self._slots:
             self._slots[self._slots.index(req)] = None
+        _m.decode_requests_failed.inc()
         req.stream._fail(exc if isinstance(exc, ServingError)
                          else ServingError(
                              f'generation failed: '
@@ -453,6 +529,8 @@ class DecodeScheduler:
         need_rows = any(r.sampler is not None
                         and not (r.prefilling and r.pending_prompt)
                         for r in active)
+        traced = any(r.trace is not None for r in active)
+        t0 = time.perf_counter() if traced else 0.0
         try:
             if need_rows:
                 out, rows = self.engine.decode_step(tokens, tables,
@@ -465,6 +543,7 @@ class DecodeScheduler:
                 self._fail_request(req, e)
             self._record_engine_failure()
             return True
+        t1 = time.perf_counter() if traced else 0.0
         self.breaker.record_success()
         for i, req in enumerate(self._slots):
             if req is None or req.handoff_pending:
@@ -481,6 +560,9 @@ class DecodeScheduler:
                 self._emit_token(req, self._pick_token(req, rows[i]))
             else:
                 self._emit_token(req, int(out[i]))
+            if req.trace is not None:
+                self._trace_span(req, 'replica/token', t0, t1,
+                                 index=req.generated - 1)
         return True
 
     def _spec_step(self):
@@ -518,6 +600,8 @@ class DecodeScheduler:
                               self.drafter.propose(req.history, n)][:n]
             fed[i] = [req.next_token] + drafts
         bases = [t.context_len if t is not None else 0 for t in tables]
+        traced = any(r.trace is not None for r in active)
+        t0 = time.perf_counter() if traced else 0.0
         try:
             rows = self.engine.spec_step(fed, tables)
         except Exception as e:     # isolate: fail the batch, keep serving
@@ -526,6 +610,7 @@ class DecodeScheduler:
                 self._fail_request(req, e)
             self._record_engine_failure()
             return True
+        t1 = time.perf_counter() if traced else 0.0
         self.breaker.record_success()
         stats = self.engine.stats
         for i, req in enumerate(self._slots):
@@ -552,8 +637,20 @@ class DecodeScheduler:
             if req.table is not None:
                 # commit the accepted prefix, roll back the rejected tail
                 req.table.context_len = bases[i] + emitted
-            stats['spec_drafted'] += len(toks) - 1
+            drafted = len(toks) - 1
+            stats['spec_drafted'] += drafted
             stats['spec_accepted'] += emitted - 1
+            self._trace_span(req, 'replica/verify_round', t0, t1,
+                             fed=len(toks), emitted=emitted)
+            _m.decode_spec_accept_len.observe(emitted)
+            if drafted:
+                self._spec_drafted += drafted
+                self._spec_accepted += emitted - 1
+                _m.decode_spec_draft_tokens.inc(drafted)
+                if emitted > 1:
+                    _m.decode_spec_accepted_tokens.inc(emitted - 1)
+                _m.decode_spec_acceptance.set(
+                    self._spec_accepted / max(self._spec_drafted, 1))
         return True
 
     def _fail_all_locked(self):
@@ -562,6 +659,7 @@ class DecodeScheduler:
         while self._waiting:
             self._waiting.popleft().stream._fail(EngineClosed(
                 'decode scheduler shut down before this request ran'))
+        _m.decode_queue_depth.set(0)
         for i, req in enumerate(self._slots):
             if req is not None:
                 self.engine.release_table(req.table)
@@ -569,6 +667,7 @@ class DecodeScheduler:
                 self._slots[i] = None
                 req.stream._fail(EngineClosed(
                     'decode scheduler shut down mid-generation'))
+        _m.decode_slots_active.set(0)
 
     def _worker_loop(self):
         while True:

@@ -30,8 +30,9 @@ prefill (the same GEMM shapes and K2), so the shipped K/V are the bytes a
 colocated prefill writes, on the CPU and on the card; a handoff's stream
 equals the colocated one token for token.
 
-Counters (``LocalPrefillWorker.stats``, the reference's metric names; the
-registry is ROADMAP A.11's): ``disagg_handoffs``,
+Counters: the registry's ``disagg_*`` family (serving/metrics.py), at the
+reference's sites, and ``LocalPrefillWorker.stats``, the worker's own view
+under the same names: ``disagg_handoffs``,
 ``disagg_handoff_failures``, ``disagg_kv_bytes`` and
 ``disagg_handoff_seconds`` (submit to completion, the last 4096);
 ``pending`` is the ``disagg_pending`` gauge.
@@ -47,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from .. import metrics as _m
 from ..errors import ServingError
 from ..decode.kv_cache import KV_DTYPE_CODES
 
@@ -214,6 +216,7 @@ class LocalPrefillWorker:
     def submit(self, key, prompt, max_new_tokens=0):
         with self._lock:
             self._pending += 1
+            _m.disagg_pending.set(self._pending)
         self._jobs.put((key, list(prompt), int(max_new_tokens),
                         time.perf_counter()))
 
@@ -244,15 +247,22 @@ class LocalPrefillWorker:
                 exc = e if isinstance(e, ServingError) else ServingError(
                     f'disaggregated prefill failed: '
                     f'{type(e).__name__}: {e}')
+            dt = time.perf_counter() - t0
             with self._lock:
                 self._pending -= 1
+                _m.disagg_pending.set(self._pending)
                 if payload is None:
                     self.stats['disagg_handoff_failures'] += 1
                 else:
                     self.stats['disagg_handoffs'] += 1
                     self.stats['disagg_kv_bytes'] += payload.nbytes
-                    self.stats['disagg_handoff_seconds'].append(
-                        time.perf_counter() - t0)
+                    self.stats['disagg_handoff_seconds'].append(dt)
+            if payload is None:
+                _m.disagg_handoff_failures.inc()
+            else:
+                _m.disagg_handoffs.inc()
+                _m.disagg_kv_bytes.inc(payload.nbytes)
+                _m.disagg_handoff_seconds.observe(dt)
             self._done.put((key, payload, exc))
 
     def close(self):

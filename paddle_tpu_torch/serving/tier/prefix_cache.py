@@ -47,8 +47,10 @@ Invariants:
   ``PADDLE_TPU_PREFIX_CACHE_MAX_BLOCKS`` cap at publication; nodes of the
   walk that triggered it are never victims.
 
-Counters (``stats``, the reference's metric names; the registry and
-``/metrics`` are ROADMAP A.11's): ``prefix_cache_hits``, ``_misses``,
+Counters: the registry's ``prefix_cache_*`` and ``kv_cache_*`` families
+(serving/metrics.py, ``GET /metrics``), recorded at the reference's sites,
+and ``stats``, this cache's own view under the same names:
+``prefix_cache_hits``, ``_misses``,
 ``_tokens_saved``, ``_inserted_blocks``, ``_evicted_blocks``,
 ``_evictions`` by cause ('pressure', 'cap'), and the spill tier's
 ``kv_cache_spill_count``, ``kv_cache_bytes_spilled``,
@@ -64,6 +66,7 @@ import time
 
 import torch
 
+from .. import metrics as _m
 from ..errors import InvalidRequest, OutOfBlocks
 from ..decode.kv_cache import BlockTable
 from .knobs import (ENV_PREFIX_CACHE_HOST_MB, ENV_PREFIX_CACHE_MAX_BLOCKS,
@@ -220,8 +223,11 @@ class PrefixCache:
                 self.pool.allocator.retain(blocks)
                 self.stats['prefix_cache_hits'] += 1
                 self.stats['prefix_cache_tokens_saved'] += len(blocks) * bs
+                _m.prefix_cache_hits.inc()
+                _m.prefix_cache_tokens_saved.inc(len(blocks) * bs)
             else:
                 self.stats['prefix_cache_misses'] += 1
+                _m.prefix_cache_misses.inc()
         return blocks
 
     def _reinject_path(self, path):
@@ -283,9 +289,12 @@ class PrefixCache:
             # the allocation's reference becomes the cache's own
             n.block = bid
             self._resident += 1
+        dt = time.perf_counter() - t0
         self.stats['kv_cache_reinject_count'] += len(pending)
-        self.stats['kv_cache_reinject_seconds'].append(
-            time.perf_counter() - t0)
+        self.stats['kv_cache_reinject_seconds'].append(dt)
+        _m.prefix_cache_blocks_resident.set(self._resident)
+        _m.kv_cache_reinject_count.inc(len(pending))
+        _m.kv_cache_reinject_seconds.observe(dt)
         return path
 
     # -- admission ---------------------------------------------------------
@@ -353,9 +362,11 @@ class PrefixCache:
                             self._host.pop(child)
                     self._resident += 1
                     self.stats['prefix_cache_inserted_blocks'] += 1
+                    _m.prefix_cache_inserted_blocks.inc()
                 child.last_use = tick
                 walked.add(id(child))
                 node = child
+            _m.prefix_cache_blocks_resident.set(self._resident)
 
     # -- spill / eviction --------------------------------------------------
     def _spill_or_evict_one(self, exclude=frozenset(), cause='pressure',
@@ -385,6 +396,9 @@ class PrefixCache:
         self._resident -= 1
         self.stats['prefix_cache_evicted_blocks'] += 1
         self.stats['prefix_cache_evictions'][cause] += 1
+        _m.prefix_cache_evicted_blocks.inc()
+        _m.prefix_cache_evictions.labels(cause=cause).inc()
+        _m.prefix_cache_blocks_resident.set(self._resident)
         return True
 
     def _spill(self, node):
@@ -404,6 +418,8 @@ class PrefixCache:
             self._drop_spilled(dropped)
         self.stats['kv_cache_spill_count'] += 1
         self.stats['kv_cache_bytes_spilled'] += nbytes
+        _m.kv_cache_spill_count.inc()
+        _m.kv_cache_bytes_spilled.inc(nbytes)
 
     def _unlink(self, node):
         """Remove ``node`` from the trie; its children (all spilled, by the

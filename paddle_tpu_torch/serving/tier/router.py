@@ -29,14 +29,24 @@ stream, so a retry is idempotent). Once a token went out, a replica's
 death is an error event on that stream: a dying replica kills only its
 in-flight streams.
 
-Counters (``Router.stats``, the reference's metric names; the registry and
-``/metrics`` are ROADMAP A.11's): ``router_requests``,
-``router_requests_completed``, ``router_requests_failed``,
-``router_requests_rerouted``, ``router_no_replica``, ``router_probes``,
-``router_health_polls``, ``router_rolling_restarts`` and
-``router_dispatch_seconds`` (the last 4096). The trace spans
-(``maybe_sample``) and ``GET /metrics/fleet`` (the replicas' merged
-metrics) come with ROADMAP A.11.
+Counters: the registry's ``router_*`` family (serving/metrics.py, the
+router's ``GET /metrics``), recorded at the reference's sites, and
+``Router.stats``, the router's own view under the same names:
+``router_requests``, ``router_requests_completed``,
+``router_requests_failed``, ``router_requests_rerouted``,
+``router_no_replica``, ``router_probes``, ``router_health_polls``,
+``router_rolling_restarts`` and ``router_dispatch_seconds`` (the last
+4096).
+
+Observability: the router is the trace EDGE. ``maybe_sample()``
+(``PADDLE_TPU_TRACE_SAMPLE``) decides once per request, the context rides
+the ``X-PaddleTPU-Trace`` header to the replica, and the router records
+the request root, per-attempt dispatch and retry spans around the
+replica's spans. ``GET /metrics/fleet`` serves the replicas' merged
+Prometheus export (counters summed, gauges labelled by replica,
+histograms merged bucket by bucket), and the health poll doubles as the
+clock handshake: each ``/healthz`` reply's ``unix_time`` gives the
+replica's offset from the router's clock.
 
 Knobs (tier/knobs.py, strict): ``PADDLE_TPU_ROUTER_REPLICAS``,
 ``PADDLE_TPU_ROUTER_PORT``, ``PADDLE_TPU_ROUTER_HEALTH_POLL_S``.
@@ -54,7 +64,11 @@ import urllib.request
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from .. import metrics as _m
 from ..errors import InvalidRequest, NoReplicaAvailable, ServingError
+from ...observability import distributed as _dobs
+from ...observability import registry
+from ...observability.trace_context import maybe_sample
 from .knobs import (ENV_ROUTER_HEALTH_POLL_S, ENV_ROUTER_PORT,
                     ENV_ROUTER_REPLICAS, parse_float_env, parse_int_env,
                     parse_replicas_env)
@@ -73,10 +87,13 @@ _GENERATE_KEYS = frozenset(('prompt', 'max_new_tokens', 'eos_id', 'stream',
 # (bad request, backpressure, deadline) is the client's and passes through
 _REROUTE_HTTP_CODES = (500, 503)
 
-_LATER = {'/metrics': 'GET /metrics (the router\'s metrics registry) comes '
-                      'with ROADMAP A.11',
-          '/metrics/fleet': 'GET /metrics/fleet (the replicas\' merged '
-                            'metrics) comes with ROADMAP A.11'}
+
+def _span(ctx, name, start_perf, end_perf, **args):
+    """Router-side span record; free (one None check) when untraced."""
+    if ctx is None:
+        return
+    _m.trace_spans_recorded.inc()
+    _dobs.record_span(ctx, name, start_perf, end_perf, **args)
 
 
 def _attach_sampling(payload, temperature, top_k, top_p, seed, request_id):
@@ -111,7 +128,13 @@ class Replica:
         self.reported_load = 0        # decode active + waiting at last poll
         self.inflight = 0             # router-side, counted at dispatch
         self.last_poll_ok = 0.0
+        # clock handshake: the replica's unix time less the router's, from
+        # the health poll's round-trip midpoint
+        self.clock_offset = None
         self.replica_id = None        # /healthz's ``replica``
+        # /healthz's windowed-series snapshots (queue_depth, occupancy,
+        # ttft)
+        self.series = {}
         self._lock = threading.Lock()
 
     def load(self):
@@ -128,10 +151,14 @@ class Replica:
     def begin(self):
         with self._lock:
             self.inflight += 1
+            _m.router_replica_inflight.labels(replica=self.url).set(
+                self.inflight)
 
     def end(self):
         with self._lock:
             self.inflight = max(self.inflight - 1, 0)
+            _m.router_replica_inflight.labels(replica=self.url).set(
+                self.inflight)
 
     def mark_dead(self):
         self.healthy = False
@@ -157,20 +184,30 @@ class RoutedGeneration:
         self.replica = None           # the url streaming
         self.retries = 0              # reroutes before streaming began
         self.first_event_at = None
+        # sampling is decided ONCE here at the edge; the context travels
+        # with every dispatch, so a trace is complete or absent
+        self.trace = maybe_sample()
+        if self.trace is not None:
+            _m.trace_requests_sampled.inc()
 
     def events(self):
         router, payload = self._router, self._payload
         deadline = time.monotonic() + self._timeout
         tried = set()
+        req_t0 = time.perf_counter()
         while True:
             rep = router._pick(tried, deadline)
             self.replica = rep.url
             rep.begin()
             t0 = time.perf_counter()
             emitted = False
+            # each dispatch attempt is its own span under the request root;
+            # the replica parents its spans under the attempt's id
+            attempt = self.trace.child() if self.trace is not None else None
             try:
                 try:
-                    resp = router._post(rep, payload, self._timeout)
+                    resp = router._post(rep, payload, self._timeout,
+                                        trace=attempt)
                 except urllib.error.HTTPError as e:
                     if e.code in _REROUTE_HTTP_CODES:
                         raise ConnectionError(f'replica replied {e.code}')
@@ -185,11 +222,27 @@ class RoutedGeneration:
                     if event.get('done'):
                         event['replica'] = rep.url
                         event['retries'] = self.retries
+                        if self.trace is not None:
+                            event.setdefault('trace_id',
+                                             self.trace.trace_id)
+                            # the spans land BEFORE the done yield: the
+                            # consumer may drop the generator right after
+                            now = time.perf_counter()
+                            _span(attempt, 'router/dispatch', t0, now,
+                                  replica=rep.url)
+                            _span(self.trace, 'router/request', req_t0,
+                                  now, retries=self.retries)
                         router._count('router_requests_completed')
                         yield event
                         return
                     if 'error' in event:      # a typed replica failure
                         router._count('router_requests_failed')
+                        now = time.perf_counter()
+                        _span(attempt, 'router/dispatch', t0, now,
+                              replica=rep.url, error=event.get('error'))
+                        _span(self.trace, 'router/request', req_t0, now,
+                              retries=self.retries,
+                              error=event.get('error'))
                         yield event
                         return
                     yield event
@@ -205,6 +258,11 @@ class RoutedGeneration:
                     # tokens already went out: this stream dies with its
                     # replica, the only thing a replica's death may kill
                     router._count('router_requests_failed')
+                    now = time.perf_counter()
+                    _span(attempt, 'router/dispatch', t0, now,
+                          replica=rep.url, error='ReplicaDied')
+                    _span(self.trace, 'router/request', req_t0, now,
+                          retries=self.retries, error='ReplicaDied')
                     yield {'error': 'ReplicaDied',
                            'message': f'replica {rep.url} failed '
                                       f'mid-stream: {e}',
@@ -214,6 +272,10 @@ class RoutedGeneration:
                 tried.add(rep)
                 self.retries += 1
                 router._count('router_requests_rerouted')
+                # the failed attempt becomes a retry span, between the two
+                # replicas' spans
+                _span(attempt, 'router/retry', t0, time.perf_counter(),
+                      replica=rep.url, error=str(e))
                 _logger.warning('rerouting (attempt %d) off %s: %s',
                                 self.retries + 1, rep.url, e)
             finally:
@@ -238,6 +300,7 @@ class Router:
         self.request_timeout = float(request_timeout)
         self.connect_timeout = float(connect_timeout)
         self.reset_stats()
+        _dobs.set_process_label('router')
         self._closed = threading.Event()
         self.poll_once()              # the constructor returns with state
         self._poll_thread = threading.Thread(
@@ -256,19 +319,33 @@ class Router:
                 'router_dispatch_seconds': collections.deque(maxlen=4096)}
 
     def _count(self, name, seconds=None):
+        """One event of the ``router_*`` metric ``name``: into the
+        registry and into ``stats``."""
+        metric = getattr(_m, name)
         with self._stats_lock:
             if seconds is None:
                 self.stats[name] += 1
             else:
                 self.stats[name].append(seconds)
+        if seconds is None:
+            metric.inc()
+        else:
+            metric.observe(seconds)
+
+    def _set_routable(self):
+        _m.router_replicas_routable.set(
+            sum(r.healthy and r.warmed and not r.draining
+                for r in self.replicas))
 
     # -- health ------------------------------------------------------------
     def _poll_replica(self, rep):
         self._count('router_health_polls')
         try:
+            u0 = time.time()
             with urllib.request.urlopen(rep.url + '/healthz',
                                         timeout=self.connect_timeout) as r:
                 body = json.load(r)
+            u1 = time.time()
             rep.healthy = body.get('status') == 'ok'
             rep.half_open = False
             warm = body.get('warmup')
@@ -279,6 +356,15 @@ class Router:
                                  + int(decode.get('waiting', 0)))
             rep.last_poll_ok = time.monotonic()
             rep.replica_id = body.get('replica') or rep.replica_id
+            rep.series = body.get('series') or rep.series
+            if 'unix_time' in body:
+                # the replica stamped its clock somewhere inside [u0, u1]:
+                # the midpoint is the least biased guess (error <= RTT/2)
+                rep.clock_offset = float(body['unix_time']) - (u0 + u1) / 2.0
+                _m.trace_clock_offset_seconds.labels(
+                    replica=rep.replica_id or rep.url).set(rep.clock_offset)
+                _dobs.record_clock_offset(rep.replica_id or rep.url,
+                                          rep.clock_offset, rtt_s=u1 - u0)
         except urllib.error.HTTPError as e:
             try:
                 body = json.load(e)
@@ -293,6 +379,7 @@ class Router:
             rep.last_poll_ok = time.monotonic()
         except OSError:
             rep.mark_dead()
+        self._set_routable()
 
     def poll_once(self):
         for rep in list(self.replicas):
@@ -346,6 +433,7 @@ class Router:
             if rep is None:
                 raise KeyError(f'unknown replica {url}')
             self.replicas = [r for r in self.replicas if r is not rep]
+        self._set_routable()
         return rep
 
     # -- dispatch ----------------------------------------------------------
@@ -372,18 +460,42 @@ class Router:
             time.sleep(min(0.2, self.health_poll_s))
             self.poll_once()
 
-    def _post(self, rep, payload, timeout):
+    def _post(self, rep, payload, timeout, trace=None):
+        headers = {'Content-Type': 'application/json'}
+        if trace is not None:
+            headers.update(trace.to_headers())
         req = urllib.request.Request(
             rep.url + '/generate', data=json.dumps(payload).encode(),
-            headers={'Content-Type': 'application/json'})
+            headers=headers)
         return urllib.request.urlopen(req, timeout=timeout)
 
+    # -- fleet metrics -----------------------------------------------------
+    def scrape_replica_metrics(self, timeout_s=2.0):
+        """Scrape every replica's ``/metrics``; returns ``[(label, text),
+        ...]`` for the scrapes that succeeded. A dead or wedged replica
+        costs one bounded timeout and a ``router_scrape_failures`` tick,
+        never a failed fleet scrape."""
+        scrapes = []
+        for rep in self.replicas:
+            label = rep.replica_id or rep.url
+            try:
+                with urllib.request.urlopen(rep.url + '/metrics',
+                                            timeout=timeout_s) as r:
+                    scrapes.append((label,
+                                    r.read().decode('utf-8', 'replace')))
+            except (OSError, ValueError) as e:
+                _m.router_scrape_failures.labels(replica=label).inc()
+                _logger.warning('fleet scrape of %s failed: %s',
+                                rep.url, e)
+        return scrapes
+
     def fleet_metrics_text(self, timeout_s=2.0):
-        """The replicas' merged Prometheus text (``GET /metrics/fleet``):
-        its merge and the replicas' ``/metrics`` come with ROADMAP A.11."""
-        raise NotImplementedError(
-            'the fleet metrics merge (GET /metrics/fleet) comes with the '
-            'observability slice, ROADMAP A.11')
+        """The replicas' merged Prometheus text (``GET /metrics/fleet``).
+        The router's own metrics stay on ``/metrics``: this is the
+        replicas' merged view, so the two exports never count twice."""
+        _m.router_fleet_scrapes.inc()
+        return _dobs.merge_fleet_metrics(
+            self.scrape_replica_metrics(timeout_s))
 
     # -- client API --------------------------------------------------------
     def _payload(self, prompt, max_new_tokens, eos_id, timeout_ms, stream,
@@ -442,13 +554,19 @@ class Router:
         deadline = time.monotonic() + timeout
         tried = set()
         retries = 0
+        trace = maybe_sample()        # the edge decision, as in events()
+        if trace is not None:
+            _m.trace_requests_sampled.inc()
+        req_t0 = time.perf_counter()
         while True:
             rep = self._pick(tried, deadline)
             rep.begin()
             t0 = time.perf_counter()
+            attempt = trace.child() if trace is not None else None
             try:
                 try:
-                    with self._post(rep, payload, timeout) as resp:
+                    with self._post(rep, payload, timeout,
+                                    trace=attempt) as resp:
                         body = json.load(resp)
                 except urllib.error.HTTPError as e:
                     if e.code in _REROUTE_HTTP_CODES:
@@ -458,6 +576,13 @@ class Router:
                             time.perf_counter() - t0)
                 body['replica'] = rep.url
                 body['retries'] = retries
+                if trace is not None:
+                    body.setdefault('trace_id', trace.trace_id)
+                    now = time.perf_counter()
+                    _span(attempt, 'router/dispatch', t0, now,
+                          replica=rep.url)
+                    _span(trace, 'router/request', req_t0, now,
+                          retries=retries)
                 self._count('router_requests_completed')
                 return body
             except urllib.error.HTTPError:
@@ -468,6 +593,8 @@ class Router:
                 tried.add(rep)
                 retries += 1
                 self._count('router_requests_rerouted')
+                _span(attempt, 'router/retry', t0, time.perf_counter(),
+                      replica=rep.url, error=str(e))
                 _logger.warning('retrying a non-streamed request off %s: '
                                 '%s', rep.url, e)
             finally:
@@ -537,10 +664,10 @@ class _RouterHandler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         _logger.debug('%s %s', self.address_string(), fmt % args)
 
-    def _reply(self, code, body):
+    def _reply(self, code, body, content_type='application/json'):
         data = body if isinstance(body, bytes) else json.dumps(body).encode()
         self.send_response(code)
-        self.send_header('Content-Type', 'application/json')
+        self.send_header('Content-Type', content_type)
         self.send_header('Content-Length', str(len(data)))
         self.end_headers()
         try:
@@ -561,9 +688,14 @@ class _RouterHandler(BaseHTTPRequestHandler):
             self._reply(200 if routable else 503,
                         {'status': 'ok' if routable else 'no_replicas',
                          'routable': routable, 'replicas': states})
+        elif self.path == '/metrics':
+            self._reply(200, registry.prometheus_text().encode(),
+                        content_type='text/plain; version=0.0.4')
+        elif self.path == '/metrics/fleet':
+            self._reply(200, router.fleet_metrics_text().encode(),
+                        content_type='text/plain; version=0.0.4')
         else:
-            self._reply(404, {'error': 'NotFound',
-                              'message': _LATER.get(self.path, self.path)})
+            self._reply(404, {'error': 'NotFound', 'message': self.path})
 
     def do_POST(self):
         if self.path != '/generate':
@@ -602,13 +734,16 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 final = events[-1] if events else {}
                 if 'error' in final and not final.get('done'):
                     return self._reply(502, final)
-                return self._reply(200, {
+                reply = {
                     'tokens': final.get('tokens', []),
                     'finish_reason': final.get('finish_reason'),
                     'replica': final.get('replica'),
                     'retries': final.get('retries', 0),
                     'request_id': final.get('request_id'),
-                    'replica_id': final.get('replica_id')})
+                    'replica_id': final.get('replica_id')}
+                if 'trace_id' in final:   # sampled: hand the id back
+                    reply['trace_id'] = final['trace_id']
+                return self._reply(200, reply)
             # take the FIRST event before committing the 200: a replica's
             # 4xx and no-replica failures raise here, while an error reply
             # can still go on the wire
@@ -647,8 +782,9 @@ class _RouterHandler(BaseHTTPRequestHandler):
 
 class RouterServer:
     """Stdlib HTTP front of a :class:`Router`: ``POST /generate`` (streamed
-    NDJSON or one JSON reply) and ``GET /healthz``; ``GET /metrics`` and
-    ``/metrics/fleet`` answer 404 naming ROADMAP A.11. ``port=0`` binds an
+    NDJSON or one JSON reply), ``GET /healthz``, ``GET /metrics`` (the
+    router's registry) and ``GET /metrics/fleet`` (the replicas' merged
+    metrics, :meth:`Router.fleet_metrics_text`). ``port=0`` binds an
     ephemeral port; the default comes from ``PADDLE_TPU_ROUTER_PORT``
     (8180)."""
 

@@ -148,13 +148,18 @@ def test_eos_and_sampled_replay(models):
 
 
 def test_validation_and_later_slices(models):
-    """Admission checks, and the pieces that still wait for later slices:
-    the stateless ``/predict`` engine and ``/metrics`` name theirs, and the
-    router's fleet metrics name ROADMAP A.11. (The prefix cache and
-    disaggregated prefill run now: tests/test_torch_prefix_cache.py and
-    tests/test_torch_disagg.py.)"""
+    """Admission checks, and the serving pieces the JAX package's server
+    and router answer the same way: a server with neither an engine nor a
+    generator is refused with the reference's message, and the router's
+    fleet metrics over an unreachable replica are an empty merge with one
+    scrape failure counted. (The prefix cache and disaggregated prefill
+    run too: tests/test_torch_prefix_cache.py and
+    tests/test_torch_disagg.py; /predict: tests/test_torch_serving_http.py.)"""
+    from paddle_tpu.observability import registry as jax_registry
+    from paddle_tpu.serving import Router as JaxRouter
+    from paddle_tpu.serving import ServingServer as JaxServer
+    from paddle_tpu_torch.observability import registry
     from paddle_tpu_torch.serving import Router
-    from paddle_tpu_torch.serving.server import _LATER_SLICE
     _, pm = models
     engine = DecodeEngine(pm, **ENGINE_KW)
     with pytest.raises(InvalidRequest):
@@ -169,15 +174,22 @@ def test_validation_and_later_slices(models):
                         prefix_cache=True).prefix_cache is not None
     sched = DecodeScheduler(engine, disagg=object(), start=False)
     assert sched.disagg is not None
-    with pytest.raises(NotImplementedError, match='predict'):
-        ServingServer(engine=object(), generator=None)
-    assert 'A.7b' in _LATER_SLICE['/predict']
-    assert 'A.11' in _LATER_SLICE['/metrics']
-    router = Router(['http://127.0.0.1:9'], connect_timeout=0.5,
-                    start=False)
-    with pytest.raises(NotImplementedError, match='A.11'):
-        router.fleet_metrics_text()
-    router.close()
+    messages = []
+    for server_cls in (ServingServer, JaxServer):
+        with pytest.raises(ValueError) as ei:
+            server_cls(None, generator=None)
+        messages.append(str(ei.value))
+    assert messages[0] == messages[1] == ('need an engine, a generator, '
+                                          'or both')
+    for router_cls, reg in ((Router, registry), (JaxRouter, jax_registry)):
+        router = router_cls(['http://127.0.0.1:9'], connect_timeout=0.5,
+                            start=False)
+        failures = reg.counter('router_scrape_failures').labels(
+            replica='http://127.0.0.1:9')
+        before = failures.value
+        assert router.fleet_metrics_text(timeout_s=0.5) == ''
+        assert failures.value == before + 1
+        router.close()
 
 
 def _post(port, path, body):
@@ -220,7 +232,10 @@ def test_generate_over_http(models):
                         {'prompt': prompt, 'max_new_tokens': 99})
         assert code == 400
         code, body = _post(srv.port, '/predict', {'inputs': {}})
-        assert code == 404 and 'later slice' in body
+        assert code == 404 and json.loads(body) == {
+            'error': 'NotFound',
+            'message': 'no predict engine configured (decode-only server; '
+                       'use POST /generate)'}
         with urllib.request.urlopen(
                 f'http://127.0.0.1:{srv.port}/healthz', timeout=30) as r:
             health = json.loads(r.read())

@@ -1371,6 +1371,41 @@ def test_predictor_runs_on_the_card_by_default(cuda, tmp_path):
     assert pred.executor.lowering_count(pred.program) == 1
 
 
+def test_inference_engine_rows_on_the_card_match_the_predictor(cuda,
+                                                               tmp_path):
+    """The serving engine on the card (its default executor) at every rung
+    of max_batch_size 8: each batch's rows against ``Predictor.run`` on the
+    same rows, and each row against its single-row run, at atol 1e-5 (the
+    softmax outputs of the same f32 model; cuDNN may pick another
+    algorithm for each batch size, so bitwise is not promised); the
+    padded rows never come back; no kernel of the port launched."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import InferenceEngine
+    main, startup, _, v = _small_static_resnet(fluid)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        fluid.io.save_inference_model(str(tmp_path), ['image'], [v['prob']],
+                                      exe, main_program=main)
+    engine = InferenceEngine(str(tmp_path), max_batch_size=8)
+    assert engine.device.type == 'cuda'
+    pred = inference.Predictor(str(tmp_path))
+    rng = np.random.default_rng(8)
+    nn_ops.reset_launch_counts()
+    for n in (1, 2, 3, 4, 5, 8):
+        x = rng.standard_normal((n, 3, 32, 32), dtype=np.float32)
+        got = engine.run_batch({'image': x}, n)[0]
+        assert got.shape == (n, 10)
+        np.testing.assert_allclose(got, pred.run([x])[0], atol=1e-5, rtol=0)
+        for i in range(n):
+            np.testing.assert_allclose(
+                got[i:i + 1], engine.run_batch({'image': x[i:i + 1]}, 1)[0],
+                atol=1e-5, rtol=0)
+    assert engine.compiled_buckets == [1, 2, 4, 8] and engine.warmed
+    assert set(nn_ops.launch_counts().values()) == {0}
+
+
 # --------------------------------- static control flow and the PTB LM
 
 def test_control_flow_constructs_on_the_card_match_the_cpu(cuda):

@@ -450,13 +450,26 @@ def test_router_http_end_to_end(lm, pair):
                 assert ei.value.code == code
             h = get_json(url + '/healthz')
             assert h['status'] == 'ok' and h['routable'] == 2
-            for path in ('/metrics', '/metrics/fleet'):
-                with pytest.raises(urllib.error.HTTPError) as ei:
-                    get_json(url + path)
-                assert ei.value.code == 404
-                assert 'A.11' in ei.value.read().decode()
-        with pytest.raises(NotImplementedError, match='A.11'):
-            router.fleet_metrics_text()
+            # the router's registry, and the replicas' merged metrics: the
+            # pair runs in this process, so each replica's /metrics is the
+            # one registry here and the merged counters are twice its own
+            from paddle_tpu_torch.observability import distributed
+            with urllib.request.urlopen(url + '/metrics', timeout=30) as r:
+                own = distributed.parse_prometheus_text(r.read().decode())
+            assert own['paddle_tpu_router_requests']['samples'][0][2] >= 2
+            assert own['paddle_tpu_router_requests_completed'][
+                'samples'][0][2] >= 2
+            with urllib.request.urlopen(url + '/metrics/fleet',
+                                        timeout=30) as r:
+                fleet = distributed.parse_prometheus_text(r.read().decode())
+            tokens = fleet['paddle_tpu_decode_tokens_generated']
+            assert tokens['type'] == 'counter'
+            assert tokens['samples'][0][2] == 2 * own[
+                'paddle_tpu_decode_tokens_generated']['samples'][0][2]
+            slots = fleet['paddle_tpu_decode_slots_total']['samples']
+            assert len(slots) == 2 and {s[1]['replica'] for s in slots} \
+                == {rep.replica_id for rep in router.replicas}
+        assert router.fleet_metrics_text()
 
 
 def test_no_replica_available_is_typed():

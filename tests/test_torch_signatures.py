@@ -448,6 +448,50 @@ def test_top_level_name_takes_the_reference_parameters(module, path):
     assert got == want
 
 
+# (module of both packages, attribute path) of the stateless serving slice
+# (ROADMAP A.7b) and the observability core (A.11)
+STATELESS_SERVING_NAMES = [
+    *(('serving.engine', f'InferenceEngine{m}') for m in (
+        '', '.validate', '.bucket_for', '.run_batch', '.infer',
+        '.warmup')),
+    ('serving.engine', 'bucket_ladder'),
+    *(('serving.batcher', f'MicroBatcher{m}') for m in (
+        '', '.submit', '.predict', '.close')),
+    ('serving.batcher', 'PredictionFuture.result'),
+    ('serving.batcher', 'PredictionFuture.add_done_callback'),
+    ('serving.server', 'ServingServer'),
+    ('serving.server', 'ServingServer.shutdown'),
+    ('serving.server', 'create_server'),
+    ('serving.decode.scheduler', 'DecodeScheduler.submit'),
+    ('serving.tier.router', 'Router.scrape_replica_metrics'),
+    *(('observability', n) for n in (
+        'enable', 'disable', 'telemetry_guard', 'span', 'instant', 'inc',
+        'set_gauge', 'observe', 'log_step', 'reset', 'dump_artifacts')),
+    *(('observability.metrics', f'MetricsRegistry.{m}') for m in (
+        'counter', 'gauge', 'histogram', 'prometheus_text')),
+    ('observability.tracer', 'StepTracer.complete'),
+    ('observability.trace_context', 'TraceContext'),
+    *(('observability.distributed', n) for n in (
+        'record_span', 'record_clock_offset', 'set_process_label',
+        'parse_prometheus_text', 'merge_fleet_metrics', 'WindowedSeries',
+        'series', 'parse_slo_spec', 'SLOMonitor', 'StragglerMonitor',
+        'StragglerMonitor.evaluate', 'publish_host_snapshot',
+        'aggregate_fleet_snapshots'))]
+
+
+@pytest.mark.parametrize('module,path', STATELESS_SERVING_NAMES,
+                         ids=[f'{m}.{p}' for m, p in STATELESS_SERVING_NAMES])
+def test_stateless_serving_name_takes_the_reference_parameters(module,
+                                                               path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return _params(obj)
+
+    assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
+
+
 # ------------------------------------------------ softmax_with_cross_entropy
 
 def test_soft_label_matches_jax():

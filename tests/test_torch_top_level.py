@@ -105,8 +105,7 @@ STAND_INS = {
                      'create_random_int_lodtensor'], 'A.10'),
     'dygraph_grad_clip': 'A.4b',
     **dict.fromkeys([
-        'DataLoader', 'reader', 'FetchHandle', 'profiler', 'observability',
-        'resilience', 'analysis', 'dataset', 'datasets', 'DatasetFactory',
+        'DataLoader', 'reader', 'FetchHandle', 'profiler', 'resilience', 'analysis', 'dataset', 'datasets', 'DatasetFactory',
         'InMemoryDataset', 'QueueDataset', 'data_feed_desc', 'DataFeedDesc',
         'device_worker', 'trainer_desc', 'trainer_factory', 'incubate'],
         'A.11'),
