@@ -350,9 +350,34 @@ Phases:
    with the metric hooks stubbed, on, on, stubbed; (e) at the end of phase
    17 (f), the router's ``/metrics/fleet`` against the live replica's own
    ``/metrics``;
-20. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+20. the optimizer surface (ROADMAP A.4b): (a) BERT-base pretraining at
+   phase 5's configuration (batch 128 x 128, bf16 AMP, fused attention)
+   with ``Lamb(1e-3, lamb_weight_decay=0.01, epsilon=1e-6)``, LayerNorm's
+   parameters and the biases excluded from weight decay, 2 + 20 steps:
+   losses finite and falling, step p50, seq/s, busy and idle share and the
+   peak beside phase 5's Adam run, the flash kernels launched layers x
+   steps; (b) the same with ``TrainStep(remat=True)`` (each encoder layer
+   recomputed in the backward), 2 + 10 steps: the peak, p50 and busy
+   against (a)'s, the forward's kernel twice a layer a step,
+   and the first call's loss and gradients against those without remat
+   from the same weights and batch; (c) 6 calls with ``accum_steps=2``,
+   snapshotted after call 3 (mid merge) and restored into a fresh model:
+   calls 4-6 against the run that never stopped (bit for bit or not, and
+   the max |diff|); (d) PaddleCV's static ResNet-50 with the LARS recipe
+   (``tools/static_resnet.py optimizer='lars'``, batch 128, the schedule
+   over a run of 20 steps as the example sets it) plain (a
+   ``lars_momentum`` op a parameter) and fused (one
+   ``fused_lars_momentum`` a group): the rate fetched against the warm-up,
+   3 losses each within phase 11's bound, ops and launches a step,
+   images/s, busy; (e) each rule at BERT-base's 109.8 M f32 parameters,
+   one seeded gradient: the class's multi-tensor update against the
+   per-parameter plain update (max |diff|), the device ms of one update
+   (torch.profiler) and the host clock's beside its bound (the bytes it
+   must move a parameter, at HBM_BYTES_PER_S); no
+   kernel of the port launched in (d) and (e);
+21. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-19) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-20) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1166,6 +1191,10 @@ def check_flash_masked_rows(rng, dev, shape, dtype, causal):
     return errs
 
 
+# phase 5's Adam run, for phase 20 (a) to print beside LAMB's
+ADAM_RUN = {}
+
+
 def train(seed, dev, card):
     """Phase 5: BERT-base pretraining steps through the flash kernels;
     returns the kernels' launch counts over the warm-up and timed steps."""
@@ -1265,8 +1294,10 @@ def train(seed, dev, card):
         f'bf16')
     log(f'launches on the training path: {launches} ({steps} steps x '
         f'{layers} layers = {want} each)')
-    profile_train_step(step, feeds, p50, card,
-                       {'flash kernels': lambda key: 'flash_' in key})
+    prof = profile_train_step(step, feeds, p50, card,
+                              {'flash kernels': lambda key: 'flash_' in key})
+    ADAM_RUN.update({'p50': p50, 'seq_s': seq_s, 'peak': peak,
+                     'busy': None if prof is None else prof[0]})
     return launches
 
 
@@ -5778,6 +5809,575 @@ def serve_stateless(seed, card):
     return launches
 
 
+# Phase 20, the optimizer surface (ROADMAP A.4b): BERT-base pretraining with
+# LAMB (LayerNorm parameters and biases excluded from weight decay, as the
+# LAMB paper trains BERT) at phase 5's configuration, with and without
+# remat, a resume in the middle of a gradient merge, PaddleCV's static
+# ResNet-50 with the LARS recipe fused and plain, and each other rule's
+# multi-tensor update at BERT-base's parameter set against its
+# per-parameter op. Tolerances: (b) the first step's gradients with remat
+# against those without, each tensor's max |diff| within 1e-3 of its
+# largest entry (the same kernels on the same inputs; bit for bit unless a
+# kernel sums in a nondeterministic order); (d) the fused run's losses
+# within phase 11's SRESNET_RTOL of the plain run's, step by step, and the
+# fetched rate within 1e-6 of the warm-up's and the decay's; (e) each rule's
+# multi-tensor form against its per-parameter op at atol 1e-6 + rtol 1e-5
+# (the foreach norms sum in another order than torch.linalg.vector_norm)
+LAMB_RATE, LAMB_DECAY, LAMB_EPS = 1e-3, 0.01, 1e-6
+REMAT_STEPS, RESUME_CALLS, RESUME_AT, RESUME_ACCUM = 10, 6, 3, 2
+REMAT_GRAD_RTOL = 1e-3
+# (c): bit for bit where every kernel of the step sums in a fixed order;
+# the bounds allow a step that does not (a loss at rtol 1e-4, parameters
+# within a tenth of the rate)
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-4
+LARS_STEPS_CHECKED, LARS_TIMED_STEPS = 3, 10
+# the LARS schedule over a run of 20 steps, as examples/train_resnet_lars.py
+# sets it from --steps: warm-up over 2, decay over 20
+LARS_RUN_STEPS = 20
+RULE_ATOL, RULE_RTOL, RULE_REPS = 1e-6, 1e-5, 5
+
+
+def bert_base_config():
+    """Phase 5's BERT-base: bench.py bench_bert's configuration with the
+    fused attention."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    return BertConfig(attention_probs_dropout_prob=0.0,
+                      hidden_dropout_prob=0.0, max_position_embeddings=128,
+                      use_fused_attention=True)
+
+
+def lamb_excluded(model):
+    """LAMB's exclusion for BERT: LayerNorm's parameters and the biases."""
+    ids = {id(p) for n, p in model.named_parameters()
+           if '_ln.' in n or n.endswith('bias')}
+    return lambda p: id(p) in ids
+
+
+def bert_lamb(sd, seed, dev, remat=False, accum_steps=1):
+    """A BERT-base from ``sd`` and its LAMB TrainStep (bf16 AMP)."""
+    import torch
+    from paddle_tpu_torch.dygraph import TrainStep
+    from paddle_tpu_torch.models.bert import (BertForPretraining,
+                                              pretrain_loss)
+    from paddle_tpu_torch.optimizer import Lamb
+    model = BertForPretraining(bert_base_config(), device=dev, seed=seed)
+    model.load_state_dict(sd)
+    opt = Lamb(LAMB_RATE, lamb_weight_decay=LAMB_DECAY, epsilon=LAMB_EPS,
+               exclude_from_weight_decay_fn=lamb_excluded(model),
+               parameter_list=list(model.parameters()))
+    return model, TrainStep(model, pretrain_loss, opt,
+                            amp_dtype=torch.bfloat16, remat=remat,
+                            accum_steps=accum_steps)
+
+
+def bert_batches(cfg, dev, n, seed, batch=128, seq=128):
+    """``n`` batches bench.py's way: 15% MLM labels, the rest -1."""
+    import torch
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+        tt = np.zeros((batch, seq), np.int64)
+        mlm = np.where(rng.rand(batch, seq) < 0.15,
+                       rng.randint(0, cfg.vocab_size, (batch, seq)),
+                       -1).astype(np.int64)
+        nsp = rng.randint(0, 2, (batch, 1)).astype(np.int64)
+        out.append([torch.from_numpy(a).to(dev)
+                    for a in (ids, tt, mlm, nsp)])
+    return out
+
+
+def first_step_grads(sd, seed, dev, feeds, remat):
+    """The first call's loss and gradients (a merge of 2 keeps them on
+    ``.grad`` without an update), and the flash kernels' launches."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    model, step = bert_lamb(sd, seed, dev, remat=remat, accum_steps=2)
+    nn_ops.reset_launch_counts()
+    loss = step(*feeds).item()
+    torch.cuda.synchronize()
+    launches = nn_ops.launch_counts()
+    grads = {n: p.grad.detach().clone()
+             for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return loss, grads, launches
+
+
+def timed_lamb(step, feeds, steps, card, what):
+    """WARMUP_STEPS + ``steps`` synchronised calls of ``step``: losses,
+    p50, seq/s, peak bytes, the flash launches and a profiled step."""
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nn_ops.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(WARMUP_STEPS + steps):
+        t0 = time.perf_counter()
+        loss = step(*feeds)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = nn_ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed_s = secs[WARMUP_STEPS:]
+    p50 = statistics.median(timed_s) * 1e3
+    seq_s = feeds[0].shape[0] * steps / sum(timed_s)
+    prof = profile_train_step(step, feeds, p50, card,
+                              {'flash kernels': lambda key: 'flash_' in key,
+                               'multi-tensor updates': lambda key:
+                               'multi_tensor' in key.lower()}, what=what)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'{what}: losses not finite or not falling: '
+                             f'{losses}')
+    return {'losses': losses, 'p50': p50, 'seq_s': seq_s, 'peak': peak,
+            'launches': launches, 'steps': WARMUP_STEPS + steps,
+            'busy': None if prof is None else prof[0]}
+
+
+def fmt_busy(r):
+    if r.get('busy') is None:
+        return 'busy not measured'
+    idle = 1 - r['busy'] / r['p50']
+    return f'busy {r["busy"]:.3f} ms, idle share {idle:.3f}'
+
+
+def lamb_bert(seed, dev, card):
+    """Phase 20 (a)-(c). Returns the flash kernels' launches over (a) and
+    (b), as {wrapper: (a)'s, (b)'s}."""
+    import torch
+    from paddle_tpu_torch.convert import (bert_init_params,
+                                          bert_state_dict_from_paddle)
+    cfg = bert_base_config()
+    layers = cfg.num_hidden_layers
+    sd = bert_state_dict_from_paddle(bert_init_params(cfg, seed))
+    feeds = bert_batches(cfg, dev, 1, seed)[0]
+    # (b)'s gradient check: the first call's gradients from the same
+    # weights, batch and generator state, without and with remat
+    l0, g0, _ = first_step_grads(sd, seed, dev, feeds, remat=False)
+    l1, g1, probe = first_step_grads(sd, seed, dev, feeds, remat=True)
+    worst, differ = 0.0, []
+    for n in g0:
+        d = (g0[n].float() - g1[n].float()).abs().max().item()
+        scale = g0[n].float().abs().max().item()
+        worst = max(worst, d / scale if scale else d)
+        if not torch.equal(g0[n], g1[n]):
+            differ.append(n)
+    del g0, g1
+    torch.cuda.empty_cache()
+    log(f'20 (b) the first call\'s loss without and with remat: {l0!r} '
+        f'{l1!r}; gradients: {len(sd) - len(differ)}/{len(sd)} tensors bit '
+        f'for bit (the others {differ[:4]}), the largest max |diff| '
+        f'relative to its tensor\'s largest entry '
+        f'{worst:.3e} (bound {REMAT_GRAD_RTOL}); the remat call\'s flash '
+        f'launches {probe}')
+    if l0 != l1 or worst > REMAT_GRAD_RTOL:
+        raise AssertionError(f'(b) remat changes the first step: loss '
+                             f'{l0!r} -> {l1!r}, gradients {worst:.3e}')
+    # (a) LAMB, and (b) LAMB with remat, from the same weights
+    runs = {}
+    for name, remat, steps in (('LAMB', False, TRAIN_STEPS),
+                               ('LAMB remat', True, REMAT_STEPS)):
+        model, step = bert_lamb(sd, seed, dev, remat=remat)
+        runs[name] = r = timed_lamb(step, feeds, steps, card,
+                                    f'20 BERT-base {name} step')
+        others = {k: v for k, v in r['launches'].items()
+                  if k not in FLASH_STOCK and v}
+        if others:
+            raise AssertionError(f'{name}: other kernels launched: {others}')
+        per_layer_fwd = 2 if remat else 1
+        for kern, per in (('flash_attention_fwd', per_layer_fwd),
+                          ('flash_attention_bwd_dkv', 1),
+                          ('flash_attention_bwd_dq', 1)):
+            want = per * layers * r['steps']
+            if r['launches'][kern] != want:
+                raise AssertionError(f'{name}: {kern} launched '
+                                     f'{r["launches"][kern]} times, not '
+                                     f'{per} x {layers} layers x '
+                                     f'{r["steps"]} steps')
+        log(f'20 ({"b" if remat else "a"}) BERT-base {name} [{card}]: '
+            f'losses ' + ' '.join(repr(x) for x in r['losses']))
+        del model, step
+        torch.cuda.empty_cache()
+    a, b = runs['LAMB'], runs['LAMB remat']
+    adam = ADAM_RUN
+    log(f'20 (a) BERT-base, batch 128 x 128, bf16 AMP, fused attention '
+        f'[{card}]: LAMB step p50 {a["p50"]:.3f} ms, {a["seq_s"]:.1f} '
+        f'seq/s, {fmt_busy(a)}, peak {a["peak"]} bytes; phase 5\'s Adam '
+        f'in this call: p50 {adam["p50"]:.3f} ms, {adam["seq_s"]:.1f} '
+        f'seq/s, {fmt_busy(adam)}, peak {adam["peak"]} bytes; flash '
+        f'launches {a["launches"]}')
+    log(f'20 (b) remat [{card}]: peak {b["peak"]} bytes against (a)\'s '
+        f'{a["peak"]} ({b["peak"] / a["peak"]:.3f}x), step p50 '
+        f'{b["p50"]:.3f} ms against {a["p50"]:.3f} '
+        f'({b["p50"] / a["p50"]:.3f}x), {fmt_busy(b)}; flash launches '
+        f'{b["launches"]} (the forward twice a layer a step)')
+    if not b['peak'] < a['peak']:
+        raise AssertionError(f'(b) remat peak {b["peak"]} not below '
+                             f'{a["peak"]}')
+    resume_bert(sd, seed, dev, cfg, card)
+    return {k: (a['launches'][k], b['launches'][k]) for k in FLASH_STOCK}
+
+
+def resume_bert(sd, seed, dev, cfg, card):
+    """Phase 20 (c): RESUME_CALLS calls with accum_steps=2, snapshotted
+    after call RESUME_AT (mid merge) and restored into a fresh model and
+    step: calls RESUME_AT + 1 on against the run that never stopped."""
+    import torch
+    batches = bert_batches(cfg, dev, RESUME_CALLS, seed + 20)
+    model, step = bert_lamb(sd, seed, dev, accum_steps=RESUME_ACCUM)
+    losses, snap = [], None
+    for i, feeds in enumerate(batches):
+        losses.append(step(*feeds).item())
+        if i + 1 == RESUME_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = step.snapshot()
+            torch.cuda.synchronize()
+            snap_ms = (time.perf_counter() - t0) * 1e3
+    want = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    # the same six calls again from the start: the step's own run-to-run
+    # spread, against which the resume's is read
+    model, step = bert_lamb(sd, seed, dev, accum_steps=RESUME_ACCUM)
+    rerun = [step(*feeds).item() for feeds in batches]
+    spread = max((p.detach() - want[n]).abs().max().item()
+                 for n, p in model.named_parameters())
+    spread_in = [n for n, p in model.named_parameters()
+                 if not torch.equal(p.detach(), want[n])]
+    del model, step
+    torch.cuda.empty_cache()
+    arrays, meta = snap
+    n_arrays = len(arrays)
+    model, step = bert_lamb(sd, seed, dev, accum_steps=RESUME_ACCUM)
+    step.set_state(arrays, meta)
+    del arrays, snap
+    again = [step(*feeds).item() for feeds in batches[RESUME_AT:]]
+    diff = max((p.detach() - want[n]).abs().max().item()
+               for n, p in model.named_parameters())
+    differ = [n for n, p in model.named_parameters()
+              if not torch.equal(p.detach(), want[n])]
+    bitwise = not differ
+    loss_diff = max(abs(x - y) / abs(y)
+                    for x, y in zip(again, losses[RESUME_AT:]))
+    log(f'20 (c) resume [{card}]: {RESUME_CALLS} calls with accum_steps '
+        f'{RESUME_ACCUM}, a snapshot of {n_arrays} tensors after call '
+        f'{RESUME_AT} (meta {meta}, {snap_ms:.3f} ms) restored into a '
+        f'fresh model; calls {RESUME_AT + 1}-{RESUME_CALLS}: losses '
+        f'{again} against the uninterrupted {losses[RESUME_AT:]} '
+        f'(relative {loss_diff:.3e}); parameters bit for bit {bitwise}, '
+        f'max |diff| {diff:.3e} ({len(differ)} tensors differ: '
+        f'{differ[:4]}); the six calls run again from the start: losses '
+        f'equal {rerun == losses}, parameters max |diff| {spread:.3e} '
+        f'({len(spread_in)} tensors: {spread_in[:4]}; the step\'s own '
+        f'run-to-run spread)')
+    if loss_diff > RESUME_RTOL or diff > RESUME_ATOL:
+        raise AssertionError(f'(c) the resumed run differs: losses {again} '
+                             f'against {losses[RESUME_AT:]}, parameters '
+                             f'{diff:.3e}')
+    del model, step, want
+    torch.cuda.empty_cache()
+
+
+def lars_resnet(seed, card):
+    """Phase 20 (d): PaddleCV's static ResNet-50 with the LARS recipe
+    (tools/static_resnet.py ``optimizer='lars'``, batch RESNET_BATCH),
+    'plain' (a ``lars_momentum`` op a parameter) against 'fused' (the
+    fuse passes: one ``fused_lars_momentum`` a group); the rate fetched
+    against the warm-up."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import ir
+    from paddle_tpu_torch.tools import static_resnet
+    with fluid.unique_name.guard():
+        main, startup, _, v = static_resnet.build(
+            fluid, optimizer='lars', batch_size=RESNET_BATCH,
+            lars_steps=LARS_RUN_STEPS)
+    loss, lr = v['loss'].name, v['lr'].name
+    base, warmup, decay = static_resnet.lars_schedule(RESNET_BATCH,
+                                                      LARS_RUN_STEPS)
+    n_ops = {}
+    for name in FUSED_RUNS:
+        opt, ctx = ir.apply_pipeline(
+            main, [loss], build_strategy=fused_strategy(fluid,
+                                                        name == 'fused')[0])
+        ops = [op.type for op in opt.global_block().ops]
+        n_ops[name] = (len(ops), ops.count('lars_momentum'),
+                       ops.count('fused_lars_momentum'))
+    gpu, s0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gpu.run(startup, scope=s0)
+    host = {x.name: s0.find(x.name).cpu().numpy() for x in main.list_vars()
+            if x.persistable}
+    del s0
+    runs = FusedRuns(fluid, main, loss, host)
+    rng = np.random.default_rng(seed + 20)
+    feed = {'image': rng.standard_normal(
+        (RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG), dtype=np.float32),
+        'label': rng.integers(0, RESNET_CLASSES, (RESNET_BATCH, 1))}
+    first = {}
+    for name in FUSED_RUNS:
+        exe, scope, prog, _, _ = runs.start(name)
+        out = [exe.run(prog, feed=feed, fetch_list=[loss, lr], scope=scope)
+               for _ in range(LARS_STEPS_CHECKED)]
+        first[name] = [float(o[0]) for o in out]
+        rates = [float(np.asarray(o[1]).reshape(-1)[0]) for o in out]
+        want = [base * k / warmup if k < warmup else
+                (base - static_resnet.LARS_END_LR)
+                * (1 - min(k, decay) / decay) ** static_resnet.LARS_POWER
+                + static_resnet.LARS_END_LR
+                for k in range(LARS_STEPS_CHECKED)]
+        if not np.allclose(rates, want, rtol=1e-6, atol=1e-12):
+            raise AssertionError(f'(d) {name}: the rate {rates} does not '
+                                 f'follow the warm-up {want}')
+        del exe, scope, prog
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(a)
+                for a, b in zip(first['plain'], first['fused']))
+    got = {name: fused_timed(runs, name, feed, loss, card,
+                             '20 (d) static ResNet-50 LARS',
+                             steps=LARS_TIMED_STEPS)
+           for name in FUSED_RUNS}
+    for name in FUSED_RUNS:
+        r = got[name]
+        log(f'20 (d) static ResNet-50 with LARS, {name} [{card}]: '
+            f'{n_ops[name][0]} ops a step ({n_ops[name][1]} lars_momentum, '
+            f'{n_ops[name][2]} fused_lars_momentum), first '
+            f'{LARS_STEPS_CHECKED} losses {first[name]}, then '
+            f'{RESNET_BATCH * 1e3 / r["p50"]:.1f} images/s; {fmt_run(r)}')
+    log(f'20 (d) [{card}]: the rate fetched over {LARS_STEPS_CHECKED} '
+        f'steps follows base {base} x step / {warmup} warm-up steps, then '
+        f'the decay over {decay} steps (power '
+        f'{static_resnet.LARS_POWER}) within 1e-6; '
+        f'fused against plain, the first {LARS_STEPS_CHECKED} losses '
+        f'relative {worst:.3e} (bound {SRESNET_RTOL})')
+    if worst > SRESNET_RTOL:
+        raise AssertionError(f'(d) fused and plain losses differ by '
+                             f'{worst:.3e}')
+
+
+def rule_cases():
+    """(name, make optimizer(params), the rule's per-parameter plain
+    update (params, grads, lr) -> new params and slots, bytes a
+    parameter the update must move)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib.extend_optimizer import \
+        extend_with_decoupled_weight_decay
+    from paddle_tpu_torch.core.random import default_generator
+    from paddle_tpu_torch.ops import optimizer_ops as ops
+    O = fluid.optimizer
+
+    def op_rule(op, make):
+        def plain(opt, params, grads):
+            out = []
+            for p, g in zip(params, grads):
+                slots = opt._new_slots(p)
+                args = [p, g] + [slots[s] for s in opt._slot_names]
+                if opt._has_lr_input:
+                    args.append(opt._learning_rate)
+                kw = opt._hypers_for(p)
+                if op == 'dpsgd':
+                    kw['key'] = default_generator.generator(p.device)
+                res = getattr(ops, op)(*args, **kw)
+                out.append(res if isinstance(res, tuple) else (res,))
+            return out
+        return make, plain
+
+    def adamw_plain(opt, params, grads):
+        out = []
+        coeff = opt._decoupled_wd * opt._learning_rate
+        for p, g in zip(params, grads):
+            s = opt._new_slots(p)
+            out.append(ops._adam_out(p * (1.0 - coeff), g, s['moment1'],
+                                     s['moment2'], s['beta1_pow'],
+                                     s['beta2_pow'], opt._learning_rate,
+                                     **opt._hypers()))
+        return out
+
+    def lookahead_plain(opt, params, grads):
+        # two Adam steps on the same gradient, k=1: the first pull keeps
+        # the weights, the second moves them halfway back
+        out = []
+        inner = opt.inner_optimizer
+        for p, g in zip(params, grads):
+            s = inner._new_slots(p)
+            p1, m1, m2, b1, b2 = ops._adam_out(
+                p, g, s['moment1'], s['moment2'], s['beta1_pow'],
+                s['beta2_pow'], inner._learning_rate, **inner._hypers())
+            p2 = ops._adam_out(p1, g, m1, m2, b1, b2, inner._learning_rate,
+                               **inner._hypers())[0]
+            out.append((p1 + opt.alpha * (p2 - p1),))
+        return out
+
+    def average_plain(opt, params, grads):
+        # two accumulations or updates, the parameters moved by -1e-3 g
+        # between them
+        out = []
+        for p, g in zip(params, grads):
+            q = p - 1e-3 * g
+            if isinstance(opt, O.ModelAverage):
+                out.append((p + (q - p) / 2,))
+            else:
+                d1, d2 = (min(0.999, (1 + t) / (10 + t)) for t in (1, 2))
+                e1 = d1 * p + (1 - d1) * p
+                out.append((d2 * e1 + (1 - d2) * q,))
+        return out
+
+    def with_params(cls, *a, **kw):
+        return lambda params: cls(*a, parameter_list=params, **kw)
+
+    return [
+        ('LAMB', *op_rule('lamb', with_params(O.Lamb, 1e-3)), 28),
+        ('LARS', *op_rule('lars_momentum',
+                          with_params(O.LarsMomentum, 0.1)), 20),
+        ('Adamax', *op_rule('adamax', with_params(O.Adamax, 1e-3)), 28),
+        ('Adagrad', *op_rule('adagrad', with_params(
+            O.Adagrad, 1e-2, initial_accumulator_value=0.1)), 20),
+        ('DecayedAdagrad', *op_rule('decayed_adagrad', with_params(
+            O.DecayedAdagrad, 1e-2)), 20),
+        ('RMSProp', *op_rule('rmsprop', with_params(O.RMSProp, 1e-3)), 28),
+        ('RMSProp centered', *op_rule('rmsprop', with_params(
+            O.RMSProp, 1e-3, centered=True, momentum=0.9)), 36),
+        ('Adadelta', *op_rule('adadelta', with_params(O.Adadelta, 1.0)),
+         28),
+        ('Ftrl', *op_rule('ftrl', with_params(O.Ftrl, 1e-2, l1=1e-4,
+                                              l2=1e-3)), 28),
+        ('Dpsgd', *op_rule('dpsgd', with_params(O.Dpsgd, 1e-2, clip=10.0,
+                                                batch_size=128.0)), 12),
+        ('DGCMomentum', *op_rule('dgc_momentum', with_params(
+            O.DGCMomentumOptimizer, 1e-2, sparsity=[0.999])), 28),
+        ('AdamW', with_params(extend_with_decoupled_weight_decay(O.Adam),
+                              0.01, learning_rate=1e-3), adamw_plain, 28),
+        ('Lookahead(Adam)', lambda params: O.LookaheadOptimizer(
+            O.Adam(1e-3, parameter_list=params), alpha=0.5, k=1),
+         lookahead_plain, 36),
+        ('ModelAverage', lambda params: O.ModelAverage(0.15),
+         average_plain, 12),
+        ('EMA', lambda params: O.ExponentialMovingAverage(0.999),
+         average_plain, 12)]
+
+
+def rule_update(opt, params, grads):
+    """One update through the class, as a user calls it: ``minimize`` of
+    the parameters with their gradients (for the averages,
+    ``accumulate``/``update``, the parameters moved by -1e-3 g, and
+    again). Lookahead takes two steps (k=1)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    O = fluid.optimizer
+    if isinstance(opt, (O.ModelAverage, O.ExponentialMovingAverage)):
+        fold = (opt.accumulate if isinstance(opt, O.ModelAverage)
+                else opt.update)
+        fold(params)
+        with torch.no_grad():
+            torch._foreach_add_(params, grads, alpha=-1e-3)
+        fold(params)
+        return
+    for p, g in zip(params, grads):
+        p.grad = g
+    steps = 2 if isinstance(opt, O.LookaheadOptimizer) else 1
+    for _ in range(steps):
+        opt.minimize(torch.zeros(()), parameter_list=params)
+
+
+def rule_state(opt, params):
+    """What a rule's update wrote, in the plain update's order."""
+    import paddle_tpu_torch as fluid
+    O = fluid.optimizer
+    if isinstance(opt, O.ModelAverage):
+        return [(opt._avgs[id(p)],) for p in params]
+    if isinstance(opt, O.ExponentialMovingAverage):
+        return [(opt._ema[id(p)],) for p in params]
+    if isinstance(opt, O.LookaheadOptimizer):
+        return [(p.detach(),) for p in params]
+    return [(p.detach(), *(opt.slots(p)[s] for s in opt._slot_names))
+            for p in params]
+
+
+def each_rule(seed, dev, card):
+    """Phase 20 (e): each rule at BERT-base's parameter set, one seeded
+    gradient: the class's update (its multi-tensor form) against the
+    per-parameter plain update on the same values, max |diff|; the ms of
+    one update of each beside its bound (the bytes it must move a
+    parameter x the parameters, at HBM_BYTES_PER_S)."""
+    import torch
+    from paddle_tpu_torch.convert import bert_expected_shapes
+    from paddle_tpu_torch.core.random import default_generator
+    shapes = list(bert_expected_shapes(bert_base_config()).values())
+    n = sum(int(np.prod(s)) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    start = [torch.randn(s, generator=gen, device=dev) * 0.02
+             for s in shapes]
+    grads = [torch.randn(s, generator=gen, device=dev) * 1e-3
+             for s in shapes]
+    log(f'20 (e) the rules at BERT-base\'s parameter set: {len(shapes)} '
+        f'tensors, {n} parameters (f32), one seeded gradient')
+    for name, make, plain, nbytes in rule_cases():
+        params = [torch.nn.Parameter(t.clone()) for t in start]
+        opt = make(params)
+        rng_state = default_generator.generator(dev).get_state()
+        want = plain(opt, [p.detach() for p in params], grads)
+        default_generator.generator(dev).set_state(rng_state)
+        rule_update(opt, params, grads)
+        got = rule_state(opt, params)
+        worst = 0.0
+        for ws, gs in zip(want, got):
+            for w, g in zip(ws, gs):
+                d = (g - w).abs() - RULE_ATOL - RULE_RTOL * w.abs()
+                worst = max(worst, (g - w).abs().max().item())
+                if d.max().item() > 0:
+                    raise AssertionError(f'(e) {name}: the multi-tensor '
+                                         f'update differs from the plain '
+                                         f'one by {worst:.3e}')
+        del want, got
+        # one update of each on the same values (the state moves): the
+        # device's time from the profiler, the host clock's around
+        # RULE_REPS synchronised updates
+        steps = 2 if 'Lookahead' in name or name in ('ModelAverage',
+                                                     'EMA') else 1
+        dev_ms = device_us(profiled(
+            lambda: rule_update(opt, params, grads))) / 1e3 / steps
+        plain_dev_ms = device_us(profiled(
+            lambda: plain(opt, [p.detach() for p in params], grads))) / 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RULE_REPS):
+            rule_update(opt, params, grads)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / RULE_REPS / steps
+        bound = nbytes * n / HBM_BYTES_PER_S * 1e3
+        shown = (f'{dev_ms:.3f} ms on the device = {bound / dev_ms:.3f} of '
+                 f'the bound' if dev_ms > 0 else 'device time not measured')
+        log(f'20 (e) {name} [{card}]: multi-tensor against plain max |diff| '
+            f'{worst:.3e}; one update {shown}, {ms:.3f} ms on the host '
+            f'clock; the plain per-parameter update {plain_dev_ms:.3f} ms '
+            f'on the device; bound {bound:.3f} ms ({nbytes} bytes a '
+            f'parameter at {HBM_BYTES_PER_S / 1e12} TB/s)')
+        del params, opt
+        torch.cuda.empty_cache()
+
+
+def optimizer_surface(seed, dev, card):
+    """Phase 20: (a)-(c) BERT-base with LAMB, (d) static ResNet-50 with
+    LARS, (e) each rule. Returns the flash kernels' launches over (a) and
+    (b); none of the port's kernels may launch in (d) or (e)."""
+    from paddle_tpu_torch.ops import nn_ops
+    t_start = time.perf_counter()
+    flash = lamb_bert(seed, dev, card)
+    nn_ops.reset_launch_counts()
+    lars_resnet(seed, card)
+    each_rule(seed, dev, card)
+    launches = nn_ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f'(d)/(e) launched kernels of the port: '
+                             f'{launches}')
+    log(f'phase 20 in {time.perf_counter() - t_start:.1f} s [{card}]; (d) '
+        f'and (e) kernel launches {launches}')
+    return flash
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -6068,8 +6668,18 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_stateless_serving'] = stateless[wrapper]
 
-    # 20. result lines
-    log(f'chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s '
+    # 20. the optimizer surface: BERT-base with LAMB through the flash
+    # kernels (with and without remat, and a resume mid merge), the static
+    # ResNet-50 with LARS and each other rule; none of the port's kernels
+    # launches in (d) and (e)
+    torch.cuda.empty_cache()
+    lamb = optimizer_surface(args.seed, dev, smi)
+    for kern in flash:
+        kern['launches_lamb'], kern['launches_lamb_remat'] = \
+            lamb[kern['name']]
+
+    # 21. result lines
+    log(f'chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -6079,7 +6689,8 @@ def main(argv=None):
             x for x in ('launches_ptb', 'launches_s2s', 'launches_amp',
                         'launches_fused', 'launches_served_variants',
                         'launches_shared_prefix', 'launches_fluid_surface',
-                        'launches_stateless_serving', 'body',
+                        'launches_stateless_serving', 'launches_lamb',
+                        'launches_lamb_remat', 'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

@@ -39,7 +39,11 @@ path (``serving/engine.py``'s ``InferenceEngine``, ``serving/batcher.py``,
 ``POST /predict``) with the observability core (``observability/``: the
 metrics registry behind ``GET /metrics``, the tracer, trace contexts, the
 fleet merge behind the router's ``GET /metrics/fleet``, windowed series
-and SLOs). Every other public top-level name of the
+and SLOs). The seventeenth is the rest of the optimizer surface: LARS,
+Lamb and the other rules of ``optimizer.py`` in both modes,
+``dygraph_grad_clip``, ``contrib.extend_optimizer``, ``dygraph.grad``'s
+``no_grad_vars`` and ``TrainStep``'s ``remat``, ``snapshot`` and
+``set_state``. Every other public top-level name of the
 JAX package is a stand-in that raises ``NotImplementedError`` naming its
 ROADMAP item (``NOT_PORTED`` below); a name the JAX package lacks is not
 an attribute. A static script::
@@ -79,6 +83,7 @@ from .layers.io import fluid_data as data
 from . import backward
 from .backward import append_backward, gradients
 from . import optimizer
+from . import dygraph_grad_clip
 from .executor import Executor
 from . import compiler
 from .compiler import CompiledProgram
@@ -137,7 +142,6 @@ NOT_PORTED = {
     'LoDTensor': ('A.10', 'class'),
     'create_lod_tensor': ('A.10', 'function'),
     'create_random_int_lodtensor': ('A.10', 'function'),
-    'dygraph_grad_clip': ('A.4b', 'module'),
     'reader': ('A.11', 'module'),
     'DataLoader': ('A.11', 'class'),
     'FetchHandle': ('A.11', 'class'),

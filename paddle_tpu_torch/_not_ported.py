@@ -13,7 +13,6 @@ __all__ = ['ITEMS', 'message', 'stand_in', 'stand_in_class',
            'stand_in_module']
 
 ITEMS = {
-    'A.4b': 'the rest of the dygraph API',
     'A.9': 'distributed training on torch.distributed',
     'A.10': 'LoD tensors, the model zoo and the op long tail',
     'A.11': ('the runtime services: readers, datasets, the profiler, '

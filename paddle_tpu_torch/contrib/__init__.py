@@ -1,16 +1,18 @@
 """Contributed modules of the port (counterpart of paddle_tpu/contrib/):
 ``mixed_precision`` (``decorate``, ``AutoMixedPrecisionLists``),
-``memory_usage_calc``, ``model_stat``, ``op_frequence`` and the high-level
-``trainer`` and ``inferencer``.
+``memory_usage_calc``, ``model_stat``, ``op_frequence``, the high-level
+``trainer`` and ``inferencer``, and ``extend_optimizer``
+(``extend_with_decoupled_weight_decay``).
 
 Every other public name of the JAX package's contrib is a stand-in that
 raises ``NotImplementedError`` naming its ROADMAP item (_not_ported.py):
 ``slim``, ``quantize`` and ``reader`` (A.11); ``decoder``, ``layers`` and
-``extra`` (A.10); ``extend_optimizer`` (A.4b); ``utils`` (A.9); and the
+``extra`` (A.10); ``utils`` (A.9); and the
 names the JAX package takes from them."""
 from .. import _not_ported
-from . import (inferencer, memory_usage_calc, mixed_precision, model_stat,
-               op_frequence, trainer)
+from . import (extend_optimizer, inferencer, memory_usage_calc,
+               mixed_precision, model_stat, op_frequence, trainer)
+from .extend_optimizer import extend_with_decoupled_weight_decay
 from .inferencer import Inferencer
 from .memory_usage_calc import (device_memory_stats, memory_usage,
                                 print_memory_report)
@@ -27,8 +29,7 @@ NOT_PORTED = {
                       ('WeightQuantization', True), ('Compressor', True)]),
     'quantize': ('A.11', [('QuantizeTranspiler', True)]),
     'reader': ('A.11', [('distributed_batch_reader', False)]),
-    'extra': ('A.10', [('extend_with_decoupled_weight_decay', False),
-                       ('BasicLSTMUnit', True), ('BasicGRUUnit', True),
+    'extra': ('A.10', [('BasicLSTMUnit', True), ('BasicGRUUnit', True),
                        ('basic_lstm', False), ('basic_gru', False),
                        ('fused_elemwise_activation', False),
                        ('partial_concat', False), ('partial_sum', False),
@@ -43,7 +44,6 @@ NOT_PORTED = {
                         ('fused_embedding_seq_pool', False),
                         ('search_pyramid_hash', False),
                         ('ctr_metric_bundle', False)]),
-    'extend_optimizer': ('A.4b', []),
     'utils': ('A.9', [('HDFSClient', True), ('multi_download', False),
                       ('multi_upload', False),
                       ('convert_dist_to_sparse_program', False),
@@ -69,4 +69,5 @@ __all__ = ['mixed_precision', 'decorate', 'AutoMixedPrecisionLists',
            'print_memory_report', 'model_stat', 'summary', 'op_frequence',
            'op_freq_statistic', 'trainer', 'Trainer', 'CheckpointConfig',
            'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent',
-           'EndStepEvent', 'inferencer', 'Inferencer']
+           'EndStepEvent', 'inferencer', 'Inferencer', 'extend_optimizer',
+           'extend_with_decoupled_weight_decay']

@@ -8,8 +8,8 @@ The names the JAX package exports that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item when used:
 ``DataParallel``, ``ParallelEnv`` and ``prepare_context`` (A.9);
 ``TracedLayer``, ``declarative``, ``to_static`` and its aliases,
-``ProgramTranslator``, ``StaticFunction``, ``InputSpec`` and the gperf
-profiler hooks (A.4).
+``ProgramTranslator``, ``StaticFunction`` and ``InputSpec``
+(dygraph-to-static, A.4d); the gperf profiler hooks (A.11).
 """
 from . import jit
 from .base import (Tracer, disable_dygraph, eager_kernel_cache_guard,
@@ -65,16 +65,16 @@ def _unported(name, item, kind='function'):
 DataParallel = _unported('DataParallel', 'A.9', 'class')
 ParallelEnv = _unported('ParallelEnv', 'A.9', 'class')
 prepare_context = _unported('prepare_context', 'A.9')
-TracedLayer = _unported('TracedLayer', 'A.4', 'class')
-ProgramTranslator = _unported('ProgramTranslator', 'A.4', 'class')
-StaticFunction = _unported('StaticFunction', 'A.4', 'class')
-InputSpec = _unported('InputSpec', 'A.4', 'class')
-declarative = _unported('declarative', 'A.4')
-to_static = _unported('to_static', 'A.4')
-dygraph_to_static_graph = _unported('dygraph_to_static_graph', 'A.4')
-dygraph_to_static_output = _unported('dygraph_to_static_output', 'A.4')
-start_gperf_profiler = _unported('start_gperf_profiler', 'A.4')
-stop_gperf_profiler = _unported('stop_gperf_profiler', 'A.4')
+TracedLayer = _unported('TracedLayer', 'A.4d', 'class')
+ProgramTranslator = _unported('ProgramTranslator', 'A.4d', 'class')
+StaticFunction = _unported('StaticFunction', 'A.4d', 'class')
+InputSpec = _unported('InputSpec', 'A.4d', 'class')
+declarative = _unported('declarative', 'A.4d')
+to_static = _unported('to_static', 'A.4d')
+dygraph_to_static_graph = _unported('dygraph_to_static_graph', 'A.4d')
+dygraph_to_static_output = _unported('dygraph_to_static_output', 'A.4d')
+start_gperf_profiler = _unported('start_gperf_profiler', 'A.11')
+stop_gperf_profiler = _unported('stop_gperf_profiler', 'A.11')
 
 __all__ = ['guard', 'enable_dygraph', 'disable_dygraph', 'enabled',
            'to_variable', 'set_eager_kernel_cache',

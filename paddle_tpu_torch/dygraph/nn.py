@@ -23,7 +23,7 @@ activation's type from f32 statistics, and ``Linear``/``LayerNorm`` promote
 as JAX does (bf16 with f32 gives f32).
 
 The reference's other layers raise ``NotImplementedError`` naming ROADMAP
-A.4 when built: Conv3D, Conv2DTranspose, Conv3DTranspose, GroupNorm,
+A.4c when built: Conv3D, Conv2DTranspose, Conv3DTranspose, GroupNorm,
 SpectralNorm, PRelu, BilinearTensorProduct, GRUUnit, NCE and TreeConv.
 """
 from __future__ import annotations
@@ -50,7 +50,7 @@ _ACTS = {'gelu': F.gelu, 'tanh': torch.tanh, 'relu': torch.relu}
 def _check_act(act, allowed=tuple(_ACTS)):
     if act is not None and act not in allowed:
         raise NotImplementedError(f'act={act!r}: only {", ".join(allowed)} '
-                                  f'are ported (ROADMAP A.4)')
+                                  f'are ported (ROADMAP A.4c)')
 
 
 def _promote(*ts):
@@ -309,8 +309,8 @@ class Dropout(Layer):
 def _unported(name, sig):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(f'dygraph.{name} is not ported yet '
-                                  f'(ROADMAP A.4)')
-    __init__.__doc__ = f'{name}{sig}: not ported yet (ROADMAP A.4).'
+                                  f'(ROADMAP A.4c)')
+    __init__.__doc__ = f'{name}{sig}: not ported yet (ROADMAP A.4c).'
     return type(name, (Layer,), {'__init__': __init__,
                                  '__doc__': __init__.__doc__,
                                  '__module__': __name__})

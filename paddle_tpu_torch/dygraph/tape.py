@@ -235,10 +235,10 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     ``torch.autograd.grad``; with ``create_graph=True`` they carry history
     and differentiate again. Unlike the JAX package's replay, the graph is
     freed unless ``retain_graph`` (which defaults to ``create_graph``).
-    ``no_grad_vars`` is not ported and raises (ROADMAP A.4)."""
-    if no_grad_vars is not None:
-        raise NotImplementedError('grad(no_grad_vars=...) is not ported yet '
-                                  '(ROADMAP A.4)')
+    ``no_grad_vars`` (a tensor or a list) stop the gradient's path, as the
+    JAX package's ``stop_gradient`` on them does: a hook on each, for this
+    call, passes zeros back from it, so an input reached only through one
+    gets zeros and an input listed itself gets zeros."""
     outputs = [outputs] if isinstance(outputs, torch.Tensor) \
         else list(outputs)
     inputs = [inputs] if isinstance(inputs, torch.Tensor) else list(inputs)
@@ -248,10 +248,19 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
         grad_outputs = ([grad_outputs] if isinstance(grad_outputs,
                                                      torch.Tensor)
                         else list(grad_outputs))
-    gs = torch.autograd.grad(outputs, inputs, grad_outputs=grad_outputs,
-                             retain_graph=retain_graph,
-                             create_graph=create_graph,
-                             allow_unused=allow_unused)
+    stops = [] if no_grad_vars is None else (
+        [no_grad_vars] if isinstance(no_grad_vars, torch.Tensor)
+        else list(no_grad_vars))
+    hooks = [t.register_hook(torch.zeros_like) for t in stops
+             if t.requires_grad]
+    try:
+        gs = torch.autograd.grad(outputs, inputs, grad_outputs=grad_outputs,
+                                 retain_graph=retain_graph,
+                                 create_graph=create_graph,
+                                 allow_unused=allow_unused)
+    finally:
+        for h in hooks:
+            h.remove()
     return [None if g is None else _wrap(g) for g in gs]
 
 

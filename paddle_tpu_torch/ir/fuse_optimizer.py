@@ -1,7 +1,7 @@
 """``fuse_all_optimizer_ops``: the per-parameter ``sgd`` / ``momentum`` /
-``adam`` ops -> one multi-tensor op a group (counterpart of
-paddle_tpu/ir/fuse_optimizer.py, the reference's fuse_optimizer_ops_pass),
-on ``BuildStrategy.fuse_all_optimizer_ops``.
+``lars_momentum`` / ``adam`` ops -> one multi-tensor op a group
+(counterpart of paddle_tpu/ir/fuse_optimizer.py, the reference's
+fuse_optimizer_ops_pass), on ``BuildStrategy.fuse_all_optimizer_ops``.
 
 After ``minimize`` the global block ends in one update op a parameter,
 each a handful of launches. Ops fuse into one group where, as in the JAX
@@ -11,11 +11,10 @@ independent of every op between its first and last member: no member
 reads what another writes, and no op between them reads or writes what
 the group touches. The fused op runs at the first member's position
 (ops/fused_ops.py), so each parameter gets the bits its own op gives.
-Updates inside a ``cond`` sub-block (gradient merge, fp16 loss scaling)
-are not touched.
-
-The JAX package also fuses ``lars_momentum``, which waits for
-``LarsMomentum`` (ROADMAP A.4b).
+Parameters whose hyperparameters differ, such as those LARS's
+``exclude_from_weight_decay_fn`` gives a weight decay of 0, fall in
+separate groups. Updates inside a ``cond`` sub-block (gradient merge, fp16
+loss scaling) are not touched.
 """
 from __future__ import annotations
 
@@ -33,6 +32,10 @@ FUSE_SPECS = {
                  (('param', 'params'), ('grad', 'grads'),
                   ('velocity', 'velocities')),
                  ('ParamOut', 'VelocityOut')),
+    'lars_momentum': ('fused_lars_momentum',
+                      (('param', 'params'), ('grad', 'grads'),
+                       ('velocity', 'velocities')),
+                      ('ParamOut', 'VelocityOut')),
     'adam': ('fused_adam',
              (('param', 'params'), ('grad', 'grads'),
               ('moment1', 'moment1s'), ('moment2', 'moment2s'),

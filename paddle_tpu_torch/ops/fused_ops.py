@@ -5,7 +5,8 @@
   activation runs in place on the sum, which no other op reads, so the
   pair allocates one tensor where it allocated two; autograd allows it
   (the add saves nothing, and relu, sigmoid and tanh save their output).
-- ``fused_sgd``, ``fused_momentum`` and ``fused_adam``: the update of
+- ``fused_sgd``, ``fused_momentum``, ``fused_lars_momentum`` and
+  ``fused_adam``: the update of
   every parameter of a group that ``ir/fuse_optimizer.py`` gathers, as
   torch's multi-tensor (``_foreach``) ops over the lists, a few launches
   for the group where the per-parameter ops take some four (Momentum) to
@@ -19,10 +20,11 @@
   does on that parameter, so each parameter gets the same bits. Adam's
   step size is computed for each parameter from its own ``beta1_pow`` and
   ``beta2_pow`` (``multi_tensor_adam`` takes the first pair's), as the
-  per-parameter op and the JAX package's ``fused_adam`` do.
-
-The JAX package's ``fused_lars_momentum`` waits for ``lars_momentum``
-(ROADMAP A.4b).
+  per-parameter op and the JAX package's ``fused_adam`` do. LARS takes
+  each parameter's and gradient's norm from ``torch._foreach_norm``; on
+  the CPU that is the per-parameter op's ``torch.linalg.vector_norm``,
+  bit for bit, while the card's multi-tensor reduction may sum in
+  another order.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from .math_ops import _align_y
 from .registry import register_op
 
 __all__ = ['fused_elemwise_add_activation', 'fused_sgd', 'fused_momentum',
-           'fused_adam']
+           'fused_lars_momentum', 'fused_adam']
 
 _INPLACE_ACTS = {'relu': torch.relu_, 'sigmoid': torch.sigmoid_,
                  'tanh': torch.tanh_}
@@ -73,6 +75,27 @@ def fused_momentum(params, grads, velocities, lr, *, mu=0.9,
     else:
         step = torch._foreach_mul(v_new, lr)
     return torch._foreach_sub(params, step), v_new
+
+
+@register_op('fused_lars_momentum', outputs=['ParamOut', 'VelocityOut'],
+             variadic=['params', 'grads', 'velocities'])
+def fused_lars_momentum(params, grads, velocities, lr, *, mu=0.9,
+                        lars_coeff=0.001, lars_weight_decay=0.0005,
+                        epsilon=0.0):
+    """LARS for each triple (``optimizer_ops.lars_momentum``), new
+    tensors: ``(params, velocities)``."""
+    lr = _scalar(lr)
+    pn = torch.stack(torch._foreach_norm(params))
+    gn = torch.stack(torch._foreach_norm(grads))
+    local_lr = torch.where(
+        (pn > 0) & (gn > 0),
+        lr * lars_coeff * pn / (gn + lars_weight_decay * pn + epsilon), lr)
+    step = torch._foreach_mul(params, lars_weight_decay)
+    torch._foreach_add_(step, grads)
+    torch._foreach_mul_(step, list(local_lr.unbind()))
+    v_new = torch._foreach_mul(velocities, mu)
+    torch._foreach_add_(v_new, step)
+    return torch._foreach_sub(params, v_new), v_new
 
 
 @register_op('fused_adam', outputs=['ParamOut', 'Moment1Out', 'Moment2Out',

@@ -41,12 +41,23 @@ the recipe's default dynamic scaling; bf16 ignores the scale), with
 ``dtype`` ``amp`` ('float16' as the recipe, or 'bfloat16');
 ``recompute=True`` wraps it in ``fluid.optimizer.RecomputeOptimizer`` with
 the 16 bottleneck blocks' outputs as checkpoints.
+
+``optimizer='lars'`` trains with the large-batch LARS recipe instead
+(``examples/train_resnet_lars.py``): a base rate of 0.1 x batch/256 (the
+linear scaling rule, ``batch_size``), ``linear_lr_warmup`` from 0 over the
+first tenth of ``lars_steps`` (90 epochs of ImageNet at that batch unless
+given) into ``polynomial_decay(power=2)`` to 1e-4, and
+``LarsMomentum(momentum=0.9, lars_coeff=0.001, lars_weight_decay=5e-4)``
+with the biases and BatchNorm's scale and shift excluded from weight decay
+(:func:`lars_excluded`), and no L2Decay regularizer. Sync-BN and the fleet
+parts of that example are distributed training and are not here.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ['BOUNDARIES', 'SCALE_LOSS', 'VALUES', 'build']
+__all__ = ['BOUNDARIES', 'SCALE_LOSS', 'VALUES', 'build', 'lars_excluded',
+           'lars_schedule']
 
 DEPTHS = {50: [3, 4, 6, 3]}     # the recipe's other depths name blocks
                                 # otherwise (res4b1, ...) and are not here
@@ -58,6 +69,22 @@ BOUNDARIES = [STEP_EACH_EPOCH * e for e in (30, 60, 90)]
 VALUES = [0.1 * (0.1 ** i) for i in range(len(BOUNDARIES) + 1)]
 # the --use_fp16 recipe's initial loss scale (ResNet50_fp16.sh --scale_loss)
 SCALE_LOSS = 128.0
+# the LARS recipe (examples/train_resnet_lars.py)
+LARS_EPOCHS, LARS_END_LR, LARS_POWER = 90, 1e-4, 2.0
+LARS_MOMENTUM, LARS_COEFF, LARS_WEIGHT_DECAY = 0.9, 0.001, 5e-4
+
+
+def lars_excluded(param):
+    """Whether LARS leaves ``param`` out of weight decay: BatchNorm's
+    scale and shift (``bn*``) and the fc bias (``*.b_0``)."""
+    return param.name.startswith('bn') or param.name.endswith('.b_0')
+
+
+def lars_schedule(batch_size, lars_steps=None):
+    """``(base rate, warm-up steps, decay steps)`` of the LARS recipe at
+    ``batch_size``."""
+    steps = lars_steps or LARS_EPOCHS * math.ceil(1281167 / batch_size)
+    return 0.1 * batch_size / 256.0, max(steps // 10, 2), max(steps, 10)
 
 
 def _conv_bn_layer(fluid, x, num_filters, filter_size, stride=1, act=None,
@@ -115,7 +142,8 @@ def _net(fluid, image, class_dim, blocks, width_div, block_outs):
 
 
 def build(fluid, depth=50, class_dim=1000, image_shape=(3, 224, 224),
-          blocks=None, width_div=1, amp=None, recompute=False):
+          blocks=None, width_div=1, amp=None, recompute=False,
+          optimizer='momentum', batch_size=256, lars_steps=None):
     """The recipe's programs, built with ``fluid`` (either package).
 
     Returns ``(train program, startup program, test program, vars)``:
@@ -124,8 +152,11 @@ def build(fluid, depth=50, class_dim=1000, image_shape=(3, 224, 224),
     train program's casts under ``amp``; ``vars`` holds ``image``,
     ``label``, ``logits``, ``prob`` (the softmax), ``loss``, ``acc1``,
     ``acc5``, ``lr`` (the schedule's rate, from ``BOUNDARIES`` and
-    ``VALUES``), ``optimizer`` (what ``minimize`` ran) and ``checkpoints``
-    (the bottleneck outputs)."""
+    ``VALUES``, or LARS's warm-up and decay), ``optimizer`` (what
+    ``minimize`` ran) and ``checkpoints`` (the bottleneck outputs)."""
+    if optimizer not in ('momentum', 'lars'):
+        raise ValueError(f'optimizer must be momentum or lars, got '
+                         f'{optimizer!r}')
     blocks = list(blocks) if blocks is not None else DEPTHS[depth]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -141,11 +172,23 @@ def build(fluid, depth=50, class_dim=1000, image_shape=(3, 224, 224),
         acc1 = fluid.layers.accuracy(input=prob, label=label, k=1)
         acc5 = fluid.layers.accuracy(input=prob, label=label, k=5)
         test = main.clone(for_test=True)
-        lr = fluid.layers.piecewise_decay(boundaries=BOUNDARIES,
-                                          values=VALUES)
-        opt = fluid.optimizer.Momentum(
-            learning_rate=lr, momentum=MOMENTUM,
-            regularization=fluid.regularizer.L2Decay(L2_DECAY))
+        if optimizer == 'lars':
+            base_lr, warmup, decay = lars_schedule(batch_size, lars_steps)
+            lr = fluid.layers.linear_lr_warmup(
+                fluid.layers.polynomial_decay(
+                    base_lr, decay_steps=decay,
+                    end_learning_rate=LARS_END_LR, power=LARS_POWER),
+                warmup_steps=warmup, start_lr=0.0, end_lr=base_lr)
+            opt = fluid.optimizer.LarsMomentumOptimizer(
+                lr, momentum=LARS_MOMENTUM, lars_coeff=LARS_COEFF,
+                lars_weight_decay=LARS_WEIGHT_DECAY,
+                exclude_from_weight_decay_fn=lars_excluded)
+        else:
+            lr = fluid.layers.piecewise_decay(boundaries=BOUNDARIES,
+                                              values=VALUES)
+            opt = fluid.optimizer.Momentum(
+                learning_rate=lr, momentum=MOMENTUM,
+                regularization=fluid.regularizer.L2Decay(L2_DECAY))
         if recompute:
             opt = fluid.optimizer.RecomputeOptimizer(opt)
             opt._set_checkpoints(block_outs)

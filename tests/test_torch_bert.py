@@ -300,9 +300,10 @@ def test_train_step_rejects_unported_options():
     cfg = config(True, port_bert.BertConfig)
     model = port_bert.BertForPretraining(cfg, device='cpu')
     opt = Adam(1e-3, parameter_list=list(model.parameters()))
-    for kw in ({'remat': True}, {'async_fetch': True},
-               {'supervisor': object()}, {'data_sharding': object()}):
-        with pytest.raises(NotImplementedError):
+    for kw, item in (({'async_fetch': True}, 'A.11'),
+                     ({'supervisor': object()}, 'A.11'),
+                     ({'data_sharding': object()}, 'A.9')):
+        with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
             TrainStep(model, port_bert.pretrain_loss, opt, **kw)
 
 

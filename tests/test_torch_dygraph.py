@@ -241,8 +241,24 @@ def test_partial_grad_with_create_graph():
         np.testing.assert_allclose(g.numpy(), [27.0])
         (g2,) = dygraph.grad(g, x)
         np.testing.assert_allclose(g2.numpy(), [18.0])
-        with pytest.raises(NotImplementedError, match='A.4'):
-            dygraph.grad(y, x, no_grad_vars=[x])
+    # no_grad_vars stops the path through x * x (and through x itself),
+    # as the JAX package's grad does: exact
+    got = {}
+    for pkg, place in ((dygraph, CPU), (jdy, None)):
+        with pkg.guard(place):
+            x = pkg.Parameter(np.array([3.0], np.float32)) \
+                if pkg is dygraph else pkg.to_variable(
+                    np.array([3.0], np.float32))
+            x.stop_gradient = False
+            sq = x * x
+            y = sq * x
+            got[pkg] = [pkg.grad(y, x, retain_graph=True,
+                                 no_grad_vars=v)[0].numpy()
+                        for v in ([sq], sq, [x], None)]
+    for a, b in zip(got[dygraph], got[jdy]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.concatenate(got[dygraph]),
+                                  [9.0, 9.0, 0.0, 27.0])
 
 
 def test_finite_difference_matmul_grad():
@@ -509,20 +525,23 @@ def test_optimizer_state_dict_round_trips():
         assert torch.equal(fc.weight, fc2.weight)
 
 
-@pytest.mark.parametrize('kw,item', [
-    ({'regularization': ('regularizer', 'L2Decay', 0.01)}, None),
-    ({'grad_clip': ('clip', 'GradientClipByGlobalNorm', 1.0)}, None),
-    ({'lazy_mode': True}, 'A.4')], ids=['regularization', 'grad_clip',
-                                        'lazy_mode'])
-def test_unported_optimizer_options_raise(kw, item):
-    """``lazy_mode`` is not ported and raises naming its ROADMAP item;
-    ``regularization`` and ``grad_clip`` are: one ``minimize`` of a Linear
-    with ``Adam(0.1, ...)`` equals the JAX package's, atol 1e-6."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            fluid.optimizer.Adam(0.1, **kw)
-        return
-    (name, (module, cls, arg)), = kw.items()
+@pytest.mark.parametrize('kw', [
+    {'regularization': ('regularizer', 'L2Decay', 0.01)},
+    {'grad_clip': ('clip', 'GradientClipByGlobalNorm', 1.0)},
+    {'lazy_mode': True}], ids=['regularization', 'grad_clip', 'lazy_mode'])
+def test_unported_optimizer_options_raise(kw):
+    """``regularization``, ``grad_clip`` and ``lazy_mode`` (accepted and
+    ignored, as in the JAX package: a dense gradient's lazy update is the
+    plain one) are ported: one ``minimize`` of a Linear with ``Adam(0.1,
+    ...)`` equals the JAX package's, atol 1e-6."""
+    (name, value), = kw.items()
+
+    def option(pkg):
+        if not isinstance(value, tuple):
+            return {name: value}
+        module, cls, arg = value
+        return {name: getattr(getattr(pkg, module), cls)(arg)}
+
     rng = np.random.default_rng(5)
     w = rng.standard_normal((3, 2)).astype(np.float32)
     x = rng.standard_normal((4, 3)).astype(np.float32) * 10
@@ -532,8 +551,7 @@ def test_unported_optimizer_options_raise(kw, item):
             fc = dy.Linear(3, 2)
             fc.weight.set_value(w)
             opt = pkg.optimizer.Adam(
-                0.1, parameter_list=fc.parameters(),
-                **{name: getattr(getattr(pkg, module), cls)(arg)})
+                0.1, parameter_list=fc.parameters(), **option(pkg))
             loss = lay.reduce_sum(fc(dy.to_variable(x)))
             loss.backward()
             opt.minimize(loss)

@@ -1526,3 +1526,42 @@ def test_run_check_and_trainer_steps_on_the_card(cuda, tmp_path):
                           feed_order=book.FEED_ORDER)
     finally:
         fluid.debugging.enable_check_nan_inf(False)
+
+
+# ----------------------------------------------- the multi-tensor updates
+
+@pytest.mark.parametrize('rule', ['lamb', 'lars_momentum'])
+def test_lamb_and_lars_multi_tensor_forms_match_their_ops(cuda, rule):
+    """On the card ``torch._foreach_norm`` sums in another order than the
+    per-parameter op's ``torch.linalg.vector_norm``, so the two forms agree
+    to f32 round-off of the norms: atol 1e-6, rtol 1e-5. A parameter at
+    zero and a zero gradient take the plain rate."""
+    from paddle_tpu_torch.ops import optimizer_ops as ops
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(768, 768), (768,), (3072, 768), (30522, 768), (2,)]
+    ps = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    ps[1].zero_()
+    gs = [torch.randn(s, generator=gen, device=cuda) * 1e-2 for s in shapes]
+    gs[4].zero_()
+    lr = torch.tensor([1e-3], device=cuda)
+    if rule == 'lamb':
+        slots = [[torch.rand(s, generator=gen, device=cuda) * 1e-3
+                  for s in shapes] for _ in range(2)]
+        slots += [[torch.tensor([0.9 ** 3], device=cuda) for _ in shapes],
+                  [torch.tensor([0.999 ** 3], device=cuda)
+                   for _ in shapes]]
+        kw = {'weight_decay': 0.01}
+    else:
+        slots = [[torch.randn(s, generator=gen, device=cuda) * 1e-3
+                  for s in shapes]]
+        kw = {}
+    plain = [getattr(ops, rule)(p, g, *[s[i] for s in slots], lr, **kw)
+             for i, (p, g) in enumerate(zip(ps, gs))]
+    lists = [[t.clone() for t in col] for col in [ps, gs, *slots]]
+    getattr(ops, f'multi_tensor_{rule}')(*lists, lr, **kw)
+    updated = [lists[0]] + lists[2:]
+    for i, outs in enumerate(plain):
+        for k, out in enumerate(outs):
+            torch.testing.assert_close(updated[k][i], out, atol=1e-6,
+                                       rtol=1e-5)
+    assert not torch.equal(updated[0][1], ps[1])

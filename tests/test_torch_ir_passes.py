@@ -343,7 +343,7 @@ def test_lenet_three_fused_steps_match_jax(opt, param_atol):
 
 @pytest.mark.parametrize('name', ['fused_elemwise_add_activation',
                                   'fused_sgd', 'fused_momentum',
-                                  'fused_adam'])
+                                  'fused_lars_momentum', 'fused_adam'])
 def test_fused_ops_take_the_jax_parameters(name):
     assert (inspect.signature(getattr(fused_ops, name))
             == inspect.signature(getattr(jfused, name)))

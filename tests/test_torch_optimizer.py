@@ -87,8 +87,15 @@ def test_adam_optimizer_slots_and_unported_options():
                                    0.1 * (3.5 if 'regularization' in kw
                                           else 6 ** -0.5), rtol=1e-6)
         assert torch.equal(v.grad, torch.full((3, 2), 3.0))
-    with pytest.raises(NotImplementedError, match='A.4'):
-        AdamOptimizer(0.1, parameter_list=[w], lazy_mode=True)
+    # lazy_mode is accepted and ignored, as in the JAX package: a dense
+    # gradient's lazy update is the plain one, bit for bit
+    updated = []
+    for lazy in (False, True):
+        v = torch.nn.Parameter(torch.ones(3, 2))
+        v.grad = torch.full((3, 2), 3.0)
+        AdamOptimizer(0.1, parameter_list=[v], lazy_mode=lazy).step()
+        updated.append(v.detach())
+    assert torch.equal(*updated)
 
 
 @pytest.mark.parametrize('label_shape', ['n1', 'n'])

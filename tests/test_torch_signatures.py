@@ -115,7 +115,11 @@ SHARED_OPS = [
     ('math_ops', 'logical_and'), ('math_ops', 'logical_or'),
     ('math_ops', 'logical_xor'), ('math_ops', 'logical_not'),
     ('optimizer_ops', 'check_finite_and_unscale'),
-    ('optimizer_ops', 'update_loss_scaling')]
+    ('optimizer_ops', 'update_loss_scaling'),
+    # the rest of the optimizer surface
+    *(('optimizer_ops', op) for op in (
+        'lars_momentum', 'adamax', 'adagrad', 'decayed_adagrad', 'rmsprop',
+        'adadelta', 'ftrl', 'lamb', 'dpsgd', 'dgc_momentum'))]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 

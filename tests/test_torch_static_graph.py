@@ -568,7 +568,7 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
                                       attrs={'pipeline': {'stages': 2}})
     with pytest.raises(NotImplementedError, match='A.9'):
         cpu_exe().run(main, feed={'np_x': np.ones((2, 3), 'float32')})
-    with pytest.raises(NotImplementedError, match='A.4'):
-        fluid.optimizer.Adam(0.001, lazy_mode=True)
+    with pytest.raises(NotImplementedError, match='A.9'):
+        fluid.optimizer.PipelineOptimizer(fluid.optimizer.Adam(0.001))
     with pytest.raises(NotImplementedError, match='A.11'):
         cpu_exe().train_from_dataset(main)

@@ -103,7 +103,6 @@ STAND_INS = {
         'communicator', 'Communicator', 'distribute_lookup_table'], 'A.9'),
     **dict.fromkeys(['LoDTensor', 'create_lod_tensor',
                      'create_random_int_lodtensor'], 'A.10'),
-    'dygraph_grad_clip': 'A.4b',
     **dict.fromkeys([
         'DataLoader', 'reader', 'FetchHandle', 'profiler', 'resilience', 'analysis', 'dataset', 'datasets', 'DatasetFactory',
         'InMemoryDataset', 'QueueDataset', 'data_feed_desc', 'DataFeedDesc',
@@ -116,7 +115,7 @@ CONTRIB_STAND_INS = {
                      'QuantizeTranspiler', 'reader',
                      'distributed_batch_reader'], 'A.11'),
     **dict.fromkeys([
-        'extra', 'extend_with_decoupled_weight_decay', 'BasicLSTMUnit',
+        'extra', 'BasicLSTMUnit',
         'BasicGRUUnit', 'basic_lstm', 'basic_gru',
         'fused_elemwise_activation', 'partial_concat', 'partial_sum',
         'shuffle_batch', 'tree_conv', 'multiclass_nms2', 'decoder',
@@ -124,7 +123,6 @@ CONTRIB_STAND_INS = {
         'layers', 'sequence_topk_avg_pooling', 'var_conv_2d',
         'match_matrix_tensor', 'fused_embedding_seq_pool',
         'search_pyramid_hash', 'ctr_metric_bundle'], 'A.10'),
-    'extend_optimizer': 'A.4b',
     **dict.fromkeys(['utils', 'HDFSClient', 'multi_download',
                      'multi_upload', 'convert_dist_to_sparse_program',
                      'load_persistables_for_increment',
