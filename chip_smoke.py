@@ -375,9 +375,29 @@ Phases:
    (torch.profiler) and the host clock's beside its bound (the bytes it
    must move a parameter, at HBM_BYTES_PER_S); no
    kernel of the port launched in (d) and (e);
-21. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+21. the rest of the dygraph layers and the vision models (ROADMAP A.4c,
+   ``models/vision.py``), each on one seeded batch through
+   ``tools/vision_recipes.py``: (a) MobileNetV2 (scale 1.0, 1000 classes,
+   batch 128 at 224^2) in bf16 AMP and in f32, 2 + 20 synchronised steps:
+   losses finite and falling, p50, min, max, images/s, peak memory, busy
+   and idle share over a profiled step and its device time by kind
+   (depthwise conv, other conv, every elementwise kernel, every
+   reduction, the update), and its BatchNorms' own device time, replayed
+   at the step's shapes and types; (b) MobileNetV1 (batch 128) and VGG-16 with
+   BatchNorm (batch 64), bf16, 2 + 10 steps each; (c) TSM over ResNet-50
+   (400 classes, 16 clips of 8 frames), bf16, 2 + 10 steps, clips/s and
+   ``temporal_shift``'s device ms a step; (d) the DCGAN (z 100, base 64,
+   batch 128) for 50 alternating iterations: p50, busy, idle, finite
+   losses, and no discriminator update that saw the generator's
+   gradients; (e) every A.4c layer and new op on the card against the
+   same code on the CPU, forward and gradients, each max |diff| beside its
+   tolerance (Conv3D and Conv3DTranspose at (8, 64, 16, 56, 56), GroupNorm
+   at (32, 256, 56, 56), SpectralNorm of (512, 4608), NCE over 100,000
+   classes, the activations at their breakpoints, ...); (f) no kernel of
+   the port launched;
+22. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-20) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-21) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -6378,6 +6398,456 @@ def optimizer_surface(seed, dev, card):
     return flash
 
 
+# Phase 21: the rest of the dygraph layers and the vision models (ROADMAP
+# A.4c, models/vision.py). The models at full width: MobileNetV2 (scale
+# 1.0, 1000 classes, 224^2, batch 128) in bf16 AMP and in f32 through
+# PaddleCV's recipe (tools/vision_recipes.py), MobileNetV1 (batch 128) and
+# VGG-16 with BatchNorm (batch 64) in bf16, TSM over ResNet-50 (Kinetics-
+# 400, 16 clips of 8 frames) in bf16, and the DCGAN (z 100, base 64, batch
+# 128 at 32x32) in f32. Each trains on one seeded batch, so its loss must
+# fall. The layers and ops of A.4c run on the card against the same port
+# code on the CPU, f32 with TF32 off: each element within 1e-5 of itself
+# plus 2e-6 for the elementwise ops (the same formula, libraries a few ulps
+# apart, cancellations such as GELU's x·(1 + erf) at large negative x a few
+# ulps of the input; inputs N(0, 10) with each op's breakpoints placed, N(0,
+# 1) for the exponential ones, sinh, cosh, softplus and soft_relu, whose
+# outputs at 10 sigma would dwarf any bound), and within 1e-4 of the
+# tensor's largest entry for the rest (sums of up to 100,352 f32 products
+# in another order, whose small entries are cancellations of large terms),
+# and the Conv3D pair on the CPU at the batch's first sample (its output and
+# input gradient against the card's first sample, the weight gradient
+# against a card run of that sample): the whole batch would take minutes
+# on the host.
+VISION_BATCH, VISION_IMG, VISION_CLASSES = 128, 224, 1000
+VGG_BATCH = 64
+MNV2_STEPS, VISION_STEPS = 20, 10
+TSM_CLIPS, TSM_SEG, TSM_CLASSES = 16, 8, 400
+DCGAN_BATCH, DCGAN_ITERS, DCGAN_Z, DCGAN_BASE = 128, 50, 100, 64
+# (of each element, of the tensor's largest entry, absolute): |card - CPU|
+# within their sum
+A4C_EW_TOL, A4C_SUM_TOL = (1e-5, 0.0, 2e-6), (0.0, 1e-4, 0.0)
+A4C_EXP_OPS = ('sinh', 'cosh', 'softplus', 'soft_relu')
+CONV3D_SHAPE = (8, 64, 16, 56, 56)
+VISION_GROUPS = {
+    'depthwise conv': lambda key: 'depthwise' in key.lower(),
+    'other conv': lambda key: 'depthwise' not in key.lower() and any(
+        t in key.lower() for t in ('conv', 'xmma', 'cudnn', 'dgrad', 'wgrad',
+                                   'implicit_gemm', 'nvjet')),
+    # every elementwise kernel and every reduction of the step, whatever
+    # op launched it: BatchNorm's, the activations', the residual adds',
+    # AMP's casts, the loss's. What BatchNorm alone takes is
+    # batch_norm_ms's replay
+    'elementwise (all)': lambda key: 'elementwise' in key,
+    'reductions (all)': lambda key: 'reduce_kernel' in key,
+    'the update (_foreach)': lambda key: 'multi_tensor' in key}
+
+
+def vision_batch(seed, n, classes, dev, frames=1):
+    """(n * frames, 3, 224, 224) f32 images and (n, 1) int64 labels drawn
+    on the card from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n * frames, 3, VISION_IMG, VISION_IMG, device=dev,
+                    generator=gen)
+    y = torch.randint(0, classes, (n, 1), device=dev, generator=gen)
+    return x, y
+
+
+def batch_norm_ms(model, step, feeds):
+    """Device ms a step of ``model``'s BatchNorm layers without their act:
+    each layer's forward (statistics, normalisation, running averages) and
+    backward (to its input, scale and bias), replayed through the
+    ``batch_norm`` op on random inputs of the shapes and types that the
+    layer saw in one call of ``step``, its running statistics copied."""
+    import torch
+    from paddle_tpu_torch.dygraph import BatchNorm
+    from paddle_tpu_torch.ops.nn_ops import batch_norm
+    seen = []
+
+    def grab(layer, inputs):
+        seen.append((layer, inputs[0].shape, inputs[0].dtype,
+                     layer.weight.dtype))
+    hooks = [m.register_forward_pre_hook(grab) for m in model.sublayers()
+             if isinstance(m, BatchNorm)]
+    step(*feeds)
+    for h in hooks:
+        h.remove()
+    assert seen, 'no BatchNorm layer ran in the step'
+    dev = feeds[0].device
+    runs = []
+    for layer, shape, x_dtype, w_dtype in seen:
+        x = torch.randn(shape, device=dev, dtype=x_dtype, requires_grad=True)
+        w = torch.ones(shape[1], device=dev, dtype=w_dtype,
+                       requires_grad=True)
+        b = torch.zeros(shape[1], device=dev, dtype=w_dtype,
+                        requires_grad=True)
+        runs.append((x, w, b, layer._mean_buf.clone(),
+                     layer._variance_buf.clone(), layer._attrs))
+
+    def replay():
+        for x, w, b, mean, var, attrs in runs:
+            y, new_mean, new_var = batch_norm(x, w, b, mean, var, **attrs)
+            with torch.no_grad():
+                mean.copy_(new_mean)
+                var.copy_(new_var)
+            y.backward(x.detach())
+    ms = device_us(profiled(replay)) / 1e3
+    del runs
+    return ms, len(seen)
+
+
+def train_vision(name, step, feeds, steps, card, rate_unit, per_rate,
+                 model):
+    """2 warm-up and ``steps`` timed calls of ``step``, each synchronised:
+    losses finite and falling, p50/min/max, the rate, peak memory, a
+    profiled step by kind and what ``model``'s BatchNorms take of it.
+    Returns the summary."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(WARMUP_STEPS + steps):
+        t0 = time.perf_counter()
+        loss = step(*feeds)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    timed_s = secs[WARMUP_STEPS:]
+    p50 = statistics.median(timed_s) * 1e3
+    rate = per_rate * steps / sum(timed_s)
+    log(f'21 {name} losses: ' + ' '.join(repr(v) for v in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'{name}: losses not finite or not falling: '
+                             f'{losses}')
+    log(f'21 {name} [{card}]: {WARMUP_STEPS} + {steps} steps, step p50 '
+        f'{p50:.3f} ms (min {min(timed_s) * 1e3:.3f}, max '
+        f'{max(timed_s) * 1e3:.3f}), {rate:.1f} {rate_unit}; peak device '
+        f'memory {peak} bytes')
+    prof = profile_train_step(step, feeds, p50, card, VISION_GROUPS,
+                              what=f'21 {name}')
+    assert prof is not None, f'{name}: the profiler recorded no device time'
+    bn_ms, n_bn = batch_norm_ms(model, step, feeds)
+    log(f'21 {name} BatchNorm alone [{card}]: {bn_ms:.3f} ms of device time '
+        f'a step = {bn_ms / prof[0]:.3f} of busy ({n_bn} layers\' forward '
+        f'and backward without their act, replayed at the step\'s shapes '
+        f'and types)')
+    return {'p50': p50, 'rate': rate, 'peak': peak, 'losses': losses,
+            'busy': prof[0], 'batch_norm_ms': bn_ms}
+
+
+def vision_classifiers(seed, dev, card):
+    """Phase 21 (a)-(c): MobileNetV2 in bf16 and f32, MobileNetV1 and
+    VGG-16-BN in bf16, TSM in bf16."""
+    import torch
+    from paddle_tpu_torch.models import (TSM, VGG, MobileNetV1,
+                                         MobileNetV2)
+    from paddle_tpu_torch.ops.tensor_ops import temporal_shift
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    x, y = vision_batch(seed, VISION_BATCH, VISION_CLASSES, dev)
+    for amp in (torch.bfloat16, None):
+        model = MobileNetV2(VISION_CLASSES, device=dev, seed=seed)
+        if amp is torch.bfloat16:
+            log(f'21 (a) MobileNetV2 scale 1.0: '
+                f'{sum(p.numel() for p in model.parameters())} parameters')
+        step = vr.mobilenet_v2_step(model, VISION_BATCH, amp_dtype=amp)
+        train_vision(f'(a) MobileNetV2 {"bf16 AMP" if amp else "f32"}',
+                     step, (x, y), MNV2_STEPS, card, 'images/s',
+                     VISION_BATCH, model)
+        del model, step
+        torch.cuda.empty_cache()
+    model = MobileNetV1(VISION_CLASSES, device=dev, seed=seed)
+    train_vision('(b) MobileNetV1 bf16 AMP', vr.mobilenet_v2_step(
+        model, VISION_BATCH, amp_dtype=torch.bfloat16), (x, y),
+        VISION_STEPS, card, 'images/s', VISION_BATCH, model)
+    del model
+    model = VGG(16, VISION_CLASSES, input_size=VISION_IMG, device=dev,
+                seed=seed)
+    train_vision('(b) VGG-16-BN bf16 AMP', vr.classifier_step(
+        model, 0.01, 4e-5, amp_dtype=torch.bfloat16),
+        (x[:VGG_BATCH], y[:VGG_BATCH]), VISION_STEPS, card, 'images/s',
+        VGG_BATCH, model)
+    del model, x, y
+    torch.cuda.empty_cache()
+
+    model = TSM(TSM_CLASSES, TSM_SEG, 50, device=dev, seed=seed)
+    x, y = vision_batch(seed + 1, TSM_CLIPS, TSM_CLASSES, dev, TSM_SEG)
+    train_vision('(c) TSM ResNet-50 bf16 AMP', vr.tsm_step(
+        model, amp_dtype=torch.bfloat16), (x, y), VISION_STEPS, card,
+        'clips/s', TSM_CLIPS, model)
+    # temporal_shift's device time a step: its forward and backward on the
+    # 16 bottleneck inputs' shapes, in bf16 as the AMP step runs it
+    shapes = []
+    hooks = [b.register_forward_pre_hook(
+        lambda layer, inputs: shapes.append(tuple(inputs[0].shape)))
+        for b in model.backbone.blocks]
+    with torch.no_grad():
+        model(x[:TSM_SEG])
+    for h in hooks:
+        h.remove()
+    acts = [torch.randn((TSM_CLIPS * TSM_SEG,) + s[1:], device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+            for s in shapes]
+    grads = [torch.ones_like(a) for a in acts]
+
+    def shifts():
+        for a, g in zip(acts, grads):
+            temporal_shift(a, seg_num=TSM_SEG).backward(g)
+    shift_ms = device_us(profiled(shifts)) / 1e3
+    shift_bytes = sum(4 * a.numel() * a.element_size() for a in acts)
+    log(f'21 (c) temporal_shift [{card}]: {shift_ms:.3f} ms of device time '
+        f'a step (forward and backward on the {len(acts)} bottleneck '
+        f'inputs, bf16); {shift_bytes} bytes read and written, '
+        f'{shift_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at '
+        f'{HBM_BYTES_PER_S / 1e12} TB/s')
+    del model, x, y, acts, grads
+    torch.cuda.empty_cache()
+
+
+def dcgan_loop(seed, dev, card):
+    """Phase 21 (d): the DCGAN's alternating updates, D never updated
+    with G's gradients."""
+    import copy
+    import torch
+    from paddle_tpu_torch.models import DCDiscriminator, DCGenerator
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = DCGenerator(DCGAN_Z, DCGAN_BASE, 1, device=dev, seed=seed)
+    d = DCDiscriminator(DCGAN_BASE, device=dev, seed=seed + 1)
+    d_opt, g_opt = vr.dcgan_optimizers(g, d)
+    real = torch.tanh(torch.randn(DCGAN_BATCH, 1, 32, 32, device=dev,
+                                  generator=gen))
+    zs = torch.randn(DCGAN_ITERS + 4, DCGAN_BATCH, DCGAN_Z, device=dev,
+                     generator=gen)
+    losses, secs = [], []
+    for i in range(DCGAN_ITERS):
+        t0 = time.perf_counter()
+        d_loss, g_loss = vr.dcgan_iteration(g, d, d_opt, g_opt, real, zs[i])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if any(p.grad is not None for p in d.parameters()):
+            raise AssertionError('a discriminator gradient outlived the '
+                                 'generator\'s step')
+        losses.append((d_loss.item(), g_loss.item()))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'DCGAN losses not finite: {losses}')
+    p50 = statistics.median(secs[WARMUP_STEPS:]) * 1e3
+
+    # D's next update from cleared gradients equals the loop's; with the
+    # generator's loss's gradients left on D it differs (the check bites).
+    # cuDNN's deterministic algorithms make the three runs comparable bit
+    # for bit; the bound is a hundredth of what G's gradients move
+    def forked(dirty):
+        gc, dc = copy.deepcopy(g), copy.deepcopy(d)
+        opt = vr.dcgan_optimizers(gc, dc)[0]
+        opt.set_dict(d_opt.state_dict())
+        if dirty:
+            logits = dc(gc(zs[-1]))
+            vr._bce(logits, torch.ones_like(logits)).backward()
+            gc.clear_gradients()
+        vr.dcgan_d_step(gc, dc, opt, real, zs[-2])
+        return [p.detach().clone() for p in dc.parameters()]
+
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        clean, dirty = forked(False), forked(True)
+        vr.dcgan_d_step(g, d, d_opt, real, zs[-2])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    apart = max((p.detach() - q).abs().max().item()
+                for p, q in zip(d.parameters(), clean))
+    moved = max((p - q).abs().max().item() for p, q in zip(clean, dirty))
+    if not apart <= 0.01 * moved:
+        raise AssertionError(f'D\'s update saw G\'s gradients: {apart} from '
+                             f'the clean fork, the dirty fork {moved}')
+    busy = device_us(profiled(lambda: vr.dcgan_iteration(
+        g, d, d_opt, g_opt, real, zs[-3]))) / 1e3
+    log(f'21 (d) DCGAN losses (D, G) every 10th iteration: '
+        f'{losses[::10]} last {losses[-1]}')
+    log(f'21 (d) DCGAN z {DCGAN_Z}, base {DCGAN_BASE}, batch {DCGAN_BATCH} '
+        f'[{card}]: {DCGAN_ITERS} alternating iterations, iteration p50 '
+        f'{p50:.3f} ms, device busy {busy:.3f} ms, idle share '
+        f'{1 - busy / p50:.3f}; no D update saw G\'s gradients (D\'s next '
+        f'update {apart:.3e} from the clean fork\'s, the dirty fork\'s '
+        f'{moved:.3e} from it)')
+    del g, d
+    torch.cuda.empty_cache()
+
+
+def a4c_cases(rng):
+    """name -> (build() -> a layer on the CPU or a function, input arrays,
+    indices of the inputs to differentiate, tolerance, CPU rows or
+    None)."""
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.ops import extra_ops
+    from paddle_tpu_torch.ops.registry import get_op
+
+    def f32(*shape, scale=1.0):
+        return (rng.standard_normal(shape, np.float32) * scale)
+
+    def layer(cls, *args, **kw):
+        return lambda: cls(*args, device='cpu', **kw)
+
+    def fn(f):
+        return lambda: f
+
+    neg = rng.integers(0, 100000, 10)
+    c3 = CONV3D_SHAPE[1]
+    cases = {
+        'Conv3D': (layer(dygraph.Conv3D, c3, c3, 3, padding=1),
+                   [f32(*CONV3D_SHAPE)], [0], A4C_SUM_TOL, 1),
+        'Conv3DTranspose': (layer(dygraph.Conv3DTranspose, c3, c3, 3,
+                                  padding=1),
+                            [f32(*CONV3D_SHAPE)], [0], A4C_SUM_TOL, 1),
+        'Conv2DTranspose': (layer(dygraph.Conv2DTranspose, 4 * DCGAN_BASE,
+                                  2 * DCGAN_BASE, 4, stride=2, padding=1),
+                            [f32(DCGAN_BATCH, 4 * DCGAN_BASE, 4, 4)], [0],
+                            A4C_SUM_TOL, None),
+        'GroupNorm': (layer(dygraph.GroupNorm, 256, 32),
+                      [f32(32, 256, 56, 56)], [0], A4C_SUM_TOL, None),
+        'SpectralNorm': (layer(dygraph.SpectralNorm, [512, 4608]),
+                         [f32(512, 4608, scale=0.05)], [0], A4C_SUM_TOL,
+                         None),
+        'BilinearTensorProduct': (layer(dygraph.BilinearTensorProduct, 256,
+                                        256, 128),
+                                  [f32(128, 256), f32(128, 256)], [0, 1],
+                                  A4C_SUM_TOL, None),
+        'GRUUnit': (layer(dygraph.GRUUnit, 3 * 512),
+                    [f32(128, 3 * 512), f32(128, 512)], [0, 1],
+                    A4C_SUM_TOL, None),
+        'NCE (given negatives)': (fn(lambda x, label, w, b: extra_ops.nce_loss(
+            x, label, w, b, label.new_tensor(neg))),
+            [f32(128, 128), rng.integers(0, 100000, (128, 1)),
+             f32(100000, 128, scale=0.1), f32(100000, scale=0.1)],
+            [0, 2, 3], A4C_SUM_TOL, None),
+        'TreeConv': (layer(dygraph.TreeConv, 128, 64, num_filters=4),
+                     [f32(32, 64, 128), np.zeros((32, 63, 2), np.float32)],
+                     [0], A4C_SUM_TOL, None),
+    }
+    for mode, alpha in (('all', 1), ('channel', 64), ('element', 64 * 7 * 7)):
+        x = f32(32, 64, 7, 7)
+        x.reshape(-1)[:64] = 0.0
+        cases[f'PRelu {mode}'] = (fn(lambda x, a, m=mode: get_op('prelu').fn(
+            x, a, mode=m)), [x, f32(alpha)], [0, 1], A4C_SUM_TOL, None)
+    acts = {'leaky_relu': [0.0], 'relu6': [0.0, 6.0], 'elu': [0.0],
+            'selu': [0.0], 'brelu': [0.0, 24.0], 'soft_relu': [-40.0, 40.0],
+            'stanh': [0.0], 'hard_sigmoid': [-2.5, 2.5],
+            'hard_swish': [-3.0, 3.0], 'swish': [0.0],
+            'hard_shrink': [-0.5, 0.5], 'softshrink': [-0.5, 0.5],
+            'thresholded_relu': [1.0], 'gelu': [0.0], 'logsigmoid': [0.0],
+            'atan': [0.0], 'tanh_shrink': [0.0], 'abs': [0.0],
+            'sin': [0.0], 'cosh': [0.0], 'sinh': [0.0],
+            'round': [0.5, 1.5, -0.5], 'softplus': [0.0], 'softsign': [0.0],
+            'erf': [0.0], 'rsqrt': [1.0], 'reciprocal': [1.0],
+            'acos': [0.0], 'asin': [0.0]}
+    for op, breaks in acts.items():
+        x = f32(4096, 256, scale=1.0 if op in A4C_EXP_OPS else 10.0)
+        if op in ('rsqrt', 'reciprocal'):
+            x = np.abs(x) + 0.5
+        if op in ('acos', 'asin'):
+            x = np.tanh(x) * 0.99
+        x.reshape(-1)[:len(breaks)] = breaks
+        cases[op] = (fn(get_op(op).fn), [x], [0], A4C_EW_TOL, None)
+    x = f32(128, 256, 14, 14)
+    x[0, :3] = 1.5                      # a three-way tie
+    cases['maxout'] = (fn(lambda t: get_op('maxout').fn(t, groups=2)), [x],
+                       [0], A4C_EW_TOL, None)
+    return cases
+
+
+def run_a4c_case(f, arrays, grad_of, dev, rows, cot_rng):
+    """(outputs, input gradients, parameter gradients) of one case's layer
+    (a copy of it on ``dev``) or function, on the first ``rows`` samples
+    where given."""
+    import copy
+    import torch
+    if isinstance(f, torch.nn.Module):
+        f = copy.deepcopy(f).to(dev)
+    ts = []
+    for i, a in enumerate(arrays):
+        a = a[:rows] if rows is not None and i == 0 else a
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if i in grad_of:
+            t.requires_grad_(True)
+        ts.append(t)
+    out = f(*ts)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = [torch.from_numpy(cot_rng.standard_normal(tuple(o.shape),
+                                                      np.float32)).to(dev)
+            for o in outs]
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    params = (list(f.named_parameters()) if isinstance(f, torch.nn.Module)
+              else [])
+    return ([o.detach().cpu() for o in outs],
+            [ts[i].grad.cpu() for i in grad_of],
+            [p.grad.cpu() for _, p in params if p.grad is not None])
+
+
+def a4c_on_card(seed, dev, card):
+    """Phase 21 (e): every A.4c layer and new op on the card against the
+    same port code on the CPU, forward and gradients."""
+    import torch
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for name, (build, arrays, grad_of, (of_elem, of_max, atol), rows) in \
+            a4c_cases(rng).items():
+        t0 = time.perf_counter()
+        f = build()
+        cpu = run_a4c_case(f, arrays, grad_of, 'cpu', rows,
+                           np.random.default_rng(seed + 1))
+        card_run = run_a4c_case(f, arrays, grad_of, dev, rows,
+                                np.random.default_rng(seed + 1))
+        if rows is not None:
+            # the whole batch on the card; its first samples against the
+            # CPU's output and input gradient
+            full = run_a4c_case(f, arrays, grad_of, dev, None,
+                                np.random.default_rng(seed + 1))
+            card_run = ([o[:rows] for o in full[0]],
+                        [g[:rows] for g in full[1]], card_run[2])
+        report = []
+        for what, got, want in zip(('out', 'input grad', 'param grad'),
+                                   card_run, cpu):
+            for g, w in zip(got, want):
+                diff = (g.double() - w.double()).abs()
+                ref = w.double().abs()
+                bound = of_elem * ref + of_max * ref.max() + atol
+                if not bool((diff <= bound).all()):
+                    raise AssertionError(
+                        f'21 (e) {name}: {what} on the card off the CPU by '
+                        f'{diff.max().item():.3e} ({of_elem} of the element '
+                        f'+ {of_max} of the largest + {atol})')
+                report.append(f'{what} {diff.max().item():.3e}')
+        shape = tuple(arrays[0].shape)
+        log(f'21 (e) {name} {shape} [{card}]: ' + ', '.join(report) +
+            f' max|diff| ({of_elem} of the element + {of_max} of the '
+            f'largest + {atol}'
+            + (f'; CPU at {rows} sample' if rows else '') + f') in '
+            f'{time.perf_counter() - t0:.1f} s')
+        checked += 1
+        torch.cuda.empty_cache()
+    log(f'21 (e) {checked} layers and ops on the card match the CPU')
+
+
+def vision_layers(seed, dev, card):
+    """Phase 21: (a)-(c) the classifiers, (d) the DCGAN, (e) the A.4c layers
+    and ops against the CPU, (f) no kernel of the port launched."""
+    from paddle_tpu_torch.ops import nn_ops
+    t_start = time.perf_counter()
+    nn_ops.reset_launch_counts()
+    vision_classifiers(seed, dev, card)
+    dcgan_loop(seed, dev, card)
+    a4c_on_card(seed, dev, card)
+    launches = nn_ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f'phase 21 launched kernels of the port: '
+                             f'{launches}')
+    log(f'21 (f) kernel launches over phase 21: {launches}')
+    log(f'phase 21 in {time.perf_counter() - t_start:.1f} s [{card}]')
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -6678,8 +7148,20 @@ def main(argv=None):
         kern['launches_lamb'], kern['launches_lamb_remat'] = \
             lamb[kern['name']]
 
-    # 21. result lines
-    log(f'chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s '
+    # 21. the rest of the dygraph layers and the vision models: MobileNetV2,
+    # MobileNetV1, VGG-16-BN, TSM and the DCGAN train at full width, and
+    # every A.4c layer and op runs on the card against the CPU; no kernel
+    # of the port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    vision = vision_layers(args.seed, dev, smi)
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_vision'] = vision[wrapper]
+
+    # 22. result lines
+    log(f'chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -6690,7 +7172,7 @@ def main(argv=None):
                         'launches_fused', 'launches_served_variants',
                         'launches_shared_prefix', 'launches_fluid_surface',
                         'launches_stateless_serving', 'launches_lamb',
-                        'launches_lamb_remat', 'body',
+                        'launches_lamb_remat', 'launches_vision', 'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

@@ -2,7 +2,10 @@
 paddle_tpu/dygraph/): ``guard``, ``to_variable``, the VarBase API on torch
 tensors (tape.py), ``Layer`` and its containers, the layers (nn.py),
 learning-rate schedules, ``save_dygraph``/``load_dygraph`` and the fused
-training step (jit.py), under the JAX package's names.
+training step (jit.py), under the JAX package's names. Every layer of the
+JAX package's dygraph/nn.py runs, Conv3D, Conv2DTranspose,
+Conv3DTranspose, GroupNorm, SpectralNorm, PRelu, BilinearTensorProduct,
+GRUUnit, NCE and TreeConv included.
 
 The names the JAX package exports that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item when used:

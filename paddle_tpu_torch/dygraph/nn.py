@@ -22,9 +22,23 @@ weight's type (``_match_weight_dtype``), BatchNorm computes in the
 activation's type from f32 statistics, and ``Linear``/``LayerNorm`` promote
 as JAX does (bf16 with f32 gives f32).
 
-The reference's other layers raise ``NotImplementedError`` naming ROADMAP
-A.4c when built: Conv3D, Conv2DTranspose, Conv3DTranspose, GroupNorm,
-SpectralNorm, PRelu, BilinearTensorProduct, GRUUnit, NCE and TreeConv.
+The rest of the reference's layers run too: Conv3D, Conv2DTranspose,
+Conv3DTranspose, GroupNorm, SpectralNorm, PRelu, BilinearTensorProduct,
+GRUUnit, NCE and TreeConv, over the ops of ops/nn_ops.py, ops/extra_ops.py
+and ops/math_ops.py, with the JAX layers' parameters, shapes, initializers
+and names (a transposed conv's weight keeps Paddle's (C_in, C_out /
+groups, ...) shape, torch's own transposed layout).
+
+Every layer's ``act`` names a registered op, as in the JAX package, so any
+activation of ops/math_ops.py works; one that names no op raises the JAX
+package's ``KeyError`` when the layer runs. BatchNorm applies its ``act``,
+as Paddle 1.7's does; the JAX package's BatchNorm never reads it (ROADMAP
+C.4 item 11). Where the JAX layer takes an argument and ignores it, the
+port raises on any value but the default, naming its C.4 item:
+Conv2DTranspose's ``output_size`` (item 12), GRUUnit's activations (item
+13), NCE's sampler, distribution, sample weights, seed and ``is_sparse``
+(item 14); GroupNorm's NHWC raises (item 17). TreeConv computes what the
+JAX layer computes, reading neither ``edge_set`` nor its bias (item 15).
 """
 from __future__ import annotations
 
@@ -35,8 +49,14 @@ import torch
 import torch.nn.functional as F
 
 from ..initializer import ConstantInitializer, NormalInitializer
-from ..ops.nn_ops import (batch_norm, conv2d, dropout, layer_norm,
-                          lookup_table, pool2d)
+from ..ops.extra_ops import (check_nce_defaults, gru_unit, nce,
+                              spectral_norm, tree_conv)
+from ..ops.math_ops import prelu
+from ..ops.nn_ops import (batch_norm, bilinear_tensor_product, conv2d,
+                          conv2d_transpose, conv3d, conv3d_transpose,
+                          dropout, group_norm, layer_norm, lookup_table,
+                          pool2d)
+from ..ops.registry import find_op
 from .layers import Layer
 
 __all__ = ['Conv2D', 'Pool2D', 'BatchNorm', 'Linear', 'Embedding',
@@ -44,13 +64,20 @@ __all__ = ['Conv2D', 'Pool2D', 'BatchNorm', 'Linear', 'Embedding',
            'Conv3DTranspose', 'GroupNorm', 'SpectralNorm', 'PRelu',
            'BilinearTensorProduct', 'GRUUnit', 'NCE', 'TreeConv']
 
-_ACTS = {'gelu': F.gelu, 'tanh': torch.tanh, 'relu': torch.relu}
+
+def _activation(act, x):
+    """``x`` through the registered op ``act`` (none for a false
+    ``act``); a name that is no op raises the JAX package's KeyError."""
+    if not act:
+        return x
+    op = find_op(act)
+    if op is None:
+        raise KeyError(f'unknown op type {act!r}')
+    return op.fn(x)
 
 
-def _check_act(act, allowed=tuple(_ACTS)):
-    if act is not None and act not in allowed:
-        raise NotImplementedError(f'act={act!r}: only {", ".join(allowed)} '
-                                  f'are ported (ROADMAP A.4c)')
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
 
 
 def _promote(*ts):
@@ -69,7 +96,7 @@ def _promote(*ts):
 class Conv2D(Layer):
     """Paddle's Conv2D: weight (O, C/groups, fh, fw) drawn from
     Normal(0, sqrt(2 / (fh * fw * C))), a zero bias unless
-    ``bias_attr=False``, an optional fused ``act`` (relu only)."""
+    ``bias_attr=False``, then ``act`` (any registered activation)."""
 
     def __init__(self, num_channels, num_filters, filter_size, stride=1,
                  padding=0, dilation=1, groups=1, param_attr=None,
@@ -79,7 +106,6 @@ class Conv2D(Layer):
         if data_format not in ('NCHW', 'NHWC'):
             raise ValueError(f'data_format must be NCHW or NHWC, got '
                              f'{data_format!r}')
-        _check_act(act, ('relu',))
         fs = filter_size if isinstance(filter_size, (list, tuple)) \
             else (filter_size, filter_size)
         std = math.sqrt(2.0 / (fs[0] * fs[1] * num_channels))
@@ -105,7 +131,7 @@ class Conv2D(Layer):
             shape = ((1, -1, 1, 1) if self._attrs['data_format'] == 'NCHW'
                      else (-1,))
             out = out + self.bias.reshape(shape)
-        return torch.relu(out) if self._act == 'relu' else out
+        return _activation(self._act, out)
 
 
 class Pool2D(Layer):
@@ -132,8 +158,9 @@ class BatchNorm(Layer):
     moves the running ones in place, under ``no_grad``, on the layer's own
     buffers (``copy_``), so they survive ``torch.func.functional_call``'s
     parameter binding in the AMP training step; in eval it normalises with
-    the running ones. ``sync_stats=True`` raises (ROADMAP A.9), and so does
-    ``act``, which the reference's BatchNorm accepts and never applies."""
+    the running ones, then applies ``act`` (any registered activation), as
+    Paddle 1.7's BatchNorm does; the JAX package's never reads ``act``
+    (ROADMAP C.4 item 11). ``sync_stats=True`` raises (ROADMAP A.9)."""
 
     def __init__(self, num_channels, act=None, is_test=False, momentum=0.9,
                  epsilon=1e-5, param_attr=None, bias_attr=None,
@@ -146,10 +173,6 @@ class BatchNorm(Layer):
         if sync_stats:
             raise NotImplementedError('BatchNorm(sync_stats=True) is not '
                                       'ported yet (ROADMAP A.9)')
-        if act is not None:
-            raise NotImplementedError('BatchNorm(act=...): the reference '
-                                      'ignores it; apply the activation '
-                                      'after the layer')
         self.weight = self.create_parameter(
             [num_channels], param_attr, dtype,
             default_initializer=ConstantInitializer(1.0))
@@ -162,6 +185,7 @@ class BatchNorm(Layer):
         self._attrs = dict(momentum=momentum, epsilon=epsilon,
                            data_layout=data_layout,
                            use_global_stats=use_global_stats)
+        self._act = act
 
     @property
     def _mean(self):
@@ -179,13 +203,13 @@ class BatchNorm(Layer):
             with torch.no_grad():
                 self._mean_buf.copy_(new_mean)
                 self._variance_buf.copy_(new_var)
-        return y
+        return _activation(self._act, y)
 
 
 class Linear(Layer):
     """Paddle's Linear: ``act(x @ weight + bias)`` with ``weight`` (in, out)
     (Xavier) and ``bias`` (out,) (zeros, none for ``bias_attr=False``);
-    ``act`` is ``'gelu'`` (the exact erf form), ``'tanh'`` or ``'relu'``.
+    ``act`` any registered activation (``'gelu'`` the exact erf form).
     Types promote as in JAX.
 
     The weight has Paddle's shape over ``nn.Linear``'s memory: it is the
@@ -196,7 +220,6 @@ class Linear(Layer):
     def __init__(self, input_dim, output_dim, param_attr=None,
                  bias_attr=None, act=None, dtype='float32', *, device=None):
         super().__init__(dtype=dtype, device=device)
-        _check_act(act)
         w = self.create_parameter([input_dim, output_dim], param_attr,
                                   dtype)
         # (in, out) as a transposed view of (out, in) memory, nn.Linear's
@@ -208,8 +231,7 @@ class Linear(Layer):
 
     def forward(self, x):
         x, w, b = _promote(x, self.weight, self.bias)
-        y = F.linear(x, w.t(), b)
-        return y if self._act is None else _ACTS[self._act](y)
+        return _activation(self._act, F.linear(x, w.t(), b))
 
 
 class Embedding(Layer):
@@ -245,7 +267,6 @@ class LayerNorm(Layer):
                  epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                  dtype='float32', *, device=None):
         super().__init__(dtype=dtype, device=device)
-        _check_act(act)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         n = math.prod(normalized_shape)
@@ -262,7 +283,7 @@ class LayerNorm(Layer):
         out = layer_norm(x, self.weight, self.bias,
                          begin_norm_axis=x.dim() - self._ndims,
                          epsilon=self._epsilon)
-        return out if self._act is None else _ACTS[self._act](out)
+        return _activation(self._act, out)
 
 
 class Dropout(Layer):
@@ -306,26 +327,257 @@ class Dropout(Layer):
                        key=self._key(x.device) if self.training else None)
 
 
-def _unported(name, sig):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f'dygraph.{name} is not ported yet '
-                                  f'(ROADMAP A.4c)')
-    __init__.__doc__ = f'{name}{sig}: not ported yet (ROADMAP A.4c).'
-    return type(name, (Layer,), {'__init__': __init__,
-                                 '__doc__': __init__.__doc__,
-                                 '__module__': __name__})
+class Conv3D(Layer):
+    """Paddle's Conv3D over the ``conv3d`` op: weight (O, C/groups, fd, fh,
+    fw) (Xavier, the JAX layer's default), a zero bias unless
+    ``bias_attr=False``, then ``act``; NCDHW."""
+
+    def __init__(self, num_channels, num_filters, filter_size, stride=1,
+                 padding=0, dilation=1, groups=1, param_attr=None,
+                 bias_attr=None, act=None, dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            [num_filters, num_channels // groups, *_triple(filter_size)],
+            param_attr, dtype)
+        self.bias = self.create_parameter([num_filters], bias_attr, dtype,
+                                          is_bias=True)
+        self._attrs = dict(stride=stride, padding=padding, dilation=dilation,
+                           groups=groups)
+        self._act = act
+
+    def forward(self, x):
+        out = conv3d(x, self.weight, **self._attrs)
+        if self.bias is not None:
+            out = out + self.bias.reshape(1, -1, 1, 1, 1)
+        return _activation(self._act, out)
 
 
-Conv3D = _unported('Conv3D', '(num_channels, num_filters, filter_size)')
-Conv2DTranspose = _unported('Conv2DTranspose',
-                            '(num_channels, num_filters, filter_size)')
-Conv3DTranspose = _unported('Conv3DTranspose',
-                            '(num_channels, num_filters, filter_size)')
-GroupNorm = _unported('GroupNorm', '(channels, groups)')
-SpectralNorm = _unported('SpectralNorm', '(weight_shape)')
-PRelu = _unported('PRelu', '(mode)')
-BilinearTensorProduct = _unported('BilinearTensorProduct',
-                                  '(input1_dim, input2_dim, output_dim)')
-GRUUnit = _unported('GRUUnit', '(size)')
-NCE = _unported('NCE', '(num_total_classes, dim)')
-TreeConv = _unported('TreeConv', '(feature_size, output_size)')
+class Conv2DTranspose(Layer):
+    """Paddle's Conv2DTranspose over the ``conv2d_transpose`` op: weight
+    (C_in, O/groups, fh, fw) (Paddle's shape, torch's transposed layout;
+    Xavier), a zero bias unless ``bias_attr=False``, then ``act``; NCHW.
+    An ``output_size`` other than the size the layer computes raises when
+    it runs (the JAX layer never reads it; ROADMAP C.4 item 12)."""
+
+    def __init__(self, num_channels, num_filters, filter_size,
+                 output_size=None, padding=0, stride=1, dilation=1, groups=1,
+                 param_attr=None, bias_attr=None, use_cudnn=True, act=None,
+                 dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        fs = filter_size if isinstance(filter_size, (list, tuple)) \
+            else (filter_size, filter_size)
+        self.weight = self.create_parameter(
+            [num_channels, num_filters // groups, fs[0], fs[1]], param_attr,
+            dtype)
+        self.bias = self.create_parameter([num_filters], bias_attr, dtype,
+                                          is_bias=True)
+        self._attrs = dict(stride=stride, padding=padding, dilation=dilation,
+                           groups=groups, output_size=output_size)
+        self._act = act
+
+    def forward(self, x):
+        out = conv2d_transpose(x, self.weight, **self._attrs)
+        if self.bias is not None:
+            out = out + self.bias.reshape(1, -1, 1, 1)
+        return _activation(self._act, out)
+
+
+class Conv3DTranspose(Layer):
+    """Paddle's Conv3DTranspose over the ``conv3d_transpose`` op: weight
+    (C_in, O/groups, fd, fh, fw) (Xavier), a zero bias unless
+    ``bias_attr=False``, then ``act``; NCDHW. ``groups`` > 1 computes
+    Paddle's grouped transposed convolution, where the JAX layer raises
+    (ROADMAP C.4 item 19)."""
+
+    def __init__(self, num_channels, num_filters, filter_size, padding=0,
+                 stride=1, dilation=1, groups=1, param_attr=None,
+                 bias_attr=None, act=None, dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            [num_channels, num_filters // groups, *_triple(filter_size)],
+            param_attr, dtype)
+        self.bias = self.create_parameter([num_filters], bias_attr, dtype,
+                                          is_bias=True)
+        self._attrs = dict(stride=stride, padding=padding, dilation=dilation,
+                           groups=groups)
+        self._act = act
+
+    def forward(self, x):
+        out = conv3d_transpose(x, self.weight, **self._attrs)
+        if self.bias is not None:
+            out = out + self.bias.reshape(1, -1, 1, 1, 1)
+        return _activation(self._act, out)
+
+
+class GroupNorm(Layer):
+    """Paddle's GroupNorm over the ``group_norm`` op: scale (ones) and bias
+    (zeros) a channel, then ``act``. NCHW only: the JAX layer groups an
+    NHWC input as if it were NCHW, so ``data_layout='NHWC'`` raises
+    (ROADMAP C.4 item 17)."""
+
+    def __init__(self, channels, groups, epsilon=1e-5, param_attr=None,
+                 bias_attr=None, act=None, data_layout='NCHW',
+                 dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        if data_layout != 'NCHW':
+            raise NotImplementedError(
+                f'GroupNorm(data_layout={data_layout!r}): the reference '
+                f'groups an NHWC input as if it were NCHW; only NCHW is '
+                f'ported (ROADMAP C.4 item 17)')
+        self.weight = self.create_parameter(
+            [channels], param_attr, dtype,
+            default_initializer=ConstantInitializer(1.0))
+        self.bias = self.create_parameter([channels], bias_attr, dtype,
+                                          is_bias=True)
+        self._attrs = dict(groups=groups, epsilon=epsilon)
+        self._act = act
+
+    def forward(self, x):
+        return _activation(self._act, group_norm(x, self.weight, self.bias,
+                                                 **self._attrs))
+
+
+class SpectralNorm(Layer):
+    """Paddle's SpectralNorm over the ``spectral_norm`` op: ``forward(w)``
+    returns ``w`` (the layer's own Xavier ``weight`` of ``weight_shape``
+    when none is given) over its largest singular value. The power
+    iteration starts from ones on every call, as the JAX layer's does
+    (ROADMAP C.4 item 16)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(list(weight_shape), None, dtype)
+        self._attrs = dict(dim=dim, power_iters=power_iters, eps=eps)
+
+    def forward(self, weight=None):
+        w = weight if weight is not None else self.weight
+        return spectral_norm(w, **self._attrs)
+
+
+class PRelu(Layer):
+    """Paddle's PRelu over the ``prelu`` op: its ``weight`` (0.25) is one
+    value (``'all'``), one a channel (``'channel'``) or one an element of
+    a sample, flat (``'element'``, prod(input_shape[1:]) values, read as
+    ``input_shape[1:]``; the JAX layer raises there on an input of more
+    than two dims, ROADMAP C.4 item 20)."""
+
+    def __init__(self, mode, channel=None, input_shape=None, param_attr=None,
+                 dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        if mode == 'all':
+            shape = [1]
+        elif mode == 'channel':
+            shape = [channel]
+        else:
+            shape = [math.prod(input_shape[1:])]
+        self.weight = self.create_parameter(
+            shape, param_attr, dtype,
+            default_initializer=ConstantInitializer(0.25))
+        self._mode = mode
+
+    def forward(self, x):
+        return prelu(x, self.weight, mode=self._mode)
+
+
+class BilinearTensorProduct(Layer):
+    """Paddle's BilinearTensorProduct: ``act(x[b]ᵀ W[k] y[b] + bias[k])``
+    with ``weight`` (output_dim, input1_dim, input2_dim) (Xavier) and a
+    zero ``bias`` (output_dim,)."""
+
+    def __init__(self, input1_dim, input2_dim, output_dim, name=None,
+                 act=None, param_attr=None, bias_attr=None, dtype='float32',
+                 *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            [output_dim, input1_dim, input2_dim], param_attr, dtype)
+        self.bias = self.create_parameter([output_dim], bias_attr, dtype,
+                                          is_bias=True)
+        self._act = act
+
+    def forward(self, x, y):
+        return _activation(self._act, bilinear_tensor_product(
+            x, y, self.weight, self.bias))
+
+
+class GRUUnit(Layer):
+    """Paddle's GRUUnit over the ``gru_unit`` op: ``size`` is 3 D,
+    ``weight`` (D, 3D) (Xavier) and ``bias`` (1, 3D) (zeros);
+    ``forward(input, hidden)`` returns (hidden, reset hidden, gate). The
+    gates are sigmoid and the candidate tanh: the JAX layer never reads
+    ``activation`` or ``gate_activation``, so others raise (ROADMAP C.4
+    item 13)."""
+
+    def __init__(self, size, param_attr=None, bias_attr=None,
+                 activation='tanh', gate_activation='sigmoid',
+                 origin_mode=False, dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        if activation != 'tanh' or gate_activation != 'sigmoid':
+            raise NotImplementedError(
+                f'GRUUnit(activation={activation!r}, gate_activation='
+                f'{gate_activation!r}): the reference computes tanh and '
+                f'sigmoid whatever it is given; no other is ported (ROADMAP '
+                f'C.4 item 13)')
+        d = size // 3
+        self.weight = self.create_parameter([d, d * 3], param_attr, dtype)
+        self.bias = self.create_parameter([1, d * 3], bias_attr, dtype,
+                                          is_bias=True)
+        self._origin_mode = origin_mode
+
+    def forward(self, inputs, hidden):
+        return gru_unit(inputs, hidden, self.weight, self.bias,
+                        origin_mode=self._origin_mode)
+
+
+class NCE(Layer):
+    """Paddle's NCE over the ``nce`` op: ``weight`` (classes, dim) (Xavier)
+    and ``bias`` (classes,) (zeros); ``forward(input, label)`` gives the
+    (B, 1) loss over ``num_neg_samples`` uniform negatives, one set for
+    the batch, drawn from the device's generator. The JAX layer never
+    reads ``sampler``, ``custom_dist``, ``sample_weight``, ``seed`` or
+    ``is_sparse``, so any value but the default raises (ROADMAP C.4 item
+    14)."""
+
+    def __init__(self, num_total_classes, dim, sample_weight=None,
+                 param_attr=None, bias_attr=None, num_neg_samples=10,
+                 sampler='uniform', custom_dist=None, seed=0,
+                 is_sparse=False, dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        check_nce_defaults(sample_weight=sample_weight, sampler=sampler,
+                           custom_dist=custom_dist, seed=seed,
+                           is_sparse=is_sparse)
+        self.weight = self.create_parameter([num_total_classes, dim],
+                                            param_attr, dtype)
+        self.bias = self.create_parameter([num_total_classes], bias_attr,
+                                          dtype, is_bias=True)
+        self._attrs = dict(num_total_classes=num_total_classes,
+                           num_neg_samples=num_neg_samples)
+
+    def forward(self, input, label, sample_weight=None):
+        check_nce_defaults(sample_weight=sample_weight)
+        from ..core.random import default_generator
+        return nce(input, label, self.weight, self.bias, **self._attrs,
+                   key=default_generator.generator(input.device))
+
+
+class TreeConv(Layer):
+    """Paddle's TreeConv over the ``tree_conv`` op: ``weight`` (feature_size,
+    3, output_size, num_filters) (Xavier), then ``act`` (tanh). As in the
+    JAX layer, ``forward(nodes_vector, edge_set)`` reads neither
+    ``edge_set`` nor the layer's ``bias`` (num_filters, output_size),
+    which it creates (ROADMAP C.4 item 15)."""
+
+    def __init__(self, feature_size, output_size, num_filters=1,
+                 max_depth=8, act='tanh', param_attr=None, bias_attr=None,
+                 name=None, dtype='float32', *, device=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            [feature_size, 3, output_size, num_filters], param_attr, dtype)
+        self.bias = self.create_parameter([num_filters, output_size],
+                                          bias_attr, dtype, is_bias=True)
+        self._max_depth = max_depth
+        self._act = act
+
+    def forward(self, nodes_vector, edge_set):
+        return _activation(self._act, tree_conv(
+            nodes_vector, edge_set, self.weight, max_depth=self._max_depth))

@@ -4,12 +4,12 @@ sequence_lod.py and learning_rate_scheduler.py, ``accuracy``, and the
 Variable operators of math_op_patch.py (applied at import, as in the JAX
 package).
 
-Every public name of the JAX package's ``layers`` exists here: 143 of its
+Every public name of the JAX package's ``layers`` exists here: 183 of its
 340 callables run. Those the port does not run yet are callables that
-raise ``NotImplementedError`` naming their ROADMAP item, 129 from the one
+raise ``NotImplementedError`` naming their ROADMAP item, 120 from the one
 table :data:`NOT_PORTED` (A.11 the readers and host callbacks, A.10 the
 sequence/LoD, detection and distribution layers and the layers over ops
-the port has not registered) and 68 generated layers over such ops
+the port has not registered) and 37 generated layers over such ops
 (layers/nn.py). A generated layer that runs takes its attributes by
 position after its input slots, in Paddle's documented order
 (layers/nn.py ``_POSITIONAL``). The modules ``detection`` and ``distributions`` raise the
@@ -90,7 +90,7 @@ NOT_PORTED = dict.fromkeys([
 ], 'A.11')
 NOT_PORTED.update(dict.fromkeys([
     # the LoD recurrent layers
-    'dynamic_gru', 'dynamic_lstm', 'dynamic_lstmp', 'gru_unit', 'lstm_unit',
+    'dynamic_gru', 'dynamic_lstm', 'dynamic_lstmp', 'lstm_unit',
     # distributions
     'Categorical', 'MultivariateNormalDiag', 'Normal', 'Uniform',
     # detection
@@ -114,20 +114,18 @@ NOT_PORTED.update(dict.fromkeys([
     'chunk_eval', 'ctc_greedy_decoder', 'edit_distance', 'warpctc',
     # layers over ops not registered in the port
     'adaptive_pool2d', 'adaptive_pool3d', 'affine_grid', 'auc',
-    'bilinear_tensor_product', 'bpr_loss', 'center_loss',
-    'continuous_value_model', 'conv2d_transpose', 'conv3d',
-    'conv3d_transpose', 'crop', 'crop_tensor', 'data_norm', 'deformable_conv',
+    'bpr_loss', 'center_loss', 'continuous_value_model', 'crop',
+    'crop_tensor', 'data_norm', 'deformable_conv',
     'deformable_roi_pooling', 'diag', 'dice_loss', 'eye', 'filter_by_instag',
-    'get_tensor_from_selected_rows', 'group_norm', 'hash', 'hsigmoid',
+    'get_tensor_from_selected_rows', 'hash', 'hsigmoid',
     'huber_loss', 'image_resize', 'image_resize_short', 'instance_norm',
     'kldiv_loss', 'l2_normalize', 'linspace', 'lrn', 'margin_rank_loss',
-    'merge_selected_rows', 'multiplex', 'nce', 'npair_loss', 'pool3d',
-    'prelu', 'prroi_pool', 'psroi_pool', 'rank', 'rank_loss',
+    'merge_selected_rows', 'multiplex', 'npair_loss', 'pool3d',
+    'prroi_pool', 'psroi_pool', 'rank', 'rank_loss',
     'resize_bilinear', 'resize_nearest', 'resize_trilinear', 'roi_align',
     'roi_pool', 'sampled_softmax_with_cross_entropy',
     'scatter_nd', 'shape', 'similarity_focus', 'size', 'smooth_l1',
-    'spectral_norm', 'teacher_student_sigmoid_loss', 'unique',
-    'unique_with_counts',
+    'teacher_student_sigmoid_loss', 'unique', 'unique_with_counts',
 ], 'A.10'))
 
 

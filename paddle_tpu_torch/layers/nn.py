@@ -2,10 +2,12 @@
 paddle_tpu/layers/nn.py): ``fc``, ``embedding``, ``conv2d``, ``pool2d``,
 ``batch_norm``, ``layer_norm``, ``softmax``, ``matmul``, ``mul``,
 ``dropout``, ``topk``, ``one_hot``, ``split``, ``stack``, ``unstack``,
-``sum``, ``autoincreased_step_counter``, and the generated one-op layers
-of the JAX package's list. A generated layer whose op the port has not
-registered yet raises ``NotImplementedError`` when called (ROADMAP A.10),
-never at import."""
+``sum``, ``autoincreased_step_counter``, ``conv3d``, ``conv2d_transpose``,
+``conv3d_transpose``, ``group_norm``, ``spectral_norm``, ``prelu``,
+``nce``, ``bilinear_tensor_product``, and the generated one-op layers of
+the JAX package's list (every activation among them). A generated layer
+whose op the port has not registered yet raises ``NotImplementedError``
+when called (ROADMAP A.10), never at import."""
 from __future__ import annotations
 
 import math
@@ -14,12 +16,15 @@ from ..core import unique_name
 from ..initializer import (ConstantInitializer, NormalInitializer,
                            XavierInitializer)
 from ..layer_helper import LayerHelper
+from ..ops.extra_ops import check_nce_defaults
 from ..ops.registry import has_op
 from .common import apply_op_layer, generate_layer_fn
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'dropout', 'softmax', 'matmul', 'mul', 'topk', 'one_hot',
-           'autoincreased_step_counter', 'split', 'stack', 'sum']
+           'autoincreased_step_counter', 'split', 'stack', 'sum', 'conv3d',
+           'conv2d_transpose', 'conv3d_transpose', 'group_norm',
+           'spectral_norm', 'prelu', 'nce', 'bilinear_tensor_product']
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -93,6 +98,156 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         axis = 1 if data_format == 'NCHW' else 3
         out = apply_op_layer('elementwise_add', {'x': out, 'y': b},
                              {'axis': axis})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def _conv_layer(op_type, input, num_filters, wshape, attrs, param_attr,
+                bias_attr, act, name):
+    """A conv-family op over a new ``wshape`` weight (Xavier, the
+    input's type), then an f32 bias on dim 1 and ``act``, as the JAX
+    package builds conv3d and the transposed convs."""
+    helper = LayerHelper(op_type, param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    w = helper.create_parameter(helper.param_attr, wshape, input.dtype)
+    out = apply_op_layer(op_type, {'x': input, 'weight': w}, attrs)
+    b = helper.create_parameter(helper.bias_attr, [num_filters], 'float32',
+                                is_bias=True)
+    if b is not None:
+        out = apply_op_layer('elementwise_add', {'x': out, 'y': b},
+                             {'axis': 1})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def _fs(filter_size, n):
+    return (list(filter_size) if isinstance(filter_size, (list, tuple))
+            else [filter_size] * n)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format='NCDHW'):
+    """A conv3d op over an OIDHW weight (NCDHW; ``data_format`` is not
+    passed on, as in the JAX package), plus the bias and ``act``."""
+    return _conv_layer(
+        'conv3d', input, num_filters,
+        [num_filters, input.shape[1] // groups, *_fs(filter_size, 3)],
+        {'stride': stride, 'padding': padding, 'dilation': dilation,
+         'groups': groups}, param_attr, bias_attr, act, name)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """A conv2d_transpose op over an IOHW weight (C_in, O/groups, fh, fw),
+    plus the bias and ``act``. ``filter_size`` is required (the JAX package
+    raises without it) and ``output_size`` is not passed on, as there."""
+    if filter_size is None:
+        raise ValueError('filter_size required (output_size-only form: '
+                         'provide filter_size for the TPU build)')
+    return _conv_layer(
+        'conv2d_transpose', input, num_filters,
+        [input.shape[1], num_filters // groups, *_fs(filter_size, 2)],
+        {'stride': stride, 'padding': padding, 'dilation': dilation,
+         'groups': groups}, param_attr, bias_attr, act, name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """A conv3d_transpose op over an IODHW weight, plus the bias and
+    ``act``."""
+    return _conv_layer(
+        'conv3d_transpose', input, num_filters,
+        [input.shape[1], num_filters // groups, *_fs(filter_size, 3)],
+        {'stride': stride, 'padding': padding, 'dilation': dilation,
+         'groups': groups}, param_attr, bias_attr, act, name)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout='NCHW', name=None):
+    """A group_norm op with its scale (ones) and bias (zeros) a channel,
+    then ``act``; an NHWC layout raises when the op runs (ROADMAP C.4 item
+    17)."""
+    helper = LayerHelper('group_norm', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    s = helper.create_parameter(helper.param_attr, [c], input.dtype,
+                                default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(helper.bias_attr, [c], input.dtype,
+                                is_bias=True)
+    out = apply_op_layer('group_norm', {'x': input, 'scale': s, 'bias': b},
+                         {'groups': groups, 'epsilon': epsilon,
+                          'data_layout': data_layout})
+    if act:
+        out = apply_op_layer(act, {'x': out})
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """A spectral_norm op on ``weight``; the power iteration restarts
+    from ones every run, as in the JAX package (ROADMAP C.4 item 16)."""
+    return apply_op_layer('spectral_norm', {'w': weight},
+                          {'dim': dim, 'power_iters': power_iters,
+                           'eps': eps}, name=name)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """A prelu op with its alpha (0.25): one value, one a channel, or one
+    a sample's element (flat)."""
+    helper = LayerHelper('prelu', param_attr=param_attr, name=name)
+    if mode == 'all':
+        shape = [1]
+    elif mode == 'channel':
+        shape = [x.shape[1]]
+    else:
+        shape = [math.prod(x.shape[1:])]
+    alpha = helper.create_parameter(
+        helper.param_attr, shape, x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    return apply_op_layer('prelu', {'x': x, 'alpha': alpha}, {'mode': mode})
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler='uniform',
+        custom_dist=None, seed=0, is_sparse=False):
+    """An nce op over a (classes, dim) weight and a (classes,) bias, 10
+    negatives unless ``num_neg_samples`` says otherwise. The JAX package
+    never reads ``sample_weight``, ``sampler``, ``custom_dist``, ``seed`` or
+    ``is_sparse``; any value but the default raises (ROADMAP C.4 item
+    14)."""
+    check_nce_defaults(sample_weight=sample_weight, sampler=sampler,
+                       custom_dist=custom_dist, seed=seed,
+                       is_sparse=is_sparse)
+    helper = LayerHelper('nce', param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr, [num_total_classes, dim],
+                                input.dtype)
+    b = helper.create_parameter(helper.bias_attr, [num_total_classes],
+                                input.dtype, is_bias=True)
+    return apply_op_layer('nce', {'x': input, 'label': label, 'weight': w,
+                                  'bias': b},
+                          {'num_total_classes': num_total_classes,
+                           'num_neg_samples': num_neg_samples or 10})
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None, param_attr=None,
+                            bias_attr=None):
+    """A bilinear_tensor_product op over a (size, x dim, y dim) weight and a
+    (size,) bias, then ``act``."""
+    helper = LayerHelper('bilinear_tensor_product', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(helper.param_attr,
+                                [size, x.shape[-1], y.shape[-1]], x.dtype)
+    b = helper.create_parameter(helper.bias_attr, [size], x.dtype,
+                                is_bias=True)
+    out = apply_op_layer('bilinear_tensor_product',
+                         {'x': x, 'y': y, 'weight': w, 'bias': b})
     if act:
         out = apply_op_layer(act, {'x': out})
     return out
@@ -274,8 +429,20 @@ _UNARY = ('name',)
 _REDUCE = ('dim', 'keep_dim', 'name')
 _POSITIONAL = {
     **dict.fromkeys(['sigmoid', 'exp', 'tanh', 'sqrt', 'ceil', 'floor',
-                     'cos', 'square', 'relu', 'log', 'sign', 'mean'],
-                    _UNARY),
+                     'cos', 'square', 'relu', 'log', 'sign', 'mean',
+                     'logsigmoid', 'atan', 'tanh_shrink', 'rsqrt', 'abs',
+                     'sin', 'acos', 'asin', 'cosh', 'sinh', 'round',
+                     'reciprocal', 'softplus', 'softsign'], _UNARY),
+    'gelu': (), 'erf': (), 'softshrink': ('lambda_',),
+    'hard_shrink': ('threshold',), 'thresholded_relu': ('threshold',),
+    'relu6': ('threshold', 'name'), 'leaky_relu': ('alpha', 'name'),
+    'elu': ('alpha', 'name'), 'selu': ('scale', 'alpha', 'name'),
+    'brelu': ('t_min', 't_max', 'name'), 'soft_relu': ('threshold', 'name'),
+    'stanh': ('scale_a', 'scale_b', 'name'),
+    'hard_sigmoid': ('slope', 'offset', 'name'),
+    'hard_swish': ('threshold', 'scale', 'offset', 'name'),
+    'swish': ('beta', 'name'), 'maxout': ('groups', 'name', 'axis'),
+    'temporal_shift': ('seg_num', 'shift_ratio', 'name'),
     **dict.fromkeys(['reduce_sum', 'reduce_mean', 'reduce_max',
                      'reduce_min'], _REDUCE),
     **dict.fromkeys(['elementwise_add', 'elementwise_sub',

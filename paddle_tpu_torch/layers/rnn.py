@@ -28,9 +28,10 @@ departs from the reference's documented API (``beam_search``'s outputs,
 ``beam_search_decode``'s parents, dygraph decoding), the port follows the
 reference (ROADMAP C.11).
 
-The ``dynamic_*`` LoD recurrences, ``lstm_unit`` and ``gru_unit`` are not
-ported (ROADMAP A.10): they are callables that raise, from
-layers/__init__.py's table.
+``gru_unit`` is one GRU step over the ``gru_unit`` op (ops/extra_ops.py),
+as the JAX package builds it. The ``dynamic_*`` LoD recurrences and
+``lstm_unit`` are not ported (ROADMAP A.10): they are callables that
+raise, from layers/__init__.py's table.
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ __all__ = ['RNNCell', 'GRUCell', 'LSTMCell', 'rnn', 'birnn', 'lstm',
            'BeamSearchDecoder', 'dynamic_decode', 'beam_search',
            'beam_search_decode', 'gather_tree', 'Decoder', 'DecodeHelper',
            'TrainingHelper', 'GreedyEmbeddingHelper',
-           'SampleEmbeddingHelper', 'BasicDecoderOutput', 'BasicDecoder']
+           'SampleEmbeddingHelper', 'BasicDecoderOutput', 'BasicDecoder',
+           'gru_unit']
 
 
 def _parameter(helper, attr, shape, dtype, is_bias=False):
@@ -356,6 +358,29 @@ def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
             x = nn_layers.dropout(x, dropout_prob)
     return x, nn_layers.stack(last_hs, axis=0), nn_layers.stack(last_cs,
                                                                 axis=0)
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation='tanh', gate_activation='sigmoid',
+             origin_mode=False):
+    """One GRU step: ``input`` is the (B, 3D) projected input (the fc
+    comes before, as in the reference), ``hidden`` (B, D); creates the
+    (D, 3D) recurrent weight and the (1, 3D) bias, f32, and returns (new
+    hidden, reset hidden, gate). The gates are sigmoid and the candidate
+    tanh; other activations raise ``ValueError``, as in the JAX
+    package."""
+    if activation != 'tanh' or gate_activation != 'sigmoid':
+        raise ValueError('gru_unit supports the reference defaults '
+                         "activation='tanh', gate_activation='sigmoid'")
+    helper = LayerHelper('gru_unit', param_attr=param_attr,
+                         bias_attr=bias_attr)
+    d = size // 3
+    w = helper.create_parameter(helper.param_attr, [d, 3 * d], 'float32')
+    bias = helper.create_parameter(helper.bias_attr, [1, 3 * d], 'float32',
+                                   is_bias=True)
+    return apply_op_layer(
+        'gru_unit', {'x': input, 'hidden': hidden, 'weight': w, 'bias': bias},
+        {'origin_mode': origin_mode})
 
 
 # ------------------------------------------------------------ beam search

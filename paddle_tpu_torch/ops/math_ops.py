@@ -9,12 +9,27 @@ append, and the ops the static learning-rate schedules are written in:
 ``elementwise_min``/``_pow``, ``exp``, ``log``, ``floor``, ``ceil``,
 ``cos``, ``pow``, the comparisons and ``increment``; ``sigmoid`` and
 ``tanh``, which every recurrent cell is written in; and the logical ops,
-``logical_not`` of which gates the fp16 update of static AMP)."""
+``logical_not`` of which gates the fp16 update of static AMP), and every
+activation of the JAX package's (the unary ops and ``gelu``,
+``leaky_relu``, ``relu6``, ``elu``, ``selu``, ``prelu``, ``brelu``,
+``soft_relu``, ``stanh``, ``hard_sigmoid``, ``hard_swish``, ``swish``,
+``hard_shrink``, ``softshrink``, ``thresholded_relu``, ``maxout``), which
+a dygraph layer's or a static layer's ``act`` names.
+
+The activations give the JAX functions' gradients where those are not
+smooth: a ``jnp.where`` branch is picked by the same comparison (the
+gradient of ``leaky_relu`` and ``prelu`` at 0 is 1, of ``elu`` and
+``selu`` at 0 their negative branch's), ``abs`` has gradient 1 at 0, a
+clip's gradient at its bounds is 1/2 (``jnp.clip`` is a max and a min,
+whose gradients JAX splits evenly at ties; so do torch's ``maximum`` and
+``minimum``, where ``clamp`` gives 1), and ``maxout`` splits a tie
+evenly (``amax``)."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .registry import register_op
 
@@ -27,7 +42,12 @@ __all__ = ['elementwise_add', 'elementwise_sub', 'elementwise_mul',
            'less_than', 'less_equal', 'greater_than', 'greater_equal',
            'increment', 'sigmoid', 'tanh', 'elementwise_mod',
            'elementwise_floordiv', 'logical_and', 'logical_or',
-           'logical_xor', 'logical_not']
+           'logical_xor', 'logical_not', 'logsigmoid', 'atan',
+           'tanh_shrink', 'rsqrt', 'abs_', 'sin', 'acos', 'asin', 'cosh',
+           'sinh', 'round_', 'reciprocal', 'softplus', 'softsign', 'erf',
+           'gelu', 'leaky_relu', 'relu6', 'elu', 'selu', 'prelu', 'brelu',
+           'soft_relu', 'stanh', 'hard_sigmoid', 'hard_swish', 'swish',
+           'hard_shrink', 'softshrink', 'thresholded_relu', 'maxout']
 
 
 def _align_y(x, y, axis=-1):
@@ -192,6 +212,144 @@ cos = _unary('cos', torch.cos)
 sigmoid = _unary('sigmoid', torch.sigmoid)
 tanh = _unary('tanh', torch.tanh)
 logical_not = _unary('logical_not', torch.logical_not)
+logsigmoid = _unary('logsigmoid', F.logsigmoid)
+atan = _unary('atan', torch.atan)
+tanh_shrink = _unary('tanh_shrink', F.tanhshrink)
+rsqrt = _unary('rsqrt', torch.rsqrt)
+sin = _unary('sin', torch.sin)
+acos = _unary('acos', torch.acos)
+asin = _unary('asin', torch.asin)
+cosh = _unary('cosh', torch.cosh)
+sinh = _unary('sinh', torch.sinh)
+round_ = _unary('round', torch.round)        # half to even, as jnp.round
+reciprocal = _unary('reciprocal', torch.reciprocal)
+softplus = _unary('softplus', F.softplus)
+softsign = _unary('softsign', F.softsign)
+erf = _unary('erf', torch.erf)
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``: a max and a min, so that the gradient at
+    a bound is 1/2 (``clamp``'s is 1)."""
+    return torch.minimum(
+        torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device)),
+        torch.tensor(hi, dtype=x.dtype, device=x.device))
+
+
+@register_op('abs')
+def abs_(x):
+    """``|x|``, with gradient 1 at 0 as JAX's."""
+    return torch.where(x >= 0, x, -x)
+
+
+@register_op('gelu')
+def gelu(x, *, approximate=False):
+    """GELU in its exact erf form (the tanh form with ``approximate``)."""
+    return F.gelu(x, approximate='tanh' if approximate else 'none')
+
+
+@register_op('leaky_relu')
+def leaky_relu(x, *, alpha=0.02):
+    """``x`` where ``x >= 0``, else ``alpha * x`` (Paddle's default alpha
+    0.02, not torch's 0.01)."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
+@register_op('relu6')
+def relu6(x, *, threshold=6.0):
+    return _clip(x, 0.0, threshold)
+
+
+@register_op('elu')
+def elu(x, *, alpha=1.0):
+    return torch.where(x > 0, x, alpha * (torch.exp(x) - 1.0))
+
+
+@register_op('selu')
+def selu(x, *, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * (torch.exp(x) - 1.0))
+
+
+@register_op('prelu')
+def prelu(x, alpha, *, mode='all'):
+    """``x`` where ``x >= 0``, else ``alpha * x``: one ``alpha`` for all
+    (``'all'``), one a channel of dim 1 (``'channel'``), or one an element
+    of a sample (``'element'``: the flat (prod(x.shape[1:]),) parameter
+    read as ``x.shape[1:]``, Paddle's documented meaning; the JAX op
+    broadcasts the flat vector against ``x``, and so raises on an input of
+    more than two dims, ROADMAP C.4 item 20)."""
+    a = alpha
+    if mode == 'channel' and a.numel() > 1:
+        a = a.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == 'all':
+        a = a.reshape(()) if a.numel() == 1 else a
+    elif mode == 'element':
+        a = a.reshape((1,) + tuple(x.shape[1:]))
+    return torch.where(x >= 0, x, a * x)
+
+
+@register_op('brelu')
+def brelu(x, *, t_min=0.0, t_max=24.0):
+    return _clip(x, t_min, t_max)
+
+
+@register_op('soft_relu')
+def soft_relu(x, *, threshold=40.0):
+    return torch.log1p(torch.exp(_clip(x, -threshold, threshold)))
+
+
+@register_op('stanh')
+def stanh(x, *, scale_a=0.67, scale_b=1.7159):
+    return scale_b * torch.tanh(scale_a * x)
+
+
+@register_op('hard_sigmoid')
+def hard_sigmoid(x, *, slope=0.2, offset=0.5):
+    return _clip(slope * x + offset, 0.0, 1.0)
+
+
+@register_op('hard_swish')
+def hard_swish(x, *, threshold=6.0, scale=6.0, offset=3.0):
+    return x * _clip(x + offset, 0.0, threshold) / scale
+
+
+@register_op('swish')
+def swish(x, *, beta=1.0):
+    return x * torch.sigmoid(beta * x)
+
+
+@register_op('hard_shrink')
+def hard_shrink(x, *, threshold=0.5):
+    return torch.where(torch.abs(x) > threshold, x, _zero(x))
+
+
+@register_op('softshrink')
+def softshrink(x, *, lambda_=0.5):
+    return torch.where(x > lambda_, x - lambda_,
+                       torch.where(x < -lambda_, x + lambda_, _zero(x)))
+
+
+@register_op('thresholded_relu')
+def thresholded_relu(x, *, threshold=1.0):
+    return torch.where(x > threshold, x, _zero(x))
+
+
+@register_op('maxout')
+def maxout(x, *, groups, axis=1):
+    """The max of each run of ``groups`` channels along ``axis``: C
+    channels become C / groups, a tie's gradient split evenly."""
+    axis %= x.dim()
+    c = x.shape[axis]
+    if c % groups:
+        raise ValueError(f'maxout: {c} channels do not split into groups '
+                         f'of {groups}')
+    shape = list(x.shape)
+    shape[axis:axis + 1] = [c // groups, groups]
+    return torch.amax(x.reshape(shape), dim=axis + 1)
 
 
 @register_op('pow')

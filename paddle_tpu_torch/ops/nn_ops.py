@@ -14,7 +14,9 @@ paddle_tpu/ops/nn_ops.py).
 - ``conv2d``, ``pool2d``, ``batch_norm`` and ``relu``: the ops ResNet runs;
   ``softmax`` and ``dropout`` with them on the static graph's path;
   ``lookup_table``, ``layer_norm`` and ``log_softmax``, which the dygraph
-  Transformer adds.
+  Transformer adds; ``conv3d``, ``conv2d_transpose``,
+  ``conv3d_transpose``, ``group_norm`` and ``bilinear_tensor_product``,
+  which the rest of the dygraph layers and the vision models run.
   The reference computes them in XLA, outside any Pallas kernel, so here
   they are torch's own ops (``F.conv2d``, ``F.max_pool2d``, ...) with
   Paddle's semantics and the reference's types.
@@ -48,6 +50,8 @@ __all__ = ['paged_attention', 'paged_attention_ref', 'paged_prefill_attention',
            'PAGED_KINDS', 'PAGED_PAYLOADS', 'verify_rows',
            'conv2d', 'pool2d', 'batch_norm', 'relu', 'softmax',
            'log_softmax', 'layer_norm', 'dropout', 'lookup_table',
+           'conv3d', 'conv2d_transpose', 'conv3d_transpose', 'group_norm',
+           'bilinear_tensor_product',
            'launch_counts', 'reset_launch_counts', 'HEAD_DIMS']
 
 # head dims the kernels are compiled for (csrc/*.cu)
@@ -887,6 +891,131 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
     inv = torch.rsqrt(v.to(stat) + epsilon).to(x.dtype)
     return ((x - m.to(x.dtype).reshape(shape)) * inv.reshape(shape)
             * scale.reshape(shape) + bias.reshape(shape)), new_mean, new_var
+
+
+def _pads3(x, weight, stride, padding, dilation):
+    """(x padded where needed, torch's symmetric padding) of a 3-D conv:
+    an int or three values, or ``'SAME'``/``'VALID'`` as XLA reads
+    them."""
+    if isinstance(padding, str):
+        if padding.upper() == 'VALID':
+            return x, 0
+        if padding.upper() != 'SAME':
+            raise ValueError(f'padding {padding!r}: use SAME or VALID')
+        pads = [_same_pads(x.shape[2 + i], weight.shape[2 + i], stride[i],
+                           dilation[i]) for i in range(3)]
+        flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+        return F.pad(x, flat), 0
+    p = _pair(padding, 3)
+    if len(p) != 3:
+        raise ValueError(f'conv3d padding takes one value a spatial dim, '
+                         f'got {padding!r}')
+    return x, p
+
+
+@register_op('conv3d')
+def conv3d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
+           data_format='NCDHW'):
+    """Paddle's conv3d over an OIDHW ``weight``: ``x`` NCDHW, or NDHWC
+    with a DHWIO weight as the reference takes it (both permuted to
+    torch's layout, and the result back). ``F.conv3d``; the reference
+    computes it in XLA, outside any Pallas kernel."""
+    x = _match_weight_dtype(x, weight)
+    stride, dilation = _pair(stride, 3), _pair(dilation, 3)
+    if data_format == 'NDHWC':
+        x, weight = x.permute(0, 4, 1, 2, 3), weight.permute(4, 3, 0, 1, 2)
+    elif data_format != 'NCDHW':
+        raise ValueError(f'data_format must be NCDHW or NDHWC, got '
+                         f'{data_format!r}')
+    x, pad = _pads3(x, weight, stride, padding, dilation)
+    y = F.conv3d(x, weight, None, stride, pad, dilation, groups)
+    return y.permute(0, 2, 3, 4, 1) if data_format == 'NDHWC' else y
+
+
+def _check_output_size(y, output_size, spatial):
+    """The JAX op never reads ``output_size``: one equal to the size it
+    computes is accepted, any other raises (ROADMAP C.4 item 12)."""
+    if output_size is None:
+        return
+    want = tuple(_pair(output_size, spatial))
+    if want != tuple(y.shape[2:]):
+        raise NotImplementedError(
+            f'conv2d_transpose(output_size={list(want)}): the output is '
+            f'{list(y.shape[2:])} from filter_size, stride and padding; the '
+            f'reference never reads output_size, so no other size is '
+            f'ported (ROADMAP C.4 item 12)')
+
+
+@register_op('conv2d_transpose')
+def conv2d_transpose(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
+                     output_size=None, data_format='NCHW'):
+    """Paddle's conv2d_transpose (the gradient of conv2d) over an IOHW
+    ``weight``, (C_in, C_out / groups, kh, kw), which is torch's own
+    transposed layout: ``F.conv_transpose2d`` with nothing permuted. The
+    output is (H - 1) * stride - 2 * padding + dilation * (k - 1) + 1 a
+    side; an ``output_size`` other than that raises (ROADMAP C.4 item
+    12). NCHW only: the reference's NHWC branch reads the IOHW weight as
+    HWIO."""
+    if data_format != 'NCHW':
+        raise NotImplementedError(
+            f'conv2d_transpose(data_format={data_format!r}): the reference '
+            f'reads the IOHW weight as HWIO there; only NCHW is ported')
+    x = _match_weight_dtype(x, weight)
+    y = F.conv_transpose2d(x, weight, None, _pair(stride), _pair(padding), 0,
+                           groups, _pair(dilation))
+    _check_output_size(y, output_size, 2)
+    return y
+
+
+@register_op('conv3d_transpose')
+def conv3d_transpose(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
+                     data_format='NCDHW'):
+    """Paddle's conv3d_transpose over an IODHW ``weight``,
+    ``F.conv_transpose3d``. With ``groups`` > 1 the port computes Paddle's
+    grouped transposed convolution; the JAX op swaps the weight's first
+    two axes only and raises (ROADMAP C.4 item 19). NCDHW only."""
+    if data_format != 'NCDHW':
+        raise NotImplementedError(
+            f'conv3d_transpose(data_format={data_format!r}): only NCDHW is '
+            f'ported, as the reference computes it')
+    x = _match_weight_dtype(x, weight)
+    return F.conv_transpose3d(x, weight, None, _pair(stride, 3),
+                              _pair(padding, 3), 0, groups,
+                              _pair(dilation, 3))
+
+
+@register_op('group_norm')
+def group_norm(x, scale=None, bias=None, *, groups, epsilon=1e-5,
+               data_layout='NCHW'):
+    """Paddle's group_norm of an NCHW(...) ``x``: each sample's channels in
+    ``groups`` runs, normalised by the run's mean and biased variance (in
+    ``x``'s type, as the reference), then scaled and shifted a channel.
+    NHWC raises: the reference reshapes it as if it were NCHW (ROADMAP C.4
+    item 17)."""
+    if data_layout != 'NCHW':
+        raise NotImplementedError(
+            f'group_norm(data_layout={data_layout!r}): the reference '
+            f'groups an NHWC input as if it were NCHW; only NCHW is ported '
+            f'(ROADMAP C.4 item 17)')
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    v, m = torch.var_mean(xg, dim=axes, correction=0, keepdim=True)
+    y = ((xg - m) * torch.rsqrt(v + epsilon)).reshape(x.shape)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y
+
+
+@register_op('bilinear_tensor_product')
+def bilinear_tensor_product(x, y, weight, bias=None):
+    """``out[b, k] = x[b]ᵀ · weight[k] · y[b] + bias[k]``, one
+    ``torch.einsum``."""
+    out = torch.einsum('bi,kij,bj->bk', x, weight, y)
+    return out if bias is None else out + bias
 
 
 @register_op('relu')

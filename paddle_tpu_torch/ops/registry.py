@@ -21,9 +21,9 @@ tensors (layer_helper.py), so an op is its function and nothing else.
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ['OpDef', 'register_op', 'get_op', 'has_op', 'all_ops',
+__all__ = ['OpDef', 'register_op', 'find_op', 'get_op', 'has_op', 'all_ops',
            'NON_KERNEL_ATTRS']
 
 _REGISTRY: Dict[str, 'OpDef'] = {}
@@ -85,24 +85,29 @@ def register_op(name: str, outputs: Sequence[str] = ('Out',),
 def _load_ops():
     """Import every module that registers ops (they import nothing that
     builds a kernel)."""
-    from . import (fused_ops, loss_ops, math_ops, nn_ops,  # noqa: F401
-                   optimizer_ops, pallas_conv, random_ops, rnn_ops,
-                   sequence_ops, tensor_ops)
+    from . import (extra_ops, fused_ops, loss_ops,  # noqa: F401
+                   math_ops, nn_ops, optimizer_ops, pallas_conv, random_ops,
+                   rnn_ops, sequence_ops, tensor_ops)
+
+
+def find_op(name: str) -> Optional[OpDef]:
+    """The op registered as ``name``, None if there is none."""
+    if name not in _REGISTRY:
+        _load_ops()
+    return _REGISTRY.get(name)
 
 
 def get_op(name: str) -> OpDef:
-    if name not in _REGISTRY:
-        _load_ops()
-    if name not in _REGISTRY:
+    op = find_op(name)
+    if op is None:
         raise NotImplementedError(
             f'op {name!r} is not ported yet (ROADMAP A.10); ported: '
             f'{sorted(_REGISTRY)}')
-    return _REGISTRY[name]
+    return op
 
 
 def has_op(name: str) -> bool:
-    _load_ops()
-    return name in _REGISTRY
+    return find_op(name) is not None
 
 
 def all_ops():

@@ -5,7 +5,8 @@ the static layers a Fluid script calls around a net (``concat``,
 ``gather``, ``expand``, ``assign``, the ``fill_*`` ops, ``top_k``,
 ``range``), the ``slice``, ``reverse`` and ``where`` that the recurrent
 layers use, ``arg_max`` and ``transpose_batch_time`` that the decoders
-use, and ``is_empty`` and the tensor-array ops. ``assign`` of a
+use, ``temporal_shift`` that TSM runs, and ``is_empty`` and the
+tensor-array ops. ``assign`` of a
 numpy array emits the ``__constant__`` op, which is no registered op in
 either package: the executors make its value themselves (executor.py).
 
@@ -24,7 +25,8 @@ __all__ = ['cast', 'reshape', 'transpose', 'fill_constant', 'one_hot',
            'concat', 'split', 'stack', 'unstack', 'squeeze', 'unsqueeze',
            'gather', 'expand', 'assign', 'fill_constant_batch_size_like',
            'fill_zeros_like', 'fill_any_like', 'top_k', 'arange', 'slice_op',
-           'reverse', 'where', 'arg_max', 'transpose_batch_time']
+           'reverse', 'where', 'arg_max', 'transpose_batch_time',
+           'temporal_shift']
 
 
 @register_op('cast')
@@ -207,6 +209,22 @@ def where(cond, x, y):
     """``x`` where ``cond`` (nonzero) holds, else ``y``."""
     return torch.where(cond if cond.dtype == torch.bool else cond != 0,
                        x, y)
+
+
+@register_op('temporal_shift')
+def temporal_shift(x, *, seg_num, shift_ratio=0.25):
+    """TSM's shift of an (N * seg_num, C, H, W) batch of clips: in frame t
+    the first ``int(C * shift_ratio)`` channels come from frame t + 1 and
+    the next as many from frame t - 1 (zeros past a clip's ends); the rest
+    stay. That is the JAX op's direction; Paddle 1.7 documents the first
+    run from t - 1 and the second from t + 1 (ROADMAP C.4 item 18)."""
+    nt, c, h, w = x.shape
+    x = x.reshape(nt // seg_num, seg_num, c, h, w)
+    c1 = int(c * shift_ratio)
+    fwd = torch.cat([x[:, 1:, :c1], torch.zeros_like(x[:, :1, :c1])], 1)
+    bwd = torch.cat([torch.zeros_like(x[:, :1, c1:2 * c1]),
+                     x[:, :-1, c1:2 * c1]], 1)
+    return torch.cat([fwd, bwd, x[:, :, 2 * c1:]], 2).reshape(nt, c, h, w)
 
 
 @register_op('is_empty')

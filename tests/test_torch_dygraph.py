@@ -720,10 +720,55 @@ def test_dispatch_op_runs_a_registered_op_on_the_guard_device():
     ('BilinearTensorProduct', 'A.4'), ('GRUUnit', 'A.4'), ('NCE', 'A.4'),
     ('TreeConv', 'A.4')])
 def test_unported_names_raise_naming_their_item(name, item):
+    """The names not ported raise naming their item; the ten layers of
+    A.4c build and run (tests/test_torch_dygraph_layers.py holds their
+    values to the JAX layers')."""
     import paddle_tpu.dygraph as jdygraph
     assert hasattr(jdygraph, name)
+    if name in A4C_RUNS:
+        with dygraph.guard(CPU):
+            out, shape = A4C_RUNS[name]()
+        outs = out if isinstance(out, tuple) else (out,)
+        assert tuple(outs[0].shape) == shape
+        assert all(torch.isfinite(o).all() for o in outs)
+        return
     with pytest.raises(NotImplementedError, match=item):
         getattr(dygraph, name)(1, 2, 3)
+
+
+def _a4c(shape, *arrays):
+    return [to_variable(np.random.RandomState(i).rand(*a).astype(np.float32))
+            for i, a in enumerate(arrays)], shape
+
+
+def _run(layer, arrays, shape):
+    return layer(*arrays), shape
+
+
+# each A.4c layer built and run: (output, its expected shape)
+A4C_RUNS = {
+    'Conv3D': lambda: _run(dygraph.Conv3D(2, 3, 3),
+                           *_a4c((1, 3, 2, 2, 2), (1, 2, 4, 4, 4))),
+    'Conv2DTranspose': lambda: _run(dygraph.Conv2DTranspose(2, 3, 3),
+                                    *_a4c((1, 3, 6, 6), (1, 2, 4, 4))),
+    'Conv3DTranspose': lambda: _run(dygraph.Conv3DTranspose(2, 3, 3),
+                                    *_a4c((1, 3, 4, 4, 4), (1, 2, 2, 2, 2))),
+    'GroupNorm': lambda: _run(dygraph.GroupNorm(4, 2),
+                              *_a4c((2, 4, 3, 3), (2, 4, 3, 3))),
+    'SpectralNorm': lambda: (dygraph.SpectralNorm([3, 4])(), (3, 4)),
+    'PRelu': lambda: _run(dygraph.PRelu('channel', channel=3),
+                          *_a4c((2, 3, 4, 4), (2, 3, 4, 4))),
+    'BilinearTensorProduct': lambda: _run(
+        dygraph.BilinearTensorProduct(2, 3, 4), *_a4c((5, 4), (5, 2),
+                                                       (5, 3))),
+    'GRUUnit': lambda: _run(dygraph.GRUUnit(6),
+                            *_a4c((3, 2), (3, 6), (3, 2))),
+    'NCE': lambda: (dygraph.NCE(7, 4)(
+        to_variable(np.ones((3, 4), np.float32)),
+        to_variable(np.array([[1], [2], [3]], np.int64))), (3, 1)),
+    'TreeConv': lambda: _run(dygraph.TreeConv(4, 5, num_filters=2),
+                             *_a4c((2, 3, 5, 2), (2, 3, 4), (2, 3, 2))),
+}
 
 
 def test_every_jax_dygraph_name_exists_in_the_port():
@@ -739,8 +784,20 @@ def test_embedding_is_sparse_and_conv_act_raise():
     with dygraph.guard(CPU):
         with pytest.raises(NotImplementedError, match='A.10'):
             dygraph.Embedding([4, 2], is_sparse=True)
-        with pytest.raises(NotImplementedError, match='A.4'):
-            dygraph.Linear(2, 2, act='sigmoid')
+        # any registered op is an act (A.4c); one that names no op raises
+        # the JAX package's KeyError when the layer runs, as there
+        x = np.array([[1.0, -2.0]], np.float32)
+        lin = dygraph.Linear(2, 2, act='sigmoid')
+        np.testing.assert_allclose(
+            lin(to_variable(x)).numpy(),
+            1 / (1 + np.exp(-(x @ lin.weight.numpy() + lin.bias.numpy()))),
+            rtol=1e-6)
+        with pytest.raises(KeyError, match='no_such_act'):
+            dygraph.Linear(2, 2, act='no_such_act')(to_variable(x))
+    with jdy.guard():
+        with pytest.raises(KeyError, match='no_such_act'):
+            jdy.Linear(2, 2, act='no_such_act')(jdy.to_variable(x))
+    with dygraph.guard(CPU):
         with pytest.raises(NotImplementedError, match='A.10'):
             fluid.ops.nn_ops.lookup_table(torch.ones(3, 2),
                                           torch.zeros(2, dtype=torch.long),

@@ -1565,3 +1565,37 @@ def test_lamb_and_lars_multi_tensor_forms_match_their_ops(cuda, rule):
             torch.testing.assert_close(updated[k][i], out, atol=1e-6,
                                        rtol=1e-5)
     assert not torch.equal(updated[0][1], ps[1])
+
+
+@pytest.mark.parametrize('op', ['conv2d_transpose', 'group_norm',
+                                'temporal_shift'])
+def test_a4c_ops_on_the_card_match_the_cpu(cuda, op):
+    """The dygraph layers slice's ops (torch's own, no kernel of the port)
+    on the card against the CPU: forward and every input's gradient at
+    atol 1e-4, rtol 1e-4 (f32, TF32 off, sums in another order); the
+    shift exactly."""
+    from paddle_tpu_torch.ops import tensor_ops
+    rng = np.random.default_rng(7)
+    cases = {
+        'conv2d_transpose': (lambda x, w: nn_ops.conv2d_transpose(
+            x, w, stride=2, padding=1), [(16, 32, 8, 8), (32, 16, 4, 4)]),
+        'group_norm': (lambda x, s, b: nn_ops.group_norm(x, s, b, groups=8),
+                       [(4, 64, 14, 14), (64,), (64,)]),
+        'temporal_shift': (lambda x: tensor_ops.temporal_shift(x, seg_num=4),
+                           [(8, 16, 7, 7)]),
+    }
+    fn, shapes = cases[op]
+    arrays = [rng.standard_normal(s, np.float32) for s in shapes]
+    got, cot = [], None
+    for dev in ('cpu', cuda):
+        ts = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in arrays]
+        out = fn(*ts)
+        if cot is None:
+            cot = rng.standard_normal(tuple(out.shape), np.float32)
+        (out * torch.from_numpy(cot).to(dev)).sum().backward()
+        got.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    tol = (dict(atol=0, rtol=0) if op == 'temporal_shift'
+           else dict(atol=1e-4, rtol=1e-4))
+    for a, b in zip(got[1], got[0]):
+        torch.testing.assert_close(a, b, **tol)

@@ -6,7 +6,9 @@ port runs is called with its attributes by position, after its input
 slots, in Paddle 1.7's documented order (``reshape(x, shape)``,
 ``transpose(x, perm)``, ``reduce_sum(input, dim, keep_dim)``,
 ``scale(x, scale, bias, bias_after_scale)``, ``clip(x, min, max)``, the
-``axis`` of ``elementwise_*``, ...), in a static program and under a
+``axis`` of ``elementwise_*``, ``leaky_relu(x, alpha)``,
+``maxout(x, groups, name, axis)``, ``temporal_shift(x, seg_num,
+shift_ratio)``, ...), in a static program and under a
 ``dygraph.guard``; the JAX package's layer is called on the same numpy
 inputs with the attributes as keywords, in a static program (its
 generated layers drop positional attributes, ROADMAP C.12). Output shapes
@@ -34,6 +36,15 @@ BY = R.rand(3, 4) > 0.5
 UNARY = {'sigmoid': X, 'exp': X, 'tanh': X, 'sqrt': POS, 'ceil': X,
          'floor': X, 'cos': X, 'square': X, 'relu': X, 'log': POS,
          'sign': X, 'mean': X}
+# the activations registered since A.4c
+R1 = np.random.RandomState(1)
+HALF = R1.uniform(-0.9, 0.9, (3, 4)).astype(np.float32)
+CLIPS = (R1.rand(4, 4, 2, 2) - 0.5).astype(np.float32)
+UNARY.update({name: X for name in (
+    'logsigmoid', 'atan', 'tanh_shrink', 'abs', 'sin', 'cosh', 'sinh',
+    'round', 'softplus', 'softsign')})
+UNARY.update({'rsqrt': POS, 'reciprocal': POS, 'acos': HALF,
+              'asin': HALF})
 
 # layer: (inputs, attributes in positional order as (keyword, value))
 CASES = {name: ((x,), (('name', f'{name}_out'),))
@@ -56,6 +67,23 @@ CASES.update({
     'slice': ((X,), (('axes', [1]), ('starts', [1]), ('ends', [3]))),
     'argmax': ((X,), (('axis', 1),)),
     'logical_not': ((BX,), ()),
+    'gelu': ((X,), ()), 'erf': ((X,), ()),
+    'softshrink': ((X,), (('lambda_', 0.3),)),
+    'hard_shrink': ((X,), (('threshold', 0.3),)),
+    'thresholded_relu': ((X,), (('threshold', 0.2),)),
+    'relu6': ((X,), (('threshold', 1.5),)),
+    'leaky_relu': ((X,), (('alpha', 0.1),)),
+    'elu': ((X,), (('alpha', 0.5),)),
+    'selu': ((X,), (('scale', 1.1), ('alpha', 1.5))),
+    'brelu': ((X,), (('t_min', -0.5), ('t_max', 0.7))),
+    'soft_relu': ((X,), (('threshold', 1.0),)),
+    'stanh': ((X,), (('scale_a', 0.5), ('scale_b', 2.0))),
+    'hard_sigmoid': ((X,), (('slope', 0.3), ('offset', 0.4))),
+    'hard_swish': ((X,), (('threshold', 5.0), ('scale', 4.0),
+                          ('offset', 2.0))),
+    'swish': ((X,), (('beta', 2.0),)),
+    'maxout': ((X,), (('groups', 2), ('name', 'maxout_n'), ('axis', 1))),
+    'temporal_shift': ((CLIPS,), (('seg_num', 2), ('shift_ratio', 0.25))),
 })
 for _name in ('reduce_sum', 'reduce_mean', 'reduce_max', 'reduce_min'):
     CASES[_name] = ((X,), (('dim', 1), ('keep_dim', True)))
@@ -100,7 +128,8 @@ def test_every_generated_layer_that_runs_has_a_case():
                          {'argmax': 'arg_max'}.get(n, n))
                  and 'not ported' not in getattr(port_nn, n).__doc__}
     assert generated == set(CASES)
-    assert len(CASES) == 44      # 40, and the four logical ops
+    # 40, the four logical ops, and 31 over the ops registered since A.4c
+    assert len(CASES) == 75
 
 
 @pytest.mark.parametrize('name', NAMES)

@@ -14,8 +14,11 @@ took over in doing so behave as the reference's do (on the CPU).
   control-flow layers and recurrent cells the PTB LM slice ported, and
   the decoders, beam-search layers and ops and ``sequence_mask`` of the
   static seq2seq slice, and static AMP's ops (the logical ops, the loss
-  scaling's two), ``RecomputeOptimizer`` and ``Config.enable_bf16``. So
-  are
+  scaling's two), ``RecomputeOptimizer`` and ``Config.enable_bf16``, and
+  the ops and static layers of the dygraph layers slice (A.4c: the
+  activations, the 3-D and transposed convolutions, ``group_norm``,
+  ``bilinear_tensor_product``, ops/extra_ops.py's four and
+  ``temporal_shift``). So are
   the dygraph API's layer constructors, ``Layer``'s methods, the learning-rate schedules,
   ``save_dygraph``/``load_dygraph``, ``to_variable`` and ``guard``, and
   so are the ERNIE finetune slice's names (regularizers, clips,
@@ -119,7 +122,21 @@ SHARED_OPS = [
     # the rest of the optimizer surface
     *(('optimizer_ops', op) for op in (
         'lars_momentum', 'adamax', 'adagrad', 'decayed_adagrad', 'rmsprop',
-        'adadelta', 'ftrl', 'lamb', 'dpsgd', 'dgc_momentum'))]
+        'adadelta', 'ftrl', 'lamb', 'dpsgd', 'dgc_momentum')),
+    # the rest of the dygraph layers and the activations
+    *(('math_ops', op) for op in (
+        'logsigmoid', 'atan', 'tanh_shrink', 'rsqrt', 'abs_', 'sin', 'acos',
+        'asin', 'cosh', 'sinh', 'round_', 'reciprocal', 'softplus',
+        'softsign', 'erf', 'gelu', 'leaky_relu', 'relu6', 'elu', 'selu',
+        'prelu', 'brelu', 'soft_relu', 'stanh', 'hard_sigmoid',
+        'hard_swish', 'swish', 'hard_shrink', 'softshrink',
+        'thresholded_relu', 'maxout')),
+    *(('nn_ops', op) for op in (
+        'conv3d', 'conv2d_transpose', 'conv3d_transpose', 'group_norm',
+        'bilinear_tensor_product')),
+    *(('extra_ops', op) for op in (
+        'spectral_norm', 'nce', 'gru_unit', 'tree_conv')),
+    ('tensor_ops', 'temporal_shift')]
 MODULES = sorted({m for m, _ in SHARED_OPS})
 
 
@@ -200,7 +217,12 @@ FLUID_ENTRY_POINTS = [
     ('optimizer', 'RecomputeOptimizer'),
     ('optimizer', 'RecomputeOptimizer._set_checkpoints'),
     ('optimizer', 'RecomputeOptimizer.minimize'),
-    ('inference', 'Config.enable_bf16')]
+    ('inference', 'Config.enable_bf16'),
+    # the static layers of the dygraph layers slice (A.4c)
+    *(('layers', name) for name in (
+        'conv3d', 'conv2d_transpose', 'conv3d_transpose', 'group_norm',
+        'spectral_norm', 'prelu', 'nce', 'bilinear_tensor_product',
+        'gru_unit'))]
 
 
 @pytest.mark.parametrize('module,path', FLUID_ENTRY_POINTS,
@@ -241,7 +263,9 @@ def _params(fn, torch_called=False):
 
 
 DYGRAPH_LAYERS = ['Conv2D', 'Pool2D', 'BatchNorm', 'Linear', 'Embedding',
-                  'LayerNorm', 'Dropout']
+                  'LayerNorm', 'Dropout', 'Conv3D', 'Conv2DTranspose',
+                  'Conv3DTranspose', 'GroupNorm', 'SpectralNorm', 'PRelu',
+                  'BilinearTensorProduct', 'GRUUnit', 'NCE', 'TreeConv']
 
 
 @pytest.mark.parametrize('name', DYGRAPH_LAYERS)
