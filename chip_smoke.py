@@ -395,16 +395,40 @@ Phases:
    at (32, 256, 56, 56), SpectralNorm of (512, 4608), NCE over 100,000
    classes, the activations at their breakpoints, ...); (f) no kernel of
    the port launched;
-22. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
+22. dygraph-to-static (ROADMAP A.4d) and dygraph data parallelism on
+   torch.distributed (A.9a) with PaddleCV's MobileNetV2 at its widths
+   (3,504,872 parameters, 1000 classes, 224^2, NCHW): (a) its eval
+   forward at batch 128 under ``@to_static`` against eager bit for bit,
+   one entry over 20 calls and a second at batch 64, the host µs a call
+   of each; three steps of PaddleCV's loop through a ``to_static``
+   forward against the eager loop bit for bit; ``TracedLayer.trace``
+   against eager, its snapshot after an update and its ``.npz`` files
+   against ``state_dict()``; (b) ``init_parallel_env()`` with
+   ``PADDLE_TRAINERS_NUM=1`` (NCCL, a world of one): every eager
+   collective on a card tensor against its single-process meaning;
+   ``DataParallel`` in bf16 AMP at batch 128 through the recipe's loop,
+   three steps against the plain loop bit for bit, then 2 + 20
+   synchronised steps of each (images/s, p50/min/max, busy, idle, peak);
+   (c) two ranks on the one card over gloo through
+   ``launch(nproc_per_node=2)`` (``tools/train_mobilenet_dp.py``, 64
+   images a rank, 3 steps): f32 held to two replicas in this process,
+   the ranks bit for bit equal, bf16 and int8 payloads (each first
+   bundle against the codec's sum and within its bound, the parameters
+   held to the replicas through the same codec), the wire bytes a step,
+   every BatchNorm's ``sync_stats`` on against one process at batch 128,
+   and the step p50; (d) no kernel of the port launched;
+23. a ``{"kernels": [...]}`` line (K1 and K2 over each pool, the verify
    read, the flash kernels and K4, each with its launches on its path and
-   those of phases 12-21) and, last, ``{"ok": true, "device": {...}}``.
+   those of phases 12-22) and, last, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -6848,6 +6872,513 @@ def vision_layers(seed, dev, card):
     return launches
 
 
+# Phase 22: dygraph-to-static (ROADMAP A.4d) and dygraph data parallelism on
+# torch.distributed (A.9a) with PaddleCV's MobileNetV2 at its widths. The
+# bit-for-bit checks run under cuDNN's deterministic algorithms (the same
+# kernels on the same inputs); (c) holds the ranks to two replicas in this
+# process at DP_WITNESS_ATOL: the same kernels on the same inputs in
+# another process, the gradients summed in rank order on the card in both,
+# so equal bits are expected and the bound only admits a kernel whose sum
+# order differs between processes (f32 round-off of a gradient, ~1e-7 of
+# an entry, times the rate of 0.1, over 3 steps). Sync-BN's first
+# gradient (the ranks' reduced bundle: the gradient of the whole batch's
+# mean loss) is held to one process at batch 128 in float64 (the witness,
+# the plain statistics): its L2 distance from it, relative, within
+# SYNC_BN_FACTOR x the plain f32 run's own. The synced statistics are the
+# JAX form, var = E[x^2] - m^2 from each rank's f32 means, which cancels
+# where a channel's mean is large against its spread (2^-24 of E[x^2]
+# against eps 1e-5); MobileNetV2's f32 gradients at its initialisation
+# are themselves 0.01-1.4% from float64 on CPU toys, where the synced run
+# lay at 0.7-4.1x the plain run's distance.
+DP_BATCH, DP_STEPS, DP_TIMED, TO_STATIC_CALLS = 128, 3, 20, 20
+TOLL_CALLS = 20000
+DP_RANK_TIMED, DP_RANK_DEVICE = 10, 'cuda'
+DP_WITNESS_ATOL, SYNC_BN_FACTOR = 1e-6, 8.0
+MNV2_PARAMS = 3504872
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    import torch
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+
+
+def model_state(model):
+    """{name: a copy} of a model's parameters and buffers."""
+    out = {f'param/{n}': p.detach().clone()
+           for n, p in model.named_parameters()}
+    inner = getattr(model, '_layers', model)
+    out.update({f'buffer/{n}': b.clone() for n, b in inner.named_buffers()})
+    return out
+
+
+def max_diff(a, b):
+    """The largest |a - b| over two states of the same names (tensors or
+    arrays)."""
+    import torch
+    assert set(a) == set(b), sorted(set(a) ^ set(b))
+    worst = 0.0
+    for k in a:
+        x, y = (torch.as_tensor(np.asarray(v.cpu() if hasattr(v, 'cpu')
+                                           else v)).double()
+                for v in (a[k], b[k]))
+        worst = max(worst, (x - y).abs().max().item())
+    return worst
+
+
+def bitwise(a, b, what):
+    d = max_diff(a, b)
+    if d != 0.0:
+        raise AssertionError(f'{what}: not bit for bit (max|diff| {d})')
+
+
+def static_forward(model):
+    """``model``'s forward through ``to_static``: a StaticFunction of its
+    class's forward, bound to it (one cache for the instance)."""
+    from paddle_tpu_torch.dygraph import jit
+    sf = jit.to_static(type(model).forward)
+    model.forward = sf.__get__(model, type(model))
+    return sf
+
+
+def host_us(call, n):
+    """Median host µs for ``call()`` to return, and with the card's work
+    done, over ``n`` calls each followed by a synchronisation."""
+    import torch
+    ret, done = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        ret.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        done.append(time.perf_counter() - t0)
+    return statistics.median(ret) * 1e6, statistics.median(done) * 1e6
+
+
+def cache_toll_us(x):
+    """Host µs a call that ``to_static`` adds to a function: the identity
+    through it against the identity, ``TOLL_CALLS`` calls each."""
+    from paddle_tpu_torch.dygraph import jit
+
+    def ident(t):
+        return t
+    sf = jit.to_static(ident)
+    sf(x)
+    times = []
+    for f in (ident, sf):
+        t0 = time.perf_counter()
+        for _ in range(TOLL_CALLS):
+            f(x)
+        times.append(time.perf_counter() - t0)
+    return (times[1] - times[0]) / TOLL_CALLS * 1e6
+
+
+def to_static_mobilenet(seed, dev, card):
+    """Phase 22 (a)."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.dygraph import TracedLayer
+    from paddle_tpu_torch.models import MobileNetV2
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    x, y = vision_batch(seed, DP_BATCH, VISION_CLASSES, dev)
+    with deterministic_cudnn(), torch.no_grad():
+        model = MobileNetV2(VISION_CLASSES, device=dev, seed=seed).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != MNV2_PARAMS:
+            raise AssertionError(f'MobileNetV2 has {n_params} parameters, '
+                                 f'PaddleCV\'s {MNV2_PARAMS}')
+        eager = model(x)
+        eager_us = host_us(lambda: model(x), TO_STATIC_CALLS)
+        sf = static_forward(model)
+        out = model(x)
+        bitwise({'y': out}, {'y': eager}, '22 (a) to_static eval forward')
+        static_us = host_us(lambda: model(x), TO_STATIC_CALLS - 1)
+        if sf._compile_count != 1:
+            raise AssertionError(f'{sf._compile_count} entries over '
+                                 f'{TO_STATIC_CALLS} calls of one shape')
+        model(x[:DP_BATCH // 2])
+        if sf._compile_count != 2:
+            raise AssertionError(f'{sf._compile_count} entries after a call '
+                                 f'at batch {DP_BATCH // 2}')
+        toll = cache_toll_us(x)
+    log(f'22 (a) MobileNetV2 {n_params} parameters: to_static eval forward '
+        f'at batch {DP_BATCH} bit for bit eager; 1 entry over '
+        f'{TO_STATIC_CALLS} calls, 2 after batch {DP_BATCH // 2}; µs a '
+        f'call with the card\'s work {static_us[1]:.1f} to_static, '
+        f'{eager_us[1]:.1f} eager (to return: {static_us[0]:.1f}, '
+        f'{eager_us[0]:.1f}); the cache\'s toll {toll:.2f} µs a call on the '
+        f'host (to_static of the identity against the identity, '
+        f'{TOLL_CALLS} calls each) [{card}]')
+    del model
+    # three steps of PaddleCV's loop, eager against a to_static forward
+    with deterministic_cudnn():
+        states = []
+        for use_static in (False, True):
+            net = MobileNetV2(VISION_CLASSES, device=dev, seed=seed)
+            if use_static:
+                sf = static_forward(net)
+            opt = vr.mobilenet_v2_optimizer(net, DP_BATCH)
+            losses = [vr.data_parallel_step(net, opt, x, y).item()
+                      for _ in range(DP_STEPS)]
+            states.append((model_state(net), losses))
+            del net, opt
+        bitwise(states[0][0], states[1][0], '22 (a) to_static training')
+    if sf._compile_count != 1:
+        raise AssertionError(f'to_static training: {sf._compile_count} '
+                             f'entries')
+    log(f'22 (a) {DP_STEPS} recipe steps through a to_static forward: '
+        f'parameters and buffers bit for bit the eager loop\'s; losses '
+        f'{states[1][1]}')
+    # TracedLayer: its output, its snapshot and its files
+    with deterministic_cudnn():
+        net = MobileNetV2(VISION_CLASSES, device=dev, seed=seed).eval()
+        with torch.no_grad():
+            eager = net(x)
+        traced_out, traced = TracedLayer.trace(net, [x])
+        state = {k: v.detach().cpu().numpy().copy()
+                 for k, v in net.state_dict().items()}
+        bitwise({'y': traced_out}, {'y': eager}, '22 (a) TracedLayer')
+        net.train()
+        opt = vr.mobilenet_v2_optimizer(net, DP_BATCH)
+        vr.data_parallel_step(net, opt, x, y)
+        again = traced(x)
+        bitwise({'y': again}, {'y': traced_out},
+                '22 (a) TracedLayer after an update')
+        with tempfile.TemporaryDirectory() as d:
+            traced.save_inference_model(d)
+            saved = dict(np.load(os.path.join(d, 'jit_params.npz')))
+            saved.update(np.load(os.path.join(d, 'jit_buffers.npz')))
+    if sorted(saved) != sorted(state):
+        raise AssertionError(f'TracedLayer files against state_dict: '
+                             f'{sorted(set(saved) ^ set(state))}')
+    bitwise(saved, state, '22 (a) TracedLayer .npz against state_dict()')
+    log(f'22 (a) TracedLayer: output bit for bit eager, unchanged after a '
+        f'training step of the layer, jit_params.npz + jit_buffers.npz = '
+        f'state_dict() at trace time ({len(state)} arrays)')
+    del net, opt, traced
+    torch.cuda.empty_cache()
+
+
+def timed_loop(step, steps):
+    """2 warm-up and ``steps`` timed calls of ``step``, each synchronised;
+    (p50, min, max) ms and the peak device memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(WARMUP_STEPS + steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    timed = secs[WARMUP_STEPS:]
+    return (statistics.median(timed) * 1e3, min(timed) * 1e3,
+            max(timed) * 1e3, torch.cuda.max_memory_allocated())
+
+
+def single_meanings(x):
+    """{collective: (its result at a world of one, the input's meaning)}
+    of every eager collective on ``x`` (1, ...)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.parallel import quant_collectives as qc
+    return {
+        'allreduce_sum': (D.allreduce_sum(x), x),
+        'allreduce_mean': (D.allreduce_mean(x), x),
+        'allreduce_max': (D.allreduce_max(x), x),
+        'allreduce_min': (D.allreduce_min(x), x),
+        'allgather': (D.allgather(x), x[None]),
+        'reduce_scatter': (D.reduce_scatter(x), x[0]),
+        'broadcast': (D.broadcast(x, 0), x),
+        'alltoall': (D.alltoall(x), x),
+        'ppermute': (D.ppermute(x, [(0, 0)]), x),
+        'qallreduce_sum int8': (qc.qallreduce_sum(x, comm_dtype='int8'), x),
+        'barrier': (D.barrier(), x.new_zeros(()).cpu())}
+
+
+def nccl_world_one(seed, dev, card):
+    """Phase 22 (b)."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.dygraph import DataParallel
+    from paddle_tpu_torch.fleet_runtime.bootstrap import choose_backend
+    from paddle_tpu_torch.models import MobileNetV2
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    fleet_env = ('PADDLE_TRAINERS_NUM', 'PADDLE_TRAINER_ID',
+                 'PADDLE_TRAINER_ENDPOINTS', 'PADDLE_CURRENT_ENDPOINT',
+                 'PADDLE_TPU_FLEET_COORDINATOR')
+    saved = {k: os.environ.pop(k) for k in fleet_env if k in os.environ}
+    os.environ['PADDLE_TRAINERS_NUM'] = '1'
+    try:
+        spec = D.init_parallel_env()
+        if dist.get_backend() != choose_backend(1) or \
+                D.get_world_size() != 1:
+            raise AssertionError(f'init_parallel_env: backend '
+                                 f'{dist.get_backend()}, world '
+                                 f'{D.get_world_size()}')
+        x = torch.randn(1, 4096, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed))
+        for name, (got, want) in single_meanings(x).items():
+            if not torch.equal(got.cpu(), want.cpu()):
+                raise AssertionError(f'{name} at a world of one on the card '
+                                     f'is not its input')
+        log(f'22 (b) {spec}: backend {dist.get_backend()}, world 1; every '
+            f'eager collective on a card tensor gives its single-process '
+            f'meaning')
+        bx, by = vision_batch(seed, DP_BATCH, VISION_CLASSES, dev)
+        amp = torch.bfloat16
+
+        def loop(wrap):
+            net = MobileNetV2(VISION_CLASSES, device=dev, seed=seed)
+            model = DataParallel(net) if wrap else net
+            opt = vr.mobilenet_v2_optimizer(model, DP_BATCH)
+            return model, opt, (lambda: vr.data_parallel_step(
+                model, opt, bx, by, amp_dtype=amp))
+        with deterministic_cudnn():
+            states = []
+            for wrap in (True, False):
+                model, opt, step = loop(wrap)
+                for _ in range(DP_STEPS):
+                    step()
+                states.append(model_state(model))
+                del model, opt, step
+            bitwise(states[0], states[1], '22 (b) DataParallel at world 1')
+        log(f'22 (b) DataParallel MobileNetV2 bf16 AMP, batch {DP_BATCH}: '
+            f'parameters and buffers after {DP_STEPS} recipe steps bit for '
+            f'bit the plain loop\'s')
+        del states
+        torch.cuda.empty_cache()
+        for wrap in (True, False):
+            model, opt, step = loop(wrap)
+            p50, lo, hi, peak = timed_loop(step, DP_TIMED)
+            what = 'DataParallel' if wrap else 'plain loop'
+            log(f'22 (b) {what} bf16 AMP [{card}]: {WARMUP_STEPS} + '
+                f'{DP_TIMED} steps, p50 {p50:.3f} ms (min {lo:.3f}, max '
+                f'{hi:.3f}), {DP_BATCH * 1e3 / p50:.1f} images/s at the '
+                f'p50; peak device memory {peak} bytes')
+            prof = profile_train_step(lambda: step(), (), p50, card,
+                                      VISION_GROUPS,
+                                      what=f'22 (b) {what}')
+            assert prof is not None, 'the profiler recorded no device time'
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        os.environ.pop('PADDLE_TRAINERS_NUM', None)
+        os.environ.update(saved)
+
+
+def dp_replicas(seed, dev, shards, codec, steps):
+    """Two replicas of the recipe in this process, one a rank's shard of
+    the batch: each its own BatchNorm buffers; the gradients (after the
+    loss's 1/2) through ``codec`` and summed in rank order, the same
+    update on both. Their states."""
+    import torch
+    from paddle_tpu_torch.models import MobileNetV2
+    from paddle_tpu_torch.ops.fused_ops import _bundle, _split
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    nets = [MobileNetV2(VISION_CLASSES, device=dev, seed=seed)
+            for _ in shards]
+    opts = [vr.mobilenet_v2_optimizer(n, DP_BATCH) for n in nets]
+    for _ in range(steps):
+        for net, (x, y) in zip(nets, shards):
+            (vr.classification_loss(net, x, y) * (1.0 / len(nets))).backward()
+        bundles = [_bundle([p.grad for p in net.parameters()])
+                   for net in nets]
+        total = codec(bundles[0][0])
+        for flat, _, _ in bundles[1:]:
+            total = total + codec(flat)
+        for net, (_, shapes, sizes) in zip(nets, bundles):
+            grads = [p.grad for p in net.parameters()]
+            torch._foreach_copy_(grads, _split(total, shapes, sizes))
+        for net, opt in zip(nets, opts):
+            opt.minimize(None)
+            net.clear_gradients()
+    return [model_state(n) for n in nets]
+
+
+def first_gradient(seed, dev, x, y, dtype):
+    """The recipe's first gradient of MobileNetV2 on the whole batch in
+    one process, in ``dtype`` (float64: the loss too), bundled in the
+    parameters' order, as float64."""
+    import torch
+    from paddle_tpu_torch.models import MobileNetV2
+    from paddle_tpu_torch.ops.loss_ops import softmax_with_cross_entropy
+    net = MobileNetV2(VISION_CLASSES, device=dev, seed=seed).to(dtype)
+    loss, _ = softmax_with_cross_entropy(net(x.to(dtype)).to(
+        torch.promote_types(dtype, torch.float32)), y)
+    loss.mean().backward()
+    return torch.cat([p.grad.reshape(-1).double().cpu()
+                      for p in net.parameters()])
+
+
+def codec_of(comm):
+    import torch
+    from paddle_tpu_torch.parallel import quant_collectives as qc
+    if comm == 'int8':
+        return lambda f: qc.block_dequantize(
+            *qc.block_quantize(f))[:f.numel()]
+    if comm == 'bf16':
+        return lambda f: f.to(torch.bfloat16).float()
+    return lambda f: f
+
+
+def codec_bound(locals_, comm):
+    """Each element's bound on |the reduced bundle - the exact sum|: every
+    rank's rounding (int8: half a block's step, absmax / 254; bf16: 2^-8
+    of the element) plus the f32 sum's (2^-23 of it)."""
+    import torch
+    from paddle_tpu_torch.parallel import quant_collectives as qc
+    bound = torch.zeros_like(locals_[0])
+    for f in locals_:
+        if comm == 'int8':
+            _, scale = qc.block_quantize(f)
+            step = scale.repeat_interleave(qc.DEFAULT_BLOCK_SIZE)
+            bound += (step / 2)[:f.numel()]
+        else:
+            bound += f.abs() * 2.0 ** -8
+    return bound + sum(f.abs() for f in locals_) * 2.0 ** -23
+
+
+def two_ranks_gloo(seed, dev, card):
+    """Phase 22 (c)."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import MobileNetV2
+    from paddle_tpu_torch.parallel import quant_collectives as qc
+    from paddle_tpu_torch.tools import vision_recipes as vr
+    from paddle_tpu_torch.tools.train_mobilenet_dp import global_batch, shard
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'paddle_tpu_torch', 'tools', 'train_mobilenet_dp.py')
+    comms = ('f32', 'bf16', 'int8')
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        D.launch(script, ['--out', d, '--seed', seed, '--batch', DP_BATCH,
+                          '--classes', VISION_CLASSES, '--img', VISION_IMG,
+                          '--steps', DP_STEPS, '--comm', ','.join(comms),
+                          '--sync-bn', '--timed', DP_RANK_TIMED,
+                          '--device', DP_RANK_DEVICE, '--deterministic'],
+                 nproc_per_node=2)
+        launch_s = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(d, f'rank{r}.npz')))
+                 for r in range(2)]
+        numbers = [json.load(open(os.path.join(d, f'rank{r}.json')))
+                   for r in range(2)]
+    log(f'22 (c) launch(nproc_per_node=2): two gloo ranks on the one card, '
+        f'{DP_BATCH // 2} images a rank, {launch_s:.1f} s with start-up')
+
+    def run(r, prefix):
+        return {k[len(prefix) + 1:]: v for k, v in ranks[r].items()
+                if k.startswith(prefix + '/') and
+                k[len(prefix) + 1:].startswith(('param/', 'buffer/'))}
+    x, y = global_batch(seed, DP_BATCH, VISION_CLASSES, VISION_IMG, dev)
+    shards = [(shard(x, r, 2), shard(y, r, 2)) for r in range(2)]
+    bundle_bytes = MNV2_PARAMS * 4
+    with deterministic_cudnn():
+        for comm in comms:
+            params = [{k: v for k, v in run(r, comm).items()
+                       if k.startswith('param/')} for r in range(2)]
+            bitwise(params[0], params[1], f'22 (c) {comm}: the two ranks')
+            witness = dp_replicas(seed, dev, shards, codec_of(comm),
+                                  DP_STEPS)
+            worst = max(max_diff(run(r, comm), witness[r]) for r in range(2))
+            if not worst <= DP_WITNESS_ATOL:
+                raise AssertionError(f'22 (c) {comm}: ranks {worst} from the '
+                                     f'replicas (limit {DP_WITNESS_ATOL})')
+            wire = [n['wire_bytes'][comm] for n in numbers]
+            want = qc.wire_bytes(MNV2_PARAMS, comm, 2)
+            if wire != [want, want]:
+                raise AssertionError(f'22 (c) {comm}: wire bytes a step '
+                                     f'{wire}, want {want}')
+            line = (f'22 (c) {comm}: ranks bit for bit equal, max|rank - '
+                    f'replica| {worst:.3e} (limit {DP_WITNESS_ATOL}); wire '
+                    f'bytes a step {int(wire[0])} (the f32 bundle '
+                    f'{bundle_bytes} bytes, two phases)')
+            if comm != 'f32':
+                locals_ = [torch.from_numpy(ranks[r][f'{comm}/local']).to(dev)
+                           for r in range(2)]
+                reduced = [torch.from_numpy(ranks[r][f'{comm}/reduced']).to(
+                    dev) for r in range(2)]
+                codec = codec_of(comm)
+                want_sum = codec(locals_[0]) + codec(locals_[1])
+                if not (torch.equal(reduced[0], want_sum)
+                        and torch.equal(reduced[1], want_sum)):
+                    raise AssertionError(f'22 (c) {comm}: the first reduced '
+                                         f'bundle is not the sum of the '
+                                         f'codec\'s payloads in rank order')
+                err = (reduced[0] - (locals_[0] + locals_[1])).abs()
+                bound = codec_bound(locals_, comm)
+                if not bool((err <= bound).all()):
+                    raise AssertionError(f'22 (c) {comm}: the first bundle '
+                                         f'passes the codec\'s bound')
+                drift = max_diff(params[0], {k: v for k, v in
+                                             run(0, 'f32').items()
+                                             if k.startswith('param/')})
+                line += (f'; first bundle the codec\'s sum bit for bit, '
+                         f'max|err| {err.max().item():.3e} within its bound '
+                         f'(largest {bound.max().item():.3e}); parameters '
+                         f'{drift:.3e} from the f32 run\'s')
+            log(line)
+            del witness
+            torch.cuda.empty_cache()
+        # sync BN: two ranks of 64 against one process at 128
+        sync = [run(r, 'sync_bn') for r in range(2)]
+        bitwise(sync[0], sync[1], '22 (c) sync_bn: the two ranks')
+        synced = torch.from_numpy(ranks[0]['sync_bn/reduced']).double()
+        witness, plain = (first_gradient(seed, dev, x, y, dt)
+                          for dt in (torch.float64, torch.float32))
+        d_sync = ((synced - witness).norm() / witness.norm()).item()
+        d_plain = ((plain - witness).norm() / witness.norm()).item()
+        del witness, plain
+    if not d_sync <= SYNC_BN_FACTOR * d_plain:
+        raise AssertionError(f'22 (c) sync_bn: the first gradient {d_sync} '
+                             f'from the float64 witness, the plain f32 run '
+                             f'{d_plain} (limit {SYNC_BN_FACTOR}x)')
+    log(f'22 (c) sync_stats on every BatchNorm: ranks bit for bit equal; '
+        f'the first gradient over {DP_BATCH} images {d_sync:.3e} from one '
+        f'float64 process (L2, relative), the plain f32 process '
+        f'{d_plain:.3e} (limit {SYNC_BN_FACTOR}x it)')
+    for n in numbers:
+        st = n['step_ms']
+        log(f'22 (c) rank {n["rank"]} f32 step [{card}]: {WARMUP_STEPS} + '
+            f'{DP_RANK_TIMED} steps, p50 {st["p50"]:.3f} ms (min '
+            f'{st["min"]:.3f}, max {st["max"]:.3f}); host staging of the '
+            f'bundle over gloo included')
+    torch.cuda.empty_cache()
+
+
+def to_static_and_data_parallel(seed, dev, card):
+    """Phase 22: (a) to_static and TracedLayer, (b) NCCL at a world of
+    one, (c) two gloo ranks on the card; (d) the port's kernel launches
+    over (a) and over (b)-(c) (0 expected: the ranks' own processes run
+    the same code)."""
+    from paddle_tpu_torch.ops import nn_ops
+    t_start = time.perf_counter()
+    nn_ops.reset_launch_counts()
+    to_static_mobilenet(seed, dev, card)
+    static = nn_ops.launch_counts()
+    nn_ops.reset_launch_counts()
+    nccl_world_one(seed, dev, card)
+    two_ranks_gloo(seed, dev, card)
+    dp = nn_ops.launch_counts()
+    if any(static.values()) or any(dp.values()):
+        raise AssertionError(f'phase 22 launched kernels of the port: '
+                             f'{static} {dp}')
+    log(f'22 (d) kernel launches: to_static {static}; data parallel {dp}')
+    log(f'phase 22 in {time.perf_counter() - t_start:.1f} s [{card}]')
+    return static, dp
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -7160,8 +7691,21 @@ def main(argv=None):
                           (k4, 'conv1x1_bn_act')):
         kern['launches_vision'] = vision[wrapper]
 
-    # 22. result lines
-    log(f'chip_smoke: phases 1-21 in {time.perf_counter() - t_start:.1f} s '
+    # 22. dygraph-to-static and dygraph data parallelism: MobileNetV2
+    # through to_static and TracedLayer, DataParallel on NCCL at a world
+    # of one and on two gloo ranks sharing the card; no kernel of the
+    # port is on this path, and none may launch
+    torch.cuda.empty_cache()
+    static, dp = to_static_and_data_parallel(args.seed, dev, smi)
+    for kern, wrapper in ((k1, 'paged_attention'),
+                          (k2, 'paged_prefill_attention'),
+                          *((kern, kern['name']) for kern in flash),
+                          (k4, 'conv1x1_bn_act')):
+        kern['launches_to_static'] = static[wrapper]
+        kern['launches_dp'] = dp[wrapper]
+
+    # 23. result lines
+    log(f'chip_smoke: phases 1-22 in {time.perf_counter() - t_start:.1f} s '
         f'[{smi}]')
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'timing',
@@ -7172,7 +7716,8 @@ def main(argv=None):
                         'launches_fused', 'launches_served_variants',
                         'launches_shared_prefix', 'launches_fluid_surface',
                         'launches_stateless_serving', 'launches_lamb',
-                        'launches_lamb_remat', 'launches_vision', 'body',
+                        'launches_lamb_remat', 'launches_vision',
+                        'launches_to_static', 'launches_dp', 'body',
                         'launches_wgmma', 'launches_ernie', 'stock', 'build',
                         'served_shape', 'wrapper_ms', 'verify')
             if x in kern)}

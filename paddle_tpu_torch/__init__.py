@@ -116,6 +116,9 @@ from .transpiler import memory_optimize, release_memory
 from . import utils
 from . import inference
 from . import parallel
+from . import parallel_executor
+from .parallel_executor import ParallelExecutor
+from . import distributed
 from . import observability
 from . import serving
 from . import _not_ported
@@ -130,11 +133,8 @@ __version__ = '1.7.0'     # the Fluid API level the port follows
 # the JAX package's public top-level names the port does not run yet:
 # name -> (ROADMAP item, 'module' | 'class' | 'function')
 NOT_PORTED = {
-    'ParallelExecutor': ('A.9', 'class'),
-    'parallel_executor': ('A.9', 'module'),
     'DistributeTranspiler': ('A.9', 'class'),
     'DistributeTranspilerConfig': ('A.9', 'class'),
-    'distributed': ('A.9', 'module'),
     'partition': ('A.9', 'module'),
     'communicator': ('A.9', 'module'),
     'Communicator': ('A.9', 'class'),

@@ -84,11 +84,13 @@ class CompiledProgram:
                            exec_strategy=None, share_vars_from=None,
                            places=None):
         """Data parallelism over ``places``: on one card, the program as
-        it is. More than one place raises (ROADMAP A.9)."""
+        it is. More than one place raises (ROADMAP A.9: the static
+        multi-card path; the dygraph one is dygraph/parallel.py's
+        ``DataParallel``)."""
         if places is not None and len(list(places)) > 1:
             raise NotImplementedError(
                 f'with_data_parallel over {len(list(places))} places: '
-                f'data parallelism across cards is not ported yet (ROADMAP '
+                f'the static multi-card path is not ported yet (ROADMAP '
                 f'A.9)')
         if build_strategy is not None:
             self._build_strategy = build_strategy

@@ -1,18 +1,16 @@
 """Imperative (dygraph) mode of the port (counterpart of
 paddle_tpu/dygraph/): ``guard``, ``to_variable``, the VarBase API on torch
 tensors (tape.py), ``Layer`` and its containers, the layers (nn.py),
-learning-rate schedules, ``save_dygraph``/``load_dygraph`` and the fused
-training step (jit.py), under the JAX package's names. Every layer of the
-JAX package's dygraph/nn.py runs, Conv3D, Conv2DTranspose,
-Conv3DTranspose, GroupNorm, SpectralNorm, PRelu, BilinearTensorProduct,
-GRUUnit, NCE and TreeConv included.
+learning-rate schedules, ``save_dygraph``/``load_dygraph``, the training
+step and dygraph-to-static (jit.py: ``to_static``/``declarative``,
+``TracedLayer``, ``ProgramTranslator``, ``StaticFunction``, ``InputSpec``;
+``dygraph_to_static_graph`` and ``dygraph_to_static_output`` are aliases of
+``to_static``, as in the JAX package) and data parallelism (parallel.py:
+``DataParallel``, ``ParallelEnv``, ``prepare_context``), under the JAX
+package's names. Every layer of the JAX package's dygraph/nn.py runs.
 
-The names the JAX package exports that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item when used:
-``DataParallel``, ``ParallelEnv`` and ``prepare_context`` (A.9);
-``TracedLayer``, ``declarative``, ``to_static`` and its aliases,
-``ProgramTranslator``, ``StaticFunction`` and ``InputSpec``
-(dygraph-to-static, A.4d); the gperf profiler hooks (A.11).
+The gperf profiler hooks are not ported yet and raise
+``NotImplementedError`` naming ROADMAP A.11 when used.
 """
 from . import jit
 from .base import (Tracer, disable_dygraph, eager_kernel_cache_guard,
@@ -20,13 +18,15 @@ from .base import (Tracer, disable_dygraph, eager_kernel_cache_guard,
                    to_variable)
 from .checkpoint import load_dygraph, save_dygraph
 from .container import LayerList, ParameterList, Sequential
-from .jit import TrainStep
+from .jit import (InputSpec, ProgramTranslator, StaticFunction, TracedLayer,
+                  TrainStep, declarative, to_static)
 from .layers import Layer
 from .learning_rate_scheduler import (CosineDecay, ExponentialDecay,
                                       InverseTimeDecay, LearningRateDecay,
                                       LinearLrWarmup, NaturalExpDecay,
                                       NoamDecay, PiecewiseDecay,
                                       PolynomialDecay)
+from .parallel import DataParallel, ParallelEnv, prepare_context
 from .nn import (NCE, BatchNorm, BilinearTensorProduct, Conv2D,
                  Conv2DTranspose, Conv3D, Conv3DTranspose, Dropout,
                  Embedding, GroupNorm, GRUUnit, LayerNorm, Linear, Pool2D,
@@ -51,31 +51,19 @@ def monkey_patch_varbase():
 monkey_patch_math_varbase = monkey_patch_varbase
 
 
-def _unported(name, item, kind='function'):
+def _unported(name, item):
     msg = f'dygraph.{name} is not ported yet (ROADMAP {item})'
 
     def raise_(*args, **kwargs):
         raise NotImplementedError(msg)
 
-    if kind == 'class':
-        return type(name, (), {'__init__': raise_, '__doc__': msg,
-                               '__module__': __name__})
     raise_.__name__ = name
     raise_.__doc__ = msg
     return raise_
 
 
-DataParallel = _unported('DataParallel', 'A.9', 'class')
-ParallelEnv = _unported('ParallelEnv', 'A.9', 'class')
-prepare_context = _unported('prepare_context', 'A.9')
-TracedLayer = _unported('TracedLayer', 'A.4d', 'class')
-ProgramTranslator = _unported('ProgramTranslator', 'A.4d', 'class')
-StaticFunction = _unported('StaticFunction', 'A.4d', 'class')
-InputSpec = _unported('InputSpec', 'A.4d', 'class')
-declarative = _unported('declarative', 'A.4d')
-to_static = _unported('to_static', 'A.4d')
-dygraph_to_static_graph = _unported('dygraph_to_static_graph', 'A.4d')
-dygraph_to_static_output = _unported('dygraph_to_static_output', 'A.4d')
+dygraph_to_static_graph = to_static
+dygraph_to_static_output = to_static
 start_gperf_profiler = _unported('start_gperf_profiler', 'A.11')
 stop_gperf_profiler = _unported('stop_gperf_profiler', 'A.11')
 

@@ -1,22 +1,396 @@
-"""The training step (counterpart of paddle_tpu/dygraph/jit.py's
-``TrainStep``).
+"""Dygraph-to-static and the training step (counterpart of
+paddle_tpu/dygraph/jit.py).
 
-The JAX step traces forward, backward and the optimizer update into one
-jitted XLA program with donated state. PyTorch runs eagerly, so here a call
+``to_static`` / ``declarative`` (:class:`StaticFunction`). The JAX package
+traces the eager function once per input signature into one jitted XLA
+program. PyTorch has no such compiler on this path, so here an entry of the
+cache keeps what the JAX entry keys and counts, and a call runs the
+function eagerly, through torch's autograd:
+
+- the cache key is the JAX one: ``(signature, grad mode, which arguments
+  require grad)``; the signature holds the shape and type of each array
+  argument, ``repr`` of each other one, and the keyword arguments sorted;
+- ``_compile_count`` rises once a new key, and the bound copies that
+  ``__get__`` makes for a method share it; each instance has its own
+  cache in a ``WeakKeyDictionary``, which dies with the instance;
+- an entry holds the parameters and buffers of the layers found for it
+  (:func:`_find_layers`: the bound instance, layer arguments, closure
+  cells and module globals one container deep).
+
+A call then runs on the device its tensors are on. In grad mode the
+gradients reach the parameters and every tensor argument that requires
+one, keyword arguments included; outside it the outputs come back with
+``stop_gradient=True``. Random ops draw fresh values on every call (the
+JAX entry takes a new key a call), and buffers such as BatchNorm's running
+statistics move as in eager mode. ``ProgramTranslator().enable(False)``
+runs the plain function and counts nothing. An :class:`InputSpec` casts its
+argument to its type; ``int64`` data outside the int32 range raises
+``OverflowError``, as the JAX package's ``check_int32_bounds`` would,
+though the port keeps int64 (the JAX entry never reaches that check and
+wraps: ROADMAP C.19).
+
+Where eager execution departs from the trace (ROADMAP C.17): a module
+global rebound to a new Layer after the first call is read anew by each
+call here, where the JAX entry keeps the parameters of the layer it found.
+
+:class:`TracedLayer` snapshots the layer's parameters and buffers when it
+traces (copies, as the JAX package's arrays are values) and the train or
+eval mode of each module (the JAX function is traced once, in that mode),
+so a later update of the layer does not change what the traced layer
+returns; ``save_inference_model`` writes them as ``jit_params.npz`` and
+``jit_buffers.npz`` under the JAX package's names (io.py).
+
+:class:`TrainStep` traces forward, backward and the optimizer update into
+one jitted XLA program with donated state in the JAX package. Here a call
 runs the three in turn on the model's own parameters: ``loss.backward()``
 lands the gradients on them and the optimizer updates them in place.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import weakref
 
 import numpy as np
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.dtypes import to_torch_dtype
 from ..core.random import default_generator
+from .tape import Tensor, _wrap
 
-__all__ = ['TrainStep']
+__all__ = ['TrainStep', 'functionalize', 'TracedLayer', 'InputSpec',
+           'ProgramTranslator', 'StaticFunction', 'declarative',
+           'to_static']
+
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _module_slots(layer, kind):
+    """{structured name: (the module's ``kind`` dict, key)} of every
+    parameter (``kind`` '_parameters') or buffer ('_buffers') of
+    ``layer``, each name of a shared one included, as the JAX package's
+    ``named_parameters`` lists them."""
+    out = {}
+    for mname, mod in layer.named_modules(remove_duplicate=False):
+        store = getattr(mod, kind)
+        for name, t in store.items():
+            if t is not None:
+                out[f'{mname}.{name}' if mname else name] = (store, name)
+    return out
+
+
+@contextlib.contextmanager
+def _bind(slots, values):
+    """Bind ``values`` by structured name in place of the tensors at
+    ``slots`` for the ``with`` body; the tensors come back after it."""
+    saved = [(store, name, store[name]) for store, name in slots.values()]
+    try:
+        for n, (store, name) in slots.items():
+            if n in values:
+                store[name] = values[n]
+        yield
+    finally:
+        for store, name, t in saved:
+            store[name] = t
+
+
+def _devalue(out):
+    """``out`` with every tensor detached (a list or tuple keeps its
+    kind)."""
+    if isinstance(out, torch.Tensor):
+        return torch.Tensor.detach(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_devalue(o) for o in out)
+    return out
+
+
+def _snapshot(slots):
+    return {n: torch.Tensor.detach(store[name]).clone()
+            for n, (store, name) in slots.items()}
+
+
+def functionalize(layer):
+    """``layer`` -> ``(apply_fn, params, buffers)``:
+    ``apply_fn(params, buffers, *args)`` returns ``(outputs,
+    new_buffers)`` and changes nothing it was given (the buffers are
+    bound as copies, which the layer's in-place updates move); ``params``
+    and ``buffers`` are copies of the layer's values by structured name,
+    taken now."""
+    pslots = _module_slots(layer, '_parameters')
+    bslots = _module_slots(layer, '_buffers')
+
+    def apply_fn(param_vals, buffer_vals, *args):
+        bufs = {n: v.clone() for n, v in buffer_vals.items()}
+        with _bind(pslots, param_vals), _bind(bslots, bufs), \
+                torch.no_grad():
+            out = layer(*args)
+            new_buffers = {n: store[name]
+                           for n, (store, name) in bslots.items()}
+        return _devalue(out), new_buffers
+
+    return apply_fn, _snapshot(pslots), _snapshot(bslots)
+
+
+def _layer_device(layer):
+    for t in layer.parameters():
+        return t.device
+    for t in layer.buffers():
+        return t.device
+    from .base import _current_device
+    return _current_device()
+
+
+class TracedLayer:
+    """A layer's forward over the parameter and buffer values it had when
+    :meth:`trace` ran (``jit.py:73-92`` of the JAX package, where they are
+    the arguments of one jitted function), in the train or eval mode each
+    of its modules had then (the JAX function is traced once, in that
+    mode). ``TracedLayer.trace(layer, inputs)`` returns ``(outputs,
+    traced)``; ``traced(*inputs)`` runs without gradients and returns
+    tensors with ``stop_gradient=True``."""
+
+    def __init__(self, layer, apply_fn, params, buffers):
+        self._layer = layer
+        self._apply = apply_fn
+        self._params = params
+        self._buffers = buffers
+        self._modes = [(m, m.training) for m in layer.modules()]
+
+    @staticmethod
+    def trace(layer, inputs):
+        apply_fn, params, buffers = functionalize(layer)
+        traced = TracedLayer(layer, apply_fn, params, buffers)
+        out = traced(*inputs)
+        return out, traced
+
+    def __call__(self, *args):
+        dev = _layer_device(self._layer)
+        vals = [a if isinstance(a, torch.Tensor)
+                else torch.as_tensor(np.asarray(a), device=dev)
+                for a in args]
+        now = [(m, m.training) for m, _ in self._modes]
+        try:
+            for m, mode in self._modes:
+                m.training = mode
+            out, _ = self._apply(self._params, self._buffers, *vals)
+        finally:
+            for m, mode in now:
+                m.training = mode
+        return _wrap(out)
+
+    def save_inference_model(self, dirname, feed=None, fetch=None):
+        """``jit_params.npz`` and ``jit_buffers.npz`` of the traced values
+        under ``dirname`` (io.py's ``_save_jit_model``)."""
+        from ..io import _save_jit_model
+        _save_jit_model(dirname, self._layer, self._params, self._buffers)
+
+
+class InputSpec:
+    """Declared input signature for ``to_static``: ``shape`` entries of
+    None mean any size (each distinct size is one entry); ``dtype`` casts
+    the argument."""
+
+    def __init__(self, shape, dtype='float32', name=None):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.name = name
+
+
+class ProgramTranslator:
+    """The process-wide switch: ``enable(False)`` makes every
+    :class:`StaticFunction` run its plain function. ``get_output(fn,
+    *args, **kwargs)`` calls ``fn`` through a :class:`StaticFunction`
+    kept for it."""
+
+    _instance = None
+    enabled = True
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def enable(self, flag: bool):
+        ProgramTranslator.enabled = bool(flag)
+
+    _fn_cache = {}
+
+    def get_output(self, fn, *args, **kwargs):
+        if isinstance(fn, StaticFunction):
+            sf = fn
+        else:
+            sf = ProgramTranslator._fn_cache.get(fn)
+            if sf is None:
+                sf = ProgramTranslator._fn_cache.setdefault(
+                    fn, StaticFunction(fn))
+        return sf(*args, **kwargs)
+
+
+def _find_layers(fn, instance, args, kwargs):
+    """The layers a call of ``fn`` may read: the bound instance, layer
+    arguments, layers in the function's closure cells and in its module
+    globals, each also one list, tuple or dict deep."""
+    layers = []
+    seen = set()
+
+    def add(obj, depth=0):
+        if isinstance(obj, nn.Module):
+            if id(obj) not in seen:
+                seen.add(id(obj))
+                layers.append(obj)
+        elif depth < 1:
+            if isinstance(obj, (list, tuple)):
+                for v in obj:
+                    add(v, depth + 1)
+            elif isinstance(obj, dict):
+                for v in obj.values():
+                    add(v, depth + 1)
+
+    add(instance)
+    for a in args:
+        add(a)
+    for a in kwargs.values():
+        add(a)
+    raw = getattr(fn, '__wrapped__', fn)
+    for cell in (getattr(raw, '__closure__', None) or ()):
+        try:
+            add(cell.cell_contents)
+        except ValueError:
+            pass
+    for v in getattr(raw, '__globals__', {}).values():
+        add(v)
+    return layers
+
+
+def _is_array_like(x):
+    return isinstance(x, (torch.Tensor, np.ndarray)) or (
+        hasattr(x, 'shape') and hasattr(x, 'dtype'))
+
+
+def _check_int32_bounds(value, name):
+    """The JAX package's check of int64 data that int32 cannot hold; the
+    port keeps int64, and raises all the same so that both packages take
+    the same inputs."""
+    if value.dtype == torch.int64 and value.numel():
+        if int(value.max()) > _INT32_MAX or int(value.min()) < _INT32_MIN:
+            raise OverflowError(
+                f'int64 feed {name!r} holds values outside int32 range '
+                f'[{_INT32_MIN}, {_INT32_MAX}]; the JAX package computes '
+                f'int64 as int32 and the port takes the same inputs')
+
+
+class _Entry:
+    """What one cache key holds: the parameters and buffers of the layers
+    found for it, by ``'<layer index>.<name>'`` (not the layers: an entry
+    that held its instance would keep the instance's cache alive)."""
+
+    __slots__ = ('params', 'buffers')
+
+    def __init__(self, layers):
+        self.params, self.buffers = {}, {}
+        for li, layer in enumerate(layers):
+            for n, p in layer.named_parameters():
+                self.params[f'{li}.{n}'] = p
+            for n, b in layer.named_buffers():
+                self.buffers[f'{li}.{n}'] = b
+
+
+class StaticFunction:
+    """``@to_static`` on a function or a method (see the module
+    docstring): a cache of entries by input signature, grad mode and the
+    arguments that require grad, and an eager call."""
+
+    def __init__(self, fn, input_spec=None):
+        functools.update_wrapper(self, fn)
+        self._fn = fn
+        self._input_spec = input_spec
+        self._instance = None
+        self._cache = {}
+        self._instance_caches = weakref.WeakKeyDictionary()
+        # shared with the bound copies __get__ makes
+        self._stats = {'compiles': 0}
+        self._is_declarative = True
+
+    @property
+    def _compile_count(self):
+        return self._stats['compiles']
+
+    def __get__(self, instance, owner):
+        if instance is None:
+            return self
+        bound = StaticFunction.__new__(StaticFunction)
+        bound.__dict__ = dict(self.__dict__)
+        bound._instance = instance
+        return bound
+
+    def _split_args(self, args, kwargs):
+        """-> (positional, keyword, signature): array arguments become
+        tensors (numpy ones on the dygraph device, taking no gradient),
+        cast to their :class:`InputSpec`'s type; the rest pass as they
+        are and enter the signature by ``repr``."""
+        spec = self._input_spec
+        sig = []
+
+        def classify(x, spec_i=None):
+            if not _is_array_like(x):
+                sig.append(('static', repr(x)))
+                return x
+            if not isinstance(x, torch.Tensor):
+                x = Tensor(np.asarray(x), stop_gradient=True)
+            if spec_i is not None and spec_i.dtype is not None:
+                if str(spec_i.dtype) == 'int64':
+                    _check_int32_bounds(x, 'InputSpec')
+                x = _wrap(torch.Tensor.to(x, to_torch_dtype(spec_i.dtype)))
+            sig.append(('arr', tuple(x.shape), str(x.dtype)))
+            return x
+
+        pos = [classify(a, spec[i] if spec is not None and i < len(spec)
+                        else None) for i, a in enumerate(args)]
+        kw = {}
+        for k in sorted(kwargs):
+            sig.append(('kw', k))
+            kw[k] = classify(kwargs[k])
+        return pos, kw, tuple(sig)
+
+    def _entry_cache(self):
+        if self._instance is None:
+            return self._cache
+        cache = self._instance_caches.get(self._instance)
+        if cache is None:
+            cache = self._instance_caches.setdefault(self._instance, {})
+        return cache
+
+    def __call__(self, *args, **kwargs):
+        if self._instance is not None:
+            call = functools.partial(self._fn, self._instance)
+        else:
+            call = self._fn
+        if not ProgramTranslator.enabled:
+            return call(*args, **kwargs)
+        pos, kw, sig = self._split_args(args, kwargs)
+        ordered = list(args) + [kwargs[k] for k in sorted(kwargs)]
+        arg_req = tuple(isinstance(a, torch.Tensor) and a.requires_grad
+                        for a in ordered)
+        key = (sig, torch.is_grad_enabled(), arg_req)
+        cache = self._entry_cache()
+        if key not in cache:
+            cache[key] = _Entry(_find_layers(self._fn, self._instance,
+                                             args, kwargs))
+            self._stats['compiles'] += 1
+        return _wrap(call(*pos, **kw))
+
+
+def declarative(fn=None, input_spec=None):
+    """``@declarative`` / ``@to_static``, with or without ``input_spec``:
+    a :class:`StaticFunction` of ``fn``."""
+    if fn is None:
+        return lambda f: StaticFunction(f, input_spec=input_spec)
+    return StaticFunction(fn, input_spec=input_spec)
+
+
+to_static = declarative
 
 
 @contextlib.contextmanager

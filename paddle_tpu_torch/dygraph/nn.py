@@ -160,7 +160,10 @@ class BatchNorm(Layer):
     parameter binding in the AMP training step; in eval it normalises with
     the running ones, then applies ``act`` (any registered activation), as
     Paddle 1.7's BatchNorm does; the JAX package's never reads ``act``
-    (ROADMAP C.4 item 11). ``sync_stats=True`` raises (ROADMAP A.9)."""
+    (ROADMAP C.4 item 11). ``sync_stats=True`` averages the batch
+    statistics over the ranks of the process group (ops/nn_ops.py's
+    ``batch_norm``; the plain path in a group of one); it lives in
+    ``_attrs``, where a built model's flag may be flipped."""
 
     def __init__(self, num_channels, act=None, is_test=False, momentum=0.9,
                  epsilon=1e-5, param_attr=None, bias_attr=None,
@@ -170,9 +173,6 @@ class BatchNorm(Layer):
                  use_global_stats=False, trainable_statistics=False,
                  sync_stats=False, *, device=None):
         super().__init__(dtype=dtype, device=device)
-        if sync_stats:
-            raise NotImplementedError('BatchNorm(sync_stats=True) is not '
-                                      'ported yet (ROADMAP A.9)')
         self.weight = self.create_parameter(
             [num_channels], param_attr, dtype,
             default_initializer=ConstantInitializer(1.0))
@@ -184,7 +184,8 @@ class BatchNorm(Layer):
                              self.create_buffer([num_channels], dtype, 1.0))
         self._attrs = dict(momentum=momentum, epsilon=epsilon,
                            data_layout=data_layout,
-                           use_global_stats=use_global_stats)
+                           use_global_stats=use_global_stats,
+                           sync_stats=sync_stats)
         self._act = act
 
     @property

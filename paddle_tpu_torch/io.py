@@ -406,6 +406,27 @@ def set_program_state(program, state_dict, *, device=None):
     return used
 
 
+def _save_jit_model(dirname, layer, params, buffers):
+    """A traced layer's values (dygraph/jit.py's ``TracedLayer``) as
+    ``jit_params.npz`` and ``jit_buffers.npz`` under ``dirname``, by the
+    structured names the JAX package's ``named_parameters`` and
+    ``named_buffers`` give them, each in Paddle's layout (an NHWC
+    Conv2D's weight as HWIO, as ``state_dict`` gives it)."""
+    from .dygraph.layers import Layer
+    perms = {}
+    for mname, mod in layer.named_modules(remove_duplicate=False):
+        if isinstance(mod, Layer):
+            for pname, perm in mod._paddle_layouts().items():
+                if perm is not None:
+                    perms[f'{mname}.{pname}' if mname else pname] = perm
+    os.makedirs(dirname, exist_ok=True)
+    _atomic_savez(os.path.join(dirname, 'jit_params.npz'),
+                  {k: _numpy(v.permute(perms[k]) if k in perms else v)
+                   for k, v in params.items()})
+    _atomic_savez(os.path.join(dirname, 'jit_buffers.npz'),
+                  {k: _numpy(v) for k, v in buffers.items()})
+
+
 def DataLoader(*args, **kwargs):
     """fluid.io.DataLoader: not ported yet (ROADMAP A.11)."""
     raise NotImplementedError('fluid.io.DataLoader is not ported yet '

@@ -46,6 +46,21 @@ def fused_elemwise_add_activation(x, y, *, functor='relu', axis=-1):
     return _INPLACE_ACTS[functor](torch.add(x, _align_y(x, y, axis)))
 
 
+def _bundle(xs):
+    """A list of tensors -> (their values flattened into one 1-D tensor,
+    their shapes, their sizes), for one collective over a group of
+    gradients (dygraph/parallel.py, the ``c_allreduce_sum_bucket`` op)."""
+    shapes = [tuple(x.shape) for x in xs]
+    sizes = [x.numel() for x in xs]
+    return torch.cat([x.reshape(-1) for x in xs]), shapes, sizes
+
+
+def _split(flat, shapes, sizes):
+    """The inverse of :func:`_bundle`: views of ``flat`` in the shapes."""
+    return [seg.view(shape) for seg, shape in
+            zip(torch.split(flat, sizes), shapes)]
+
+
 def _scalar(lr):
     """The (1,) learning rate as the 0-d tensor the ``_foreach`` ops
     take."""

@@ -848,6 +848,26 @@ def pool2d(x, *, pool_size=-1, pool_type='max', pool_stride=1,
     return _from_nchw(y, data_format)
 
 
+def _synced():
+    from ..parallel.collective import group_size
+    return group_size() > 1
+
+
+class _RankMean(torch.autograd.Function):
+    """The mean over the ranks of the process group, whose gradient is
+    the mean over the ranks of the incoming gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from ..parallel.collective import allreduce_mean
+        return allreduce_mean(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collective import allreduce_mean
+        return allreduce_mean(g.contiguous())
+
+
 @register_op('batch_norm',
              outputs=['Y', 'MeanOut', 'VarianceOut'])
 def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
@@ -867,11 +887,16 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
     ``y = (x - mean) * rsqrt(var + eps) * scale + bias`` is computed in
     ``x``'s type, as the reference does: under AMP a bf16 ``x`` with bf16
     ``scale``/``bias`` gives bf16 ``y`` from f32 statistics, where torch's
-    promotion of bf16 with an f32 buffer would give f32. ``sync_stats`` is
-    not ported (it belongs with distributed training) and raises."""
-    if sync_stats:
-        raise NotImplementedError('batch_norm(sync_stats=True) is not ported '
-                                  'yet (ROADMAP A.9)')
+    promotion of bf16 with an f32 buffer would give f32.
+
+    ``sync_stats`` (the reference's sync_batch_norm): in a process group of
+    more than one rank, each rank's mean and mean of squares (f32) are
+    averaged over the ranks, and ``var = E[x^2] - mean^2``, the JAX form,
+    which assumes equal shards. The average is an autograd-aware
+    all-reduce (:class:`_RankMean`), so the backward of the statistics is
+    averaged over the ranks too, as Paddle's sync_batch_norm reduces it.
+    In a group of one, or with no group, it is the plain path, bit for
+    bit."""
     if data_layout == 'NCHW' and x.dim() > 2:
         axes = (0,) + tuple(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -883,7 +908,13 @@ def batch_norm(x, scale, bias, mean, variance, *, momentum=0.9,
         m, v = mean, variance
         new_mean, new_var = mean, variance
     else:
-        v, m = torch.var_mean(x.to(stat), dim=axes, correction=0)
+        xs = x.to(stat)
+        if sync_stats and _synced():
+            m, ex2 = _RankMean.apply(torch.stack(
+                [xs.mean(dim=axes), (xs * xs).mean(dim=axes)])).unbind(0)
+            v = ex2 - m * m
+        else:
+            v, m = torch.var_mean(xs, dim=axes, correction=0)
         with torch.no_grad():
             new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
             new_var = (momentum * variance

@@ -84,10 +84,11 @@ def register_op(name: str, outputs: Sequence[str] = ('Out',),
 
 def _load_ops():
     """Import every module that registers ops (they import nothing that
-    builds a kernel)."""
+    builds a kernel), the collectives' ``c_*`` ops included."""
     from . import (extra_ops, fused_ops, loss_ops,  # noqa: F401
                    math_ops, nn_ops, optimizer_ops, pallas_conv, random_ops,
                    rnn_ops, sequence_ops, tensor_ops)
+    from ..parallel import collective  # noqa: F401
 
 
 def find_op(name: str) -> Optional[OpDef]:

@@ -7,6 +7,13 @@ the dygraph API writes them:
   ``L2Decay(4e-5)``, through
   ``TrainStep`` (``amp_dtype`` for bf16 AMP); MobileNetV1 and VGG train
   through the same :func:`classifier_step` with their own rate and decay;
+- :func:`data_parallel_step`: the eager loop of PaddleCV's dygraph
+  ``train.py`` under ``--use_data_parallel 1`` (forward, ``scale_loss``,
+  ``backward``, ``apply_collective_grads``, ``minimize``,
+  ``clear_gradients``) over a ``DataParallel`` model, with
+  :func:`mobilenet_v2_optimizer`, the recipe's Momentum on cosine decay
+  and ``L2Decay(4e-5)``; given the bare model it is the same loop without
+  the two hooks, the single-card run;
 - :func:`tsm_step`: TSM's, ``Momentum(0.9)`` at 0.01, ``L2Decay(1e-4)``;
 - :func:`dcgan_iteration` (:func:`dcgan_d_step`, then
   :func:`dcgan_g_step`): the DCGAN loop of the reference's
@@ -31,7 +38,10 @@ device::
 """
 from __future__ import annotations
 
-from ..dygraph.jit import TrainStep
+import contextlib
+
+from ..dygraph.jit import TrainStep, _cast_parameters
+from ..dygraph.parallel import DataParallel
 from ..dygraph.learning_rate_scheduler import CosineDecay
 from ..ops.loss_ops import (sigmoid_cross_entropy_with_logits,
                             softmax_with_cross_entropy)
@@ -39,9 +49,11 @@ from ..optimizer import Adam, Momentum
 from ..regularizer import L2Decay
 
 __all__ = ['IMAGENET_TRAIN_IMAGES', 'MOBILENET_V2_EPOCHS',
-           'classification_loss', 'classifier_step',
-           'mobilenet_v2_step', 'tsm_step', 'dcgan_optimizers',
-           'dcgan_d_step', 'dcgan_g_step', 'dcgan_iteration']
+           'classification_loss', 'classifier_optimizer',
+           'classifier_step', 'mobilenet_v2_optimizer',
+           'mobilenet_v2_step', 'data_parallel_step', 'tsm_step',
+           'dcgan_optimizers', 'dcgan_d_step', 'dcgan_g_step',
+           'dcgan_iteration']
 
 IMAGENET_TRAIN_IMAGES = 1281167
 MOBILENET_V2_EPOCHS = 240
@@ -54,23 +66,61 @@ def classification_loss(model, x, y):
     return loss.mean()
 
 
-def classifier_step(model, lr, l2_decay, *, cosine=None, amp_dtype=None):
-    """A ``TrainStep`` of :func:`classification_loss` with ``Momentum(0.9)``
-    and ``L2Decay(l2_decay)``; the rate ``lr``, or ``CosineDecay(lr,
+def classifier_optimizer(model, lr, l2_decay, *, cosine=None):
+    """``Momentum(0.9)`` over ``model``'s parameters with
+    ``L2Decay(l2_decay)``; the rate ``lr``, or ``CosineDecay(lr,
     *cosine)`` for ``cosine`` = (steps an epoch, epochs)."""
     rate = lr if cosine is None else CosineDecay(lr, *cosine)
-    opt = Momentum(rate, momentum=0.9, parameter_list=model.parameters(),
-                   regularization=L2Decay(l2_decay))
-    return TrainStep(model, classification_loss, opt, amp_dtype=amp_dtype)
+    return Momentum(rate, momentum=0.9, parameter_list=model.parameters(),
+                    regularization=L2Decay(l2_decay))
+
+
+def classifier_step(model, lr, l2_decay, *, cosine=None, amp_dtype=None):
+    """A ``TrainStep`` of :func:`classification_loss` with
+    :func:`classifier_optimizer`."""
+    return TrainStep(model, classification_loss,
+                     classifier_optimizer(model, lr, l2_decay,
+                                          cosine=cosine),
+                     amp_dtype=amp_dtype)
+
+
+def mobilenet_v2_optimizer(model, batch_size):
+    """PaddleCV's MobileNetV2 optimizer: cosine decay from 0.1 over
+    ``MOBILENET_V2_EPOCHS`` of ImageNet's training set at ``batch_size``,
+    ``L2Decay(4e-5)``."""
+    return classifier_optimizer(
+        model, 0.1, 4e-5, cosine=(IMAGENET_TRAIN_IMAGES // batch_size,
+                                  MOBILENET_V2_EPOCHS))
 
 
 def mobilenet_v2_step(model, batch_size, *, amp_dtype=None):
-    """PaddleCV's MobileNetV2 recipe: cosine decay from 0.1 over
-    ``MOBILENET_V2_EPOCHS`` of ImageNet's training set at ``batch_size``,
-    ``L2Decay(4e-5)``."""
-    return classifier_step(
-        model, 0.1, 4e-5, cosine=(IMAGENET_TRAIN_IMAGES // batch_size,
-                                  MOBILENET_V2_EPOCHS), amp_dtype=amp_dtype)
+    """A ``TrainStep`` of PaddleCV's MobileNetV2 recipe
+    (:func:`mobilenet_v2_optimizer`)."""
+    return TrainStep(model, classification_loss,
+                     mobilenet_v2_optimizer(model, batch_size),
+                     amp_dtype=amp_dtype)
+
+
+def data_parallel_step(model, optimizer, x, y, *, amp_dtype=None):
+    """One step of PaddleCV's dygraph ``train.py`` loop under
+    ``--use_data_parallel 1``: the loss of this rank's batch, then for a
+    ``DataParallel`` model ``scale_loss``, ``backward`` and
+    ``apply_collective_grads`` (for a bare model ``backward`` alone), then
+    ``optimizer.minimize`` and ``clear_gradients``. ``amp_dtype`` runs the
+    forward and backward with the parameters cast, as ``TrainStep``
+    does. Returns this rank's loss, detached."""
+    with (contextlib.nullcontext() if amp_dtype is None
+          else _cast_parameters(model, amp_dtype)):
+        loss = classification_loss(model, x, y)
+        if isinstance(model, DataParallel):
+            model.scale_loss(loss).backward()
+        else:
+            loss.backward()
+    if isinstance(model, DataParallel):
+        model.apply_collective_grads()
+    optimizer.minimize(loss)
+    model.clear_gradients()
+    return loss.detach()
 
 
 def tsm_step(model, *, amp_dtype=None):

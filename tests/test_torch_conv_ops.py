@@ -218,9 +218,15 @@ def test_batch_norm_keeps_float64_statistics_in_float64():
 
 
 def test_batch_norm_sync_stats_is_not_ported():
-    x = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match='sync_stats'):
-        nn_ops.batch_norm(x, x[0], x[0], x[0], x[0], sync_stats=True)
+    """``sync_stats`` is ported (A.9a); with no process group it is the
+    plain path, bit for bit (tests/test_torch_data_parallel.py holds two
+    ranks to the JAX op on the whole batch)."""
+    x = torch.randn(2, 3, generator=torch.Generator().manual_seed(0))
+    plain = nn_ops.batch_norm(x, x[0], x[1], x[0] * 0, x[0] ** 2)
+    synced = nn_ops.batch_norm(x, x[0], x[1], x[0] * 0, x[0] ** 2,
+                               sync_stats=True)
+    for a, b in zip(plain, synced):
+        assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------- s2d stem ----

@@ -722,12 +722,15 @@ def test_dispatch_op_runs_a_registered_op_on_the_guard_device():
 def test_unported_names_raise_naming_their_item(name, item):
     """The names not ported raise naming their item; the ten layers of
     A.4c build and run (tests/test_torch_dygraph_layers.py holds their
-    values to the JAX layers')."""
+    values to the JAX layers'), and so do dygraph-to-static's (A.4d,
+    tests/test_torch_to_static.py) and data parallelism's names (A.9a,
+    tests/test_torch_data_parallel.py)."""
     import paddle_tpu.dygraph as jdygraph
     assert hasattr(jdygraph, name)
-    if name in A4C_RUNS:
+    runs = {**A4C_RUNS, **A4D_A9A_RUNS}
+    if name in runs:
         with dygraph.guard(CPU):
-            out, shape = A4C_RUNS[name]()
+            out, shape = runs[name]()
         outs = out if isinstance(out, tuple) else (out,)
         assert tuple(outs[0].shape) == shape
         assert all(torch.isfinite(o).all() for o in outs)
@@ -768,6 +771,42 @@ A4C_RUNS = {
         to_variable(np.array([[1], [2], [3]], np.int64))), (3, 1)),
     'TreeConv': lambda: _run(dygraph.TreeConv(4, 5, num_filters=2),
                              *_a4c((2, 3, 5, 2), (2, 3, 4), (2, 3, 2))),
+}
+
+
+def _lin_x():
+    return dygraph.Linear(4, 3), to_variable(
+        np.random.RandomState(0).rand(2, 4).astype(np.float32))
+
+
+def _static_run(make):
+    lin, x = _lin_x()
+    return make(lambda v: lin(v))(x), (2, 3)
+
+
+def _env_run(env):
+    return torch.tensor([env.nranks, env.world_size, env.local_rank,
+                         env.rank, env.dev_id], dtype=torch.float32), (5,)
+
+
+# each name of dygraph-to-static (A.4d) and data parallelism (A.9a) built
+# and run at a world of one: (output, its expected shape)
+A4D_A9A_RUNS = {
+    'DataParallel': lambda: (lambda lx: (dygraph.DataParallel(lx[0])(lx[1]),
+                                         (2, 3)))(_lin_x()),
+    'ParallelEnv': lambda: _env_run(dygraph.ParallelEnv()),
+    'prepare_context': lambda: _env_run(dygraph.prepare_context()),
+    'TracedLayer': lambda: (lambda lx: (dygraph.TracedLayer.trace(
+        lx[0], [lx[1]])[0], (2, 3)))(_lin_x()),
+    'declarative': lambda: _static_run(dygraph.declarative),
+    'to_static': lambda: _static_run(dygraph.to_static),
+    'ProgramTranslator': lambda: _static_run(
+        lambda f: lambda v: dygraph.ProgramTranslator().get_output(f, v)),
+    'StaticFunction': lambda: _static_run(dygraph.StaticFunction),
+    'InputSpec': lambda: _static_run(lambda f: dygraph.StaticFunction(
+        f, input_spec=[dygraph.InputSpec([None, 4], 'float32')])),
+    'dygraph_to_static_graph': lambda: _static_run(
+        dygraph.dygraph_to_static_graph),
 }
 
 

@@ -520,6 +520,57 @@ def test_stateless_serving_name_takes_the_reference_parameters(module,
     assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
 
 
+# (module of both packages, attribute path) of dygraph-to-static (A.4d) and
+# dygraph data parallelism on torch.distributed (A.9a)
+A4D_A9A_NAMES = [
+    *(('dygraph.jit', n) for n in (
+        'functionalize', 'TracedLayer', 'TracedLayer.trace',
+        'TracedLayer.__call__', 'TracedLayer.save_inference_model',
+        'InputSpec', 'ProgramTranslator.enable',
+        'ProgramTranslator.get_output', 'StaticFunction',
+        'StaticFunction.__call__', 'declarative', 'to_static',
+        '_find_layers')),
+    ('io', '_save_jit_model'),
+    *(('dygraph.parallel', n) for n in (
+        'ParallelEnv', 'prepare_context', 'DataParallel',
+        'DataParallel.forward', 'DataParallel.scale_loss',
+        'DataParallel.apply_collective_grads', '_allreduce_bundles',
+        '_cross_process_allreduce')),
+    *(('fleet_runtime.bootstrap', n) for n in (
+        'FleetSpec', 'discover_fleet_env', 'bootstrap', 'process_index',
+        'process_count', 'is_host0', 'fleet_barrier', 'broadcast_from_host0',
+        'all_hosts_agree', 'fleet_allreduce_scalars', 'free_port',
+        'local_fleet', 'LocalFleet', 'LocalFleet.wait')),
+    *(('distributed.launch', n) for n in (
+        'init_parallel_env', 'get_rank', 'get_world_size', 'launch')),
+    *(('parallel.collective', n) for n in (
+        'allreduce_sum', 'allreduce_mean', 'allreduce_max', 'allreduce_min',
+        'allgather', 'reduce_scatter', 'broadcast', 'alltoall', 'ppermute',
+        'barrier', 'c_allreduce_sum', 'c_allreduce_sum_bucket',
+        'c_allreduce_max', 'c_allreduce_min', 'c_allreduce_prod',
+        'c_allgather', 'c_broadcast', 'c_reducescatter',
+        'c_sync_calc_stream', 'c_sync_comm_stream')),
+    *(('parallel.quant_collectives', n) for n in (
+        'resolve_comm_dtype', 'block_quantize', 'block_dequantize',
+        'qallreduce_sum', 'qallreduce_mean', 'qreduce_scatter_sum',
+        'wire_bytes', 'record_collective', 'quant_error_stats',
+        'record_quant_error')),
+    ('parallel_executor', 'ParallelExecutor'),
+    ('parallel_executor', 'ParallelExecutor.run')]
+
+
+@pytest.mark.parametrize('module,path', A4D_A9A_NAMES,
+                         ids=[f'{m}.{p}' for m, p in A4D_A9A_NAMES])
+def test_a4d_a9a_name_takes_the_reference_parameters(module, path):
+    def resolve(pkg):
+        obj = importlib.import_module(f'{pkg}.{module}')
+        for part in path.split('.'):
+            obj = getattr(obj, part)
+        return _params(obj)
+
+    assert resolve('paddle_tpu_torch') == resolve('paddle_tpu')
+
+
 # ------------------------------------------------ softmax_with_cross_entropy
 
 def test_soft_label_matches_jax():

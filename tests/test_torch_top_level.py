@@ -98,8 +98,7 @@ JAX_CONTRIB_NAMES = [
 # the names the port does not run yet -> their ROADMAP item
 STAND_INS = {
     **dict.fromkeys([
-        'ParallelExecutor', 'parallel_executor', 'DistributeTranspiler',
-        'DistributeTranspilerConfig', 'distributed', 'partition',
+        'DistributeTranspiler', 'DistributeTranspilerConfig', 'partition',
         'communicator', 'Communicator', 'distribute_lookup_table'], 'A.9'),
     **dict.fromkeys(['LoDTensor', 'create_lod_tensor',
                      'create_random_int_lodtensor'], 'A.10'),
@@ -151,6 +150,35 @@ def assert_stand_in(obj, item):
             obj()
 
 
+def _run_parallel_executor(cls):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data('pe_x', [None, 3], 'float32')
+        loss = fluid.layers.mean(fluid.layers.fc(x, 2))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    fluid.Executor(fluid.CPUPlace()).run(startup)
+    out = cls(use_cuda=False, loss_name=loss.name, main_program=main).run(
+        [loss], feed={'pe_x': np.ones((4, 3), 'float32')})[0]
+    assert np.isfinite(out).all()
+
+
+def _run_distributed(mod):
+    import torch
+    assert (mod.get_rank(), mod.get_world_size()) == (0, 1)
+    assert torch.equal(mod.allreduce_sum(torch.ones(2)), torch.ones(2))
+    with pytest.raises(NotImplementedError, match='ROADMAP A[.]9'):
+        mod.make_mesh({'dp': 1})
+
+
+# the names of A.9a, which run here: each one's check
+RUNS = {
+    'ParallelExecutor': _run_parallel_executor,
+    'parallel_executor': lambda mod: _run_parallel_executor(
+        mod.ParallelExecutor),
+    'distributed': _run_distributed,
+}
+
+
 def test_the_name_lists_are_the_jax_packages():
     code = ('import paddle_tpu, paddle_tpu.contrib as c\n'
             'print(sorted(n for n in dir(paddle_tpu) if n[0] != "_"))\n'
@@ -171,6 +199,9 @@ def test_every_jax_top_level_name_exists_in_the_port(name):
     assert kind(obj) == kind(ref)
     if name in STAND_INS:
         assert_stand_in(obj, STAND_INS[name])
+    elif name in RUNS:
+        assert defined_by_the_port(obj), obj
+        RUNS[name](obj)
     elif name == 'fluid':
         assert obj is fluid
     else:
